@@ -1,0 +1,191 @@
+"""Configuration dataclasses of the port and the dtype rule.
+
+A copy of the fields of tango_tpu/configs.py and tango_tpu/models/t5.py that
+the ported text-to-audio path reads, with the same names and defaults, so
+that `from_dict(jax_config.to_dict())` rebuilds a JAX config here (unknown
+keys are ignored). Fields only an unported part reads are left out: int8
+serving, Mustango's conditioning streams, the VAE encoder, DDIM.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import List, Optional, Tuple, Union
+
+import torch
+
+
+class _FromDict:
+    """Construct from a dict, ignoring unknown keys."""
+
+    @classmethod
+    def from_dict(cls, d: dict):
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _tup(x) -> tuple:
+    return tuple(x) if isinstance(x, (list, tuple)) else (x,)
+
+
+@dataclass(frozen=True)
+class UNetConfig(_FromDict):
+    """UNet2DConditionModel config; `attention_head_dim` is the NUMBER of heads
+    per level, as in diffusers' JSON (head width = channels / heads)."""
+
+    in_channels: int = 8
+    out_channels: int = 8
+    center_input_sample: bool = False
+    flip_sin_to_cos: bool = True
+    freq_shift: int = 0
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "DownBlock2D",
+    )
+    mid_block_type: Optional[str] = "UNetMidBlock2DCrossAttn"
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+    )
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    downsample_padding: int = 1
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-5
+    cross_attention_dim: int = 1024
+    attention_head_dim: Union[int, Tuple[int, ...]] = (5, 10, 20, 20)
+    use_linear_projection: bool = True
+    upcast_attention: bool = True
+    conv_in_kernel: int = 3
+    conv_out_kernel: int = 3
+
+    def __post_init__(self):
+        object.__setattr__(self, "down_block_types", _tup(self.down_block_types))
+        object.__setattr__(self, "up_block_types", _tup(self.up_block_types))
+        object.__setattr__(self, "block_out_channels", _tup(self.block_out_channels))
+        if isinstance(self.attention_head_dim, (list, tuple)):
+            object.__setattr__(self, "attention_head_dim", _tup(self.attention_head_dim))
+
+    def heads_for_level(self, level: int) -> int:
+        if isinstance(self.attention_head_dim, int):
+            return self.attention_head_dim
+        return self.attention_head_dim[level]
+
+
+@dataclass(frozen=True)
+class VAEConfig(_FromDict):
+    """AudioLDM AutoencoderKL config (decoder side)."""
+
+    embed_dim: int = 8
+    scale_factor: float = 1.0
+    z_channels: int = 8
+    resolution: int = 256
+    out_ch: int = 1
+    ch: int = 128
+    ch_mult: Tuple[int, ...] = (1, 2, 4)
+    num_res_blocks: int = 2
+    attn_resolutions: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "ch_mult", _tup(self.ch_mult))
+        object.__setattr__(
+            self, "attn_resolutions", _tup(self.attn_resolutions) if self.attn_resolutions else ()
+        )
+
+
+@dataclass(frozen=True)
+class HiFiGANConfig(_FromDict):
+    """HiFi-GAN generator config (HIFIGAN_16K_64)."""
+
+    num_mels: int = 64
+    upsample_rates: Tuple[int, ...] = (5, 4, 2, 2, 2)
+    upsample_kernel_sizes: Tuple[int, ...] = (16, 16, 8, 4, 4)
+    upsample_initial_channel: int = 1024
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+
+    def __post_init__(self):
+        object.__setattr__(self, "upsample_rates", _tup(self.upsample_rates))
+        object.__setattr__(self, "upsample_kernel_sizes", _tup(self.upsample_kernel_sizes))
+        object.__setattr__(self, "resblock_kernel_sizes", _tup(self.resblock_kernel_sizes))
+        object.__setattr__(
+            self, "resblock_dilation_sizes", tuple(_tup(d) for d in self.resblock_dilation_sizes)
+        )
+
+
+@dataclass(frozen=True)
+class SchedulerConfig(_FromDict):
+    """DDPM scheduler config; defaults are the stable-diffusion-2-1 scheduler."""
+
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"
+    trained_betas: Optional[List[float]] = None
+    variance_type: str = "fixed_small"
+    clip_sample: bool = False
+    clip_sample_range: float = 1.0
+    prediction_type: str = "v_prediction"
+    thresholding: bool = False
+    dynamic_thresholding_ratio: float = 0.995
+    sample_max_value: float = 1.0
+
+
+@dataclass(frozen=True)
+class T5Config(_FromDict):
+    """T5 encoder config; defaults are FLAN-T5-Large."""
+
+    vocab_size: int = 32128
+    d_model: int = 1024
+    d_kv: int = 64
+    d_ff: int = 2816
+    num_layers: int = 24
+    num_heads: int = 16
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    feed_forward_proj: str = "gated-gelu"
+
+    @property
+    def is_gated(self) -> bool:
+        return "gated" in self.feed_forward_proj
+
+    @property
+    def act(self) -> str:
+        return self.feed_forward_proj.replace("gated-", "")
+
+
+TANGO_UNET = UNetConfig()
+TANGO_VAE = VAEConfig()
+TANGO_HIFIGAN = HiFiGANConfig()
+SD21_SCHEDULER = SchedulerConfig()
+FLAN_T5_LARGE = T5Config()
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device entry points run on: CUDA unless the caller names another.
+
+    With no device given and no CUDA card present this raises instead of
+    quietly running the plain versions on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the port's plain "
+            "PyTorch versions on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def default_dtype(device: torch.device) -> torch.dtype:
+    """Model compute dtype (tango_tpu/pipeline.py:35-41): bf16 on the card,
+    f32 on the CPU. Scheduler math is f32 regardless."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32

@@ -1,0 +1,51 @@
+// Shared helpers for the port's hand-written kernels: f32 <-> storage-type
+// conversion and 16-byte vector loads. Storage types are float and bf16; all
+// arithmetic is f32.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tt {
+
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Round an f32 value to the storage type and back: the precision a value has
+// after the JAX kernels' `.astype(x.dtype)`.
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// Elements of T in one 16-byte packet.
+template <typename T> struct Pack { static constexpr int N = 16 / sizeof(T); };
+
+template <typename T>
+__device__ __forceinline__ void load_pack(const T* p, float* out) {
+  uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < Pack<T>::N; ++j) out[j] = to_f32(e[j]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pack(T* p, const float* in) {
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < Pack<T>::N; ++j) e[j] = from_f32<T>(in[j]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+__device__ __forceinline__ float silu(float y) { return y / (1.0f + expf(-y)); }
+
+}  // namespace tt

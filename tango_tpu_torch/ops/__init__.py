@@ -1,0 +1,33 @@
+"""Ops of the port: hand-written CUDA kernels with their plain PyTorch versions.
+
+Every kernel wrapper is registered in `KERNELS` by name. A wrapper runs its
+kernel for a CUDA tensor and its plain version for a CPU tensor, and counts
+its launches in `wrapper.launches` (a plain integer).
+"""
+
+KERNELS: dict = {}
+
+
+def kernel_wrapper(source: str, replaces: str):
+    """Register a kernel wrapper and give it a launch counter.
+
+    `source` is the CUDA file in the repository, `replaces` the file:line of
+    the Pallas kernel body it ports. `shapes` collects the argument shapes the
+    wrapper launched the kernel on, so a caller can re-check the kernel at the
+    shapes a run actually used."""
+
+    def deco(fn):
+        fn.launches = 0
+        fn.shapes = set()
+        fn.source = source
+        fn.replaces = replaces
+        KERNELS[fn.__name__] = fn
+        return fn
+
+    return deco
+
+
+def reset_counters() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+        fn.shapes.clear()

@@ -1,0 +1,63 @@
+"""Multi-head attention core with additive bias (port of tango_tpu/ops/attention.py).
+
+Semantics: scale = dim_head ** -0.5; an optional additive f32 bias of shape
+(B, Skv), (B, 1, Skv) or (B, Sq, Skv), broadcast over heads; with `upcast`
+the logits and softmax are f32.
+
+Dispatch keeps the JAX eligibility rule (tango_tpu/ops/attention.py:55-65):
+Sq >= 256, D % 8 == 0, and no bias or Skv >= 256. Bias-free eligible calls
+go to the `attn_fwd` kernel. A biased call with Skv >= 256 would take
+`_attn_kernel_bias` in JAX, which is not ported yet (ROADMAP queue B #4): it
+runs `plain_attention` here. Everything else is `plain_attention`, as it is
+XLA in JAX: cross-attention to 128 text tokens and the 64-token mid level.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tango_tpu_torch.ops.flash_attention import flash_attention
+
+
+def multi_head_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    heads: int,
+    bias: torch.Tensor | None = None,
+    upcast: bool = True,
+) -> torch.Tensor:
+    """Attention over flat (B, S, heads*D) projections -> (B, Sq, heads*D)."""
+    b, sq, inner = q.shape
+    skv = k.shape[1]
+    d = inner // heads
+    scale = d**-0.5
+
+    if bias is not None:
+        if bias.dim() == 2:  # (B, Skv)
+            bias = bias[:, None, None, :]
+        elif bias.dim() == 3:  # (B, 1|Sq, Skv)
+            bias = bias[:, None, :, :]
+        bias = bias.float()
+
+    use_flash = sq >= 256 and d % 8 == 0 and (bias is None or skv >= 256)
+
+    qh = q.reshape(b, sq, heads, d).transpose(1, 2)
+    kh = k.reshape(b, skv, heads, d).transpose(1, 2)
+    vh = v.reshape(b, skv, heads, d).transpose(1, 2)
+    if use_flash and bias is None:
+        out = flash_attention(qh, kh, vh, scale=scale)
+    else:
+        out = plain_attention(qh, kh, vh, bias=bias, scale=scale, upcast=upcast)
+    return out.transpose(1, 2).reshape(b, sq, inner)
+
+
+def plain_attention(qh, kh, vh, *, bias, scale, upcast):
+    """Max-subtracted softmax attention (`_xla_attention`, attention.py:122-129)."""
+    acc_t = torch.float32 if upcast else qh.dtype
+    logits = torch.matmul(qh.to(acc_t), kh.to(acc_t).transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias
+    probs = torch.softmax(logits.float(), dim=-1).to(qh.dtype)
+    return torch.matmul(probs.to(acc_t), vh.to(acc_t)).to(qh.dtype)

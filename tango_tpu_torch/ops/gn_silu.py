@@ -1,0 +1,197 @@
+"""GroupNorm(+SiLU) kernels and their plain PyTorch versions.
+
+Three kernels from `csrc/gn_silu.cu`:
+  * `gn_silu_fwd` — single pass, replaces `_gn_kernel`
+    (tango_tpu/ops/gn_silu_pallas.py:27);
+  * `gn_stats` + `gn_apply` — two stage, replace `_gn_stats_kernel` (:234) and
+    `_gn_apply_kernel` (:257), with the per-channel combine in torch between
+    them, as it was XLA between the two Pallas calls.
+
+Layout: channels-first, x is (B, C, *spatial) and contiguous, so one
+(batch, group) is one contiguous run of (C/G)*HW elements. Storage f32 or
+bf16; statistics f32 with var = E[x^2] - mean^2, as the Pallas kernels.
+Bound on the H100: bytes (one read of x, one write of y); the design notes
+are at the top of the CUDA file.
+
+Each wrapper launches its kernel for a CUDA tensor and runs the plain version
+beside it for a CPU tensor; any other device raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from tango_tpu_torch.ops import _build, kernel_wrapper
+
+_SRC = "tango_tpu_torch/csrc/gn_silu.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(x: torch.Tensor, c_div: int, name: str) -> tuple[int, int, int]:
+    """Validate a (B, C, *spatial) activation; return (B, C, HW)."""
+    if x.dim() < 2:
+        raise ValueError(f"{name}: expected (B, C, *spatial), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported (float32, bfloat16)")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    b, c = x.shape[0], x.shape[1]
+    hw = math.prod(x.shape[2:])
+    if c % c_div:
+        raise ValueError(f"{name}: channels {c} not divisible by groups {c_div}")
+    if b * c * hw >= 2**31:
+        raise ValueError(f"{name}: {b * c * hw} elements exceed the kernel's int32 indexing")
+    return b, c, hw
+
+
+def _route(x: torch.Tensor, name: str) -> bool:
+    """True for the kernel (CUDA), False for the plain version (CPU)."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise RuntimeError(f"{name}: no kernel for device {x.device}")
+
+
+def _param_f32(p: torch.Tensor, c: int, device) -> torch.Tensor:
+    if p.shape != (c,):
+        raise ValueError(f"expected a ({c},) parameter, got {tuple(p.shape)}")
+    return p.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _silu(y: torch.Tensor) -> torch.Tensor:
+    return y * torch.sigmoid(y)
+
+
+# ----------------------------------------------------------------- single pass
+
+def gn_silu_fwd_plain(x, gamma, beta, num_groups: int, eps: float, act: str | None):
+    """Plain version of gn_silu_fwd: same statistics, same affine, in f32."""
+    b, c = x.shape[0], x.shape[1]
+    xf = x.float().reshape(b, num_groups, -1)
+    n = xf.shape[-1]
+    mean = xf.sum(-1) / n
+    var = (xf * xf).sum(-1) / n - mean * mean
+    inv = 1.0 / torch.sqrt(var + eps)
+    cg = c // num_groups
+    a = inv.repeat_interleave(cg, 1) * gamma.float()[None]          # (B, C)
+    bb = beta.float()[None] - mean.repeat_interleave(cg, 1) * a
+    shape = (b, c) + (1,) * (x.dim() - 2)
+    y = x.float() * a.reshape(shape) + bb.reshape(shape)
+    if act == "silu":
+        y = _silu(y)
+    return y.to(x.dtype)
+
+
+@kernel_wrapper(_SRC, "tango_tpu/ops/gn_silu_pallas.py:27")
+def gn_silu_fwd(x, gamma, beta, num_groups: int, eps: float = 1e-6, act: str | None = None):
+    """Single-pass GroupNorm(+SiLU) of x (B, C, *spatial): one block per group."""
+    if act not in (None, "silu"):
+        raise ValueError(f"unknown fused act {act}")
+    b, c, hw = _check(x, num_groups, "gn_silu_fwd")
+    if not _route(x, "gn_silu_fwd"):
+        return gn_silu_fwd_plain(x, gamma, beta, num_groups, eps, act)
+    lib = _build.load()
+    g32 = _param_f32(gamma, c, x.device)
+    b32 = _param_f32(beta, c, x.device)
+    y = torch.empty_like(x)
+    code = lib.tt_gn_silu_fwd(
+        x.data_ptr(), g32.data_ptr(), b32.data_ptr(), y.data_ptr(), b, c, hw, num_groups,
+        float(eps), int(act == "silu"), _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "gn_silu_fwd")
+    gn_silu_fwd.launches += 1
+    gn_silu_fwd.shapes.add((tuple(x.shape), num_groups, act))
+    return y
+
+
+# ------------------------------------------------------------------- two stage
+
+def n_chunks(hw: int) -> int:
+    """Chunks per group, the JAX `_chunks` rule (gn_silu_pallas.py:264)."""
+    for cs in (512, 256, 128, 64):
+        if hw % cs == 0 and hw // cs >= 2:
+            return hw // cs
+    return 1
+
+
+def gn_stats_plain(x, num_groups: int, chunks: int):
+    """Plain version of gn_stats: (B, G, chunks, 2) partial sums, f32."""
+    b = x.shape[0]
+    xf = x.float().reshape(b, num_groups, chunks, -1)
+    return torch.stack([xf.sum(-1), (xf * xf).sum(-1)], dim=-1)
+
+
+@kernel_wrapper(_SRC, "tango_tpu/ops/gn_silu_pallas.py:234")
+def gn_stats(x, num_groups: int, chunks: int):
+    """Per-(batch, group, chunk) sums of x and x^2: (B, G, chunks, 2) f32."""
+    b, c, hw = _check(x, num_groups, "gn_stats")
+    if hw % chunks:
+        raise ValueError(f"gn_stats: {chunks} chunks do not divide HW={hw}")
+    if not _route(x, "gn_stats"):
+        return gn_stats_plain(x, num_groups, chunks)
+    lib = _build.load()
+    parts = torch.empty((b, num_groups, chunks, 2), device=x.device, dtype=torch.float32)
+    code = lib.tt_gn_stats(
+        x.data_ptr(), parts.data_ptr(), b, c, hw, num_groups, chunks, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "gn_stats")
+    gn_stats.launches += 1
+    gn_stats.shapes.add((tuple(x.shape), num_groups, chunks))
+    return parts
+
+
+def gn_apply_plain(x, a, b, act: str | None):
+    """Plain version of gn_apply: y = act(x * a + b) with a, b (B, C) f32."""
+    shape = a.shape + (1,) * (x.dim() - 2)
+    y = x.float() * a.reshape(shape) + b.reshape(shape)
+    if act == "silu":
+        y = _silu(y)
+    return y.to(x.dtype)
+
+
+@kernel_wrapper(_SRC, "tango_tpu/ops/gn_silu_pallas.py:257")
+def gn_apply(x, a, b, act: str | None = None):
+    """y = act(x * a[b, c] + b[b, c]) over x (B, C, *spatial); a, b (B, C) f32."""
+    if act not in (None, "silu"):
+        raise ValueError(f"unknown fused act {act}")
+    bs, c, hw = _check(x, 1, "gn_apply")
+    for t in (a, b):
+        if t.shape != (bs, c) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("gn_apply: a and b must be contiguous (B, C) float32")
+    if not _route(x, "gn_apply"):
+        return gn_apply_plain(x, a, b, act)
+    if bs * c > 65535:
+        raise ValueError(f"gn_apply: B*C={bs * c} rows exceed the kernel's grid")
+    if a.device != x.device or b.device != x.device:
+        raise ValueError("gn_apply: a and b must be on x's device")
+    lib = _build.load()
+    y = torch.empty_like(x)
+    code = lib.tt_gn_apply(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), bs, c, hw,
+        int(act == "silu"), _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "gn_apply")
+    gn_apply.launches += 1
+    gn_apply.shapes.add((tuple(x.shape), act))
+    return y
+
+
+def group_norm_two_stage(x, gamma, beta, num_groups: int, eps: float = 1e-6,
+                         act: str | None = None):
+    """gn_stats -> per-channel combine (torch) -> gn_apply, as group_norm_pallas2."""
+    b, c = x.shape[0], x.shape[1]
+    hw = math.prod(x.shape[2:])
+    cg = c // num_groups
+    tot = gn_stats(x, num_groups, n_chunks(hw)).sum(dim=2)          # (B, G, 2)
+    n = float(hw * cg)
+    mean = tot[..., 0] / n
+    var = tot[..., 1] / n - mean * mean
+    inv = torch.rsqrt(var + eps)
+    a = inv.repeat_interleave(cg, 1) * gamma.float()[None]
+    bb = beta.float()[None] - mean.repeat_interleave(cg, 1) * a
+    return gn_apply(x, a.contiguous(), bb.contiguous(), act)

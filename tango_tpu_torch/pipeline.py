@@ -1,0 +1,203 @@
+"""Tango, the text-to-audio pipeline: port of tango_tpu/pipeline.py.
+
+`Tango.from_components(...).generate(prompt)` returns an int16 16 kHz
+waveform; `generate_for_batch` chunks a prompt list. The path: tokenize, T5
+encode the prompts and "" (padded to `max_text_length`), the CFG DDPM loop
+over the UNet, the VAE decode to a mel, HiFi-GAN, int16.
+
+Runs on CUDA unless the caller passes `device="cpu"`; the compute dtype is
+bf16 on the card and f32 on the CPU, scheduler math f32 always.
+
+Noise: every row of a batch draws its initial latents and its per-step noise
+from its own generator, seeded from (seed, chunk, row). So batch row 0 equals
+the single-prompt output at the same seed, padding a tail chunk leaves the
+real rows unchanged, and each chunk of a seeded call gets distinct noise.
+
+Not ported yet: snapshot loading (`Tango(path)`), int8 serving (`quant`),
+the device mesh, the DDIM scheduler.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from tango_tpu_torch import configs as C
+from tango_tpu_torch.models.diffusion import AudioDiffusion
+from tango_tpu_torch.models.hifigan import HiFiGANGenerator, waveform_to_int16
+from tango_tpu_torch.models.t5 import T5Encoder
+from tango_tpu_torch.models.unet import UNet2DConditionModel
+from tango_tpu_torch.models.vae import AutoencoderKL
+from tango_tpu_torch.tokenizer import WordHashTokenizer
+from tango_tpu_torch.utils.init import init_random_
+
+
+def _row_seed(base: int, chunk: int, row: int) -> int:
+    state = np.random.SeedSequence([base, chunk, row]).generate_state(1, dtype=np.uint64)
+    return int(state[0]) & (2**63 - 1)
+
+
+class Tango:
+    """Text -> 16 kHz audio (reference tango.py:9-64)."""
+
+    def __init__(self, name_or_path: Optional[str] = None, tokenizer=None, device=None,
+                 dtype: Optional[torch.dtype] = None, max_text_length: int = 128,
+                 rng_seed: int = 0, quant: Optional[str] = None):
+        if name_or_path is not None:
+            raise NotImplementedError(
+                "snapshot loading is not ported yet; build with Tango.from_components")
+        if quant is not None:
+            raise NotImplementedError("int8 serving (quant) is not ported yet")
+        self.device = C.resolve_device(device)
+        self.dtype = dtype or C.default_dtype(self.device)
+        self.max_text_length = max_text_length
+        self.tokenizer = tokenizer
+        self._rng = np.random.default_rng(rng_seed)
+        self.model = self.vae = self.t5 = self.vocoder = None
+
+    @classmethod
+    def from_components(
+        cls,
+        *,
+        unet_config: C.UNetConfig,
+        vae_config: C.VAEConfig,
+        unet_params=None,
+        vae_params=None,
+        t5_config: Optional[C.T5Config] = None,
+        t5_params=None,
+        hifigan_config: Optional[C.HiFiGANConfig] = None,
+        hifigan_params=None,
+        scheduler_config: Optional[C.SchedulerConfig] = None,
+        tokenizer=None,
+        device=None,
+        dtype: Optional[torch.dtype] = None,
+        latent_t_size: int = 256,
+        latent_f_size: int = 16,
+        max_text_length: int = 128,
+        quant: Optional[str] = None,
+        init_seed: int = 0,
+    ) -> "Tango":
+        """Build from configs and state dicts of this package's modules
+        (`utils.convert.from_jax_params` makes them from JAX trees). A
+        component whose params are None gets seeded random weights drawn on
+        the device from `init_seed`. T5 and HiFi-GAN are built when their
+        config is given; the tokenizer defaults to WordHashTokenizer."""
+        self = cls(None, tokenizer=tokenizer, device=device, dtype=dtype,
+                   max_text_length=max_text_length, quant=quant)
+        if self.tokenizer is None and t5_config is not None:
+            self.tokenizer = WordHashTokenizer(t5_config.vocab_size)
+
+        def build(k: int, make, params):
+            with torch.device("meta"):
+                m = make()
+            m = m.to_empty(device=self.device).to(dtype=self.dtype)
+            if params is None:
+                gen = torch.Generator(device=self.device).manual_seed(init_seed * 16 + k)
+                init_random_(m, gen)
+            else:
+                m.load_state_dict(params)
+            return m.eval().requires_grad_(False)
+
+        unet = build(0, lambda: UNet2DConditionModel(unet_config), unet_params)
+        self.model = AudioDiffusion(unet, scheduler_config or C.SD21_SCHEDULER,
+                                    latent_t_size, latent_f_size)
+        self.vae = build(1, lambda: AutoencoderKL(vae_config), vae_params)
+        if t5_config is not None:
+            self.t5 = build(2, lambda: T5Encoder(t5_config), t5_params)
+        if hifigan_config is not None:
+            self.vocoder = build(3, lambda: HiFiGANGenerator(hifigan_config), hifigan_params)
+        return self
+
+    # ------------------------------------------------------------- text side
+    @torch.inference_mode()
+    def encode_text(self, prompts: Sequence[str]):
+        """Tokenize (host) + T5 encode (device) -> (embeds (B, S, D), mask (B, S))."""
+        if self.tokenizer is None or self.t5 is None:
+            raise RuntimeError("text encoding needs a tokenizer and a T5 encoder")
+        batch = self.tokenizer(list(prompts), max_length=self.max_text_length,
+                               padding="max_length", truncation=True, return_tensors="np")
+        ids = torch.as_tensor(np.asarray(batch["input_ids"]), dtype=torch.long,
+                              device=self.device)
+        mask = torch.as_tensor(np.asarray(batch["attention_mask"]), dtype=torch.long,
+                               device=self.device)
+        return self.t5(ids, mask), mask
+
+    # ------------------------------------------------------------ public API
+    def generate(self, prompt: str, steps: int = 100, guidance: float = 3.0, samples: int = 1,
+                 seed: Optional[int] = None, duration: Optional[float] = None):
+        """Single prompt -> int16 waveform (T_wav,); with samples > 1 all
+        `samples` waveforms (B, T_wav), a deliberate deviation from the
+        reference kept from JAX. `duration` in seconds sets the latent length
+        (25.6 frames a second, rounded to the UNet's downsampling factor)."""
+        latent_t = None
+        if duration is not None:
+            factor = 2 ** (len(self.model.unet_config.block_out_channels) - 1)
+            latent_t = max(int(round(duration * 25.6 / factor)) * factor, factor)
+        base = self._base_seed(seed)
+        wav = self._generate_batch([prompt], steps, guidance, samples, base, 0, latent_t)
+        return wav[0] if samples == 1 else wav[:samples]
+
+    def generate_for_batch(self, prompts: Sequence[str], steps: int = 100,
+                           guidance: float = 3.0, samples: int = 1, batch_size: int = 8,
+                           seed: Optional[int] = None) -> List[np.ndarray]:
+        """Prompt list -> list of int16 waveforms (reference tango.py:51-64).
+
+        A short tail chunk is padded up to batch_size, by cycling its prompts,
+        whenever a full chunk exists; the padded rows are dropped."""
+        base = self._base_seed(seed)
+        outputs = []
+        for ci, k in enumerate(range(0, len(prompts), batch_size)):
+            chunk = list(prompts[k:k + batch_size])
+            n_real = len(chunk)
+            target = batch_size if len(prompts) > batch_size else n_real
+            while len(chunk) < target:
+                chunk.append(chunk[len(chunk) % n_real])
+            wavs = self._generate_batch(chunk, steps, guidance, samples, base, ci)
+            outputs += list(wavs[: n_real * samples])
+        if samples == 1:
+            return outputs
+        return [outputs[i:i + samples] for i in range(0, len(outputs), samples)]
+
+    def _base_seed(self, seed: Optional[int]) -> int:
+        return int(seed) if seed is not None else int(self._rng.integers(2**62))
+
+    def _generate_batch(self, prompts, steps, guidance, samples, base_seed: int, chunk: int,
+                        latent_t: Optional[int] = None) -> np.ndarray:
+        latents = self.sample_latents(prompts, steps, guidance, samples, base_seed, chunk,
+                                      latent_t)
+        return self.decode_to_waveform(latents)
+
+    @torch.inference_mode()
+    def sample_latents(self, prompts, steps, guidance, samples, base_seed: int, chunk: int = 0,
+                       latent_t: Optional[int] = None) -> torch.Tensor:
+        """Text -> latents (B*samples, T, F, C) f32, row r seeded from (base_seed, chunk, r)."""
+        cond, cond_mask = self.encode_text(prompts)
+        if samples > 1:
+            cond = cond.repeat_interleave(samples, 0)
+            cond_mask = cond_mask.repeat_interleave(samples, 0)
+        uncond = uncond_mask = None
+        if guidance > 1.0:
+            uncond, uncond_mask = self.encode_text([""] * len(prompts))
+            if samples > 1:
+                uncond = uncond.repeat_interleave(samples, 0)
+                uncond_mask = uncond_mask.repeat_interleave(samples, 0)
+        gens = [torch.Generator(device=self.device).manual_seed(_row_seed(base_seed, chunk, r))
+                for r in range(cond.shape[0])]
+        return self.model.sample(cond, cond_mask, gens, num_steps=steps,
+                                 guidance_scale=guidance, uncond_embeds=uncond,
+                                 uncond_mask=uncond_mask, latent_t_size=latent_t)
+
+    @torch.inference_mode()
+    def decode(self, latents: torch.Tensor):
+        """latents (B, T, F, C) -> (mel (B, T', F', 1), float waveform (B, T_wav))."""
+        if self.vocoder is None:
+            raise RuntimeError("no vocoder: build Tango with a hifigan_config")
+        mel = self.vae.decode_first_stage(latents.to(self.device))
+        return mel, self.vocoder(mel[..., 0])
+
+    def decode_to_waveform(self, latents: torch.Tensor) -> np.ndarray:
+        """latents (B, T, F, C) -> int16 waveforms (B, T_wav)."""
+        _, wav = self.decode(latents)
+        return waveform_to_int16(wav)
