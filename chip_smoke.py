@@ -10,23 +10,41 @@ Phases, one short JSON line each:
   model    full-width Tango (TANGO_UNET, FLAN-T5-Large encoder, TANGO_VAE,
            TANGO_HIFIGAN, SD-2.1 DDPM) with seeded random bf16 weights;
   warmup   one 1-step generate (first-use costs of cuDNN and cuBLAS);
-  slice    generate("a dog barks", steps=10) and a 3-prompt generate_for_batch
-           with batch_size=2 (tail padding), launch counters and recorded
-           shapes zeroed just before and read just after: every kernel must
-           have launched;
+  slice    the serving path: generate("a dog barks", steps=10) and a 3-prompt
+           generate_for_batch with batch_size=2 (tail padding), launch
+           counters and recorded shapes zeroed just before and read just
+           after: every forward kernel must have launched;
   per_eval launches of each kernel in one UNet evaluation;
-  kernels  every kernel against its plain PyTorch version at every shape the
-           slice launched it at, in f32 (atol 2e-5, rtol 1e-4; the stats
-           partial sums rtol 1e-4 alone) and bf16 (GroupNorm atol 2e-2, rtol
-           2e-2; attention atol 4e-3, rtol 1e-2), plus the attention
-           extreme-logit and underflow cases; kernel, plain and library
-           device times per call (bf16 inputs; 10 calls captured in a CUDA
-           graph, median of 10 replays between CUDA events), summed over the
-           kernel's shapes.
+  train_model, train
+           the training path: full-width f32 SFT (TANGO_UNET with remat,
+           min-SNR 5, uncondition dropout; the TANGO_VAE encoder and the
+           FLAN-T5-Large encoder frozen; seeded random weights) on 8 seeded
+           synthetic 10.24 s WAVs written under build/: SFTTrainer.fit with
+           batch 2, accumulation 2 and max_train_steps 2 (4 micro-steps), one
+           validation batch, the best checkpoint loaded back bit-equal and
+           deleted. Counters zeroed just before fit and read just after:
+           all seven kernels, forward and backward, must have launched.
+           Every loss must be finite, and the parameters must change after
+           the 2nd and 4th micro-step only;
+  kernels  every kernel against its plain PyTorch version at every shape
+           either path launched it at, in f32 and bf16. Forward kernels: f32
+           atol 2e-5, rtol 1e-4 (the stats partial sums rtol 1e-4 alone),
+           bf16 GroupNorm atol 2e-2, rtol 2e-2 and attention atol 4e-3, rtol
+           1e-2, plus the attention extreme-logit and underflow cases.
+           Backward kernels: f32 attention atol 1e-4, rtol 1e-3 and GroupNorm
+           atol 2e-4, rtol 1e-3, bf16 attention 4e-3 / 1e-2 and GroupNorm
+           2e-2 / 2e-2, lse and delta 1e-4 / 1e-3. Kernel, plain and library
+           device times per call (bf16 inputs, and f32 as well for the
+           backward kernels; 10 calls captured in a CUDA graph, median of 10
+           replays between CUDA events), summed over the kernel's shapes. The
+           library yardsticks: F.group_norm(+F.silu), sdpa, and for the
+           backward kernels aten's GroupNorm (and SiLU) backward and the
+           attention backward kernels sdpa's autograd runs, called directly.
 The last three lines are the card's `nvidia-smi` name and power limit, the
 `kernels` JSON, and the result line. Any failure exits non-zero before the
 result line; so does a card-less machine. The script writes nothing but
-build/ and stops itself after 720 s.
+build/ (the kernel library, and the training data and checkpoints, which it
+deletes) and stops itself after 720 s.
 """
 
 from __future__ import annotations
@@ -47,6 +65,9 @@ DEADLINE_S = 720
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS = 989e12         # dense tensor-core bf16
 F32_FLOPS = 67e12           # f32 outside the tensor cores
+TRAIN_WAVS = 8
+TRAIN_BATCH = 2
+TRAIN_CAPTIONS = ["a dog barks", "rain on a tin roof", "an engine idles", "birds sing"]
 PROMPT = "a dog barks"
 BATCH_PROMPTS = ["a dog barks", "rain on a tin roof", "an engine idles"]
 STEPS = 10
@@ -118,6 +139,8 @@ class KernelCase:
         self.library_ms = None
         self.bound_share = {"bytes": 0.0, "operations": 0.0}
         self.detail = []
+        # the backward kernels are also timed with f32 inputs, the trainer's type
+        self.f32 = None
 
     @property
     def bound_by(self):
@@ -137,14 +160,53 @@ class KernelCase:
         self.detail.append(dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                 bound_ms=bound, bound_by=by))
 
+    def add_time_f32(self, ms, plain_ms, lib_ms, bound, by, shape):
+        if self.f32 is None:
+            self.f32 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", bound)):
+            self.f32[key] += val
+        self.detail.append(dict(shape=shape, dtype="f32", ms=ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, bound_ms=bound, bound_by=by))
+
+
+def sdpa_backward(q, k, v, do, scale):
+    """The backward half of scaled_dot_product_attention as one aten call on
+    (BH, S, D) heads, its forward run here, outside the timed window:
+    FlashAttention-2's backward for bf16, the memory-efficient kernel's for
+    f32 (FlashAttention takes no f32); both are kernels sdpa's autograd runs."""
+    aten = torch.ops.aten
+    q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+    if q.dtype == torch.bfloat16:
+        r = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, False, False, scale=scale)
+        return lambda: aten._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, r[0], r[1], r[2], r[3], r[4], r[5], 0.0, False, r[6], r[7],
+            scale=scale)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q4, k4, v4, do4))  # (B, S, H, D)
+    r = aten._efficient_attention_forward(qt, kt, vt, None, None, None, None, None, 0.0, 0, True,
+                                          scale=scale)
+    return lambda: aten._efficient_attention_backward(
+        dot, qt, kt, vt, None, r[0], None, None, r[4], r[5], r[1], 0.0, r[2], r[3], 0, False,
+        scale=scale)
+
 
 def check_kernels(ops, shapes: dict, detail: bool):
     """Hold every kernel against its plain version at `shapes` (kernel name ->
-    the argument shapes the main path launched it at) and time it there."""
-    from tango_tpu_torch.ops.flash_attention import attn_fwd_plain
-    from tango_tpu_torch.ops.gn_silu import gn_apply_plain, gn_silu_fwd_plain, gn_stats_plain
+    the argument shapes the serving and training paths launched it at) and
+    time it there."""
+    from tango_tpu_torch.ops.flash_attention import (
+        attn_bwd_dkv_plain,
+        attn_bwd_dq_plain,
+        attn_fwd_plain,
+    )
+    from tango_tpu_torch.ops.gn_silu import (
+        gn_apply_plain,
+        gn_silu_bwd_plain,
+        gn_silu_fwd_plain,
+        gn_stats_plain,
+    )
 
-    K = ops.KERNELS
+    K = ops.all_kernels()
     gen = torch.Generator(device=DEVICE).manual_seed(1234)
     dev = DEVICE
 
@@ -252,11 +314,232 @@ def check_kernels(ops, shapes: dict, detail: bool):
                 cases["attn_fwd"].add_err(tag, assert_close(
                     out, ref, atol, rtol, f"attn_fwd extreme logits {sign} {tag}"))
 
+    # ---- the backward kernels, at the shapes of the training path
+    # f32 at the JAX backward tests' limits (tests/test_flash_attention.py:156,
+    # tests/test_gn_pallas.py:90); bf16 from the readings in PERF.md: one bf16
+    # step of outputs below ~1.2 (attention, 2.0e-3 measured) and below ~4
+    # (GroupNorm dx, 7.8e-3 measured). lse and delta are f32 in both types.
+    attn_bwd_tol = {"f32": (1e-4, 1e-3), "bf16": (4e-3, 1e-2)}
+    gn_bwd_tol = {"f32": (2e-4, 1e-3), "bf16": (2e-2, 2e-2)}
+    stat_tol = (1e-4, 1e-3)
+    peaks = {"f32": F32_FLOPS, "bf16": BF16_FLOPS}
+    for qshape, kshape in sorted(shapes["attn_bwd_dq"] | shapes["attn_bwd_dkv"], key=str):
+        bh, sq, d = qshape
+        skv = kshape[1]
+        scale = d**-0.5
+        for tag, dt in dtypes.items():
+            q, k, v = (randn(*s, dtype=dt) for s in (qshape, kshape, kshape))
+            do = randn(*qshape, dtype=dt)
+            what = f"{qshape} {kshape} {tag}"
+            dq, lse, delta = K["attn_bwd_dq"](q, k, v, do, scale)
+            rq, rl, rd = attn_bwd_dq_plain(q, k, v, do, scale)
+            cases["attn_bwd_dq"].add_err(tag, max(
+                assert_close(dq, rq, *attn_bwd_tol[tag], f"attn_bwd_dq dq {what}"),
+                assert_close(lse, rl, *stat_tol, f"attn_bwd_dq lse {what}"),
+                assert_close(delta, rd, *stat_tol, f"attn_bwd_dq delta {what}")))
+            dk, dv = K["attn_bwd_dkv"](q, k, v, do, lse, delta, scale)
+            rk, rv = attn_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+            cases["attn_bwd_dkv"].add_err(tag, max(
+                assert_close(dk, rk, *attn_bwd_tol[tag], f"attn_bwd_dkv dk {what}"),
+                assert_close(dv, rv, *attn_bwd_tol[tag], f"attn_bwd_dkv dv {what}")))
+
+            lib = cuda_ms(sdpa_backward(q, k, v, do, scale))
+            isz = q.element_size()
+            qkvo = bh * (2 * sq + 2 * skv) * d * isz  # q, k, v, do read
+            stats = 2 * 4 * bh * sq                     # lse, delta
+            flops = 2 * bh * sq * skv * d
+            timing = [
+                ("attn_bwd_dq", lambda: K["attn_bwd_dq"](q, k, v, do, scale),
+                 lambda: attn_bwd_dq_plain(q, k, v, do, scale),
+                 bound_ms(qkvo + bh * sq * d * isz + stats, 3 * flops, peaks[tag])),
+                ("attn_bwd_dkv", lambda: K["attn_bwd_dkv"](q, k, v, do, lse, delta, scale),
+                 lambda: attn_bwd_dkv_plain(q, k, v, do, lse, delta, scale),
+                 bound_ms(qkvo + stats + 2 * bh * skv * d * isz, 4 * flops, peaks[tag])),
+            ]
+            for name, kern, plain, bound in timing:
+                add = cases[name].add_time if tag == "bf16" else cases[name].add_time_f32
+                add(cuda_ms(kern), cuda_ms(plain), lib, *bound, [qshape, kshape])
+
+    for shape, groups, act in sorted(shapes["gn_silu_bwd"], key=str):
+        c = shape[1]
+        w, b = randn(c, scale=0.2, loc=1.0), randn(c, scale=0.1)
+        n = math.prod(shape)
+        for tag, dt in dtypes.items():
+            x = randn(*shape, dtype=dt, scale=2.0, loc=0.5)
+            g = randn(*shape, dtype=dt)
+            out = K["gn_silu_bwd"](x, g, w, b, groups, 1e-5, act)
+            ref = gn_silu_bwd_plain(x, g, w, b, groups, 1e-5, act)
+            cases["gn_silu_bwd"].add_err(tag, max(
+                assert_close(o, r, *gn_bwd_tol[tag], f"gn_silu_bwd {part} {shape} {tag}")
+                for o, r, part in zip(out, ref, ("dx", "dgamma", "dbeta"))))
+
+            # aten's GroupNorm backward (after silu's) from the forward's statistics
+            wl, bl = w.to(dt), b.to(dt)
+            hw = n // (shape[0] * c)
+            y, mean, rstd = torch.ops.aten.native_group_norm(x, wl, bl, shape[0], c, hw, groups,
+                                                             1e-5)
+
+            def lib():
+                gy = torch.ops.aten.silu_backward(g, y) if act == "silu" else g
+                return torch.ops.aten.native_group_norm_backward(
+                    gy, x, mean, rstd, wl, shape[0], c, hw, groups, [True, True, True])
+
+            add = cases["gn_silu_bwd"].add_time if tag == "bf16" else \
+                cases["gn_silu_bwd"].add_time_f32
+            add(cuda_ms(lambda: K["gn_silu_bwd"](x, g, w, b, groups, 1e-5, act)),
+                cuda_ms(lambda: gn_silu_bwd_plain(x, g, w, b, groups, 1e-5, act)),
+                cuda_ms(lib), *bound_ms(3 * n * x.element_size(), 24 * n, F32_FLOPS),
+                [shape, groups, act])
+
     if detail:
         for case in cases.values():
             for row in case.detail:
                 log("kernel_shape", name=case.name, **row)
     return cases
+
+
+def write_wavs(root: str, n: int, seconds: float, seed: int) -> str:
+    """`n` seeded synthetic 16 kHz WAVs (a few partials and noise) and their
+    JSON-lines manifest under `root`; returns the manifest's path."""
+    import numpy as np
+
+    from tango_tpu_torch.audio.wav import write_wav
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    rows = []
+    for i in range(n):
+        f0 = rng.uniform(80.0, 800.0)
+        wav = sum(rng.uniform(0.1, 0.3) * np.sin(2 * np.pi * f0 * h * t + rng.uniform(0, 6.3))
+                  for h in (1, 2, 3))
+        wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.2, 2.0) * t))
+        wav = wav + 0.02 * rng.standard_normal(t.shape)
+        path = os.path.join(root, f"clip{i}.wav")
+        write_wav(path, wav.astype(np.float32))
+        rows.append({"dataset": "smoke", "location": path, "captions": TRAIN_CAPTIONS[i % 4]})
+    manifest = os.path.join(root, "train.json")
+    with open(manifest, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in rows))
+    return manifest
+
+
+def train_phase(C, ops) -> tuple[dict, dict]:
+    """One full-width f32 SFTTrainer.fit on the card: 4 micro-steps at batch
+    2 with accumulation 2 (2 updates), one validation batch, the best
+    checkpoint saved, loaded back and deleted. Returns the launches and
+    shapes of the counted run; raises on any failed check."""
+    import shutil
+
+    from tango_tpu_torch.models.diffusion import AudioDiffusion
+    from tango_tpu_torch.models.t5 import T5Encoder
+    from tango_tpu_torch.models.vae import AutoencoderKL
+    from tango_tpu_torch.tokenizer import WordHashTokenizer
+    from tango_tpu_torch.train import sft
+    from tango_tpu_torch.train.data import FeaturizedLoader, load_manifest, validate_manifest
+    from tango_tpu_torch.utils.checkpoint import load_native
+    from tango_tpu_torch.utils.init import init_random_
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def frozen(make):
+        with torch.device("meta"):
+            m = make()
+        return init_random_(m.to_empty(device=DEVICE), gen).eval().requires_grad_(False)
+
+    diffusion = AudioDiffusion(C.TANGO_UNET, C.SD21_SCHEDULER, snr_gamma=5.0, uncondition=True,
+                               remat=True, device=DEVICE)
+    vae = frozen(lambda: AutoencoderKL(C.TANGO_VAE, with_encoder=True))
+    t5 = frozen(lambda: T5Encoder(C.FLAN_T5_LARGE))
+    cfg = C.TrainConfig(gradient_accumulation_steps=2, max_train_steps=2,
+                        per_device_train_batch_size=TRAIN_BATCH, augment=False)
+    trainer = sft.SFTTrainer(diffusion, vae, cfg, total_steps=cfg.max_train_steps)
+    state = trainer.init_state(gen)
+    torch.cuda.synchronize()
+    n_unet = sum(p.numel() for p in diffusion.unet.parameters())
+    log("train_model", seconds=round(time.perf_counter() - t0, 3), unet_params=n_unet,
+        dtype=str(diffusion.unet.conv_in.weight.dtype))
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    examples = load_manifest(write_wavs(os.path.join(root, "data"), TRAIN_WAVS, 10.24, seed=0))
+    validate_manifest(examples)
+    tok = WordHashTokenizer(C.FLAN_T5_LARGE.vocab_size)
+    train_batches = sft.encode_batches(
+        FeaturizedLoader(examples, TRAIN_BATCH, target_length=1024, seed=0), tok, t5)
+    val_batches = sft.encode_batches(
+        FeaturizedLoader(examples[:TRAIN_BATCH], TRAIN_BATCH, target_length=1024,
+                         shuffle=False), tok, t5)
+
+    # watch each micro-step: its loss, its time, and one parameter tensor
+    watched = diffusion.unet.conv_in.weight
+    micro = []  # (seconds, loss, watched parameter changed since the last step)
+    step, save = trainer.train_step, sft.save_native
+    saves = []
+
+    def timed_step(st, batch, generator=None):
+        before = watched.detach().clone()
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        out = step(st, batch, generator)
+        torch.cuda.synchronize()
+        micro.append((time.perf_counter() - s0, float(out[1]),
+                      not torch.equal(before, watched.detach())))
+        return out
+
+    def timed_save(*a, **kw):
+        s0 = time.perf_counter()
+        save(*a, **kw)
+        saves.append(time.perf_counter() - s0)
+
+    records = []
+    trainer.train_step, sft.save_native = timed_step, timed_save
+    ops.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, train_batches, val_batches, gen, os.path.join(root, "run"),
+                        num_epochs=1, log_fn=records.append)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
+    shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
+    trainer.train_step, sft.save_native = step, save
+
+    problems = []
+    losses = [m[1] for m in micro] + [r["val_loss"] for r in records]
+    if not all(math.isfinite(v) for v in losses):
+        problems.append(f"non-finite loss: {losses}")
+    if [m[2] for m in micro] != [False, True, False, True]:
+        problems.append(f"parameters changed after micro-steps {[m[2] for m in micro]}, "
+                        "expected after the 2nd and 4th only")
+    if state.step != 4 or state.opt_state.updates != 2 or len(records) != 1:
+        problems.append(f"{state.step} micro-steps, {state.opt_state.updates} updates, "
+                        f"{len(records)} validations: expected 4, 2, 1")
+    t0 = time.perf_counter()
+    best, manifest = load_native(os.path.join(root, "run", "best"))
+    load_s = time.perf_counter() - t0
+    live = diffusion.unet.state_dict()
+    if set(best) != set(live) or not all(torch.equal(best[k], live[k].cpu()) for k in live):
+        problems.append("the best checkpoint does not load back bit-equal")
+    del best
+    shutil.rmtree(root)
+    idle = [n for n, c in launches.items() if c == 0]
+    if idle:
+        problems.append(f"kernels never launched on the training path: {idle}")
+    log("train", fit_s=round(fit_s, 3), micro_steps=len(micro),
+        ms_per_micro_step=[round(1e3 * m[0], 3) for m in micro],
+        losses=[m[1] for m in micro], val_loss=[r["val_loss"] for r in records],
+        peak_memory_bytes=peak, checkpoint_save_s=[round(v, 3) for v in saves],
+        checkpoint_load_s=round(load_s, 3), checkpoint_manifest=manifest, launches=launches,
+        launches_per_micro_step={n: c / max(len(micro), 1) for n, c in launches.items()},
+        shapes={n: len(v) for n, v in shapes.items()}, problems=problems)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    del trainer, state, diffusion, vae, t5
+    torch.cuda.empty_cache()
+    return launches, shapes
 
 
 def main(argv) -> int:
@@ -297,7 +580,7 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     log("warmup", seconds=round(time.perf_counter() - t0, 3))
 
-    # ---- the main path, counted
+    # ---- the serving path, counted
     checks = {"latents_finite": True, "mel_finite": True}
     sample_times = {}  # CFG batch of the UNet -> [seconds, steps]
     decode, sample = tango.decode, tango.model.sample
@@ -327,8 +610,8 @@ def main(argv) -> int:
     wavs = tango.generate_for_batch(BATCH_PROMPTS, steps=STEPS, batch_size=2, seed=0)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
-    shapes = {n: set(fn.shapes) for n, fn in ops.KERNELS.items()}
+    serve_launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
+    shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
     tango.decode, tango.model.sample = decode, sample
 
     expect_len = tango.model.latent_t_size * 4 * 160 + 32  # 4x VAE, x160 vocoder, +32 edge
@@ -343,13 +626,14 @@ def main(argv) -> int:
             problems.append("a silent waveform")
     if not (checks["latents_finite"] and checks["mel_finite"]):
         problems.append(f"non-finite values: {checks}")
-    idle = [n for n, c in launches.items() if c == 0]
+    idle = [n for n in ops.KERNELS if serve_launches[n] == 0]
     if idle:
-        problems.append(f"kernels never launched on the main path: {idle}")
+        problems.append(f"kernels never launched on the serving path: {idle}")
     log("slice", generate_s=round(t1 - t0, 3), generate_for_batch_s=round(t2 - t1, 3),
         ms_per_unet_step={f"cfg_batch_{b}": round(1e3 * s / n, 3)
                           for b, (s, n) in sorted(sample_times.items())},
-        launches=launches, shapes={n: len(v) for n, v in shapes.items()}, wav_len=expect_len,
+        launches=serve_launches, shapes={n: len(v) for n, v in shapes.items()},
+        wav_len=expect_len,
         peak=[int(abs(w.astype("int32")).max()) for w in outs], problems=problems)
     if problems:
         raise AssertionError("; ".join(problems))
@@ -366,6 +650,14 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     per_eval = {n: fn.launches for n, fn in ops.KERNELS.items()}
     log("per_eval", launches=per_eval, group_norms=per_eval["gn_silu_fwd"] + per_eval["gn_stats"])
+    del tango, unet, m, decode, sample, checked_decode, timed_sample
+    torch.cuda.empty_cache()
+
+    # ---- the training path, counted
+    train_launches, train_shapes = train_phase(C, ops)
+    launches = {n: serve_launches[n] + train_launches[n] for n in ops.all_kernels()}
+    for n, v in train_shapes.items():
+        shapes[n] |= v
 
     t0 = time.perf_counter()
     cases = check_kernels(ops, shapes, detail)
@@ -373,12 +665,14 @@ def main(argv) -> int:
         total_s=round(time.perf_counter() - t_start, 3),
         **{n: {"err_f32": c.err["f32"], "err_bf16": c.err["bf16"], "ms": c.ms,
                "plain_ms": c.plain_ms, "library_ms": c.library_ms, "bound_ms": c.bound,
-               "shapes": len(c.detail)} for n, c in cases.items()})
+               "f32": c.f32, "shapes": len(shapes[n])} for n, c in cases.items()})
 
     print(smi, flush=True)
+    kernels = ops.all_kernels()
     print(json.dumps({"kernels": [
-        {"name": n, "route": "cuda", "source": ops.KERNELS[n].source,
-         "replaces": ops.KERNELS[n].replaces, "launches": launches[n],
+        {"name": n, "route": "cuda", "source": kernels[n].source,
+         "replaces": kernels[n].replaces, "launches": launches[n],
+         "launches_by_path": {"serve": serve_launches[n], "train": train_launches[n]},
          "max_abs_err": max(c.err.values()), "ms": c.ms, "plain_ms": c.plain_ms,
          "bound_ms": c.bound, "bound_by": c.bound_by, "library_ms": c.library_ms}
         for n, c in cases.items()]}), flush=True)

@@ -82,12 +82,14 @@ class UNetConfig(_FromDict):
 
 @dataclass(frozen=True)
 class VAEConfig(_FromDict):
-    """AudioLDM AutoencoderKL config (decoder side)."""
+    """AudioLDM AutoencoderKL config."""
 
     embed_dim: int = 8
     scale_factor: float = 1.0
+    double_z: bool = True
     z_channels: int = 8
     resolution: int = 256
+    in_channels: int = 1
     out_ch: int = 1
     ch: int = 128
     ch_mult: Tuple[int, ...] = (1, 2, 4)
@@ -119,6 +121,19 @@ class HiFiGANConfig(_FromDict):
         object.__setattr__(
             self, "resblock_dilation_sizes", tuple(_tup(d) for d in self.resblock_dilation_sizes)
         )
+
+
+@dataclass(frozen=True)
+class StftConfig(_FromDict):
+    """TacotronSTFT config (mel frontend of the training data)."""
+
+    filter_length: int = 1024
+    hop_length: int = 160
+    win_length: int = 1024
+    n_mel_channels: int = 64
+    sampling_rate: int = 16000
+    mel_fmin: float = 0.0
+    mel_fmax: float = 8000.0
 
 
 @dataclass(frozen=True)
@@ -161,6 +176,35 @@ class T5Config(_FromDict):
     @property
     def act(self) -> str:
         return self.feed_forward_proj.replace("gated-", "")
+
+
+@dataclass(frozen=True)
+class TrainConfig(_FromDict):
+    """SFT training recipe (tango_tpu/configs.py TrainConfig, the reference's
+    train.sh). `weight_decay` is the reference's effective AdamW decay, its
+    --adam_weight_decay."""
+
+    learning_rate: float = 3e-5
+    weight_decay: float = 1e-2
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_epsilon: float = 1e-8
+    num_train_epochs: int = 40
+    # cap on optimizer updates; None lets the epochs decide
+    max_train_steps: Optional[int] = None
+    per_device_train_batch_size: int = 2
+    per_device_eval_batch_size: int = 2
+    gradient_accumulation_steps: int = 4
+    lr_scheduler_type: str = "linear"
+    num_warmup_steps: int = 0
+    snr_gamma: Optional[float] = 5.0
+    uncondition: bool = False
+    augment: bool = True
+    target_length: int = 1024
+    seed: Optional[int] = None
+    checkpointing_steps: str = "best"
+    # "best" mode also saves epoch_N every save_every epochs
+    save_every: int = 5
 
 
 TANGO_UNET = UNetConfig()

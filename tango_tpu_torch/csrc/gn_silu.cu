@@ -1,7 +1,8 @@
 // GroupNorm(+SiLU) for channels-first (NCHW) activations, f32 statistics.
 //
-// Replaces tango_tpu/ops/gn_silu_pallas.py: _gn_kernel (single pass) and
-// _gn_stats_kernel + _gn_apply_kernel (two stage). The port keeps activations
+// Replaces tango_tpu/ops/gn_silu_pallas.py: _gn_kernel (single pass),
+// _gn_stats_kernel + _gn_apply_kernel (two stage) and _gn_bwd_kernel (the
+// backward). The port keeps activations
 // NCHW for cuDNN's convolutions, so one (batch, group) is one contiguous run of
 // (C/G) * HW elements; the Pallas kernels worked on channels-last blocks of a
 // whole sample and reduced channels to groups with a 0/1 matmul, which a
@@ -23,6 +24,24 @@
 // per-channel a, b (tiny torch ops, as the combine was XLA in JAX); gn_apply
 // streams y = x*a + b (+SiLU) over a (rows, B*C) grid.
 //
+// gn_bwd: one block per (batch, group) again, streaming the group from device
+// memory (the Pallas kernel held a whole sample in VMEM, hence its 8 MB
+// limit; this one has none, so it also serves the backward of the two-stage
+// sites). Three passes over the group, the later two mostly from L2:
+//   1. sum x, x^2 -> mean, inv (the forward's statistics, recomputed);
+//   2. per channel: dbeta_c = sum dpre, dgamma_c = sum dpre * xhat, where
+//      dpre = g * silu'(y) on the SiLU route (y = xhat*gamma + beta) and g
+//      otherwise. The work is cut into (channel, slice) items, one warp per
+//      item, at least as many items as warps: at 64 or 256 tokens a channel
+//      is one warp's work (a block-wide loop channel by channel would idle
+//      most of the block, the forward's lesson), at 4096 tokens a channel is
+//      split across warps. Warps add their item into shared per-channel sums;
+//   3. dx = inv * (gamma_c*dpre - mean_g(gamma*dpre) - xhat *
+//      mean_g(gamma*dpre*xhat)), the two group means taken from the
+//      per-channel sums of pass 2.
+// dgamma, dbeta come out per sample, (B, 2, C) f32; the caller sums over B.
+// Bound: bytes, one read of x and g and one write of dx.
+//
 // Statistics follow the Pallas kernels: var = E[x^2] - mean^2, inv =
 // 1/sqrt(var + eps).
 
@@ -34,6 +53,7 @@ namespace {
 constexpr int kFwdThreads = 512;
 constexpr int kStatsThreads = 256;
 constexpr int kApplyThreads = 256;
+constexpr int kBwdThreads = 512;
 
 // Sums a and b over the block; every thread gets the totals.
 template <int NT>
@@ -179,6 +199,125 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
                      (int64_t)gridDim.x * blockDim.x);
 }
 
+// d(act(y))/dy * g with y = xhat*gamma + beta: g * silu'(y) on the SiLU route.
+__device__ __forceinline__ float gn_dpre(float g, float xh, float gam, float bet, int act) {
+  if (!act) return g;
+  const float y = xh * gam + bet;
+  const float sg = 1.0f / (1.0f + expf(-y));
+  return g * (sg * (1.0f + y * (1.0f - sg)));
+}
+
+// grid (B*G): block bg writes dx for its group and dparam[b][0|1][channels of
+// the group] = dgamma, dbeta of sample b. Dynamic shared memory: 2 * C/G f32.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kBwdThreads)
+gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ gamma,
+              const float* __restrict__ beta, T* __restrict__ dx, float* __restrict__ dparam,
+              int C, int HW, int G, float eps, int act) {
+  extern __shared__ float csum[];  // [0, cg): dgamma, [cg, 2cg): dbeta
+  const int b = blockIdx.x / G, gi = blockIdx.x % G;
+  const int cg = C / G;
+  const int64_t n = (int64_t)cg * HW;
+  const int64_t base = ((int64_t)b * C + (int64_t)gi * cg) * HW;
+  float* sdg = csum;
+  float* sdb = csum + cg;
+  for (int i = threadIdx.x; i < 2 * cg; i += kBwdThreads) csum[i] = 0.0f;
+
+  // 1. statistics (block_sum2 also orders the zeroing above before pass 2)
+  float s = 0.0f, ss = 0.0f;
+  partial_sums<T, VEC>(x + base, n, s, ss);
+  block_sum2<kBwdThreads>(s, ss);
+  const float nf = (float)n;
+  const float mean = s / nf;
+  const float inv = 1.0f / sqrtf(ss / nf - mean * mean + eps);
+
+  // 2. per-channel sums over (channel, slice) items, one warp each
+  constexpr int N = VEC ? Pack<T>::N : 1;
+  constexpr int kWarps = kBwdThreads / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int slices = (kWarps + cg - 1) / cg;
+  const int max_slices = HW / (32 * N) > 1 ? HW / (32 * N) : 1;  // >= one packet a lane
+  if (slices > max_slices) slices = max_slices;
+  const int len = ((HW + slices - 1) / slices + N - 1) / N * N;
+  for (int item = warp; item < cg * slices; item += kWarps) {
+    const int c = item / slices;
+    const int start = (item % slices) * len;
+    const int end = start + len < HW ? start + len : HW;
+    const int ch = gi * cg + c;
+    const float gam = gamma[ch], bet = beta[ch];
+    const T* xr = x + base + (int64_t)c * HW;
+    const T* gr = g + base + (int64_t)c * HW;
+    float adb = 0.0f, adg = 0.0f;
+    float xv[N], gv[N];
+    for (int i = start + lane * N; i < end; i += 32 * N) {
+      if constexpr (VEC) {
+        load_pack(xr + i, xv);
+        load_pack(gr + i, gv);
+      } else {
+        xv[0] = to_f32(xr[i]);
+        gv[0] = to_f32(gr[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xh = (xv[j] - mean) * inv;
+        const float dp = gn_dpre(gv[j], xh, gam, bet, act);
+        adb += dp;
+        adg = fmaf(dp, xh, adg);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      adb += __shfl_xor_sync(0xffffffffu, adb, o);
+      adg += __shfl_xor_sync(0xffffffffu, adg, o);
+    }
+    if (lane == 0) {
+      atomicAdd(&sdb[c], adb);
+      atomicAdd(&sdg[c], adg);
+    }
+  }
+  __syncthreads();
+
+  // per-sample parameter gradients, and the two group means of pass 3
+  float m1 = 0.0f, m2 = 0.0f;
+  for (int c = threadIdx.x; c < cg; c += kBwdThreads) {
+    const int ch = gi * cg + c;
+    dparam[((int64_t)b * 2 + 0) * C + ch] = sdg[c];
+    dparam[((int64_t)b * 2 + 1) * C + ch] = sdb[c];
+    m1 = fmaf(gamma[ch], sdb[c], m1);
+    m2 = fmaf(gamma[ch], sdg[c], m2);
+  }
+  block_sum2<kBwdThreads>(m1, m2);
+  m1 /= nf;
+  m2 /= nf;
+
+  // 3. dx over the whole group (a packet never straddles two channels)
+  const T* xg = x + base;
+  const T* gg = g + base;
+  T* dxg = dx + base;
+  float xv[N], gv[N], out[N];
+  for (int64_t i = (int64_t)threadIdx.x * N; i < n; i += (int64_t)kBwdThreads * N) {
+    const int ch = gi * cg + (int)(i / HW);
+    const float gam = gamma[ch], bet = beta[ch];
+    if constexpr (VEC) {
+      load_pack(xg + i, xv);
+      load_pack(gg + i, gv);
+    } else {
+      xv[0] = to_f32(xg[i]);
+      gv[0] = to_f32(gg[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float xh = (xv[j] - mean) * inv;
+      const float dxh = gn_dpre(gv[j], xh, gam, bet, act) * gam;
+      out[j] = inv * (dxh - m1 - xh * m2);
+    }
+    if constexpr (VEC)
+      store_pack(dxg + i, out);
+    else
+      dxg[i] = from_f32<T>(out[0]);
+  }
+}
+
 template <typename T>
 bool packable(const void* p, int HW) {
   return HW % Pack<T>::N == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -225,6 +364,23 @@ void launch_apply(const void* x, const float* a, const float* b, void* y, int B,
     gn_apply_kernel<T, false><<<grid, kApplyThreads, 0, st>>>(xt, a, b, yt, HW, act);
 }
 
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* g, const float* gamma, const float* beta,
+                       void* dx, float* dparam, int B, int C, int HW, int G, float eps, int act,
+                       cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  const size_t smem = 2 * sizeof(float) * (size_t)(C / G);
+  if (packable<T>(x, HW) && packable<T>(g, HW) && packable<T>(dx, HW))
+    gn_bwd_kernel<T, true><<<B * G, kBwdThreads, smem, st>>>(xt, gt, gamma, beta, dxt, dparam,
+                                                             C, HW, G, eps, act);
+  else
+    gn_bwd_kernel<T, false><<<B * G, kBwdThreads, smem, st>>>(xt, gt, gamma, beta, dxt, dparam,
+                                                              C, HW, G, eps, act);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace tt
 
@@ -269,6 +425,20 @@ int tt_gn_apply(const void* x, const void* a, const void* b, void* y, int B, int
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+int tt_gn_silu_bwd(const void* x, const void* g, const void* gamma, const void* beta, void* dx,
+                   void* dparam, int B, int C, int HW, int G, float eps, int act, int dtype,
+                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ga = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  float* dp = static_cast<float*>(dparam);
+  if (dtype == tt::kF32)
+    return (int)tt::launch_bwd<float>(x, g, ga, be, dx, dp, B, C, HW, G, eps, act, st);
+  if (dtype == tt::kBF16)
+    return (int)tt::launch_bwd<__nv_bfloat16>(x, g, ga, be, dx, dp, B, C, HW, G, eps, act, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* tt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,9 +1,13 @@
-"""AudioDiffusion CFG sampling, port of `sample` in tango_tpu/models/diffusion.py.
+"""AudioDiffusion, port of tango_tpu/models/diffusion.py: the SFT loss and
+CFG sampling.
 
-The loop runs in Python over the host-side timestep grid (JAX compiles it
-into one `lax.scan`). Latents are (B, T, F, C) f32; the UNet sees the model
-dtype and its output is upcast to f32 before guidance and the scheduler step.
-The training loss is not ported yet.
+`loss` is the training objective: uniform timesteps (n // 2 in validation
+mode), q-sample noising, epsilon or v targets, optional min-SNR-gamma
+weights and the 10% unconditional dropout of the text embeddings. The
+sampling loop runs in Python over the host-side timestep grid (JAX compiles
+it into one `lax.scan`). Latents are (B, T, F, C) f32; the UNet sees the
+model dtype and its output is upcast to f32 before guidance, the scheduler
+step and the loss.
 """
 
 from __future__ import annotations
@@ -13,9 +17,10 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from tango_tpu_torch.configs import SchedulerConfig, UNetConfig
+from tango_tpu_torch.configs import SchedulerConfig, UNetConfig, resolve_device
 from tango_tpu_torch.models.unet import UNet2DConditionModel
 from tango_tpu_torch.schedulers.ddpm import DDPMScheduler
+from tango_tpu_torch.utils.init import init_random_
 
 Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
 
@@ -34,17 +39,91 @@ def randn_rows(shape, generator: Generators, device) -> torch.Tensor:
 
 @dataclasses.dataclass(eq=False)
 class AudioDiffusion:
-    unet: UNet2DConditionModel
+    """The UNet with its schedulers. `unet` is a module, or a UNetConfig from
+    which one is built on `device` in `dtype` (with `remat`), its weights
+    left uninitialised until `init_params` or a `load_state_dict`."""
+
+    unet: Union[UNet2DConditionModel, UNetConfig]
     scheduler_config: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
+    snr_gamma: Optional[float] = None
+    uncondition: bool = False
     latent_t_size: int = 256
     latent_f_size: int = 16
+    dtype: torch.dtype = torch.float32
+    remat: bool = False
+    device: Union[str, torch.device, None] = None
 
     def __post_init__(self):
+        if isinstance(self.unet, UNetConfig):
+            with torch.device("meta"):
+                unet = UNet2DConditionModel(self.unet, remat=self.remat)
+            self.unet = unet.to_empty(device=resolve_device(self.device)).to(self.dtype)
+        self.noise_scheduler = DDPMScheduler.create(self.scheduler_config)
         self.inference_scheduler = DDPMScheduler.create(self.scheduler_config)
 
     @property
     def unet_config(self) -> UNetConfig:
         return self.unet.cfg
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> dict:
+        """Seeded random UNet weights (utils.init), in place; returns the state dict."""
+        return init_random_(self.unet, generator).state_dict()
+
+    def loss(
+        self,
+        latents: torch.Tensor,
+        text_embeds: torch.Tensor,
+        text_mask: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        validation_mode: bool = False,
+        *,
+        timesteps: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        drop: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Diffusion MSE loss on latents (B, T, F, C), reduced in f32.
+
+        The timesteps, the noise and the (B,) uncondition drop mask are drawn
+        from `generator` in that order unless given (the tests feed both
+        packages the same draws)."""
+        sched = self.noise_scheduler
+        n = sched.config.num_train_timesteps
+        bsz, device = latents.shape[0], latents.device
+        if validation_mode:
+            timesteps = torch.full((bsz,), n // 2, dtype=torch.long, device=device)
+        elif timesteps is None:
+            timesteps = torch.randint(0, n, (bsz,), generator=generator, device=device)
+        timesteps = torch.as_tensor(timesteps, dtype=torch.long, device=device)
+        if noise is None:
+            noise = torch.randn(latents.shape, generator=generator, device=device,
+                                dtype=torch.float32)
+        if self.uncondition and not validation_mode:
+            # zero the embeddings of ~10% of the samples; the mask stays
+            if drop is None:
+                drop = torch.rand((bsz,), generator=generator, device=device) < 0.1
+            drop = torch.as_tensor(drop, dtype=torch.bool, device=device)
+            text_embeds = torch.where(drop[:, None, None], 0.0, text_embeds)
+
+        latents = latents.float()
+        noisy = sched.add_noise(latents, noise, timesteps)
+        p = sched.config.prediction_type
+        if p == "epsilon":
+            target = noise
+        elif p == "v_prediction":
+            target = sched.get_velocity(latents, noise, timesteps)
+        else:
+            raise ValueError(f"Unknown prediction type {p}")
+
+        pred = self.unet(noisy.to(self.unet.conv_in.weight.dtype), timesteps, text_embeds,
+                         text_mask)
+        err = (pred.float() - target) ** 2
+        if self.snr_gamma is None:
+            return err.mean()
+        snr = sched.snr(timesteps.cpu()).to(device)
+        weights = torch.clamp(snr, max=self.snr_gamma) / snr
+        per_sample = err.mean(dim=tuple(range(1, err.dim())))
+        return (per_sample * weights).mean()
 
     @torch.no_grad()
     def sample(

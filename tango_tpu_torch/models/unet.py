@@ -10,7 +10,12 @@ maps onto a state-dict key (utils/convert.py).
 GroupNorm goes through ops.basic.group_norm (the GN kernels) and
 self-attention through ops.attention.multi_head_attention (the attention
 kernel at Sq >= 256); convs and projections are cuDNN/cuBLAS, as they were
-XLA in JAX. The Mustango conditioning streams are not ported yet.
+XLA in JAX. Both kernel routes carry their own backward kernels.
+
+`remat=True` recomputes each down, mid and up block in the backward pass
+(`torch.utils.checkpoint`, as `nn.remat` in JAX) whenever gradients are
+being recorded: the forward kernels of a block then run twice per training
+step. The Mustango conditioning streams are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tango_tpu_torch.configs import UNetConfig
 from tango_tpu_torch.models.layers import GroupNorm, nchw_to_nhwc, nhwc_to_nchw
@@ -207,6 +213,26 @@ class _Block(nn.Module):
             x = getattr(self, f"attentions_{i}")(x, context, bias)
         return x
 
+    def down(self, x, temb, context, bias):
+        """A down level: its output and the skip states it adds."""
+        outs = []
+        for i in range(self.n):
+            x = self.layer(i, x, temb, context, bias)
+            outs.append(x)
+        if hasattr(self, "downsamplers_0"):
+            x = self.downsamplers_0(x)
+            outs.append(x)
+        return x, outs
+
+    def up(self, x, skips, temb, context, bias):
+        """An up level over its skip states, the last one first."""
+        for j in range(self.n):
+            x = torch.cat([x, skips[-1 - j]], dim=1)
+            x = self.layer(j, x, temb, context, bias)
+        if hasattr(self, "upsamplers_0"):
+            x = self.upsamplers_0(x)
+        return x
+
 
 class UNetMidBlock2DCrossAttn(nn.Module):
     """resnet -> transformer -> resnet at the lowest resolution."""
@@ -227,9 +253,10 @@ class UNet2DConditionModel(nn.Module):
     """The denoiser: sample (B, T, F, C), timesteps (B,) or scalar, text
     context (B, S, D) with an optional 0/1 key mask (B, S) -> (B, T, F, C)."""
 
-    def __init__(self, cfg: UNetConfig):
+    def __init__(self, cfg: UNetConfig, remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         ch = cfg.block_out_channels
         temb_ch = ch[0] * 4
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch)
@@ -292,27 +319,25 @@ class UNet2DConditionModel(nn.Module):
                                        cfg.flip_sin_to_cos, float(cfg.freq_shift))
         temb = self.time_embedding(t_emb.to(dtype))
 
+        def run(fn, *args):
+            if self.remat and torch.is_grad_enabled():
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
         x = self.conv_in(nhwc_to_nchw(sample.to(dtype)))
         res = [x]
         for level in range(len(cfg.down_block_types)):
-            blk = getattr(self, f"down_blocks_{level}")
-            for i in range(blk.n):
-                x = blk.layer(i, x, temb, context, bias)
-                res.append(x)
-            if hasattr(blk, "downsamplers_0"):
-                x = blk.downsamplers_0(x)
-                res.append(x)
+            x, outs = run(getattr(self, f"down_blocks_{level}").down, x, temb, context, bias)
+            res += outs
 
         if cfg.mid_block_type is not None:
-            x = self.mid_block(x, temb, context, bias)
+            x = run(self.mid_block, x, temb, context, bias)
 
         for i in range(len(cfg.up_block_types)):
             blk = getattr(self, f"up_blocks_{i}")
-            for j in range(blk.n):
-                x = torch.cat([x, res.pop()], dim=1)
-                x = blk.layer(j, x, temb, context, bias)
-            if hasattr(blk, "upsamplers_0"):
-                x = blk.upsamplers_0(x)
+            skips = res[-blk.n:]
+            del res[-blk.n:]
+            x = run(blk.up, x, skips, temb, context, bias)
 
         x = self.conv_out(self.conv_norm_out(x))
         return nchw_to_nhwc(x)

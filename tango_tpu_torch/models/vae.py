@@ -1,9 +1,10 @@
-"""AudioLDM VAE decoder, port of the decode side of tango_tpu/models/vae.py.
+"""AudioLDM KL autoencoder, port of tango_tpu/models/vae.py.
 
-Public layouts follow JAX: latents (B, T, F, z) in, mel (B, T*2^(L-1),
-F*2^(L-1), 1) out. Inside, activations are NCHW. The encoder is not ported
-yet (training needs it). The mid attention block stays plain matmul +
-softmax, as it is in JAX.
+Public layouts follow JAX: latents (B, T, F, z) and mels (B, T*2^(L-1),
+F*2^(L-1), 1). Inside, activations are NCHW. The mid attention blocks stay
+plain matmul + softmax, as they are in JAX. The encoder (training's side) is
+built with `AutoencoderKL(cfg, with_encoder=True)`; serving builds the decode
+side alone. Its large feature maps take the two-stage GroupNorm kernels.
 """
 
 from __future__ import annotations
@@ -66,6 +67,54 @@ class VAEUpsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
 
 
+class VAEDownsample(nn.Module):
+    """Asymmetric (0, 1, 0, 1) zero pad, then a stride-2 VALID 3x3 conv."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = nn.Conv2d(ch, ch, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        levels = len(cfg.ch_mult)
+        self.conv_in = nn.Conv2d(cfg.in_channels, cfg.ch, 3, padding=1)
+        self.order = []  # module names in forward order
+        res, block_in = cfg.resolution, cfg.ch
+        for level in range(levels):
+            out = cfg.ch * cfg.ch_mult[level]
+            for i in range(cfg.num_res_blocks):
+                self.add_module(f"down_{level}_block_{i}", VAEResnetBlock(block_in, out))
+                self.order.append(f"down_{level}_block_{i}")
+                block_in = out
+                if res in cfg.attn_resolutions:
+                    self.add_module(f"down_{level}_attn_{i}", VAEAttnBlock(out))
+                    self.order.append(f"down_{level}_attn_{i}")
+            if level != levels - 1:
+                self.add_module(f"down_{level}_downsample", VAEDownsample(out))
+                self.order.append(f"down_{level}_downsample")
+                res //= 2
+        self.mid_block_1 = VAEResnetBlock(block_in, block_in)
+        self.mid_attn_1 = VAEAttnBlock(block_in)
+        self.mid_block_2 = VAEResnetBlock(block_in, block_in)
+        self.norm_out = GroupNorm(block_in, 32, 1e-6, act="silu")
+        z_out = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+        self.conv_out = nn.Conv2d(block_in, z_out, 3, padding=1)
+
+    def forward(self, x):
+        """x (B, in_channels, H, W) NCHW -> (B, 2z, H', W') NCHW."""
+        h = self.conv_in(x)
+        for name in self.order:
+            h = getattr(self, name)(h)
+        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
+        return self.conv_out(self.norm_out(h))
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -104,13 +153,32 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decode side of the KL autoencoder: post_quant_conv + decoder."""
+    """post_quant_conv + decoder, and with `with_encoder` encoder + quant_conv."""
 
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, with_encoder: bool = False):
         super().__init__()
         self.cfg = cfg
+        if with_encoder:
+            self.encoder = Encoder(cfg)
+            self.quant_conv = nn.Conv2d(self.encoder.conv_out.out_channels, 2 * cfg.embed_dim, 1)
         self.decoder = Decoder(cfg)
         self.post_quant_conv = nn.Conv2d(cfg.embed_dim, cfg.z_channels, 1)
+
+    def encode_moments(self, x: torch.Tensor):
+        """mel (B, T, F, 1) -> (mean, logvar), each (B, T/4, F/4, embed_dim)."""
+        dtype = self.quant_conv.weight.dtype
+        moments = nchw_to_nhwc(self.quant_conv(self.encoder(nhwc_to_nchw(x.to(dtype)))))
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
+
+    def encode_first_stage(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """mel -> scaled latent drawn from the posterior with `generator`."""
+        mean, logvar = self.encode_moments(x)
+        return self.cfg.scale_factor * sample_diagonal_gaussian(mean, logvar, generator)
+
+    def encode_first_stage_mode(self, x: torch.Tensor) -> torch.Tensor:
+        mean, _ = self.encode_moments(x)
+        return self.cfg.scale_factor * mean
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z (B, T, F, embed_dim) -> mel (B, T', F', out_ch)."""
@@ -120,3 +188,18 @@ class AutoencoderKL(nn.Module):
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         return self.decode(z / self.cfg.scale_factor)
+
+
+def sample_diagonal_gaussian(mean, logvar, generator=None, noise=None):
+    """A draw of the diagonal Gaussian posterior; `noise` replaces the
+    standard normal draw (the tests feed both packages the same numbers)."""
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                            dtype=mean.dtype)
+    return mean + torch.exp(0.5 * logvar) * noise
+
+
+def kl_diagonal_gaussian(mean, logvar):
+    """KL(posterior || N(0, I)) per batch element."""
+    return 0.5 * torch.sum(mean**2 + torch.exp(logvar) - 1.0 - logvar,
+                           dim=tuple(range(1, mean.dim())))

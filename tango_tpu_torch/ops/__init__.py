@@ -1,14 +1,17 @@
 """Ops of the port: hand-written CUDA kernels with their plain PyTorch versions.
 
-Every kernel wrapper is registered in `KERNELS` by name. A wrapper runs its
-kernel for a CUDA tensor and its plain version for a CPU tensor, and counts
-its launches in `wrapper.launches` (a plain integer).
+Every kernel wrapper is registered by name: the forward kernels (serving and
+training) in `KERNELS`, the backward kernels (training only) in
+`BACKWARD_KERNELS`; `all_kernels()` gives both. A wrapper runs its kernel
+for a CUDA tensor and its plain version for a CPU tensor, and counts its
+launches in `wrapper.launches` (a plain integer).
 """
 
 KERNELS: dict = {}
+BACKWARD_KERNELS: dict = {}
 
 
-def kernel_wrapper(source: str, replaces: str):
+def kernel_wrapper(source: str, replaces: str, backward: bool = False):
     """Register a kernel wrapper and give it a launch counter.
 
     `source` is the CUDA file in the repository, `replaces` the file:line of
@@ -21,13 +24,17 @@ def kernel_wrapper(source: str, replaces: str):
         fn.shapes = set()
         fn.source = source
         fn.replaces = replaces
-        KERNELS[fn.__name__] = fn
+        (BACKWARD_KERNELS if backward else KERNELS)[fn.__name__] = fn
         return fn
 
     return deco
 
 
+def all_kernels() -> dict:
+    return {**KERNELS, **BACKWARD_KERNELS}
+
+
 def reset_counters() -> None:
-    for fn in KERNELS.values():
+    for fn in all_kernels().values():
         fn.launches = 0
         fn.shapes.clear()

@@ -37,8 +37,14 @@ _SIGNATURES = {
     "tt_gn_stats": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, a, b, y, B, C, HW, act, dtype, stream
     "tt_gn_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, g, gamma, beta, dx, dparam, B, C, HW, G, eps, act, dtype, stream
+    "tt_gn_silu_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, o, BH, Sq, Skv, D, qscale, dtype, stream
     "tt_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, do, dq, lse, delta, BH, Sq, Skv, D, scale, dtype, stream
+    "tt_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, do, lse, delta, dk, dv, BH, Sq, Skv, D, scale, dtype, stream
+    "tt_attn_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

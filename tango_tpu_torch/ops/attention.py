@@ -6,7 +6,11 @@ the logits and softmax are f32.
 
 Dispatch keeps the JAX eligibility rule (tango_tpu/ops/attention.py:55-65):
 Sq >= 256, D % 8 == 0, and no bias or Skv >= 256. Bias-free eligible calls
-go to the `attn_fwd` kernel. A biased call with Skv >= 256 would take
+go to `flash_attention`, an autograd Function (`_flash_with_vjp` of
+tango_tpu/ops/attention.py:82-119): its forward is the `attn_fwd` kernel, it
+saves q, k and v only, and its backward runs the `attn_bwd_dq` and
+`attn_bwd_dkv` kernels where `flash_bwd_supported` holds, else autograd
+through `plain_attention`, as JAX falls back to the XLA VJP. A biased call with Skv >= 256 would take
 `_attn_kernel_bias` in JAX, which is not ported yet (ROADMAP queue B #4): it
 runs `plain_attention` here. Everything else is `plain_attention`, as it is
 XLA in JAX: cross-attention to 128 text tokens and the 64-token mid level.
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from tango_tpu_torch.ops.flash_attention import flash_attention
+from tango_tpu_torch.ops.flash_attention import attn_fwd, flash_attention_bwd, flash_bwd_supported
 
 
 def multi_head_attention(
@@ -51,6 +55,42 @@ def multi_head_attention(
     else:
         out = plain_attention(qh, kh, vh, bias=bias, scale=scale, upcast=upcast)
     return out.transpose(1, 2).reshape(b, sq, inner)
+
+
+class _FlashWithVJP(torch.autograd.Function):
+    """The attention kernels with their backward (heads flattened to BH)."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, scale):
+        b, h, sq, d = qh.shape
+        q, k, v = (t.reshape(b * h, t.shape[2], d).contiguous() for t in (qh, kh, vh))
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return attn_fwd(q, k, v, scale).reshape(b, h, sq, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        bh, sq, d = q.shape
+        skv = k.shape[1]
+        shape4 = g.shape[:2]
+        # the incoming gradient is a view of a transpose: make it contiguous
+        do = g.reshape(bh, sq, d).to(q.dtype).contiguous()
+        if flash_bwd_supported(sq, skv, d):
+            dq, dk, dv = flash_attention_bwd(q, k, v, do, ctx.scale)
+        else:
+            with torch.enable_grad():
+                qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+                out = plain_attention(qq, kk, vv, bias=None, scale=ctx.scale, upcast=True)
+                dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), do)
+        return (dq.reshape(*shape4, sq, d), dk.reshape(*shape4, skv, d),
+                dv.reshape(*shape4, skv, d), None)
+
+
+def flash_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, *, scale: float):
+    """q (B, H, Sq, D), k/v (B, H, Skv, D) -> (B, H, Sq, D), bias-free, through
+    the attention kernels forward and backward."""
+    return _FlashWithVJP.apply(qh, kh, vh, scale)
 
 
 def plain_attention(qh, kh, vh, *, bias, scale, upcast):

@@ -5,6 +5,17 @@ port's convolutions run in; it matches torch.nn.GroupNorm(num_groups, C, eps)
 with f32 statistics. Dispatch follows the JAX rule (tango_tpu/ops/basic.py:52-63):
 the single-pass kernel when one sample's f32 copy is at most 8 MB, else the
 two-stage kernel for at most 64 groups, else the plain reference.
+
+The kernel routes are one autograd Function (`_gn_pallas_vjp` of
+tango_tpu/ops/basic.py:87-130): its forward is the single-pass or two-stage
+kernel, it saves x, scale and bias, and its backward is the `gn_silu_bwd`
+kernel. JAX sends the backward of a GroupNorm whose f32 sample exceeds 8 MB
+to the XLA VJP: that limit is VMEM's. The CUDA kernel streams a group from
+device memory, so here it serves the backward of every GroupNorm whose
+forward took a kernel, the two-stage sites included; only a shape it cannot
+take (more than 4096 channels a group, `gn_bwd_supported`) differentiates
+through the plain reference, as JAX does beyond its limit. The plain route
+is plain torch autograd, as it is XLA autodiff in JAX.
 """
 
 from __future__ import annotations
@@ -14,7 +25,13 @@ import math
 import torch
 import torch.nn.functional as F
 
-from tango_tpu_torch.ops.gn_silu import gn_silu_fwd, group_norm_two_stage, n_chunks
+from tango_tpu_torch.ops.gn_silu import (
+    gn_bwd_supported,
+    gn_silu_bwd,
+    gn_silu_fwd,
+    group_norm_two_stage,
+    n_chunks,
+)
 
 _SINGLE_PASS_BYTES = 8 * 1024 * 1024
 
@@ -51,6 +68,31 @@ def _gn_reference(x, scale, bias, num_groups, eps, act):
     return out.to(x.dtype)
 
 
+class _GroupNormKernel(torch.autograd.Function):
+    """GroupNorm(+SiLU) through the forward kernels, with gn_silu_bwd as backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, act, two_stage):
+        fwd = group_norm_two_stage if two_stage else gn_silu_fwd
+        ctx.save_for_backward(x, scale, bias)
+        ctx.cfg = (num_groups, eps, act)
+        return fwd(x, scale, bias, num_groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias = ctx.saved_tensors
+        num_groups, eps, act = ctx.cfg
+        g = g.to(x.dtype).contiguous()
+        if gn_bwd_supported(x, num_groups):
+            dx, dscale, dbias = gn_silu_bwd(x, g, scale, bias, num_groups, eps, act)
+        else:
+            with torch.enable_grad():
+                xx, ss, bb = (t.detach().requires_grad_() for t in (x, scale, bias))
+                out = _gn_reference(xx, ss, bb, num_groups, eps, act)
+                dx, dscale, dbias = torch.autograd.grad(out, (xx, ss, bb), g)
+        return dx, dscale, dbias, None, None, None, None
+
+
 def group_norm(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -66,9 +108,9 @@ def group_norm(
         raise ValueError(f"channels {x.shape[1]} not divisible by groups {num_groups}")
     x = x.contiguous()
     if gn_single_pass_supported(x, num_groups):
-        return gn_silu_fwd(x, scale, bias, num_groups, eps, act)
+        return _GroupNormKernel.apply(x, scale, bias, num_groups, eps, act, False)
     if gn_two_stage_supported(x, num_groups):
-        return group_norm_two_stage(x, scale, bias, num_groups, eps, act)
+        return _GroupNormKernel.apply(x, scale, bias, num_groups, eps, act, True)
     return _gn_reference(x, scale, bias, num_groups, eps, act)
 
 

@@ -1,11 +1,14 @@
 """GroupNorm(+SiLU) kernels and their plain PyTorch versions.
 
-Three kernels from `csrc/gn_silu.cu`:
+Four kernels from `csrc/gn_silu.cu`:
   * `gn_silu_fwd` — single pass, replaces `_gn_kernel`
     (tango_tpu/ops/gn_silu_pallas.py:27);
   * `gn_stats` + `gn_apply` — two stage, replace `_gn_stats_kernel` (:234) and
     `_gn_apply_kernel` (:257), with the per-channel combine in torch between
-    them, as it was XLA between the two Pallas calls.
+    them, as it was XLA between the two Pallas calls;
+  * `gn_silu_bwd` — the backward, replaces `_gn_bwd_kernel` (:119): dx and
+    per-sample dgamma/dbeta with the statistics recomputed, summed over the
+    batch here in torch, as `group_norm_pallas_bwd` sums them in XLA.
 
 Layout: channels-first, x is (B, C, *spatial) and contiguous, so one
 (batch, group) is one contiguous run of (C/G)*HW elements. Storage f32 or
@@ -195,3 +198,80 @@ def group_norm_two_stage(x, gamma, beta, num_groups: int, eps: float = 1e-6,
     a = inv.repeat_interleave(cg, 1) * gamma.float()[None]
     bb = beta.float()[None] - mean.repeat_interleave(cg, 1) * a
     return gn_apply(x, a.contiguous(), bb.contiguous(), act)
+
+
+# -------------------------------------------------------------------- backward
+
+# the kernel keeps a group's per-channel sums in shared memory: 2 * C/G f32
+# within the 48 KB a block gets without opting in
+_BWD_MAX_GROUP_CHANNELS = 4096
+
+
+def gn_bwd_supported(x: torch.Tensor, num_groups: int) -> bool:
+    """Shapes gn_silu_bwd takes. The kernel streams a group from device memory,
+    so unlike gn_bwd_supported in JAX (8 MB of VMEM per sample) it has no
+    size limit beyond C/G and the int32 element count."""
+    c = x.shape[1]
+    return (c % num_groups == 0 and c // num_groups <= _BWD_MAX_GROUP_CHANNELS
+            and x.numel() < 2**31)
+
+
+def gn_silu_bwd_plain(x, g, gamma, beta, num_groups: int, eps: float, act: str | None):
+    """Plain version of gn_silu_bwd, the arithmetic of _gn_bwd_kernel in f32."""
+    b, c = x.shape[0], x.shape[1]
+    cg = c // num_groups
+    xf = x.float().reshape(b, num_groups, cg, -1)
+    n = xf.shape[2] * xf.shape[3]
+    mean = xf.sum((2, 3), keepdim=True) / n
+    var = (xf * xf).sum((2, 3), keepdim=True) / n - mean * mean
+    inv = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * inv
+    gam = gamma.float().reshape(1, num_groups, cg, 1)
+    gf = g.float().reshape(xf.shape)
+    if act == "silu":
+        y = xhat * gam + beta.float().reshape(1, num_groups, cg, 1)
+        sig = torch.sigmoid(y)
+        dpre = gf * (sig * (1.0 + y * (1.0 - sig)))
+    else:
+        dpre = gf
+    dgamma = (dpre * xhat).sum(3).reshape(b, c).sum(0)
+    dbeta = dpre.sum(3).reshape(b, c).sum(0)
+    dxhat = dpre * gam
+    m1 = dxhat.sum((2, 3), keepdim=True) / n
+    m2 = (dxhat * xhat).sum((2, 3), keepdim=True) / n
+    dx = inv * (dxhat - m1 - xhat * m2)
+    return dx.reshape(x.shape).to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+
+
+@kernel_wrapper(_SRC, "tango_tpu/ops/gn_silu_pallas.py:119", backward=True)
+def gn_silu_bwd(x, g, gamma, beta, num_groups: int, eps: float = 1e-6, act: str | None = None):
+    """Backward of GroupNorm(+SiLU) over x (B, C, *spatial) for the incoming
+    gradient g (x's shape and dtype): (dx, dgamma, dbeta), dgamma and dbeta in
+    the parameters' dtype."""
+    if act not in (None, "silu"):
+        raise ValueError(f"unknown fused act {act}")
+    b, c, hw = _check(x, num_groups, "gn_silu_bwd")
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
+        raise ValueError("gn_silu_bwd: g must be contiguous with x's shape and dtype")
+    if not _route(x, "gn_silu_bwd"):
+        return gn_silu_bwd_plain(x, g, gamma, beta, num_groups, eps, act)
+    if c // num_groups > _BWD_MAX_GROUP_CHANNELS:
+        raise ValueError(f"gn_silu_bwd: {c // num_groups} channels a group exceed "
+                         f"{_BWD_MAX_GROUP_CHANNELS}")
+    if g.device != x.device:
+        raise ValueError("gn_silu_bwd: g must be on x's device")
+    lib = _build.load()
+    g32 = _param_f32(gamma, c, x.device)
+    b32 = _param_f32(beta, c, x.device)
+    dx = torch.empty_like(x)
+    dparam = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    code = lib.tt_gn_silu_bwd(
+        x.data_ptr(), g.data_ptr(), g32.data_ptr(), b32.data_ptr(), dx.data_ptr(),
+        dparam.data_ptr(), b, c, hw, num_groups, float(eps), int(act == "silu"),
+        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "gn_silu_bwd")
+    gn_silu_bwd.launches += 1
+    gn_silu_bwd.shapes.add((tuple(x.shape), num_groups, act))
+    dsum = dparam.sum(0)
+    return dx, dsum[0].to(gamma.dtype), dsum[1].to(beta.dtype)

@@ -102,7 +102,7 @@ class Tango:
 
         unet = build(0, lambda: UNet2DConditionModel(unet_config), unet_params)
         self.model = AudioDiffusion(unet, scheduler_config or C.SD21_SCHEDULER,
-                                    latent_t_size, latent_f_size)
+                                    latent_t_size=latent_t_size, latent_f_size=latent_f_size)
         self.vae = build(1, lambda: AutoencoderKL(vae_config), vae_params)
         if t5_config is not None:
             self.t5 = build(2, lambda: T5Encoder(t5_config), t5_params)

@@ -68,9 +68,11 @@ def _convert_leaf(path: tuple[str, ...], w: np.ndarray) -> tuple[str, np.ndarray
 def from_jax_params(params: Mapping, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
     """Flax parameter tree -> state dict of f32 CPU tensors.
 
-    `skip` lists top-level subtrees with no counterpart in the port (for the
-    VAE: "encoder" and "quant_conv"). Load the result with
-    `module.load_state_dict(sd)`, whose strict key check catches a mismatch."""
+    `skip` lists top-level subtrees the target module does not have: for the
+    VAE's decode side alone, "encoder" and "quant_conv"; a VAE built with
+    `with_encoder=True` takes the whole tree. Load the result with
+    `module.load_state_dict(sd)`, whose strict key check catches a mismatch.
+    A gradient tree converts the same way as its parameters."""
     skip = set(skip)
     out = {}
     for path, w in _flatten(params):
