@@ -6,14 +6,22 @@
 
 Phases, one short JSON line each:
   device   the card's name and power limit;
-  build    nvcc of tango_tpu_torch/csrc/*.cu into build/ (or the cached library);
+  build    nvcc of tango_tpu_torch/csrc/*.cu into build/ (or the cached library),
+           one nvcc per source, all started together, then one link;
   model    full-width Tango (TANGO_UNET, FLAN-T5-Large encoder, TANGO_VAE,
            TANGO_HIFIGAN, SD-2.1 DDPM) with seeded random bf16 weights;
   warmup   one 1-step generate (first-use costs of cuDNN and cuBLAS);
-  slice    the serving path: generate("a dog barks", steps=10) and a 3-prompt
-           generate_for_batch with batch_size=2 (tail padding), launch
-           counters and recorded shapes zeroed just before and read just
-           after: every forward kernel must have launched;
+  slice, long_clip, long_prompt
+           the serving paths, each with launch counters and recorded shapes
+           zeroed just before it and read just after, and each with its own
+           list of kernels that must have launched (PATH_KERNELS):
+           slice: generate("a dog barks", steps=10) and a 3-prompt
+           generate_for_batch with batch_size=2 (tail padding);
+           long_clip: generate(duration=20.0), 512 latent frames, 8192 tokens
+           at the UNet's first level, which take attn_fwd_v2;
+           long_prompt: generate with max_text_length = 256, whose masked
+           cross-attention takes attn_fwd_bias. Each new path is warmed up
+           by one uncounted 1-step generate first;
   per_eval launches of each kernel in one UNet evaluation;
   train_model, train
            the training path: full-width f32 SFT (TANGO_UNET with remat,
@@ -22,22 +30,26 @@ Phases, one short JSON line each:
            synthetic 10.24 s WAVs written under build/: SFTTrainer.fit with
            batch 2, accumulation 2 and max_train_steps 2 (4 micro-steps), one
            validation batch, the best checkpoint loaded back bit-equal and
-           deleted. Counters zeroed just before fit and read just after:
-           all seven kernels, forward and backward, must have launched.
-           Every loss must be finite, and the parameters must change after
-           the 2nd and 4th micro-step only;
+           deleted. Counters zeroed just before fit and read just after: the
+           seven kernels of training, forward and backward, must have
+           launched. Every loss must be finite, and the parameters must change
+           after the 2nd and 4th micro-step only;
   kernels  every kernel against its plain PyTorch version at every shape
-           either path launched it at, in f32 and bf16. Forward kernels: f32
+           any path launched it at, in f32 and bf16. Forward kernels: f32
            atol 2e-5, rtol 1e-4 (the stats partial sums rtol 1e-4 alone),
            bf16 GroupNorm atol 2e-2, rtol 2e-2 and attention atol 4e-3, rtol
-           1e-2, plus the attention extreme-logit and underflow cases.
+           1e-2, plus the attention extreme-logit cases (the static-shift
+           window and its underflow row; v2 past the window) and a fully
+           masked batch row for the bias kernel (f32 atol 1e-3 on that row).
            Backward kernels: f32 attention atol 1e-4, rtol 1e-3 and GroupNorm
            atol 2e-4, rtol 1e-3, bf16 attention 4e-3 / 1e-2 and GroupNorm
-           2e-2 / 2e-2, lse and delta 1e-4 / 1e-3. Kernel, plain and library
-           device times per call (bf16 inputs, and f32 as well for the
-           backward kernels; 10 calls captured in a CUDA graph, median of 10
-           replays between CUDA events), summed over the kernel's shapes. The
-           library yardsticks: F.group_norm(+F.silu), sdpa, and for the
+           2e-2 / 2e-2, lse and delta 1e-4 / 1e-3. Then one shape past each
+           of the wrappers' old launch limits (LIMIT_*), checked, not timed.
+           Kernel, plain and library device times per call (bf16 inputs, and
+           f32 as well for the backward kernels; 10 calls captured in a CUDA
+           graph, median of 10 replays between CUDA events), summed over the
+           kernel's shapes. The library yardsticks: F.group_norm(+F.silu),
+           sdpa (with a float mask for the bias kernel), and for the
            backward kernels aten's GroupNorm (and SiLU) backward and the
            attention backward kernels sdpa's autograd runs, called directly.
 The last three lines are the card's `nvidia-smi` name and power limit, the
@@ -72,6 +84,27 @@ PROMPT = "a dog barks"
 BATCH_PROMPTS = ["a dog barks", "rain on a tin roof", "an engine idles"]
 STEPS = 10
 DEVICE = "cuda"
+# 20.0 s -> 512 latent frames (25.6 a second, a multiple of 8): 8192 tokens at
+# the UNet's first level, over 4096 and a multiple of 512, JAX's rule for the
+# blocked-KV kernel. (20.48 s would give 528 frames, 8448 tokens: not a
+# multiple of 512, so the static-shift kernel, in JAX as here.)
+LONG_CLIP_S = 20.0
+LONG_PROMPT_TOKENS = 256
+# shapes past the wrappers' old launch limits (phase `kernels`): the UNet's
+# two-stage GroupNorm site at 35 prompts (CFG batch 70), past grid.y's 65535
+# rows; a GroupNorm of 2^31 elements, the VAE decoder's (B, 128, 1024, 64)
+# site at B = 256; attention over 70000 heads, past grid.y's 65535, at head dim 8
+LIMIT_ROWS_SHAPE = (70, 960, 256, 16)
+LIMIT_GN_SHAPE = (256, 128, 1024, 64)
+LIMIT_HEADS = 70000
+# the kernels each counted path must launch
+PATH_KERNELS = {
+    "serve": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd"),
+    "long_clip": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd", "attn_fwd_v2"),
+    "long_prompt": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd", "attn_fwd_bias"),
+    "train": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd", "attn_bwd_dq",
+              "attn_bwd_dkv", "gn_silu_bwd"),
+}
 
 
 def log(phase: str, **kw) -> None:
@@ -197,7 +230,9 @@ def check_kernels(ops, shapes: dict, detail: bool):
     from tango_tpu_torch.ops.flash_attention import (
         attn_bwd_dkv_plain,
         attn_bwd_dq_plain,
+        attn_fwd_bias_plain,
         attn_fwd_plain,
+        attn_fwd_v2_plain,
     )
     from tango_tpu_torch.ops.gn_silu import (
         gn_apply_plain,
@@ -314,6 +349,85 @@ def check_kernels(ops, shapes: dict, detail: bool):
                 cases["attn_fwd"].add_err(tag, assert_close(
                     out, ref, atol, rtol, f"attn_fwd extreme logits {sign} {tag}"))
 
+    # ---- the long-clip and long-prompt forward kernels
+    for qshape, kshape in sorted(shapes["attn_fwd_v2"], key=str):
+        bh, sq, d = qshape
+        skv = kshape[1]
+        scale = d**-0.5
+        for tag, dt in dtypes.items():
+            q, k, v = (randn(*s, dtype=dt) for s in (qshape, kshape, kshape))
+            out = K["attn_fwd_v2"](q, k, v, scale)
+            ref = attn_fwd_v2_plain(q, k, v, scale)
+            cases["attn_fwd_v2"].add_err(tag, assert_close(out, ref, *attn_tol[tag],
+                                                           f"attn_fwd_v2 {qshape} {tag}"))
+        q4, k4, v4 = (t.reshape(1, bh, -1, d) for t in (q, k, v))
+        cases["attn_fwd_v2"].add_time(
+            cuda_ms(lambda: K["attn_fwd_v2"](q, k, v, scale)),
+            cuda_ms(lambda: attn_fwd_v2_plain(q, k, v, scale)),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
+            *bound_ms(2 * (2 * bh * sq * d + 2 * bh * skv * d), 4 * bh * sq * skv * d,
+                      BF16_FLOPS),
+            [qshape, kshape])
+
+    for qshape, kshape, bshape in sorted(shapes["attn_fwd_bias"], key=str):
+        bh, sq, d = qshape
+        skv = kshape[1]
+        nb, rows = bshape[0], bshape[1]
+        heads = bh // nb
+        scale = d**-0.5
+        # the padding bias of a short prompt in a 256-token context: the first
+        # few keys open, a different number in each batch row
+        keep = torch.arange(nb, device=dev)[:, None, None] * 3 + 4
+        bias = torch.where(torch.arange(skv, device=dev)[None, None, :] < keep, 0.0,
+                           -10000.0).expand(nb, rows, skv).contiguous()
+        for tag, dt in dtypes.items():
+            q, k, v = (randn(*s, dtype=dt) for s in (qshape, kshape, kshape))
+            out = K["attn_fwd_bias"](q, k, v, bias, heads, scale)
+            ref = attn_fwd_bias_plain(q, k, v, bias, heads, scale)
+            cases["attn_fwd_bias"].add_err(tag, assert_close(
+                out, ref, *attn_tol[tag], f"attn_fwd_bias {qshape} {kshape} {tag}"))
+        q4, k4, v4 = (t.reshape(nb, heads, -1, d) for t in (q, k, v))
+        mask4 = bias[:, None].to(q.dtype)  # sdpa takes a float mask of q's type
+        cases["attn_fwd_bias"].add_time(
+            cuda_ms(lambda: K["attn_fwd_bias"](q, k, v, bias, heads, scale)),
+            cuda_ms(lambda: attn_fwd_bias_plain(q, k, v, bias, heads, scale)),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4,
+                                                           scale=scale)),
+            *bound_ms(2 * (2 * bh * sq * d + 2 * bh * skv * d) + 4 * nb * rows * skv,
+                      4 * bh * sq * skv * d, BF16_FLOPS),
+            [qshape, kshape, bshape])
+
+    # JAX's extreme-logit case for v2 (row maxes near natural +100, past the
+    # static-shift window): the kernel stays exact; and a batch row whose keys
+    # are all masked for the bias kernel: finite. Its base-2 logits sit near
+    # -14427, where an f32 keeps 2^-10 of absolute precision, so p carries up
+    # to ~7e-4 of relative rounding in the kernel and in its plain version
+    # alike: atol 1e-3 on that row (the other row at the usual limits).
+    for tag, dt in dtypes.items():
+        u = randn(64)
+        u = u / u.norm()
+        cq = 2.0 + 0.2 * torch.rand(128, 1, generator=gen, device=dev)
+        ck = 380.0 + 8.0 * torch.rand(256, 1, generator=gen, device=dev)
+        q = (cq * u + 0.01 * randn(128, 64))[None].to(dt)
+        k = (ck * u + 0.01 * randn(256, 64))[None].to(dt)
+        v = randn(1, 256, 64, dtype=dt)
+        out = K["attn_fwd_v2"](q, k, v, 0.125)
+        ref = attn_fwd_v2_plain(q, k, v, 0.125)
+        atol, rtol = (5e-5, 1e-3) if tag == "f32" else attn_tol[tag]
+        cases["attn_fwd_v2"].add_err(tag, assert_close(out, ref, atol, rtol,
+                                                       f"attn_fwd_v2 extreme logits {tag}"))
+        q, k, v = (randn(8, 256, 64, dtype=dt) for _ in range(3))
+        bias = torch.zeros(2, 1, 256, device=dev)
+        bias[0, :, 5:] = -10000.0
+        bias[1] = -10000.0
+        out = K["attn_fwd_bias"](q, k, v, bias, 4, 0.125)
+        ref = attn_fwd_bias_plain(q, k, v, bias, 4, 0.125)
+        cases["attn_fwd_bias"].add_err(tag, assert_close(
+            out[:4], ref[:4], *attn_tol[tag], f"attn_fwd_bias masked row {tag}"))
+        assert_close(out[4:], ref[4:], 1e-3 if tag == "f32" else attn_tol[tag][0],
+                     0.0 if tag == "f32" else attn_tol[tag][1],
+                     f"attn_fwd_bias all-masked row {tag}")
+
     # ---- the backward kernels, at the shapes of the training path
     # f32 at the JAX backward tests' limits (tests/test_flash_attention.py:156,
     # tests/test_gn_pallas.py:90); bf16 from the readings in PERF.md: one bf16
@@ -391,11 +505,114 @@ def check_kernels(ops, shapes: dict, detail: bool):
                 cuda_ms(lib), *bound_ms(3 * n * x.element_size(), 24 * n, F32_FLOPS),
                 [shape, groups, act])
 
+    limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol)
     if detail:
         for case in cases.values():
             for row in case.detail:
                 log("kernel_shape", name=case.name, **row)
     return cases
+
+
+def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
+    """Each kernel at one shape past the launch limits the port's wrappers
+    used to have (a grid.y of 65535 rows or heads, 2^31 elements): checked
+    against the plain version, not timed (no path launches these shapes)."""
+    from tango_tpu_torch.ops.flash_attention import (
+        attn_bwd_dkv_plain,
+        attn_bwd_dq_plain,
+        attn_fwd_bias_plain,
+        attn_fwd_plain,
+        attn_fwd_v2_plain,
+    )
+    from tango_tpu_torch.ops.gn_silu import (
+        gn_apply_plain,
+        gn_silu_bwd_plain,
+        gn_silu_fwd_plain,
+        gn_stats_plain,
+        n_chunks,
+    )
+
+    bf16 = torch.bfloat16
+    # LIMIT_ROWS_SHAPE: gn_apply's B*C rows and gn_stats' B*G*chunks blocks
+    nb, c, h, w = LIMIT_ROWS_SHAPE
+    x = randn(nb, c, h, w, dtype=bf16, scale=2.0, loc=0.5)
+    chunks = n_chunks(h * w)
+    cases["gn_stats"].add_err("bf16", assert_close(
+        K["gn_stats"](x, 32, chunks), gn_stats_plain(x, 32, chunks), 0.0, 1e-4,
+        f"gn_stats {LIMIT_ROWS_SHAPE}"))
+    a, b = randn(nb, c, scale=0.3, loc=1.0), randn(nb, c, scale=0.1)
+    cases["gn_apply"].add_err("bf16", assert_close(
+        K["gn_apply"](x, a, b, "silu"), gn_apply_plain(x, a, b, "silu"), *tol["bf16"],
+        f"gn_apply {LIMIT_ROWS_SHAPE}"))
+    del x
+
+    # LIMIT_GN_SHAPE in bf16 through the two-stage kernels, and the same bytes
+    # as (4B, C, H/4, W) (an 8 MB f32 sample at the full shape) through the
+    # single pass and the backward. The plain versions run 16 samples at a
+    # time; GroupNorm is per sample.
+    nb, c, h, w = LIMIT_GN_SHAPE
+    x = randn(nb, c, h, w, dtype=bf16, scale=2.0, loc=0.5)
+    chunks = n_chunks(h * w)
+    gam, bet = randn(c, scale=0.2, loc=1.0), randn(c, scale=0.1)
+    a, b = randn(nb, c, scale=0.3, loc=1.0), randn(nb, c, scale=0.1)
+
+    def sliced(out, plain, n, atol, rtol, what):
+        return max(assert_close(out[i:i + 16], plain(i), atol, rtol, what)
+                   for i in range(0, n, 16))
+
+    cases["gn_stats"].add_err("bf16", sliced(
+        K["gn_stats"](x, 32, chunks), lambda i: gn_stats_plain(x[i:i + 16], 32, chunks), nb,
+        0.0, 1e-4, f"gn_stats {LIMIT_GN_SHAPE}"))
+    cases["gn_apply"].add_err("bf16", sliced(
+        K["gn_apply"](x, a, b, "silu"),
+        lambda i: gn_apply_plain(x[i:i + 16], a[i:i + 16], b[i:i + 16], "silu"), nb,
+        *tol["bf16"], f"gn_apply {LIMIT_GN_SHAPE}"))
+    xs = x.view(4 * nb, c, h // 4, w)
+    cases["gn_silu_fwd"].add_err("bf16", sliced(
+        K["gn_silu_fwd"](xs, gam, bet, 32, 1e-5, "silu"),
+        lambda i: gn_silu_fwd_plain(xs[i:i + 16], gam, bet, 32, 1e-5, "silu"), 4 * nb,
+        *tol["bf16"], f"gn_silu_fwd {tuple(xs.shape)}"))
+    dx, dgam, dbet = K["gn_silu_bwd"](xs, xs, gam, bet, 32, 1e-5, "silu")
+    parts = [gn_silu_bwd_plain(xs[i:i + 16], xs[i:i + 16], gam, bet, 32, 1e-5, "silu")
+             for i in range(0, 4 * nb, 16)]
+    what = f"gn_silu_bwd {tuple(xs.shape)}"
+    cases["gn_silu_bwd"].add_err("bf16", max(
+        assert_close(dx[i * 16:(i + 1) * 16], p[0], *gn_bwd_tol["bf16"], f"{what} dx")
+        for i, p in enumerate(parts)))
+    # the per-channel sums over B*H*W elements (2^24 at the full shape, up to
+    # ~10^7): relative limits, and left out of the absolute error reported
+    assert_close(dgam, sum(p[1] for p in parts), 0.0, 1e-3, f"{what} dgamma")
+    assert_close(dbet, sum(p[2] for p in parts), 0.0, 1e-3, f"{what} dbeta")
+    del x, xs, dx, parts
+    torch.cuda.empty_cache()
+
+    # LIMIT_HEADS heads of 64 tokens at head dim 8 (the smallest the kernels
+    # take, which no main-path shape uses), f32, every attention kernel
+    bh, s, d = LIMIT_HEADS, 64, 8
+    q, k, v, do = (randn(bh, s, d) for _ in range(4))
+    cases["attn_fwd"].add_err("f32", assert_close(
+        K["attn_fwd"](q, k, v, d**-0.5), attn_fwd_plain(q, k, v, d**-0.5), *attn_tol["f32"],
+        f"attn_fwd {bh} heads"))
+    cases["attn_fwd_v2"].add_err("f32", assert_close(
+        K["attn_fwd_v2"](q, k, v, d**-0.5), attn_fwd_v2_plain(q, k, v, d**-0.5),
+        *attn_tol["f32"], f"attn_fwd_v2 {bh} heads"))
+    bias = torch.where(torch.arange(s, device=q.device) < 40, 0.0, -10000.0)
+    bias = bias.expand(bh // 2, 1, s).contiguous()
+    cases["attn_fwd_bias"].add_err("f32", assert_close(
+        K["attn_fwd_bias"](q, k, v, bias, 2, d**-0.5),
+        attn_fwd_bias_plain(q, k, v, bias, 2, d**-0.5), *attn_tol["f32"],
+        f"attn_fwd_bias {bh} heads"))
+    dq, lse, delta = K["attn_bwd_dq"](q, k, v, do, d**-0.5)
+    rq, rl, rd = attn_bwd_dq_plain(q, k, v, do, d**-0.5)
+    cases["attn_bwd_dq"].add_err("f32", max(
+        assert_close(dq, rq, *attn_bwd_tol["f32"], f"attn_bwd_dq {bh} heads"),
+        assert_close(lse, rl, 1e-4, 1e-3, f"attn_bwd_dq lse {bh} heads"),
+        assert_close(delta, rd, 1e-4, 1e-3, f"attn_bwd_dq delta {bh} heads")))
+    dk, dv = K["attn_bwd_dkv"](q, k, v, do, lse, delta, d**-0.5)
+    rk, rv = attn_bwd_dkv_plain(q, k, v, do, lse, delta, d**-0.5)
+    cases["attn_bwd_dkv"].add_err("f32", max(
+        assert_close(dk, rk, *attn_bwd_tol["f32"], f"attn_bwd_dkv dk {bh} heads"),
+        assert_close(dv, rv, *attn_bwd_tol["f32"], f"attn_bwd_dkv dv {bh} heads")))
 
 
 def write_wavs(root: str, n: int, seconds: float, seed: int) -> str:
@@ -525,7 +742,7 @@ def train_phase(C, ops) -> tuple[dict, dict]:
         problems.append("the best checkpoint does not load back bit-equal")
     del best
     shutil.rmtree(root)
-    idle = [n for n, c in launches.items() if c == 0]
+    idle = [n for n in PATH_KERNELS["train"] if launches[n] == 0]
     if idle:
         problems.append(f"kernels never launched on the training path: {idle}")
     log("train", fit_s=round(fit_s, 3), micro_steps=len(micro),
@@ -580,8 +797,8 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     log("warmup", seconds=round(time.perf_counter() - t0, 3))
 
-    # ---- the serving path, counted
-    checks = {"latents_finite": True, "mel_finite": True}
+    # ---- the serving paths, each counted on its own
+    checks = {}
     sample_times = {}  # CFG batch of the UNet -> [seconds, steps]
     decode, sample = tango.decode, tango.model.sample
 
@@ -601,42 +818,80 @@ def main(argv) -> int:
         rec[1] += kw["num_steps"]
         return out
 
-    tango.decode, tango.model.sample = checked_decode, timed_sample
-    ops.reset_counters()
-    t0 = time.perf_counter()
-    wav = tango.generate(PROMPT, steps=STEPS, guidance=3.0, seed=0)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    wavs = tango.generate_for_batch(BATCH_PROMPTS, steps=STEPS, batch_size=2, seed=0)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    serve_launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
-    shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
-    tango.decode, tango.model.sample = decode, sample
+    def counted(path, drive, expect_len, phase=None):
+        """Zero the counters, run `drive` (-> waveforms, seconds by call), read
+        the counters; check the waveforms and that the path's kernels ran; log
+        it as `phase` (the path's name by default)."""
+        checks.update(latents_finite=True, mel_finite=True)
+        sample_times.clear()
+        ops.reset_counters()
+        outs, seconds = drive()
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
+        shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
+        problems = []
+        for w in outs:
+            if w.dtype.name != "int16" or w.shape != (expect_len,):
+                problems.append(f"waveform {w.dtype} {w.shape}, expected int16 ({expect_len},)")
+            if int(abs(w.astype("int32")).max()) == 0:
+                problems.append("a silent waveform")
+        if not all(checks.values()):
+            problems.append(f"non-finite values: {checks}")
+        idle = [n for n in PATH_KERNELS[path] if launches[n] == 0]
+        if idle:
+            problems.append(f"kernels never launched on the {path} path: {idle}")
+        log(phase or path, **{f"{k}_s": round(v, 3) for k, v in seconds.items()},
+            ms_per_unet_step={f"cfg_batch_{b}": round(1e3 * t / n, 3)
+                              for b, (t, n) in sorted(sample_times.items())},
+            launches=launches, shapes={n: len(v) for n, v in shapes.items()},
+            wav_len=expect_len, peak=[int(abs(w.astype("int32")).max()) for w in outs],
+            problems=problems)
+        if problems:
+            raise AssertionError("; ".join(problems))
+        return launches, shapes
 
-    expect_len = tango.model.latent_t_size * 4 * 160 + 32  # 4x VAE, x160 vocoder, +32 edge
-    outs = [wav] + list(wavs)
-    problems = []
-    if len(wavs) != len(BATCH_PROMPTS):
-        problems.append(f"{len(wavs)} waveforms for {len(BATCH_PROMPTS)} prompts")
-    for w in outs:
-        if w.dtype.name != "int16" or w.shape != (expect_len,):
-            problems.append(f"waveform {w.dtype} {w.shape}, expected int16 ({expect_len},)")
-        if int(abs(w.astype("int32")).max()) == 0:
-            problems.append("a silent waveform")
-    if not (checks["latents_finite"] and checks["mel_finite"]):
-        problems.append(f"non-finite values: {checks}")
-    idle = [n for n in ops.KERNELS if serve_launches[n] == 0]
-    if idle:
-        problems.append(f"kernels never launched on the serving path: {idle}")
-    log("slice", generate_s=round(t1 - t0, 3), generate_for_batch_s=round(t2 - t1, 3),
-        ms_per_unet_step={f"cfg_batch_{b}": round(1e3 * s / n, 3)
-                          for b, (s, n) in sorted(sample_times.items())},
-        launches=serve_launches, shapes={n: len(v) for n, v in shapes.items()},
-        wav_len=expect_len,
-        peak=[int(abs(w.astype("int32")).max()) for w in outs], problems=problems)
-    if problems:
-        raise AssertionError("; ".join(problems))
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def serve():
+        wav, t_gen = timed(lambda: tango.generate(PROMPT, steps=STEPS, guidance=3.0, seed=0))
+        wavs, t_batch = timed(lambda: tango.generate_for_batch(BATCH_PROMPTS, steps=STEPS,
+                                                               batch_size=2, seed=0))
+        if len(wavs) != len(BATCH_PROMPTS):
+            raise AssertionError(f"{len(wavs)} waveforms for {len(BATCH_PROMPTS)} prompts")
+        return [wav] + list(wavs), {"generate": t_gen, "generate_for_batch": t_batch}
+
+    def long_clip():
+        wav, t_gen = timed(lambda: tango.generate(PROMPT, steps=STEPS, duration=LONG_CLIP_S,
+                                                  seed=0))
+        return [wav], {"generate": t_gen}
+
+    def long_prompt():
+        wav, t_gen = timed(lambda: tango.generate(PROMPT, steps=STEPS, seed=0))
+        return [wav], {"generate": t_gen}
+
+    frames = tango.model.latent_t_size
+    # 4x VAE, x160 vocoder, +32 samples of the vocoder's transposed-conv edge
+    wav_len = lambda latent_t: latent_t * 4 * 160 + 32  # noqa: E731
+    factor = 2 ** (len(tango.model.unet_config.block_out_channels) - 1)
+    long_t = factor * max(round(LONG_CLIP_S * 25.6 / factor), 1)  # as Tango.generate
+    tango.decode, tango.model.sample = checked_decode, timed_sample
+    by_path = {"serve": counted("serve", serve, wav_len(frames), phase="slice")}
+    # one uncounted step at each new shape first: cuDNN's and cuBLAS's first use
+    tango.generate("warm up", steps=1, duration=LONG_CLIP_S, seed=1)
+    by_path["long_clip"] = counted("long_clip", long_clip, wav_len(long_t))
+    tango.max_text_length = LONG_PROMPT_TOKENS
+    tango.generate("warm up", steps=1, seed=1)
+    by_path["long_prompt"] = counted("long_prompt", long_prompt, wav_len(frames))
+    tango.max_text_length = 128
+    tango.decode, tango.model.sample = decode, sample
+    shapes = {n: set() for n in ops.all_kernels()}
+    for _, path_shapes in by_path.values():
+        for n, v in path_shapes.items():
+            shapes[n] |= v
 
     # ---- launches in one UNet evaluation (CFG batch of one prompt)
     unet, m = tango.model.unet, tango.model
@@ -654,9 +909,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # ---- the training path, counted
-    train_launches, train_shapes = train_phase(C, ops)
-    launches = {n: serve_launches[n] + train_launches[n] for n in ops.all_kernels()}
-    for n, v in train_shapes.items():
+    by_path["train"] = train_phase(C, ops)
+    launches = {n: sum(p[0][n] for p in by_path.values()) for n in ops.all_kernels()}
+    for n, v in by_path["train"][1].items():
         shapes[n] |= v
 
     t0 = time.perf_counter()
@@ -672,7 +927,7 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": kernels[n].source,
          "replaces": kernels[n].replaces, "launches": launches[n],
-         "launches_by_path": {"serve": serve_launches[n], "train": train_launches[n]},
+         "launches_by_path": {p: v[0][n] for p, v in by_path.items()},
          "max_abs_err": max(c.err.values()), "ms": c.ms, "plain_ms": c.plain_ms,
          "bound_ms": c.bound, "bound_by": c.bound_by, "library_ms": c.library_ms}
         for n, c in cases.items()]}), flush=True)

@@ -25,25 +25,68 @@ from tango_tpu_torch.audio.stft import normalize_wav, pad_wav
 UNPORTED_FORMATS = ("flac", "mp3", "ogg", "opus", "aiff")
 
 
+def _is_mpeg_sync(b0: int, b1: int) -> bool:
+    # frame sync + non-reserved layer bits (Layer I/II/III), any MPEG
+    # version, CRC or not
+    return b0 == 0xFF and (b1 & 0xE0) == 0xE0 and (b1 & 0x06) != 0
+
+
 def sniff_format(path: str) -> str:
-    """'wav', one of UNPORTED_FORMATS, or 'unknown' by the file's magic bytes."""
+    """'wav' | 'flac' | 'mp3' | 'ogg' (vorbis) | 'opus' | 'aiff' | a short
+    description of an unsupported format, by the file's magic bytes: the
+    rule of tango_tpu/audio/wav.py:sniff_format, copied."""
     with open(path, "rb") as f:
-        head = f.read(64)
+        head = f.read(16)
     if head[:4] == b"RIFF" and head[8:12] == b"WAVE":
         return "wav"
     if head[:4] == b"fLaC":
         return "flac"
-    if head[:3] == b"ID3" or (len(head) >= 2 and head[0] == 0xFF and (head[1] & 0xE0) == 0xE0):
-        return "mp3"
+    if head[:3] == b"ID3":
+        if len(head) < 10:
+            return "truncated ID3 header (unsupported)"
+        # ID3 tags prefix both mp3 and (rarely) FLAC: peek past the tag
+        # (10-byte header + 28-bit syncsafe size + optional 10-byte footer)
+        size = (
+            ((head[6] & 0x7F) << 21) | ((head[7] & 0x7F) << 14)
+            | ((head[8] & 0x7F) << 7) | (head[9] & 0x7F)
+        )
+        if head[5] & 0x10:  # ID3v2.4 footer present flag
+            size += 10
+        with open(path, "rb") as f:
+            f.seek(10 + size)
+            magic = f.read(4)
+        if magic == b"fLaC":
+            return "flac"
+        if len(magic) >= 2 and _is_mpeg_sync(magic[0], magic[1]):
+            return "mp3"
+        return "non-MPEG audio with ID3 tag (unsupported — transcode to wav/flac/mp3/ogg-vorbis)"
+    if len(head) >= 2 and head[0] == 0xFF and (head[1] & 0xE0) == 0xE0:
+        if _is_mpeg_sync(head[0], head[1]):
+            return "mp3"
+        return "MPEG stream with reserved layer bits (unsupported — transcode to wav/flac/mp3/ogg-vorbis)"
     if head[:4] == b"OggS":
-        return "opus" if b"OpusHead" in head else "ogg"
-    if head[:4] == b"FORM" and head[8:12] in (b"AIFF", b"AIFC"):
-        return "aiff"
-    return "unknown"
+        # peek the first packet of the first page to identify the codec
+        with open(path, "rb") as f:
+            first = f.read(27 + 255 + 8)
+        if len(first) < 28:
+            return "truncated ogg page (unsupported)"
+        nsegs = first[26]
+        body = first[27 + nsegs : 27 + nsegs + 8]
+        if body[:7] == b"\x01vorbis":
+            return "ogg"
+        if body[:8] == b"OpusHead":
+            return "opus"
+        return "ogg container with unknown codec (unsupported — transcode to wav/flac/mp3/ogg-vorbis/opus)"
+    if head[:4] == b"FORM":
+        if head[8:12] in (b"AIFF", b"AIFC"):
+            return "aiff"
+        return f"IFF FORM type {head[8:12]!r} (unsupported)"
+    return f"unknown format (magic {head[:4]!r})"
 
 
 def check_decodable(path: str) -> str:
-    """The file's format; NotImplementedError for one whose decoder is not ported."""
+    """The file's format (`sniff_format`); NotImplementedError for one whose
+    decoder is not ported."""
     fmt = sniff_format(path)
     if fmt in UNPORTED_FORMATS:
         raise NotImplementedError(

@@ -42,7 +42,8 @@
 // owns rows ty and ty+32 of the block's 64 and columns tx+8j of a tile
 // (logit columns) or of D (accumulator columns). Ragged edges are masked:
 // keys past Skv get p = 0 in dq, queries past Sq get p = 0 in dkv, and rows
-// past the end are not stored.
+// past the end are not stored. The (b*h, row tile) blocks are flattened onto
+// grid.x, so BH has no 65535 cap; element offsets are 64-bit.
 
 #include <math_constants.h>
 
@@ -131,8 +132,9 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
   const int tid = threadIdx.x;
   const int ty = tid >> 3, tx = tid & 7;
-  const int q0 = blockIdx.x * kRows;
-  const int64_t head = blockIdx.y;
+  const int tiles = (Sq + kRows - 1) / kRows;  // (b*h, row tile) flattened onto grid.x
+  const int64_t head = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x % tiles) * kRows;
   const T* kh = k + head * Skv * D;
   const T* vh = v + head * Skv * D;
   load_rows<T, D>(Qs, q + head * Sq * D, q0, kRows, Sq);
@@ -245,8 +247,9 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   const int tid = threadIdx.x;
   const int ty = tid >> 3, tx = tid & 7;
-  const int k0 = blockIdx.x * kRows;
-  const int64_t head = blockIdx.y;
+  const int tiles = (Skv + kRows - 1) / kRows;  // (b*h, row tile) flattened onto grid.x
+  const int64_t head = blockIdx.x / tiles;
+  const int k0 = (blockIdx.x % tiles) * kRows;
   const T* qh = q + head * Sq * D;
   const T* doh = dout + head * Sq * D;
   load_rows<T, D>(Ks, k + head * Skv * D, k0, kRows, Skv);
@@ -325,7 +328,9 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   constexpr size_t smem = dq_smem_bytes<D>();
   cudaError_t e = allow_smem(attn_bwd_dq_kernel<T, D>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((Sq + kRows - 1) / kRows, BH);
+  const int64_t blocks = (int64_t)BH * ((Sq + kRows - 1) / kRows);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)blocks);
   attn_bwd_dq_kernel<T, D><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<T*>(dq), lse, delta, Sq, Skv, scale);
@@ -339,7 +344,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   constexpr size_t smem = dkv_smem_bytes<D>();
   cudaError_t e = allow_smem(attn_bwd_dkv_kernel<T, D>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((Skv + kRows - 1) / kRows, BH);
+  const int64_t blocks = (int64_t)BH * ((Skv + kRows - 1) / kRows);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)blocks);
   attn_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Sq,
@@ -352,6 +359,7 @@ cudaError_t dispatch_dq(const void* q, const void* k, const void* v, const void*
                         float* lse, float* delta, int BH, int Sq, int Skv, int D, float scale,
                         cudaStream_t st) {
   switch (D) {
+    case 8: return launch_dq<T, 8>(q, k, v, dout, dq, lse, delta, BH, Sq, Skv, scale, st);
     case 16: return launch_dq<T, 16>(q, k, v, dout, dq, lse, delta, BH, Sq, Skv, scale, st);
     case 32: return launch_dq<T, 32>(q, k, v, dout, dq, lse, delta, BH, Sq, Skv, scale, st);
     case 64: return launch_dq<T, 64>(q, k, v, dout, dq, lse, delta, BH, Sq, Skv, scale, st);
@@ -365,6 +373,7 @@ cudaError_t dispatch_dkv(const void* q, const void* k, const void* v, const void
                          const float* lse, const float* delta, void* dk, void* dv, int BH,
                          int Sq, int Skv, int D, float scale, cudaStream_t st) {
   switch (D) {
+    case 8: return launch_dkv<T, 8>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Skv, scale, st);
     case 16: return launch_dkv<T, 16>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Skv, scale, st);
     case 32: return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Skv, scale, st);
     case 64: return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Skv, scale, st);

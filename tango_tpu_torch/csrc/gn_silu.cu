@@ -22,7 +22,11 @@
 // gn_stats / gn_apply: the two-stage form for large maps. gn_stats writes
 // per-(batch, group, chunk) partial sums; the caller combines them into
 // per-channel a, b (tiny torch ops, as the combine was XLA in JAX); gn_apply
-// streams y = x*a + b (+SiLU) over a (rows, B*C) grid.
+// streams y = x*a + b (+SiLU) over a (B*C, blocks a row) grid.
+//
+// Limits: every element offset is 64-bit, and every grid puts its large
+// extent (B*G, B*G*chunks, B*C) on grid.x, so a tensor may hold 2^31 elements
+// or more; only B, C, HW and those block counts are 32-bit (below 2^31).
 //
 // gn_bwd: one block per (batch, group) again, streaming the group from device
 // memory (the Pallas kernel held a whole sample in VMEM, hence its 8 MB
@@ -167,36 +171,40 @@ gn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-// grid (chunks, B*G): block (k, bg) sums chunk k of group bg into
-// parts[(bg*chunks + k)*2 + {0: sum, 1: sum of squares}].
+// grid (B*G*chunks): block bg*chunks + k sums chunk k of group bg into
+// parts[(bg*chunks + k)*2 + {0: sum, 1: sum of squares}]. One flat grid.x
+// (up to 2^31 - 1 blocks): grid.y would cap B*G at 65535.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kStatsThreads)
 gn_stats_kernel(const T* __restrict__ x, float* __restrict__ parts, int C, int HW, int G,
                 int chunks) {
-  const int k = blockIdx.x, bg = blockIdx.y;
-  const int b = bg / G, g = bg % G;
+  const int64_t bg = blockIdx.x / chunks;
+  const int k = blockIdx.x % chunks;
+  const int64_t b = bg / G;
+  const int g = bg % G;
   const int cg = C / G;
   const int64_t len = (int64_t)cg * HW / chunks;
-  const int64_t base = ((int64_t)b * C + (int64_t)g * cg) * HW + (int64_t)k * len;
+  const int64_t base = (b * C + (int64_t)g * cg) * HW + (int64_t)k * len;
   float s = 0.0f, ss = 0.0f;
   partial_sums<T, VEC>(x + base, len, s, ss);
   block_sum2<kStatsThreads>(s, ss);
   if (threadIdx.x == 0) {
-    parts[((int64_t)bg * chunks + k) * 2 + 0] = s;
-    parts[((int64_t)bg * chunks + k) * 2 + 1] = ss;
+    parts[(int64_t)blockIdx.x * 2 + 0] = s;
+    parts[(int64_t)blockIdx.x * 2 + 1] = ss;
   }
 }
 
-// grid (x-blocks, B*C): row bc of HW elements, y = act(x*a[bc] + b[bc]).
+// grid (B*C, x-blocks): row bc of HW elements, y = act(x*a[bc] + b[bc]). The
+// rows go on grid.x (up to 2^31 - 1), the few blocks a row on grid.y.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kApplyThreads)
 gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
                 const float* __restrict__ bcoef, T* __restrict__ y, int HW, int act) {
-  const int64_t row = blockIdx.y;
+  const int64_t row = blockIdx.x;
   const int64_t off = row * HW;
   affine_row<T, VEC>(x + off, y + off, HW, a[row], bcoef[row], act,
-                     (int64_t)blockIdx.x * blockDim.x + threadIdx.x,
-                     (int64_t)gridDim.x * blockDim.x);
+                     (int64_t)blockIdx.y * blockDim.x + threadIdx.x,
+                     (int64_t)gridDim.y * blockDim.x);
 }
 
 // d(act(y))/dy * g with y = xhat*gamma + beta: g * silu'(y) on the SiLU route.
@@ -338,7 +346,7 @@ template <typename T>
 void launch_stats(const void* x, float* parts, int B, int C, int HW, int G, int chunks,
                   cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
-  dim3 grid(chunks, B * G);
+  dim3 grid((unsigned)((int64_t)B * G * chunks));
   // a chunk starts at k * (C/G)*HW/chunks elements: packets line up when
   // that length is a whole number of packets
   const int64_t len = (int64_t)(C / G) * HW / chunks;
@@ -357,7 +365,7 @@ void launch_apply(const void* x, const float* a, const float* b, void* y, int B,
   const int per_block = kApplyThreads * (vec ? Pack<T>::N : 1);
   int xblocks = (HW + per_block - 1) / per_block;
   if (xblocks > 64) xblocks = 64;  // each thread then loops over the row
-  dim3 grid(xblocks, B * C);
+  dim3 grid((unsigned)((int64_t)B * C), xblocks);
   if (vec)
     gn_apply_kernel<T, true><<<grid, kApplyThreads, 0, st>>>(xt, a, b, yt, HW, act);
   else

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` sources compile in ONE `nvcc` call into a shared library with
-a plain C interface, loaded with `ctypes` (no PyTorch headers: the build takes
+Each `csrc/*.cu` source compiles in its own `nvcc` process, all started
+together, and one more `nvcc` links the objects into a shared library with a
+plain C interface, loaded with `ctypes` (no PyTorch headers: the build takes
 seconds, not minutes). The library lands in `build/` at the repository root
 under a name that carries the hash of the sources and flags, so a second run
 reuses it. Nothing here runs at import time: the library is built on first
@@ -22,7 +23,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "tt_gn_silu_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, o, BH, Sq, Skv, D, qscale, dtype, stream
     "tt_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "tt_attn_fwd_v2": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, bias, o, BH, Sq, Skv, D, heads, bias rows, qscale, dtype, stream
+    "tt_attn_fwd_bias": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, do, dq, lse, delta, BH, Sq, Skv, D, scale, dtype, stream
     "tt_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, do, lse, delta, dk, dv, BH, Sq, Skv, D, scale, dtype, stream
@@ -76,6 +80,38 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libtango_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile(path: pathlib.Path) -> None:
+    """One nvcc per source, all started together (each writes its output to a
+    log file, so none blocks on a full pipe), then one nvcc to link."""
+    nvcc = _nvcc()
+    tmpdir = path.with_suffix(f".{os.getpid()}.d")
+    tmpdir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    try:
+        for src in sorted(CSRC.glob("*.cu")):
+            obj, log = tmpdir / f"{src.stem}.o", tmpdir / f"{src.stem}.log"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            with open(log, "w") as f:
+                jobs.append((cmd, obj, log, subprocess.Popen(cmd, stdout=f, stderr=f)))
+        for cmd, _, log, proc in jobs:
+            if proc.wait() != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                                   f"{log.read_text()}")
+        tmp = tmpdir / "lib.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(j[1]) for j in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
+    finally:
+        for *_, proc in jobs:  # after a failure, stop the compilers still running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
 def load() -> ctypes.CDLL:
     """Return the kernel library, building it first if no cached copy exists."""
     global _lib
@@ -88,16 +124,7 @@ def load() -> ctypes.CDLL:
         t0 = time.perf_counter()
         reused = path.exists()
         if not reused:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
+            _compile(path)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

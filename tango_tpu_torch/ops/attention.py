@@ -5,22 +5,38 @@ Semantics: scale = dim_head ** -0.5; an optional additive f32 bias of shape
 the logits and softmax are f32.
 
 Dispatch keeps the JAX eligibility rule (tango_tpu/ops/attention.py:55-65):
-Sq >= 256, D % 8 == 0, and no bias or Skv >= 256. Bias-free eligible calls
-go to `flash_attention`, an autograd Function (`_flash_with_vjp` of
-tango_tpu/ops/attention.py:82-119): its forward is the `attn_fwd` kernel, it
-saves q, k and v only, and its backward runs the `attn_bwd_dq` and
-`attn_bwd_dkv` kernels where `flash_bwd_supported` holds, else autograd
-through `plain_attention`, as JAX falls back to the XLA VJP. A biased call with Skv >= 256 would take
-`_attn_kernel_bias` in JAX, which is not ported yet (ROADMAP queue B #4): it
-runs `plain_attention` here. Everything else is `plain_attention`, as it is
-XLA in JAX: cross-attention to 128 text tokens and the 64-token mid level.
+Sq >= 256, D % 8 == 0, and no bias or Skv >= 256; the port adds the
+kernels' own limits (`kernel_shape_ok`: D in {8, 16, 32, 64, 128}, the grid's
+32-bit block count), so that a wrapper is never handed a shape it raises on.
+An eligible call goes through an autograd Function, as `_flash_with_vjp` of
+tango_tpu/ops/attention.py:82-119:
+  * bias-free: the forward is `attn_fwd_v2` where JAX takes
+    `flash_attention_v2` (`v2_route`: Skv > 4096, Skv % 512 == 0,
+    Sq % 128 == 0), else `attn_fwd`; it saves q, k and v only, and its
+    backward runs the `attn_bwd_dq` and `attn_bwd_dkv` kernels where
+    `flash_bwd_supported` holds, else autograd through `plain_attention`, as
+    JAX falls back to the XLA VJP;
+  * biased (a padded text context of 256 tokens or more): the forward is
+    `attn_fwd_bias`, and the backward is autograd through `plain_attention`
+    with the bias, with no gradient for the bias, as JAX's `_flash_bwd` sends
+    every biased call to the XLA VJP.
+Everything else is `plain_attention`, as it is XLA in JAX: cross-attention to
+128 text tokens and the 64-token mid level.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tango_tpu_torch.ops.flash_attention import attn_fwd, flash_attention_bwd, flash_bwd_supported
+from tango_tpu_torch.ops.flash_attention import (
+    attn_fwd,
+    attn_fwd_bias,
+    attn_fwd_v2,
+    flash_attention_bwd,
+    flash_bwd_supported,
+    kernel_shape_ok,
+    v2_route,
+)
 
 
 def multi_head_attention(
@@ -45,13 +61,16 @@ def multi_head_attention(
             bias = bias[:, None, :, :]
         bias = bias.float()
 
-    use_flash = sq >= 256 and d % 8 == 0 and (bias is None or skv >= 256)
+    use_flash = (sq >= 256 and d % 8 == 0 and (bias is None or skv >= 256)
+                 and kernel_shape_ok(b * heads, sq, skv, d))
 
     qh = q.reshape(b, sq, heads, d).transpose(1, 2)
     kh = k.reshape(b, skv, heads, d).transpose(1, 2)
     vh = v.reshape(b, skv, heads, d).transpose(1, 2)
     if use_flash and bias is None:
         out = flash_attention(qh, kh, vh, scale=scale)
+    elif use_flash:
+        out = biased_flash_attention(qh, kh, vh, bias, scale=scale)
     else:
         out = plain_attention(qh, kh, vh, bias=bias, scale=scale, upcast=upcast)
     return out.transpose(1, 2).reshape(b, sq, inner)
@@ -66,7 +85,8 @@ class _FlashWithVJP(torch.autograd.Function):
         q, k, v = (t.reshape(b * h, t.shape[2], d).contiguous() for t in (qh, kh, vh))
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
-        return attn_fwd(q, k, v, scale).reshape(b, h, sq, d)
+        fwd = attn_fwd_v2 if v2_route(sq, k.shape[1]) else attn_fwd
+        return fwd(q, k, v, scale).reshape(b, h, sq, d)
 
     @staticmethod
     def backward(ctx, g):
@@ -91,6 +111,36 @@ def flash_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, *, sca
     """q (B, H, Sq, D), k/v (B, H, Skv, D) -> (B, H, Sq, D), bias-free, through
     the attention kernels forward and backward."""
     return _FlashWithVJP.apply(qh, kh, vh, scale)
+
+
+class _BiasedFlash(torch.autograd.Function):
+    """attn_fwd_bias forward; plain autograd backward with the bias (no bias
+    gradient), as `_flash_bwd` of tango_tpu/ops/attention.py:96-116."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, bias, scale):
+        b, h, sq, d = qh.shape
+        q, k, v = (t.reshape(b * h, t.shape[2], d).contiguous() for t in (qh, kh, vh))
+        # (B, 1, 1|Sq, Skv) -> (B, 1|Sq, Skv), one row set a batch row
+        bias3 = bias[:, 0].expand(b, -1, -1).contiguous()
+        ctx.save_for_backward(qh, kh, vh, bias)
+        ctx.scale = scale
+        return attn_fwd_bias(q, k, v, bias3, h, scale).reshape(b, h, sq, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        qh, kh, vh, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            qq, kk, vv = (t.detach().requires_grad_() for t in (qh, kh, vh))
+            out = plain_attention(qq, kk, vv, bias=bias, scale=ctx.scale, upcast=True)
+            dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), g)
+        return dq, dk, dv, None, None
+
+
+def biased_flash_attention(qh, kh, vh, bias, *, scale: float):
+    """q (B, H, Sq, D), k/v (B, H, Skv, D), bias (B, 1, 1|Sq, Skv) f32 ->
+    (B, H, Sq, D) through the attn_fwd_bias kernel."""
+    return _BiasedFlash.apply(qh, kh, vh, bias, scale)
 
 
 def plain_attention(qh, kh, vh, *, bias, scale, upcast):

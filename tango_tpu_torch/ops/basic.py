@@ -30,6 +30,7 @@ from tango_tpu_torch.ops.gn_silu import (
     gn_silu_bwd,
     gn_silu_fwd,
     group_norm_two_stage,
+    kernel_shape_ok,
     n_chunks,
 )
 
@@ -41,17 +42,20 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def gn_single_pass_supported(x: torch.Tensor, num_groups: int) -> bool:
-    """gn_pallas_supported (gn_silu_pallas.py:107-113): f32 sample <= 8 MB."""
+    """gn_pallas_supported (gn_silu_pallas.py:107-113): f32 sample <= 8 MB;
+    and the kernels' 32-bit dimensions (`kernel_shape_ok`)."""
     c, s = x.shape[1], math.prod(x.shape[2:])
-    return c % num_groups == 0 and s * c * 4 <= _SINGLE_PASS_BYTES
+    return (c % num_groups == 0 and s * c * 4 <= _SINGLE_PASS_BYTES
+            and kernel_shape_ok(x, num_groups))
 
 
 def gn_two_stage_supported(x: torch.Tensor, num_groups: int) -> bool:
-    """gn_pallas2_supported (gn_silu_pallas.py:334-341): G <= 64, chunk <= 8 MB."""
+    """gn_pallas2_supported (gn_silu_pallas.py:334-341): G <= 64, chunk <= 8 MB;
+    and the kernels' 32-bit dimensions (`kernel_shape_ok`)."""
     c, s = x.shape[1], math.prod(x.shape[2:])
     if c % num_groups != 0 or 2 * num_groups > 128:
         return False
-    return (s // n_chunks(s)) * c * 4 <= _SINGLE_PASS_BYTES
+    return (s // n_chunks(s)) * c * 4 <= _SINGLE_PASS_BYTES and kernel_shape_ok(x, num_groups)
 
 
 def _gn_reference(x, scale, bias, num_groups, eps, act):

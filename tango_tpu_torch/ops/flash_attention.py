@@ -1,24 +1,32 @@
-"""Bias-free attention kernels and their plain versions.
+"""Attention kernels and their plain versions.
 
-`attn_fwd` (csrc/attention.cu) is the forward; `attn_bwd_dq` and
-`attn_bwd_dkv` (csrc/attention_bwd.cu) are the backward, replacing
-`_bwd_dq_kernel` and `_bwd_dkv_kernel` (tango_tpu/ops/flash_attention.py:231,
-259): the gradient of the exact max-subtracted softmax, recomputed from q, k
-and v, with JAX's roundings (ds to the storage type before both products
-that take it, p to dO's type before dV = p^T dO). dq also writes the per-row
-lse and delta that dkv reads, as (BH, Sq) f32. Bound on the H100:
-operations (see the CUDA files' notes).
+Forward, three kernels of one tile loop in csrc/attention.cu:
+  * `attn_fwd` replaces `_attn_kernel` (tango_tpu/ops/flash_attention.py:56),
+    the static-shift exp2 softmax with deferred division: q is prescaled by
+    scale*log2(e) and rounded to the storage type, p = exp2(min(l - 20, 96)),
+    the PV product takes p rounded to the storage type, and a row whose
+    denominator underflows to 0 is a zero row, never NaN. The exactness
+    window and its edges are documented in the JAX file.
+  * `attn_fwd_v2` replaces `_attn_kernel_v2` (:103), the blocked-KV online
+    softmax that JAX takes for long bias-free calls (`v2_route`): the same
+    prescaled q, but max-subtracted, so it has no window.
+  * `attn_fwd_bias` replaces `_attn_kernel_bias` (:84): max-subtracted, with
+    an additive f32 bias (B, 1 | Sq, Skv) scaled by log2(e), shared by the
+    heads of a batch row.
 
-The forward replaces `_attn_kernel` (tango_tpu/ops/flash_attention.py:56), the
-static-shift exp2 softmax with deferred division: q is prescaled by scale*log2(e) and
-rounded to the storage type, p = exp2(min(l - 20, 96)), the PV product takes
-p rounded to the storage type, and a row whose denominator underflows to 0 is
-a zero row, never NaN. The exactness window and its edges are documented in
-the JAX file.
+Backward, `attn_bwd_dq` and `attn_bwd_dkv` (csrc/attention_bwd.cu) replace
+`_bwd_dq_kernel` and `_bwd_dkv_kernel` (:231, 259): the gradient of the exact
+max-subtracted softmax, recomputed from q, k and v, with JAX's roundings (ds
+to the storage type before both products that take it, p to dO's type before
+dV = p^T dO). dq also writes the per-row lse and delta that dkv reads, as
+(BH, Sq) f32. Bound on the H100: operations (see the CUDA files' notes).
 
-Layout: q and do (BH, Sq, D), k and v (BH, Skv, D), contiguous, f32 or bf16;
-D in {16, 32, 64, 128}. Each wrapper launches its kernel for CUDA tensors and
-runs its plain version for CPU tensors; any other device raises.
+Layout: q and do (BH, Sq, D), k and v (BH, Skv, D), contiguous, f32 or bf16.
+The kernels take D in `KERNEL_HEAD_DIMS` and any BH and S whose
+(b*h, 64-row tile) block count fits 32 bits (`kernel_shape_ok`); the dispatch
+in ops/attention.py asks that before it picks a kernel. Each wrapper launches
+its kernel for CUDA tensors and runs its plain version for CPU tensors; any
+other device raises.
 """
 
 from __future__ import annotations
@@ -30,82 +38,159 @@ from tango_tpu_torch.ops import _build, kernel_wrapper
 LOG2_E = 1.4426950408889634
 SOFTMAX_SHIFT = 20.0
 SOFTMAX_CLAMP = 96.0
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+_SRC = "tango_tpu_torch/csrc/attention.cu"
+_BWD_SRC = "tango_tpu_torch/csrc/attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_ROWS = 64  # query (or key) rows a block
+
+
+def kernel_shape_ok(bh: int, sq: int, skv: int, d: int) -> bool:
+    """Whether the attention kernels, forward and backward, take these heads:
+    D is one they are built for, and the (b*h, 64-row tile) blocks of either
+    sequence axis fit grid.x (element offsets are 64-bit)."""
+    return d in KERNEL_HEAD_DIMS and bh * -(-max(sq, skv) // _ROWS) < 2**31
+
+
+def v2_route(sq: int, skv: int) -> bool:
+    """JAX's rule for the blocked-KV kernel (flash_attention.py:423), applied
+    to bias-free calls: a key set over 4096 that 512 divides, Sq a multiple of
+    128. Everything else bias-free takes the static-shift kernel."""
+    return skv > 4096 and skv % 512 == 0 and sq % 128 == 0
+
+
+def _check(name: str, q, k, v, *like_q) -> bool:
+    """Validate (BH, S, D) heads (and tensors shaped like q); True for the
+    kernel (CUDA), False for the plain version (CPU)."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"{name}: q, k, v must be (BH, S, D)")
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    if (k.shape != (bh, skv, d) or v.shape != (bh, skv, d)
+            or any(t.shape != q.shape for t in like_q)):
+        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in (q, k, v, *like_q)]}")
+    if any(t.dtype != q.dtype for t in (k, v, *like_q)) or q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtypes {[t.dtype for t in (q, k, v, *like_q)]} "
+                        "(float32 or bfloat16)")
+    if any(t.device != q.device for t in (k, v, *like_q)):
+        raise ValueError(f"{name}: inputs on different devices")
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {q.device}")
+    if not kernel_shape_ok(bh, sq, skv, d):
+        raise ValueError(f"{name}: BH={bh}, Sq={sq}, Skv={skv}, D={d} not taken by the kernel "
+                         f"(D in {KERNEL_HEAD_DIMS}, BH*tiles < 2^31)")
+    if not all(t.is_contiguous() for t in (q, k, v, *like_q)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return True
+
+
+def _dims(q, k) -> tuple[int, int, int, int]:
+    """(BH, Sq, Skv, D), the C entry points' dimension arguments."""
+    return q.shape[0], q.shape[1], k.shape[1], q.shape[2]
+
+
+def _qscale(scale: float) -> float:
+    """scale*log2(e) rounded to f32, as the Pallas kernels' prescale."""
+    return float(torch.tensor(scale * LOG2_E, dtype=torch.float32))
+
+
+def _prescaled_logits(q, k, scale):
+    """(q*scale*log2 e rounded to q's type) . k^T in f32: base-2 logits."""
+    qs = (q.float() * _qscale(scale)).to(q.dtype)
+    return torch.matmul(qs.float(), k.float().transpose(-1, -2))
+
+
+def _max_subtracted(logits, v, dtype):
+    """exp2 softmax with the row max subtracted, deferred division."""
+    p = torch.exp2(logits - logits.amax(-1, keepdim=True))
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (acc / p.sum(-1, keepdim=True)).to(dtype)
+
+
+def _launch(fn, inputs, *args) -> None:
+    """Call fn's C entry point tt_<name>(*args, dtype, stream) on the stream of
+    inputs[0], raise on a CUDA error, count the launch and record the inputs'
+    shapes."""
+    q = inputs[0]
+    lib = _build.load()
+    code = getattr(lib, f"tt_{fn.__name__}")(
+        *args, _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, fn.__name__)
+    fn.launches += 1
+    fn.shapes.add(tuple(tuple(t.shape) for t in inputs))
 
 
 def attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     """Plain version of attn_fwd: the same static-shift softmax, in f32."""
-    qs = (q.float() * torch.tensor(scale * LOG2_E, dtype=torch.float32)).to(q.dtype)
-    logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    logits = _prescaled_logits(q, k, scale)
     p = torch.exp2(torch.clamp(logits - SOFTMAX_SHIFT, max=SOFTMAX_CLAMP))
     denom = p.sum(-1, keepdim=True)
     acc = torch.matmul(p.to(v.dtype).float(), v.float())
     return (acc / torch.where(denom == 0.0, torch.ones_like(denom), denom)).to(q.dtype)
 
 
-@kernel_wrapper("tango_tpu_torch/csrc/attention.cu", "tango_tpu/ops/flash_attention.py:56")
+@kernel_wrapper(_SRC, "tango_tpu/ops/flash_attention.py:56")
 def attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     """softmax(q k^T * scale) v over (BH, S, D) heads, static-shift form."""
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("attn_fwd: q, k, v must be (BH, S, D)")
-    bh, sq, d = q.shape
-    skv = k.shape[1]
-    if k.shape != (bh, skv, d) or v.shape != (bh, skv, d):
-        raise ValueError(f"attn_fwd: shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise TypeError(f"attn_fwd: dtypes {q.dtype} {k.dtype} {v.dtype} (float32 or bfloat16)")
-    if not (q.device == k.device == v.device):
-        raise ValueError("attn_fwd: q, k, v on different devices")
-    if q.device.type == "cpu":
+    if not _check("attn_fwd", q, k, v):
         return attn_fwd_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"attn_fwd: no kernel for device {q.device}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"attn_fwd: head dim {d} not in {_HEAD_DIMS}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("attn_fwd: q, k, v must be contiguous")
-    if bh > 65535 or max(sq, skv) * d * bh >= 2**31:
-        raise ValueError(f"attn_fwd: BH={bh}, S={max(sq, skv)} exceed the kernel's indexing")
-    lib = _build.load()
     o = torch.empty_like(q)
-    qscale = float(torch.tensor(scale * LOG2_E, dtype=torch.float32))
-    code = lib.tt_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, sq, skv, d, qscale,
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, code, "attn_fwd")
-    attn_fwd.launches += 1
-    attn_fwd.shapes.add((tuple(q.shape), tuple(k.shape)))
+    _launch(attn_fwd, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *_dims(q, k), _qscale(scale))
     return o
 
 
+def attn_fwd_v2_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
+    """Plain version of attn_fwd_v2: the max-subtracted softmax in f32, the
+    row max in one pass."""
+    return _max_subtracted(_prescaled_logits(q, k, scale), v, q.dtype)
 
 
-def _check_bwd(name, q, k, v, do):
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError(f"{name}: q, k, v must be (BH, S, D)")
-    bh, sq, d = q.shape
+@kernel_wrapper(_SRC, "tango_tpu/ops/flash_attention.py:103")
+def attn_fwd_v2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
+    """softmax(q k^T * scale) v over (BH, S, D) heads, online max-subtracted form."""
+    if not _check("attn_fwd_v2", q, k, v):
+        return attn_fwd_v2_plain(q, k, v, scale)
+    o = torch.empty_like(q)
+    _launch(attn_fwd_v2, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *_dims(q, k), _qscale(scale))
+    return o
+
+
+def attn_fwd_bias_plain(q, k, v, bias, heads: int, scale: float):
+    """Plain version of attn_fwd_bias: base-2 logits plus bias*log2(e) (head bh
+    reads batch row bh // heads), the max-subtracted softmax in f32."""
+    log2e = torch.tensor(LOG2_E, dtype=torch.float32)
+    logits = _prescaled_logits(q, k, scale) + bias.repeat_interleave(heads, 0) * log2e
+    return _max_subtracted(logits, v, q.dtype)
+
+
+@kernel_wrapper(_SRC, "tango_tpu/ops/flash_attention.py:84")
+def attn_fwd_bias(q, k, v, bias, heads: int, scale: float):
+    """softmax(q k^T * scale + bias) v over (BH, S, D) heads; bias is f32
+    (B, 1 | Sq, Skv) with B * heads == BH, and head bh adds row bh // heads."""
+    use_kernel = _check("attn_fwd_bias", q, k, v)
+    bh, sq, _ = q.shape
     skv = k.shape[1]
-    if k.shape != (bh, skv, d) or v.shape != (bh, skv, d) or do.shape != q.shape:
-        raise ValueError(f"{name}: shapes {tuple(q.shape)} {tuple(k.shape)} "
-                         f"{tuple(v.shape)} {tuple(do.shape)}")
-    if not (q.dtype == k.dtype == v.dtype == do.dtype) or q.dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtypes {q.dtype} {k.dtype} {v.dtype} {do.dtype} "
-                        "(float32 or bfloat16)")
-    if not (q.device == k.device == v.device == do.device):
-        raise ValueError(f"{name}: inputs on different devices")
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {q.device}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}")
-    if not all(t.is_contiguous() for t in (q, k, v, do)):
-        raise ValueError(f"{name}: q, k, v, do must be contiguous")
-    if bh > 65535 or max(sq, skv) * d * bh >= 2**31:
-        raise ValueError(f"{name}: BH={bh}, S={max(sq, skv)} exceed the kernel's indexing")
-    return True
+    if (heads < 1 or bh % heads or bias.dim() != 3
+            or bias.shape[0] != bh // heads or bias.shape[1] not in (1, sq)
+            or bias.shape[2] != skv):
+        raise ValueError(f"attn_fwd_bias: bias {tuple(bias.shape)} for {heads} heads of "
+                         f"q {tuple(q.shape)}, k {tuple(k.shape)}; expected (BH/heads, 1|Sq, Skv)")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"attn_fwd_bias: bias dtype {bias.dtype} (float32)")
+    if bias.device != q.device:
+        raise ValueError("attn_fwd_bias: bias on another device than q")
+    if not use_kernel:
+        return attn_fwd_bias_plain(q, k, v, bias, heads, scale)
+    if not bias.is_contiguous():
+        raise ValueError("attn_fwd_bias: bias must be contiguous")
+    o = torch.empty_like(q)
+    _launch(attn_fwd_bias, (q, k, bias), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr(), o.data_ptr(), *_dims(q, k), heads, bias.shape[1], _qscale(scale))
+    return o
 
 
 def attn_bwd_dq_plain(q, k, v, do, scale: float):
@@ -124,26 +209,18 @@ def attn_bwd_dq_plain(q, k, v, do, scale: float):
     return dq.to(q.dtype), lse[..., 0], delta[..., 0]
 
 
-@kernel_wrapper("tango_tpu_torch/csrc/attention_bwd.cu", "tango_tpu/ops/flash_attention.py:231",
-                backward=True)
+@kernel_wrapper(_BWD_SRC, "tango_tpu/ops/flash_attention.py:231", backward=True)
 def attn_bwd_dq(q, k, v, do, scale: float):
     """dq of softmax(q k^T * scale) v for the output gradient do, all
     (BH, S, D); also the per-row lse and delta, (BH, Sq) f32."""
-    if not _check_bwd("attn_bwd_dq", q, k, v, do):
+    if not _check("attn_bwd_dq", q, k, v, do):
         return attn_bwd_dq_plain(q, k, v, do, scale)
-    bh, sq, d = q.shape
-    lib = _build.load()
+    bh, sq, _ = q.shape
     dq = torch.empty_like(q)
     lse = torch.empty((bh, sq), device=q.device, dtype=torch.float32)
     delta = torch.empty_like(lse)
-    code = lib.tt_attn_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), bh, sq, k.shape[1], d, float(scale), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, code, "attn_bwd_dq")
-    attn_bwd_dq.launches += 1
-    attn_bwd_dq.shapes.add((tuple(q.shape), tuple(k.shape)))
+    _launch(attn_bwd_dq, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_dims(q, k), float(scale))
     return dq, lse, delta
 
 
@@ -159,11 +236,10 @@ def attn_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-@kernel_wrapper("tango_tpu_torch/csrc/attention_bwd.cu", "tango_tpu/ops/flash_attention.py:259",
-                backward=True)
+@kernel_wrapper(_BWD_SRC, "tango_tpu/ops/flash_attention.py:259", backward=True)
 def attn_bwd_dkv(q, k, v, do, lse, delta, scale: float):
     """dk, dv of softmax(q k^T * scale) v from the lse and delta of attn_bwd_dq."""
-    use_kernel = _check_bwd("attn_bwd_dkv", q, k, v, do)
+    use_kernel = _check("attn_bwd_dkv", q, k, v, do)
     bh, sq, _ = q.shape
     for t in (lse, delta):
         if t.shape != (bh, sq) or t.dtype != torch.float32 or t.device != q.device:
@@ -172,17 +248,11 @@ def attn_bwd_dkv(q, k, v, do, lse, delta, scale: float):
         return attn_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
     if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError("attn_bwd_dkv: lse and delta must be contiguous")
-    lib = _build.load()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    code = lib.tt_attn_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], q.shape[2],
-        float(scale), _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, code, "attn_bwd_dkv")
-    attn_bwd_dkv.launches += 1
-    attn_bwd_dkv.shapes.add((tuple(q.shape), tuple(k.shape)))
+    _launch(attn_bwd_dkv, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q, k),
+            float(scale))
     return dk, dv
 
 

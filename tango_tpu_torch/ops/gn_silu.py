@@ -30,6 +30,16 @@ from tango_tpu_torch.ops import _build, kernel_wrapper
 
 _SRC = "tango_tpu_torch/csrc/gn_silu.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT32 = 2**31
+
+
+def kernel_shape_ok(x: torch.Tensor, num_groups: int) -> bool:
+    """Whether the kernels take x (B, C, *spatial): their element offsets are
+    64-bit, so the element count has no cap, but B, C, HW and the grids' block
+    counts (B*C rows, B*G*chunks) are 32-bit. The dispatch in ops/basic.py
+    asks this before it picks a kernel."""
+    b, c, hw = x.shape[0], x.shape[1], math.prod(x.shape[2:])
+    return hw < _INT32 and b * c < _INT32 and b * num_groups * n_chunks(hw) < _INT32
 
 
 def _check(x: torch.Tensor, c_div: int, name: str) -> tuple[int, int, int]:
@@ -44,8 +54,9 @@ def _check(x: torch.Tensor, c_div: int, name: str) -> tuple[int, int, int]:
     hw = math.prod(x.shape[2:])
     if c % c_div:
         raise ValueError(f"{name}: channels {c} not divisible by groups {c_div}")
-    if b * c * hw >= 2**31:
-        raise ValueError(f"{name}: {b * c * hw} elements exceed the kernel's int32 indexing")
+    if not kernel_shape_ok(x, c_div):
+        raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the kernels' 32-bit "
+                         "dimensions")
     return b, c, hw
 
 
@@ -168,8 +179,6 @@ def gn_apply(x, a, b, act: str | None = None):
             raise ValueError("gn_apply: a and b must be contiguous (B, C) float32")
     if not _route(x, "gn_apply"):
         return gn_apply_plain(x, a, b, act)
-    if bs * c > 65535:
-        raise ValueError(f"gn_apply: B*C={bs * c} rows exceed the kernel's grid")
     if a.device != x.device or b.device != x.device:
         raise ValueError("gn_apply: a and b must be on x's device")
     lib = _build.load()
@@ -210,10 +219,10 @@ _BWD_MAX_GROUP_CHANNELS = 4096
 def gn_bwd_supported(x: torch.Tensor, num_groups: int) -> bool:
     """Shapes gn_silu_bwd takes. The kernel streams a group from device memory,
     so unlike gn_bwd_supported in JAX (8 MB of VMEM per sample) it has no
-    size limit beyond C/G and the int32 element count."""
+    size limit beyond C/G and the 32-bit dimensions of `kernel_shape_ok`."""
     c = x.shape[1]
     return (c % num_groups == 0 and c // num_groups <= _BWD_MAX_GROUP_CHANNELS
-            and x.numel() < 2**31)
+            and kernel_shape_ok(x, num_groups))
 
 
 def gn_silu_bwd_plain(x, g, gamma, beta, num_groups: int, eps: float, act: str | None):

@@ -213,15 +213,15 @@ def test_attn_plain_underflow_row_is_zero_not_nan():
 
 
 @pytest.mark.parametrize(
-    "sq,skv,heads,inner,masked,flash",
+    "sq,skv,heads,inner,masked,route",
     [
-        (256, 256, 4, 128, False, True),   # UNet self-attention: the kernel
-        (256, 16, 2, 64, True, False),     # cross-attention to short text: plain
-        (64, 64, 4, 128, False, False),    # Sq < 256: plain
-        (256, 256, 2, 64, True, False),    # biased Skv >= 256: plain (bias kernel queued)
+        (256, 256, 4, 128, False, "flash"),  # UNet self-attention: the kernel
+        (256, 16, 2, 64, True, "plain"),     # cross-attention to short text: plain
+        (64, 64, 4, 128, False, "plain"),    # Sq < 256: plain
+        (256, 256, 2, 64, True, "bias"),     # biased Skv >= 256: the bias kernel
     ],
 )
-def test_multi_head_attention_dispatch_matches_jax(sq, skv, heads, inner, masked, flash,
+def test_multi_head_attention_dispatch_matches_jax(sq, skv, heads, inner, masked, route,
                                                    monkeypatch):
     rng = np.random.RandomState(7)
     q = rng.randn(2, sq, inner).astype(np.float32)
@@ -233,16 +233,18 @@ def test_multi_head_attention_dispatch_matches_jax(sq, skv, heads, inner, masked
         mask[:, :, skv // 2:] = 0.0
         bias = (1.0 - mask) * -10000.0
     calls = []
-    orig = tattn.flash_attention
-    monkeypatch.setattr(tattn, "flash_attention",
-                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    for name in ("flash_attention", "biased_flash_attention"):
+        orig = getattr(tattn, name)
+        monkeypatch.setattr(tattn, name, lambda *a, _n=name, _f=orig, **kw:
+                            calls.append(_n) or _f(*a, **kw))
     ref = jattn.multi_head_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                      heads=heads,
                                      bias=None if bias is None else jnp.asarray(bias))
     out = tattn.multi_head_attention(torch.from_numpy(q), torch.from_numpy(k),
                                      torch.from_numpy(v), heads=heads,
                                      bias=None if bias is None else torch.from_numpy(bias))
-    assert bool(calls) == flash
+    assert calls == {"flash": ["flash_attention"], "bias": ["biased_flash_attention"],
+                     "plain": []}[route]
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-4)
 
 
@@ -291,5 +293,6 @@ def test_plain_path_counts_no_launches():
     attn_fwd_plain(q, q, q, 0.25)
     attn_fwd(q, q, q, 0.25)
     gn_silu_fwd(torch.randn(1, 8, 4, 4), torch.ones(8), torch.zeros(8), 4)
-    assert sorted(KERNELS) == ["attn_fwd", "gn_apply", "gn_silu_fwd", "gn_stats"]
+    assert sorted(KERNELS) == ["attn_fwd", "attn_fwd_bias", "attn_fwd_v2", "gn_apply",
+                               "gn_silu_fwd", "gn_stats"]
     assert all(fn.launches == 0 for fn in KERNELS.values())

@@ -27,6 +27,7 @@ from tango_tpu.models.unet import UNet2DConditionModel as JUNet
 from tango_tpu.models.vae import AutoencoderKL as JVAE
 from tango_tpu.pipeline import Tango as JTango
 from tango_tpu_torch import configs as TC
+from tango_tpu_torch.ops import attention as tattn
 from tango_tpu_torch.pipeline import Tango
 from tango_tpu_torch.tokenizer import WordHashTokenizer
 from tango_tpu_torch.utils.convert import from_jax_params
@@ -87,15 +88,18 @@ def port(jax_params):
     )
 
 
-def test_slice_matches_jax(jax_params, port):
-    tok = WordHashTokenizer(vocab_size=128)
-    jt = JTango.from_components(
+@pytest.fixture(scope="module")
+def jt(jax_params):
+    return JTango.from_components(
         unet_config=JC.UNetConfig(**UNET_KW), vae_config=JC.VAEConfig(**VAE_KW),
         unet_params=jax_params["unet"], vae_params=jax_params["vae"],
         t5_config=JT5Config(**T5_KW), t5_params=jax_params["t5"],
         hifigan_config=JC.HiFiGANConfig(**HIFI_KW), hifigan_params=jax_params["hifi"],
-        tokenizer=tok, latent_t_size=LT, latent_f_size=LF,
+        tokenizer=WordHashTokenizer(vocab_size=128), latent_t_size=LT, latent_f_size=LF,
     )
+
+
+def test_slice_matches_jax(jt, port):
     prompts = ["a dog barks in the park", "rain on a tin roof"]
     steps = 3
     rng = np.random.RandomState(0)
@@ -122,6 +126,95 @@ def test_slice_matches_jax(jax_params, port):
     assert p_wav.shape == j_wav.shape == (2, 2 * LT * 160 + 32)
     np.testing.assert_allclose(p_mel.numpy(), np.asarray(j_mel), atol=1e-4, rtol=1e-3)
     np.testing.assert_allclose(p_wav.numpy(), np.asarray(j_wav), atol=1e-4, rtol=1e-3)
+
+
+def _generate_both(jt, port, monkeypatch, steps, latent_t, **kw):
+    """`generate(PROMPT, **kw)` through both packages with the same seeded
+    noise (`noise_override`) for a latent length of `latent_t`; returns the
+    (latents, float waveform) pairs the two decodes saw, and the int16
+    waveforms."""
+    rng = np.random.RandomState(1)
+    init = rng.randn(1, latent_t, LF, 8).astype(np.float32)
+    noises = rng.randn(steps, 1, latent_t, LF, 8).astype(np.float32)
+    seen = {}
+
+    def j_sample_fn(num_steps, cfg, latent_t_size=None):
+        assert cfg and latent_t_size in (None, latent_t)
+
+        def f(unet_params, cond, cond_mask, uncond, uncond_mask, rng_key, guidance):
+            return jt.model.sample(unet_params, cond, cond_mask, rng_key, num_steps=num_steps,
+                                   guidance_scale=guidance, uncond_embeds=uncond,
+                                   uncond_mask=uncond_mask, latent_t_size=latent_t_size,
+                                   noise_override=(init, noises))
+        return f
+
+    j_decode = jt._decode_fn()
+
+    def j_decode_fn():
+        def f(vae_params, hifigan_params, latents):
+            mel, wav = j_decode(vae_params, hifigan_params, latents)
+            seen["jax"] = (np.asarray(latents), np.asarray(wav))
+            return mel, wav
+        return f
+
+    p_sample, p_decode = port.model.sample, port.decode
+
+    def p_sample_spy(*a, **k):
+        return p_sample(*a, noise_override=(torch.from_numpy(init), torch.from_numpy(noises)),
+                        **k)
+
+    def p_decode_spy(latents):
+        mel, wav = p_decode(latents)
+        seen["port"] = (latents.numpy(), wav.numpy())
+        return mel, wav
+
+    monkeypatch.setattr(jt, "_sample_fn", j_sample_fn)
+    monkeypatch.setattr(jt, "_decode_fn", j_decode_fn)
+    monkeypatch.setattr(port.model, "sample", p_sample_spy)
+    monkeypatch.setattr(port, "decode", p_decode_spy)
+    j_wav = jt.generate("a dog barks", steps=steps, seed=0, **kw)
+    p_wav = port.generate("a dog barks", steps=steps, seed=0, **kw)
+    return seen, j_wav, p_wav
+
+
+def _spy_kernel(monkeypatch, name):
+    calls = []
+    fn = getattr(tattn, name)
+    monkeypatch.setattr(tattn, name, lambda *a, **k: calls.append(a[0].shape) or fn(*a, **k))
+    return calls
+
+
+def test_long_clip_matches_jax(jt, port, monkeypatch):
+    """generate(duration=45.0): 1152 latent frames on the 2-level tiny UNet,
+    so level 0 has 1152 x 4 = 4608 tokens, over 4096 and a multiple of 512:
+    the port's self-attention there takes the blocked-KV kernel's route
+    (attn_fwd_v2; JAX would take flash_attention_v2 on a TPU and XLA here),
+    and the clip equals JAX's under the same noise."""
+    calls = _spy_kernel(monkeypatch, "attn_fwd_v2")
+    seen, j_wav, p_wav = _generate_both(jt, port, monkeypatch, 2, 1152, duration=45.0)
+    assert calls and all(shape[1] == 4608 for shape in calls)
+    (j_lat, j_float), (p_lat, p_float) = seen["jax"], seen["port"]
+    assert p_lat.shape == j_lat.shape == (1, 1152, LF, 8)
+    np.testing.assert_allclose(p_lat, j_lat, atol=2e-4, rtol=1e-3)
+    np.testing.assert_allclose(p_float, j_float, atol=1e-4, rtol=1e-3)
+    assert p_wav.dtype == j_wav.dtype == np.int16
+    assert p_wav.shape == j_wav.shape == (2 * 1152 * 160 + 32,)
+
+
+def test_long_prompt_matches_jax(jt, port, monkeypatch):
+    """max_text_length = 256: the UNet's masked cross-attention at the
+    256-token level has 256 keys, so it takes the biased kernel's route
+    (attn_fwd_bias; JAX's `_attn_kernel_bias` on a TPU), and the clip equals
+    JAX's under the same noise."""
+    monkeypatch.setattr(jt, "max_text_length", 256)
+    monkeypatch.setattr(port, "max_text_length", 256)
+    calls = _spy_kernel(monkeypatch, "attn_fwd_bias")
+    seen, j_wav, p_wav = _generate_both(jt, port, monkeypatch, 3, LT)
+    assert calls and all(shape[1:] == (LT * LF, 16) for shape in calls)
+    (j_lat, j_float), (p_lat, p_float) = seen["jax"], seen["port"]
+    np.testing.assert_allclose(p_lat, j_lat, atol=2e-4, rtol=1e-3)
+    np.testing.assert_allclose(p_float, j_float, atol=1e-4, rtol=1e-3)
+    assert p_wav.shape == j_wav.shape == (2 * LT * 160 + 32,)
 
 
 def test_generate_shapes_and_batch_row_matches_single(port):
