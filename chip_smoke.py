@@ -22,7 +22,22 @@ Phases, one short JSON line each:
            long_prompt: generate with max_text_length = 256, whose masked
            cross-attention takes attn_fwd_bias. Each new path is warmed up
            by one uncounted 1-step generate first;
-  per_eval launches of each kernel in one UNet evaluation;
+  int8     the int8 W8A8 serving mode: a full-width Tango.from_components(
+           quant="all") built from the bf16 model's state dicts (the same
+           weights, quantized once on the card), one uncounted 1-step
+           warm-up, then a counted generate("a dog barks", steps=10) at CFG
+           batch 2 (PATH_KERNELS["int8"], w8a8_matmul included) with its UNet
+           step time, w8a8 launches per evaluation and the relative L2 of
+           its final latents against the bf16 slice's at the same seed;
+  int8_conv
+           an uncounted 2-step generate with quant="conv" (the JAX bench's
+           default scope: int8 convolutions on torch._int_mm), which must
+           launch no w8a8_matmul;
+  per_eval launches of each kernel in one UNet evaluation, bf16 and int8
+           (w8a8_matmul once for every quantized Linear: 16 transformers x 9
+           projections), and the 3x3 stride-1 convolution shapes of the bf16
+           evaluation, recorded by forward hooks, for winograd_conv3x3, which
+           no path calls (in JAX neither);
   train_model, train
            the training path: full-width f32 SFT (TANGO_UNET with remat,
            min-SNR 5, uncondition dropout; the TANGO_VAE encoder and the
@@ -52,6 +67,17 @@ Phases, one short JSON line each:
            sdpa (with a float mask for the bias kernel), and for the
            backward kernels aten's GroupNorm (and SiLU) backward and the
            attention backward kernels sdpa's autograd runs, called directly.
+           w8a8_matmul at every shape the int8 path launched it at and at
+           tests/test_quant.py's (300, 320) x (320, 256), and two ragged
+           shapes, checked only: f32 atol 1e-5 / rtol 1e-5 (the JAX
+           test's), bf16 one bf16 step (1e-2 / 8e-3);
+           library torch._int_mm on the pre-quantized operands, and bf16
+           F.linear as a note. winograd_conv3x3, called directly, at
+           tests/test_winograd.py's shapes and at the hooked UNet shapes:
+           f32 1e-4 / 1e-4 (the JAX test's), bf16 2e-2 / 2e-2; library
+           F.conv2d (cuDNN). Bounds: int8 operations over 1979 TOP/s or
+           bytes; Winograd's 4 multiply-adds an output per input channel
+           over the bf16 (or f32) peak, or bytes.
 The last three lines are the card's `nvidia-smi` name and power limit, the
 `kernels` JSON, and the result line. Any failure exits non-zero before the
 result line; so does a card-less machine. The script writes nothing but
@@ -76,6 +102,7 @@ import torch.nn.functional as F
 DEADLINE_S = 720
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS = 989e12         # dense tensor-core bf16
+INT8_OPS = 1979e12          # dense tensor-core int8
 F32_FLOPS = 67e12           # f32 outside the tensor cores
 TRAIN_WAVS = 8
 TRAIN_BATCH = 2
@@ -104,7 +131,15 @@ PATH_KERNELS = {
     "long_prompt": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd", "attn_fwd_bias"),
     "train": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd", "attn_bwd_dq",
               "attn_bwd_dkv", "gn_silu_bwd"),
+    "int8": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd", "w8a8_matmul"),
 }
+# the JAX tests' shapes: tests/test_quant.py:54-65 (M, K, N) and
+# tests/test_winograd.py:21-28, :37-44 (B, H, W, Ci, Co); and ragged GEMMs
+# (K not a multiple of 4, M and N not of the 64-wide tiles), checked only
+W8A8_TEST_SHAPE = (300, 320, 256)
+W8A8_RAGGED = ((37, 70, 24), (5, 3, 8))
+WINO_TEST_SHAPES = ((2, 8, 6, 16, 24), (1, 256, 16, 8, 8), (2, 4, 4, 8, 16),
+                    (2, 8, 8, 16, 24), (1, 64, 16, 32, 8), (2, 256, 16, 16, 16))
 
 
 def log(phase: str, **kw) -> None:
@@ -174,6 +209,8 @@ class KernelCase:
         self.detail = []
         # the backward kernels are also timed with f32 inputs, the trainer's type
         self.f32 = None
+        # other yardsticks, summed over the shapes (w8a8_matmul: bf16 F.linear)
+        self.notes = {}
 
     @property
     def bound_by(self):
@@ -505,12 +542,73 @@ def check_kernels(ops, shapes: dict, detail: bool):
                 cuda_ms(lib), *bound_ms(3 * n * x.element_size(), 24 * n, F32_FLOPS),
                 [shape, groups, act])
 
+    int8_and_winograd(K, cases, shapes, randn)
     limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol)
     if detail:
         for case in cases.values():
             for row in case.detail:
                 log("kernel_shape", name=case.name, **row)
     return cases
+
+
+def int8_and_winograd(K, cases, shapes, randn):
+    """w8a8_matmul at the int8 path's shapes and tests/test_quant.py's;
+    winograd_conv3x3 (no path calls it) at tests/test_winograd.py's shapes
+    and at the UNet's 3x3 stride-1 shapes. Checked in f32 and bf16, timed
+    with bf16 inputs."""
+    from tango_tpu_torch.ops.int8_gemm import quantize_rows, w8a8_matmul_plain
+    from tango_tpu_torch.ops.quant import int_mm_ok, quantize_weight
+    from tango_tpu_torch.ops.winograd import winograd_conv3x3_plain
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    w8a8_tol = {"f32": (1e-5, 1e-5), "bf16": (1e-2, 8e-3)}
+    m, k, n = W8A8_TEST_SHAPE
+    gemms = sorted(shapes["w8a8_matmul"] | {((m, k), (n, k))})
+    for (m, k), (n, _) in gemms:
+        case = cases["w8a8_matmul"]
+        q, s = quantize_weight(randn(n, k, scale=k**-0.5), out_axis=0)
+        for tag, dt in dtypes.items():
+            x = randn(m, k, dtype=dt)
+            case.add_err(tag, assert_close(K["w8a8_matmul"](x, q, s), w8a8_matmul_plain(x, q, s),
+                                           *w8a8_tol[tag], f"w8a8_matmul ({m}, {k}, {n}) {tag}"))
+        xq, _ = quantize_rows(x)
+        lib = cuda_ms(lambda: torch._int_mm(xq, q.t())) if int_mm_ok(m, k, n) else None
+        wl = randn(n, k, dtype=x.dtype, scale=k**-0.5)
+        case.notes["linear_bf16_ms"] = case.notes.get("linear_bf16_ms", 0.0) + cuda_ms(
+            lambda: F.linear(x, wl))
+        case.add_time(cuda_ms(lambda: K["w8a8_matmul"](x, q, s)),
+                      cuda_ms(lambda: w8a8_matmul_plain(x, q, s)), lib,
+                      *bound_ms(2 * m * k + n * k + 4 * n + 2 * m * n, 2 * m * n * k, INT8_OPS),
+                      [[m, k], [n, k]])
+
+    for m, k, n in W8A8_RAGGED:
+        q, s = quantize_weight(randn(n, k, scale=k**-0.5), out_axis=0)
+        for tag, dt in dtypes.items():
+            x = randn(m, k, dtype=dt)
+            cases["w8a8_matmul"].add_err(tag, assert_close(
+                K["w8a8_matmul"](x, q, s), w8a8_matmul_plain(x, q, s), *w8a8_tol[tag],
+                f"w8a8_matmul ({m}, {k}, {n}) {tag}"))
+
+    wino_tol = {"f32": (1e-4, 1e-4), "bf16": (2e-2, 2e-2)}
+    convs = set(shapes["winograd_conv3x3"])
+    convs |= {((b, ci, h, w), (co, ci, 3, 3)) for b, h, w, ci, co in WINO_TEST_SHAPES}
+    for xshape, wshape in sorted(convs):
+        case = cases["winograd_conv3x3"]
+        b, ci, h, w_ = xshape
+        co = wshape[0]
+        wt = randn(*wshape, scale=(9 * ci) ** -0.5)
+        for tag, dt in dtypes.items():
+            x = randn(*xshape, dtype=dt)
+            case.add_err(tag, assert_close(
+                K["winograd_conv3x3"](x, wt), winograd_conv3x3_plain(x, wt), *wino_tol[tag],
+                f"winograd_conv3x3 {xshape} -> {co} {tag}"))
+        wl = wt.to(x.dtype)
+        nbytes = (b * ci * h * w_ + b * co * h * w_ + 16 * ci * co) * x.element_size()
+        case.add_time(cuda_ms(lambda: K["winograd_conv3x3"](x, wt)),
+                      cuda_ms(lambda: winograd_conv3x3_plain(x, wt)),
+                      cuda_ms(lambda: F.conv2d(x, wl, padding=1)),
+                      *bound_ms(nbytes, 2 * 4 * b * h * w_ * co * ci, BF16_FLOPS),
+                      [list(xshape), list(wshape)])
 
 
 def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
@@ -769,6 +867,8 @@ def main(argv) -> int:
     from tango_tpu_torch import configs as C
     from tango_tpu_torch import ops
     from tango_tpu_torch.ops import _build
+    from tango_tpu_torch.ops.quant import QLinear
+    from tango_tpu_torch.ops.winograd import wino_supported
     from tango_tpu_torch.pipeline import Tango
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain f32 versions stay f32
@@ -800,29 +900,42 @@ def main(argv) -> int:
     # ---- the serving paths, each counted on its own
     checks = {}
     sample_times = {}  # CFG batch of the UNet -> [seconds, steps]
-    decode, sample = tango.decode, tango.model.sample
+    first_latents = {}  # path -> the latents of its first decode
 
-    def checked_decode(latents):
-        checks["latents_finite"] &= bool(torch.isfinite(latents).all())
-        mel, wav = decode(latents)
-        checks["mel_finite"] &= bool(torch.isfinite(mel.float()).all())
-        return mel, wav
+    def instrument(t):
+        """Check every decode of pipeline t and time every sampling loop;
+        returns the function that takes the instruments off again."""
+        decode, sample = t.decode, t.model.sample
 
-    def timed_sample(*a, **kw):
-        torch.cuda.synchronize()
-        s0 = time.perf_counter()
-        out = sample(*a, **kw)
-        torch.cuda.synchronize()
-        rec = sample_times.setdefault(2 * out.shape[0], [0.0, 0])
-        rec[0] += time.perf_counter() - s0
-        rec[1] += kw["num_steps"]
-        return out
+        def checked_decode(latents):
+            checks["latents_finite"] &= bool(torch.isfinite(latents).all())
+            first_latents.setdefault(checks["path"], latents.float().clone())
+            mel, wav = decode(latents)
+            checks["mel_finite"] &= bool(torch.isfinite(mel.float()).all())
+            return mel, wav
 
-    def counted(path, drive, expect_len, phase=None):
+        def timed_sample(*a, **kw):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            out = sample(*a, **kw)
+            torch.cuda.synchronize()
+            rec = sample_times.setdefault(2 * out.shape[0], [0.0, 0])
+            rec[0] += time.perf_counter() - s0
+            rec[1] += kw["num_steps"]
+            return out
+
+        t.decode, t.model.sample = checked_decode, timed_sample
+
+        def remove():
+            t.decode, t.model.sample = decode, sample
+        return remove
+
+    def counted(path, drive, expect_len, phase=None, extra=None):
         """Zero the counters, run `drive` (-> waveforms, seconds by call), read
         the counters; check the waveforms and that the path's kernels ran; log
-        it as `phase` (the path's name by default)."""
-        checks.update(latents_finite=True, mel_finite=True)
+        it as `phase` (the path's name by default), with the fields
+        `extra(launches)` adds."""
+        checks.update(latents_finite=True, mel_finite=True, path=path)
         sample_times.clear()
         ops.reset_counters()
         outs, seconds = drive()
@@ -835,9 +948,9 @@ def main(argv) -> int:
                 problems.append(f"waveform {w.dtype} {w.shape}, expected int16 ({expect_len},)")
             if int(abs(w.astype("int32")).max()) == 0:
                 problems.append("a silent waveform")
-        if not all(checks.values()):
+        if not (checks["latents_finite"] and checks["mel_finite"]):
             problems.append(f"non-finite values: {checks}")
-        idle = [n for n in PATH_KERNELS[path] if launches[n] == 0]
+        idle = [n for n in PATH_KERNELS.get(path, ()) if launches[n] == 0]
         if idle:
             problems.append(f"kernels never launched on the {path} path: {idle}")
         log(phase or path, **{f"{k}_s": round(v, 3) for k, v in seconds.items()},
@@ -845,7 +958,7 @@ def main(argv) -> int:
                               for b, (t, n) in sorted(sample_times.items())},
             launches=launches, shapes={n: len(v) for n, v in shapes.items()},
             wav_len=expect_len, peak=[int(abs(w.astype("int32")).max()) for w in outs],
-            problems=problems)
+            **(extra(launches) if extra else {}), problems=problems)
         if problems:
             raise AssertionError("; ".join(problems))
         return launches, shapes
@@ -856,6 +969,13 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    def single(t, steps=STEPS, **kw):
+        """One generate of PROMPT at seed 0 through pipeline t."""
+        def drive():
+            wav, t_gen = timed(lambda: t.generate(PROMPT, steps=steps, seed=0, **kw))
+            return [wav], {"generate": t_gen}
+        return drive
+
     def serve():
         wav, t_gen = timed(lambda: tango.generate(PROMPT, steps=STEPS, guidance=3.0, seed=0))
         wavs, t_batch = timed(lambda: tango.generate_for_batch(BATCH_PROMPTS, steps=STEPS,
@@ -864,48 +984,98 @@ def main(argv) -> int:
             raise AssertionError(f"{len(wavs)} waveforms for {len(BATCH_PROMPTS)} prompts")
         return [wav] + list(wavs), {"generate": t_gen, "generate_for_batch": t_batch}
 
-    def long_clip():
-        wav, t_gen = timed(lambda: tango.generate(PROMPT, steps=STEPS, duration=LONG_CLIP_S,
-                                                  seed=0))
-        return [wav], {"generate": t_gen}
-
-    def long_prompt():
-        wav, t_gen = timed(lambda: tango.generate(PROMPT, steps=STEPS, seed=0))
-        return [wav], {"generate": t_gen}
-
     frames = tango.model.latent_t_size
     # 4x VAE, x160 vocoder, +32 samples of the vocoder's transposed-conv edge
     wav_len = lambda latent_t: latent_t * 4 * 160 + 32  # noqa: E731
     factor = 2 ** (len(tango.model.unet_config.block_out_channels) - 1)
     long_t = factor * max(round(LONG_CLIP_S * 25.6 / factor), 1)  # as Tango.generate
-    tango.decode, tango.model.sample = checked_decode, timed_sample
+    remove = instrument(tango)
     by_path = {"serve": counted("serve", serve, wav_len(frames), phase="slice")}
     # one uncounted step at each new shape first: cuDNN's and cuBLAS's first use
     tango.generate("warm up", steps=1, duration=LONG_CLIP_S, seed=1)
-    by_path["long_clip"] = counted("long_clip", long_clip, wav_len(long_t))
+    by_path["long_clip"] = counted("long_clip", single(tango, duration=LONG_CLIP_S),
+                                   wav_len(long_t))
     tango.max_text_length = LONG_PROMPT_TOKENS
     tango.generate("warm up", steps=1, seed=1)
-    by_path["long_prompt"] = counted("long_prompt", long_prompt, wav_len(frames))
+    by_path["long_prompt"] = counted("long_prompt", single(tango), wav_len(frames))
     tango.max_text_length = 128
-    tango.decode, tango.model.sample = decode, sample
+    remove()
+
+    # ---- the int8 W8A8 serving mode, on the same weights
+    def quantized(scope):
+        return Tango.from_components(
+            unet_config=C.TANGO_UNET, vae_config=C.TANGO_VAE, t5_config=C.FLAN_T5_LARGE,
+            hifigan_config=C.TANGO_HIFIGAN, scheduler_config=C.SD21_SCHEDULER, device=DEVICE,
+            unet_params=tango.model.unet.state_dict(), vae_params=tango.vae.state_dict(),
+            t5_params=tango.t5.state_dict(), hifigan_params=tango.vocoder.state_dict(),
+            quant=scope)
+
+    t0 = time.perf_counter()
+    tq = quantized("all")
+    tq.generate("warm up", steps=1, seed=1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    def int8_fields(launches):
+        ref, got = first_latents["serve"], first_latents["int8"]
+        return dict(build_and_warmup_s=round(warm_s, 3),
+                    w8a8_per_eval=launches["w8a8_matmul"] / STEPS,
+                    rel_l2_vs_bf16=((got - ref).norm() / ref.norm()).item())
+
+    remove = instrument(tq)
+    by_path["int8"] = counted("int8", single(tq), wav_len(frames), extra=int8_fields)
+    remove()
+    tc = quantized("conv")
+    remove = instrument(tc)
+    conv_launches, _ = counted("int8_conv", single(tc, steps=2), wav_len(frames))
+    remove()
+    if conv_launches["w8a8_matmul"]:
+        raise AssertionError(f"quant='conv' launched w8a8_matmul {conv_launches['w8a8_matmul']}"
+                             " times")
+    del tc, remove  # the instruments' closures hold the pipeline
+
     shapes = {n: set() for n in ops.all_kernels()}
     for _, path_shapes in by_path.values():
         for n, v in path_shapes.items():
             shapes[n] |= v
 
-    # ---- launches in one UNet evaluation (CFG batch of one prompt)
+    # ---- launches in one UNet evaluation (CFG batch of one prompt), bf16 and
+    # int8; the 3x3 stride-1 convolutions of the bf16 one, for winograd_conv3x3
     unet, m = tango.model.unet, tango.model
     lat = torch.randn(2, m.latent_t_size, m.latent_f_size, unet.cfg.in_channels, device=DEVICE)
     ctx = torch.randn(2, tango.max_text_length, unet.cfg.cross_attention_dim, device=DEVICE,
                       dtype=tango.dtype)
     mask = torch.ones(2, tango.max_text_length, dtype=torch.long, device=DEVICE)
+    steps = torch.tensor([999, 999], device=DEVICE)
+
+    def record(mod, inputs, _):
+        x = inputs[0]
+        if mod.stride == (1, 1) and mod.padding == (1, 1) and wino_supported(
+                x.shape, mod.weight.shape, mod.stride):
+            shapes["winograd_conv3x3"].add((tuple(x.shape), tuple(mod.weight.shape)))
+
+    hooks = [mod.register_forward_hook(record) for mod in unet.modules()
+             if isinstance(mod, torch.nn.Conv2d)]
     ops.reset_counters()
     with torch.inference_mode():
-        unet(lat, torch.tensor([999, 999], device=DEVICE), ctx, mask)
+        unet(lat, steps, ctx, mask)
     torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
     per_eval = {n: fn.launches for n, fn in ops.KERNELS.items()}
-    log("per_eval", launches=per_eval, group_norms=per_eval["gn_silu_fwd"] + per_eval["gn_stats"])
-    del tango, unet, m, decode, sample, checked_decode, timed_sample
+    ops.reset_counters()
+    with torch.inference_mode():
+        tq.model.unet(lat, steps, ctx, mask)
+    torch.cuda.synchronize()
+    per_eval_int8 = {n: fn.launches for n, fn in ops.KERNELS.items()}
+    n_qlinear = sum(isinstance(mod, QLinear) for mod in tq.model.unet.modules())
+    log("per_eval", launches=per_eval, group_norms=per_eval["gn_silu_fwd"] + per_eval["gn_stats"],
+        int8_launches=per_eval_int8, quantized_linears=n_qlinear,
+        conv3x3_shapes=len(shapes["winograd_conv3x3"]))
+    if "w8a8_matmul" in PATH_KERNELS["int8"] and per_eval_int8["w8a8_matmul"] != n_qlinear:
+        raise AssertionError(f"{per_eval_int8['w8a8_matmul']} w8a8_matmul launches in one int8 "
+                             f"UNet evaluation for {n_qlinear} quantized Linear layers")
+    del tango, tq, unet, m
     torch.cuda.empty_cache()
 
     # ---- the training path, counted
@@ -920,7 +1090,7 @@ def main(argv) -> int:
         total_s=round(time.perf_counter() - t_start, 3),
         **{n: {"err_f32": c.err["f32"], "err_bf16": c.err["bf16"], "ms": c.ms,
                "plain_ms": c.plain_ms, "library_ms": c.library_ms, "bound_ms": c.bound,
-               "f32": c.f32, "shapes": len(shapes[n])} for n, c in cases.items()})
+               "f32": c.f32, **c.notes, "shapes": len(shapes[n])} for n, c in cases.items()})
 
     print(smi, flush=True)
     kernels = ops.all_kernels()

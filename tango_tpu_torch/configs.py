@@ -3,8 +3,8 @@
 A copy of the fields of tango_tpu/configs.py and tango_tpu/models/t5.py that
 the ported text-to-audio path reads, with the same names and defaults, so
 that `from_dict(jax_config.to_dict())` rebuilds a JAX config here (unknown
-keys are ignored). Fields only an unported part reads are left out: int8
-serving, Mustango's conditioning streams, the VAE encoder, DDIM.
+keys are ignored). Fields only an unported part reads are left out:
+Mustango's conditioning streams, DDIM.
 """
 
 from __future__ import annotations
@@ -66,6 +66,19 @@ class UNetConfig(_FromDict):
     upcast_attention: bool = True
     conv_in_kernel: int = 3
     conv_out_kernel: int = 3
+    # int8 W8A8 serving mode (ops/quant.py): the scope's Linear / Conv2d
+    # modules hold int8 weights and f32 scales; "all" | "dense" (attention,
+    # feed-forward and projection GEMMs) | "conv" (resnet and resampler convs)
+    quant_int8: bool = False
+    quant_scope: str = "all"
+
+    @property
+    def quant_dense(self) -> bool:
+        return self.quant_int8 and self.quant_scope in ("all", "dense")
+
+    @property
+    def quant_conv(self) -> bool:
+        return self.quant_int8 and self.quant_scope in ("all", "conv")
 
     def __post_init__(self):
         object.__setattr__(self, "down_block_types", _tup(self.down_block_types))

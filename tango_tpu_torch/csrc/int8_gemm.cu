@@ -1,0 +1,175 @@
+// W8A8 GEMM with dynamic per-row activation quantization, entry point
+// tt_w8a8_gemm.
+//
+// Replaces tango_tpu/ops/int8_gemm.py: _w8a8_kernel (through w8a8_matmul).
+// Same function, step for step:
+//   scale = max(rowmax |x|, 1e-8) * (1/127)        (f32, one per row of x)
+//   xq    = clip(rint(x / scale), -127, 127)        (int8; rint rounds half to
+//                                                   even, as jnp.round; the
+//                                                   division is IEEE: the build
+//                                                   has no fast-math flag)
+//   acc   = sum_k xq[m, k] * w[n, k]                (int32, exact: K * 127^2
+//                                                   stays below 2^31 for every
+//                                                   K the wrapper accepts)
+//   y     = (float(acc) * scale) * w_scale[n]       (f32, stored as T)
+// x is (M, K) in T = float or bf16, w is (N, K) int8 (F.linear's layout: a
+// row is K contiguous bytes), w_scale (N,) f32, y (M, N) in T.
+//
+// What bounds it on the H100: operations, at the UNet's shapes (M = 128 to
+// 16384 tokens, K = 320 to 5120, N up to 10240): 2*M*N*K int8 operations
+// against the ~M*K*2 + N*K + M*N*2 bytes moved, far above the card's ~590
+// int8 operations per byte. This first version runs the products on the CUDA
+// cores with __dp4a (four int8 products summed into an int32 a call), not on
+// the int8 tensor cores; what its design does about the bound is stage each
+// quantized x chunk and weight chunk once in shared memory for a 64 x 64
+// output tile, and keep the 16 accumulators of a thread in registers.
+//
+// The Pallas kernel held a (BM, K) block of x and a (K, BN) block of w in
+// VMEM and quantized x in the block, so x was read from HBM once a block.
+// Here a block owns a 64-row x 64-column tile of y: (1) it reads its 64 rows
+// over the whole K for the row maxima (one warp a row at a time, shuffles);
+// (2) it walks K in 64-byte chunks: quantizes the x chunk into int8, packed
+// four to an int32, in shared memory, copies the w chunk beside it, and takes
+// the products with __dp4a; (3) the f32 epilogue. Shared memory stays at
+// ~9 KB whatever K is (the UNet's K reaches 5120, and 64 x 5120 int8 rows of
+// x would not fit); the rows' second and later reads come from L2. A K that
+// is not a multiple of 4 (or of the chunk) is padded with zeros in shared
+// memory, which adds nothing to the sums.
+//
+// Layout: 256 threads; thread (ty, tx) = (tid / 16, tid % 16) owns rows
+// ty + 16i and columns tx + 16j (i, j < 4) of the tile, so the shared rows
+// a warp reads sit in distinct banks (a row stride of 17 words). Blocks: the
+// M-tiles on grid.x (up to 2^31 - 1), the N-tiles on grid.y. Element
+// offsets are 64-bit.
+
+#include "common.cuh"
+
+namespace tt {
+namespace {
+
+constexpr int kTile = 64;            // rows and columns of y a block
+constexpr int kChunk = 64;           // K bytes a shared-memory chunk
+constexpr int kWords = kChunk / 4;   // int32 words a chunk row
+constexpr int kThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+w8a8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+            const float* __restrict__ w_scale, T* __restrict__ y, int M, int N, int K) {
+  __shared__ float s_scale[kTile];
+  __shared__ int s_x[kTile][kWords + 1];
+  __shared__ int s_w[kTile][kWords + 1];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t m0 = (int64_t)blockIdx.x * kTile;
+  const int n0 = blockIdx.y * kTile;
+
+  // (1) the row scales, over the whole K
+  for (int r = warp; r < kTile; r += kThreads / 32) {
+    float amax = 0.0f;
+    if (m0 + r < M) {
+      const T* xr = x + (m0 + r) * (int64_t)K;
+      for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(to_f32(xr[k])));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (lane == 0) s_scale[r] = fmaxf(amax, 1e-8f) * (1.0f / 127.0f);
+  }
+  __syncthreads();
+
+  const int ty = tid / 16, tx = tid % 16;
+  int acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+
+  // (2) K in chunks: thread (ty, tx) fills word tx of x rows and w rows ty + 16i
+  for (int k0 = 0; k0 < K; k0 += kChunk) {
+    const int kw = k0 + 4 * tx;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int64_t row = m0 + r;
+      const float s = s_scale[r];
+      unsigned packed = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        int q = 0;
+        if (row < M && kw + b < K) {
+          const float v = rintf(to_f32(x[row * K + kw + b]) / s);
+          q = (int)fminf(fmaxf(v, -127.0f), 127.0f);
+        }
+        packed |= ((unsigned)q & 0xffu) << (8 * b);
+      }
+      s_x[r][tx] = (int)packed;
+
+      const int col = n0 + r;
+      packed = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (col < N && kw + b < K)
+          packed |= ((unsigned)w[(int64_t)col * K + kw + b] & 0xffu) << (8 * b);
+      }
+      s_w[r][tx] = (int)packed;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int wd = 0; wd < kWords; ++wd) {
+      int a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = s_x[ty + 16 * i][wd];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = s_w[tx + 16 * j][wd];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // (3) the f32 epilogue
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int64_t row = m0 + r;
+    if (row >= M) continue;
+    const float s = s_scale[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (col < N) y[row * N + col] = from_f32<T>((float)acc[i][j] * s * w_scale[col]);
+    }
+  }
+}
+
+template <typename T>
+void launch(const void* x, const void* w, const void* ws, void* y, int M, int N, int K,
+            cudaStream_t st) {
+  const dim3 grid((unsigned)(((int64_t)M + kTile - 1) / kTile),
+                  (unsigned)((N + kTile - 1) / kTile));
+  w8a8_kernel<T><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(ws),
+      static_cast<T*>(y), M, N, K);
+}
+
+}  // namespace
+}  // namespace tt
+
+extern "C" {
+
+int tt_w8a8_gemm(const void* x, const void* w, const void* w_scale, void* y, int M, int N,
+                 int K, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == tt::kF32)
+    tt::launch<float>(x, w, w_scale, y, M, N, K, st);
+  else if (dtype == tt::kBF16)
+    tt::launch<__nv_bfloat16>(x, w, w_scale, y, M, N, K, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

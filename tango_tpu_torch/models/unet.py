@@ -12,6 +12,11 @@ self-attention through ops.attention.multi_head_attention (the attention
 kernel at Sq >= 256); convs and projections are cuDNN/cuBLAS, as they were
 XLA in JAX. Both kernel routes carry their own backward kernels.
 
+A config with `quant_int8` builds the int8 modules of its `quant_scope`
+(ops/quant.py: QLinear through the `w8a8_matmul` kernel, QConv2d) at the
+JAX names, so a state dict converted from a `quantize_tree` output loads
+with the strict key check; `quantize_unet_` turns a float UNet into the same.
+
 `remat=True` recomputes each down, mid and up block in the backward pass
 (`torch.utils.checkpoint`, as `nn.remat` in JAX) whenever gradients are
 being recorded: the forward kernels of a block then run twice per training
@@ -31,6 +36,7 @@ from tango_tpu_torch.configs import UNetConfig
 from tango_tpu_torch.models.layers import GroupNorm, nchw_to_nhwc, nhwc_to_nchw
 from tango_tpu_torch.ops.attention import multi_head_attention
 from tango_tpu_torch.ops.basic import geglu, silu
+from tango_tpu_torch.ops.quant import quantize_unet_
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -301,6 +307,10 @@ class UNet2DConditionModel(nn.Module):
         self.conv_norm_out = GroupNorm(ch[0], cfg.norm_num_groups, cfg.norm_eps, act="silu")
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, cfg.conv_out_kernel,
                                   padding=(cfg.conv_out_kernel - 1) // 2)
+        if cfg.quant_int8:
+            # int8 modules in place of the scope's float ones; their weights
+            # are placeholders until a state dict is loaded
+            quantize_unet_(self, cfg.quant_scope)
 
     def forward(self, sample, timesteps, encoder_hidden_states, encoder_attention_mask=None):
         cfg = self.cfg

@@ -13,12 +13,21 @@ from its own generator, seeded from (seed, chunk, row). So batch row 0 equals
 the single-prompt output at the same seed, padding a tail chunk leaves the
 real rows unchanged, and each chunk of a seeded call gets distinct noise.
 
-Not ported yet: snapshot loading (`Tango(path)`), int8 serving (`quant`),
-the device mesh, the DDIM scheduler.
+int8 serving: `quant="conv" | "dense" | "all"` quantizes the UNet once at
+build time, after the compute-dtype cast (so the weights quantized on the
+card are the bf16 ones, and the scales stay f32), as tango_tpu/pipeline.py
+does after its optional cast: the scope's Linear layers then run the
+`w8a8_matmul` kernel, its Conv2d layers the int8 convolution
+(ops/quant.py). The T5 encoder, the VAE and HiFi-GAN stay in the compute
+dtype.
+
+Not ported yet: snapshot loading (`Tango(path)`), the device mesh, the DDIM
+scheduler.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -30,6 +39,7 @@ from tango_tpu_torch.models.hifigan import HiFiGANGenerator, waveform_to_int16
 from tango_tpu_torch.models.t5 import T5Encoder
 from tango_tpu_torch.models.unet import UNet2DConditionModel
 from tango_tpu_torch.models.vae import AutoencoderKL
+from tango_tpu_torch.ops.quant import SCOPES, quantize_unet_
 from tango_tpu_torch.tokenizer import WordHashTokenizer
 from tango_tpu_torch.utils.init import init_random_
 
@@ -48,8 +58,10 @@ class Tango:
         if name_or_path is not None:
             raise NotImplementedError(
                 "snapshot loading is not ported yet; build with Tango.from_components")
-        if quant is not None:
-            raise NotImplementedError("int8 serving (quant) is not ported yet")
+        if quant not in (None, False, *SCOPES):
+            # a typo must not serve an unquantized pipeline
+            raise ValueError(f"quant must be one of None/'conv'/'dense'/'all', got {quant!r}")
+        self.quant = quant or None
         self.device = C.resolve_device(device)
         self.dtype = dtype or C.default_dtype(self.device)
         self.max_text_length = max_text_length
@@ -83,7 +95,8 @@ class Tango:
         (`utils.convert.from_jax_params` makes them from JAX trees). A
         component whose params are None gets seeded random weights drawn on
         the device from `init_seed`. T5 and HiFi-GAN are built when their
-        config is given; the tokenizer defaults to WordHashTokenizer."""
+        config is given; the tokenizer defaults to WordHashTokenizer. With
+        `quant`, `unet_params` is still the float UNet's: it is quantized here."""
         self = cls(None, tokenizer=tokenizer, device=device, dtype=dtype,
                    max_text_length=max_text_length, quant=quant)
         if self.tokenizer is None and t5_config is not None:
@@ -101,6 +114,9 @@ class Tango:
             return m.eval().requires_grad_(False)
 
         unet = build(0, lambda: UNet2DConditionModel(unet_config), unet_params)
+        if self.quant:
+            quantize_unet_(unet, self.quant)
+            unet.cfg = dataclasses.replace(unet_config, quant_int8=True, quant_scope=self.quant)
         self.model = AudioDiffusion(unet, scheduler_config or C.SD21_SCHEDULER,
                                     latent_t_size=latent_t_size, latent_f_size=latent_f_size)
         self.vae = build(1, lambda: AutoencoderKL(vae_config), vae_params)

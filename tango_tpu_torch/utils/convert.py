@@ -12,6 +12,8 @@ is the leaf name and the layout:
   ConvTranspose kernel (k, I, O)   -> ConvTranspose1d weight (I, O, k), with
                                       the spatial flip the JAX converter applied
                                       (tango_tpu/utils/convert.py:75) undone
+  int8 kernel_q (as kernel)        -> int8 weight, the same layout change
+  int8 kernel_scale (O,)           -> weight_scale (f32)
   LayerNorm scale                  -> weight
   GroupNorm `<name>_scale/_bias`   -> `<name>.weight/.bias`
   embedding tables                 -> `<name>.weight`
@@ -43,7 +45,9 @@ def _convert_leaf(path: tuple[str, ...], w: np.ndarray) -> tuple[str, np.ndarray
     *mods, leaf = path
     if not mods and leaf in _EMBEDDINGS:
         return f"{leaf}.weight", w
-    if leaf == "kernel":
+    if leaf == "kernel_scale":
+        return ".".join(mods + ["weight_scale"]), w
+    if leaf in ("kernel", "kernel_q"):
         if w.ndim == 4:
             w = np.transpose(w, (3, 2, 0, 1))
         elif w.ndim == 3 and mods[-1].startswith("ups_"):
@@ -66,7 +70,8 @@ def _convert_leaf(path: tuple[str, ...], w: np.ndarray) -> tuple[str, np.ndarray
 
 
 def from_jax_params(params: Mapping, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree -> state dict of f32 CPU tensors.
+    """Flax parameter tree -> state dict of f32 CPU tensors (int8 for the
+    `kernel_q` leaves of a tree from `quantize_tree`).
 
     `skip` lists top-level subtrees the target module does not have: for the
     VAE's decode side alone, "encoder" and "quant_conv"; a VAE built with
@@ -79,5 +84,6 @@ def from_jax_params(params: Mapping, skip: Iterable[str] = ()) -> Dict[str, torc
         if path[0] in skip:
             continue
         key, w = _convert_leaf(path, w)
-        out[key] = torch.from_numpy(np.array(w, dtype=np.float32, order="C"))
+        dtype = np.int8 if path[-1] == "kernel_q" else np.float32
+        out[key] = torch.from_numpy(np.array(w, dtype=dtype, order="C"))
     return out

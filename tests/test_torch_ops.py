@@ -19,7 +19,7 @@ from tango_tpu.ops import attention as jattn
 from tango_tpu.ops import basic as jbasic
 from tango_tpu.ops.flash_attention import flash_attention as j_flash
 from tango_tpu.ops.gn_silu_pallas import group_norm_pallas, group_norm_pallas2
-from tango_tpu_torch.ops import KERNELS
+from tango_tpu_torch.ops import KERNELS, int8_gemm, winograd  # noqa: F401 (registers them)
 from tango_tpu_torch.ops import attention as tattn
 from tango_tpu_torch.ops import basic as tbasic
 from tango_tpu_torch.ops.flash_attention import attn_fwd, attn_fwd_plain
@@ -294,5 +294,5 @@ def test_plain_path_counts_no_launches():
     attn_fwd(q, q, q, 0.25)
     gn_silu_fwd(torch.randn(1, 8, 4, 4), torch.ones(8), torch.zeros(8), 4)
     assert sorted(KERNELS) == ["attn_fwd", "attn_fwd_bias", "attn_fwd_v2", "gn_apply",
-                               "gn_silu_fwd", "gn_stats"]
+                               "gn_silu_fwd", "gn_stats", "w8a8_matmul", "winograd_conv3x3"]
     assert all(fn.launches == 0 for fn in KERNELS.values())

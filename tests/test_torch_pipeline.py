@@ -267,8 +267,10 @@ def test_samples_and_duration(port):
 def test_not_ported_options_raise():
     with pytest.raises(NotImplementedError):
         Tango("declare-lab/tango", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Tango(device="cpu", quant="conv")
+    # int8 serving is ported (tests/test_torch_quant.py); an unknown scope raises
+    assert Tango(device="cpu", quant="conv").quant == "conv"
+    with pytest.raises(ValueError, match="quant must be"):
+        Tango(device="cpu", quant="int8")
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
