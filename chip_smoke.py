@@ -21,7 +21,10 @@ Phases, one short JSON line each:
            at the UNet's first level, which take attn_fwd_v2;
            long_prompt: generate with max_text_length = 256, whose masked
            cross-attention takes attn_fwd_bias. Each new path is warmed up
-           by one uncounted 1-step generate first;
+           by one uncounted 1-step generate first. On every serving path
+           (these and int8, int8_conv) each attn_fwd / attn_fwd_v2 launch
+           is bf16 at head dim 64 and must have taken the tensor-core body
+           (tc_launches == launches);
   int8     the int8 W8A8 serving mode: a full-width Tango.from_components(
            quant="all") built from the bf16 model's state dicts (the same
            weights, quantized once on the card), one uncounted 1-step
@@ -56,6 +59,11 @@ Phases, one short JSON line each:
            1e-2, plus the attention extreme-logit cases (the static-shift
            window and its underflow row; v2 past the window) and a fully
            masked batch row for the bias kernel (f32 atol 1e-3 on that row).
+           attn_fwd and attn_fwd_v2 run their tensor-core body in bf16 at
+           head dim 64 and their CUDA-core body in f32: both are checked at
+           every launched shape, and the tensor-core body also at ragged
+           shapes and at one 128 x 128 tile (TC_SHAPES); both bodies are
+           timed (f32 in the `f32` field).
            Backward kernels: f32 attention atol 1e-4, rtol 1e-3 and GroupNorm
            atol 2e-4, rtol 1e-3, bf16 attention 4e-3 / 1e-2 and GroupNorm
            2e-2 / 2e-2, lse and delta 1e-4 / 1e-3. Then one shape past each
@@ -63,7 +71,9 @@ Phases, one short JSON line each:
            Kernel, plain and library device times per call (bf16 inputs, and
            f32 as well for the backward kernels; 10 calls captured in a CUDA
            graph, median of 10 replays between CUDA events), summed over the
-           kernel's shapes. The library yardsticks: F.group_norm(+F.silu),
+           kernel's shapes (--detail: per shape, with TFLOP/s for the
+           attention kernels and each shape's share of its bound). The
+           library yardsticks: F.group_norm(+F.silu),
            sdpa (with a float mask for the bias kernel), and for the
            backward kernels aten's GroupNorm (and SiLU) backward and the
            attention backward kernels sdpa's autograd runs, called directly.
@@ -124,6 +134,14 @@ LONG_PROMPT_TOKENS = 256
 LIMIT_ROWS_SHAPE = (70, 960, 256, 16)
 LIMIT_GN_SHAPE = (256, 128, 1024, 64)
 LIMIT_HEADS = 70000
+# ragged shapes and one tile for the tensor-core attention body, checked
+# only: ((BH, Sq, D), (BH, Skv, D)) for attn_fwd and attn_fwd_v2
+TC_SHAPES = {
+    "attn_fwd": (((3, 200, 64), (3, 333, 64)), ((1, 128, 64), (1, 128, 64))),
+    "attn_fwd_v2": (((2, 8320, 64), (2, 8320, 64)), ((1, 128, 64), (1, 128, 64))),
+}
+# the serving paths: every attention kernel launch there is bf16 at D = 64
+TC_PATHS = ("serve", "long_clip", "long_prompt", "int8", "int8_conv")
 # the kernels each counted path must launch
 PATH_KERNELS = {
     "serve": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd"),
@@ -219,7 +237,7 @@ class KernelCase:
     def add_err(self, tag, err):
         self.err[tag] = max(self.err[tag], err)
 
-    def add_time(self, ms, plain_ms, lib_ms, bound, by, shape):
+    def add_time(self, ms, plain_ms, lib_ms, bound, by, shape, flops=None):
         """Times of one call at one shape; the case's totals are over its shapes."""
         self.ms += ms
         self.plain_ms += plain_ms
@@ -228,16 +246,26 @@ class KernelCase:
         self.bound += bound
         self.bound_share[by] += bound
         self.detail.append(dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=bound, bound_by=by))
+                                bound_ms=bound, bound_by=by, **_rates(ms, bound, flops)))
 
-    def add_time_f32(self, ms, plain_ms, lib_ms, bound, by, shape):
+    def add_time_f32(self, ms, plain_ms, lib_ms, bound, by, shape, flops=None):
         if self.f32 is None:
             self.f32 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bound_ms", bound)):
             self.f32[key] += val
         self.detail.append(dict(shape=shape, dtype="f32", ms=ms, plain_ms=plain_ms,
-                                library_ms=lib_ms, bound_ms=bound, bound_by=by))
+                                library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                                **_rates(ms, bound, flops)))
+
+
+def _rates(ms, bound, flops):
+    """The --detail rates of one shape: the share of its bound that the
+    kernel reached and, where the operations are given, TFLOP/s."""
+    out = {"bound_share": bound / ms}
+    if flops is not None:
+        out["tflops"] = flops / ms / 1e9
+    return out
 
 
 def sdpa_backward(q, k, v, do, scale):
@@ -344,24 +372,37 @@ def check_kernels(ops, shapes: dict, detail: bool):
             cuda_ms(lambda: gn_apply_plain(x, a, bb, act)), None,
             *bound_ms(4 * n + 16 * bsz * c, 6 * n, F32_FLOPS), [shape, act])
 
-    for qshape, kshape in sorted(shapes["attn_fwd"], key=str):
-        bh, sq, d = qshape
-        skv = kshape[1]
-        scale = d**-0.5
-        for tag, dt in dtypes.items():
-            q, k, v = (randn(*s, dtype=dt) for s in (qshape, kshape, kshape))
-            out = K["attn_fwd"](q, k, v, scale)
-            ref = attn_fwd_plain(q, k, v, scale)
-            cases["attn_fwd"].add_err(tag, assert_close(out, ref, *attn_tol[tag],
-                                                        f"attn_fwd {qshape} {tag}"))
-        q4, k4, v4 = (t.reshape(1, bh, -1, d) for t in (q, k, v))
-        cases["attn_fwd"].add_time(
-            cuda_ms(lambda: K["attn_fwd"](q, k, v, scale)),
-            cuda_ms(lambda: attn_fwd_plain(q, k, v, scale)),
-            cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
-            *bound_ms(2 * (2 * bh * sq * d + 2 * bh * skv * d), 4 * bh * sq * skv * d,
-                      BF16_FLOPS),
-            [qshape, kshape])
+    def attention_fwd(name, plain):
+        """attn_fwd or attn_fwd_v2 at every launched shape, in f32 (the
+        CUDA-core body) and bf16 (the tensor-core body at D = 64), each
+        checked and timed, and at TC_SHAPES, checked only."""
+        peak = {"f32": F32_FLOPS, "bf16": BF16_FLOPS}
+        for qshape, kshape in sorted(shapes[name], key=str):
+            bh, sq, d = qshape
+            skv = kshape[1]
+            scale = d**-0.5
+            flops = 4 * bh * sq * skv * d
+            for tag, dt in dtypes.items():
+                q, k, v = (randn(*s, dtype=dt) for s in (qshape, kshape, kshape))
+                out = K[name](q, k, v, scale)
+                ref = plain(q, k, v, scale)
+                cases[name].add_err(tag, assert_close(out, ref, *attn_tol[tag],
+                                                      f"{name} {qshape} {tag}"))
+                q4, k4, v4 = (t.reshape(1, bh, -1, d) for t in (q, k, v))
+                add = cases[name].add_time if tag == "bf16" else cases[name].add_time_f32
+                add(cuda_ms(lambda: K[name](q, k, v, scale)),
+                    cuda_ms(lambda: plain(q, k, v, scale)),
+                    cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
+                    *bound_ms(q.element_size() * (2 * bh * sq * d + 2 * bh * skv * d), flops,
+                              peak[tag]),
+                    [qshape, kshape], flops=flops)
+        for qshape, kshape in TC_SHAPES[name]:
+            q, k, v = (randn(*s, dtype=torch.bfloat16) for s in (qshape, kshape, kshape))
+            cases[name].add_err("bf16", assert_close(
+                K[name](q, k, v, 0.125), plain(q, k, v, 0.125), *attn_tol["bf16"],
+                f"{name} {qshape} x {kshape[1]} keys bf16"))
+
+    attention_fwd("attn_fwd", attn_fwd_plain)
 
     # the extreme-logit window and the underflow row (tests/test_flash_attention.py)
     for tag, dt in dtypes.items():
@@ -387,24 +428,7 @@ def check_kernels(ops, shapes: dict, detail: bool):
                     out, ref, atol, rtol, f"attn_fwd extreme logits {sign} {tag}"))
 
     # ---- the long-clip and long-prompt forward kernels
-    for qshape, kshape in sorted(shapes["attn_fwd_v2"], key=str):
-        bh, sq, d = qshape
-        skv = kshape[1]
-        scale = d**-0.5
-        for tag, dt in dtypes.items():
-            q, k, v = (randn(*s, dtype=dt) for s in (qshape, kshape, kshape))
-            out = K["attn_fwd_v2"](q, k, v, scale)
-            ref = attn_fwd_v2_plain(q, k, v, scale)
-            cases["attn_fwd_v2"].add_err(tag, assert_close(out, ref, *attn_tol[tag],
-                                                           f"attn_fwd_v2 {qshape} {tag}"))
-        q4, k4, v4 = (t.reshape(1, bh, -1, d) for t in (q, k, v))
-        cases["attn_fwd_v2"].add_time(
-            cuda_ms(lambda: K["attn_fwd_v2"](q, k, v, scale)),
-            cuda_ms(lambda: attn_fwd_v2_plain(q, k, v, scale)),
-            cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
-            *bound_ms(2 * (2 * bh * sq * d + 2 * bh * skv * d), 4 * bh * sq * skv * d,
-                      BF16_FLOPS),
-            [qshape, kshape])
+    attention_fwd("attn_fwd_v2", attn_fwd_v2_plain)
 
     for qshape, kshape, bshape in sorted(shapes["attn_fwd_bias"], key=str):
         bh, sq, d = qshape
@@ -713,6 +737,17 @@ def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
         assert_close(dv, rv, *attn_bwd_tol["f32"], f"attn_bwd_dkv dv {bh} heads")))
 
 
+def tc_fields(fn, tc_by_path) -> dict:
+    """The kernels line's extra fields of attn_fwd and attn_fwd_v2: launches
+    that took the tensor-core body (`source`) on the serving paths, and the
+    source of the CUDA-core body that runs f32 (the `f32` times of the
+    `kernels` phase)."""
+    if not hasattr(fn, "tc_launches"):
+        return {}
+    return {"tc_launches": sum(tc.get(fn.__name__, 0) for tc in tc_by_path.values()),
+            "f32_source": fn.f32_source}
+
+
 def write_wavs(root: str, n: int, seconds: float, seed: int) -> str:
     """`n` seeded synthetic 16 kHz WAVs (a few partials and noise) and their
     JSON-lines manifest under `root`; returns the manifest's path."""
@@ -820,6 +855,7 @@ def train_phase(C, ops) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated()
     launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
     shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
+    tc = {n: fn.tc_launches for n, fn in ops.KERNELS.items() if hasattr(fn, "tc_launches")}
     trainer.train_step, sft.save_native = step, save
 
     problems = []
@@ -843,6 +879,8 @@ def train_phase(C, ops) -> tuple[dict, dict]:
     idle = [n for n in PATH_KERNELS["train"] if launches[n] == 0]
     if idle:
         problems.append(f"kernels never launched on the training path: {idle}")
+    if any(tc.values()):
+        problems.append(f"f32 attention launches took the bf16 tensor-core body: {tc}")
     log("train", fit_s=round(fit_s, 3), micro_steps=len(micro),
         ms_per_micro_step=[round(1e3 * m[0], 3) for m in micro],
         losses=[m[1] for m in micro], val_loss=[r["val_loss"] for r in records],
@@ -899,6 +937,7 @@ def main(argv) -> int:
 
     # ---- the serving paths, each counted on its own
     checks = {}
+    tc_launches = {}  # path -> tensor-core launches of attn_fwd and attn_fwd_v2
     sample_times = {}  # CFG batch of the UNet -> [seconds, steps]
     first_latents = {}  # path -> the latents of its first decode
 
@@ -942,7 +981,11 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
         shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
+        tc = {n: fn.tc_launches for n, fn in ops.KERNELS.items() if hasattr(fn, "tc_launches")}
         problems = []
+        if path in TC_PATHS and any(tc[n] != launches[n] for n in tc):
+            problems.append(f"bf16 attention launches off the tensor-core body: launches "
+                            f"{ {n: launches[n] for n in tc} }, tensor-core {tc}")
         for w in outs:
             if w.dtype.name != "int16" or w.shape != (expect_len,):
                 problems.append(f"waveform {w.dtype} {w.shape}, expected int16 ({expect_len},)")
@@ -956,11 +999,12 @@ def main(argv) -> int:
         log(phase or path, **{f"{k}_s": round(v, 3) for k, v in seconds.items()},
             ms_per_unet_step={f"cfg_batch_{b}": round(1e3 * t / n, 3)
                               for b, (t, n) in sorted(sample_times.items())},
-            launches=launches, shapes={n: len(v) for n, v in shapes.items()},
+            launches=launches, tc_launches=tc, shapes={n: len(v) for n, v in shapes.items()},
             wav_len=expect_len, peak=[int(abs(w.astype("int32")).max()) for w in outs],
             **(extra(launches) if extra else {}), problems=problems)
         if problems:
             raise AssertionError("; ".join(problems))
+        tc_launches[path] = tc
         return launches, shapes
 
     def timed(fn):
@@ -1099,7 +1143,8 @@ def main(argv) -> int:
          "replaces": kernels[n].replaces, "launches": launches[n],
          "launches_by_path": {p: v[0][n] for p, v in by_path.items()},
          "max_abs_err": max(c.err.values()), "ms": c.ms, "plain_ms": c.plain_ms,
-         "bound_ms": c.bound, "bound_by": c.bound_by, "library_ms": c.library_ms}
+         "bound_ms": c.bound, "bound_by": c.bound_by, "library_ms": c.library_ms,
+         **tc_fields(kernels[n], {p: tc_launches.get(p, {}) for p in by_path})}
         for n, c in cases.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

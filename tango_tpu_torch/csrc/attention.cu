@@ -37,15 +37,22 @@
 // with the kOnline carry instead, so the same bf16 remark holds. A row whose
 // keys are all masked (bias -10000) stays finite: the max is subtracted.
 //
+// Which body a call takes: tt_attn_fwd and tt_attn_fwd_v2 send bf16 at head
+// dim 64 (tc_body below; every attention of the full-width UNet in bf16) to
+// the tensor-core body of attention_tc.cu, the same arithmetic on wgmma. This
+// file's body runs everything else: f32 (the trainer's type, held to JAX's
+// f32 limits, which TF32 tensor cores cannot meet), head dims 8, 16, 32 and
+// 128, and kBias (tt_attn_fwd_bias) in every type.
+//
 // What bounds them on the H100: operations. At the UNet's shapes (S = 8192,
 // 4096, 1024, 256, head dim 64; Skv = 256 for the biased cross-attention)
 // attention does 4*Skv*D flops per query row against 8*D bytes, far above the
-// card's ~295 flops per byte. This first version runs the two products on
-// the CUDA cores in f32 (no tensor cores, no wgmma), so it sits well below
-// the bf16 tensor-core bound; what its design does about the bound is keep
-// the (Sq x Skv) logits out of device memory, stage each K/V tile once in
-// shared memory for 64 query rows, and keep the output tile, the running max
-// and the denominator in registers.
+// card's ~295 flops per byte. This body runs the two products on the CUDA
+// cores in f32 (no tensor cores, no wgmma), so it sits well below the bf16
+// tensor-core bound; what its design does about the bound is keep the
+// (Sq x Skv) logits out of device memory, stage each K/V tile once in shared
+// memory for 64 query rows, and keep the output tile, the running max and
+// the denominator in registers.
 //
 // Layout: q (BH, Sq, D), k and v (BH, Skv, D), contiguous. One block per
 // (b*h, 64-row query tile), flattened onto grid.x (up to 2^31 - 1 blocks, so
@@ -59,6 +66,11 @@
 #include "common.cuh"
 
 namespace tt {
+
+// The tensor-core body (attention_tc.cu): online false is kStatic, true kOnline.
+cudaError_t attn_fwd_tc(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
+                        int Skv, float qscale, bool online, cudaStream_t st);
+
 namespace {
 
 constexpr int kBQ = 64;
@@ -277,10 +289,17 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, Bia
   }
 }
 
+// tc_body(dtype, D): the rule by which tt_attn_fwd and tt_attn_fwd_v2 take the
+// tensor-core body, bf16 at head dim 64 (tc_body in ops/flash_attention.py is
+// the same rule, for the wrappers' counters and alignment check).
+bool tc_body(int dtype, int D) { return dtype == kBF16 && D == 64; }
+
 template <int MODE>
 int dispatch(const void* q, const void* k, const void* v, void* o, BiasArg bias, int BH, int Sq,
              int Skv, int D, float qscale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (MODE != kBias && tc_body(dtype, D))
+    return (int)attn_fwd_tc(q, k, v, o, BH, Sq, Skv, qscale, MODE == kOnline, st);
   if (dtype == kF32)
     return (int)dispatch_d<float, MODE>(q, k, v, o, bias, BH, Sq, Skv, D, qscale, st);
   if (dtype == kBF16)

@@ -4,7 +4,9 @@ Every kernel wrapper is registered by name: the forward kernels (serving and
 training) in `KERNELS`, the backward kernels (training only) in
 `BACKWARD_KERNELS`; `all_kernels()` gives both. A wrapper runs its kernel
 for a CUDA tensor and its plain version for a CPU tensor, and counts its
-launches in `wrapper.launches` (a plain integer).
+launches in `wrapper.launches` (a plain integer). `attn_fwd` and
+`attn_fwd_v2` also count the launches that took their tensor-core body in
+`wrapper.tc_launches`.
 """
 
 KERNELS: dict = {}
@@ -38,3 +40,5 @@ def reset_counters() -> None:
     for fn in all_kernels().values():
         fn.launches = 0
         fn.shapes.clear()
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0

@@ -1,6 +1,8 @@
 """Attention kernels and their plain versions.
 
-Forward, three kernels of one tile loop in csrc/attention.cu:
+Forward, three kernels of one tile loop in csrc/attention.cu, and for
+`attn_fwd` and `attn_fwd_v2` in bf16 at head dim 64 (`tc_body`) a
+tensor-core (wgmma) body of the same arithmetic in csrc/attention_tc.cu:
   * `attn_fwd` replaces `_attn_kernel` (tango_tpu/ops/flash_attention.py:56),
     the static-shift exp2 softmax with deferred division: q is prescaled by
     scale*log2(e) and rounded to the storage type, p = exp2(min(l - 20, 96)),
@@ -26,11 +28,14 @@ The kernels take D in `KERNEL_HEAD_DIMS` and any BH and S whose
 (b*h, 64-row tile) block count fits 32 bits (`kernel_shape_ok`); the dispatch
 in ops/attention.py asks that before it picks a kernel. Each wrapper launches
 its kernel for CUDA tensors and runs its plain version for CPU tensors; any
-other device raises.
+other device raises. Where the tensor-core body runs, q, k, v and o must also
+be 16-byte aligned (its 16-byte copies), and `attn_fwd.tc_launches` /
+`attn_fwd_v2.tc_launches` count its launches beside `launches`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tango_tpu_torch.ops import _build, kernel_wrapper
@@ -39,7 +44,9 @@ LOG2_E = 1.4426950408889634
 SOFTMAX_SHIFT = 20.0
 SOFTMAX_CLAMP = 96.0
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+TC_HEAD_DIM = 64
 _SRC = "tango_tpu_torch/csrc/attention.cu"
+_TC_SRC = "tango_tpu_torch/csrc/attention_tc.cu"  # the bf16 D = 64 body, the serving paths'
 _BWD_SRC = "tango_tpu_torch/csrc/attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS = 64  # query (or key) rows a block
@@ -57,6 +64,23 @@ def v2_route(sq: int, skv: int) -> bool:
     to bias-free calls: a key set over 4096 that 512 divides, Sq a multiple of
     128. Everything else bias-free takes the static-shift kernel."""
     return skv > 4096 and skv % 512 == 0 and sq % 128 == 0
+
+
+def tc_body(dtype: torch.dtype, d: int) -> bool:
+    """Whether attn_fwd and attn_fwd_v2 run on the tensor-core body
+    (csrc/attention_tc.cu) rather than the CUDA-core one: bf16 at head dim 64,
+    every attention of the full-width UNet in bf16. f32 (the trainer's type)
+    keeps the CUDA-core body, which meets JAX's f32 limits. The C entry points
+    apply the same rule (`tc_body` in csrc/attention.cu)."""
+    return dtype == torch.bfloat16 and d == TC_HEAD_DIM
+
+
+def check_tc_aligned(name: str, *tensors) -> None:
+    """Raise unless every tensor's data is 16-byte aligned, as the
+    tensor-core body's 16-byte copies and stores need."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the tensor-core body needs 16-byte aligned q, k, v and o "
+                         f"(offsets mod 16: {[t.data_ptr() % 16 for t in tensors]})")
 
 
 def _check(name: str, q, k, v, *like_q) -> bool:
@@ -93,7 +117,7 @@ def _dims(q, k) -> tuple[int, int, int, int]:
 
 def _qscale(scale: float) -> float:
     """scale*log2(e) rounded to f32, as the Pallas kernels' prescale."""
-    return float(torch.tensor(scale * LOG2_E, dtype=torch.float32))
+    return float(np.float32(scale * LOG2_E))
 
 
 def _prescaled_logits(q, k, scale):
@@ -131,15 +155,26 @@ def attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     return (acc / torch.where(denom == 0.0, torch.ones_like(denom), denom)).to(q.dtype)
 
 
-@kernel_wrapper(_SRC, "tango_tpu/ops/flash_attention.py:56")
+def _launch_fwd(fn, q, k, v, scale):
+    """Launch attn_fwd or attn_fwd_v2 (fn) into a new output; the C entry
+    point picks the body by `tc_body`, and fn.tc_launches counts the
+    tensor-core ones."""
+    o = torch.empty_like(q)
+    tc = tc_body(q.dtype, q.shape[2])
+    if tc:
+        check_tc_aligned(fn.__name__, q, k, v, o)
+    _launch(fn, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *_dims(q, k),
+            _qscale(scale))
+    fn.tc_launches += tc
+    return o
+
+
+@kernel_wrapper(_TC_SRC, "tango_tpu/ops/flash_attention.py:56")
 def attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     """softmax(q k^T * scale) v over (BH, S, D) heads, static-shift form."""
     if not _check("attn_fwd", q, k, v):
         return attn_fwd_plain(q, k, v, scale)
-    o = torch.empty_like(q)
-    _launch(attn_fwd, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            *_dims(q, k), _qscale(scale))
-    return o
+    return _launch_fwd(attn_fwd, q, k, v, scale)
 
 
 def attn_fwd_v2_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
@@ -148,15 +183,16 @@ def attn_fwd_v2_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: 
     return _max_subtracted(_prescaled_logits(q, k, scale), v, q.dtype)
 
 
-@kernel_wrapper(_SRC, "tango_tpu/ops/flash_attention.py:103")
+@kernel_wrapper(_TC_SRC, "tango_tpu/ops/flash_attention.py:103")
 def attn_fwd_v2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     """softmax(q k^T * scale) v over (BH, S, D) heads, online max-subtracted form."""
     if not _check("attn_fwd_v2", q, k, v):
         return attn_fwd_v2_plain(q, k, v, scale)
-    o = torch.empty_like(q)
-    _launch(attn_fwd_v2, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            *_dims(q, k), _qscale(scale))
-    return o
+    return _launch_fwd(attn_fwd_v2, q, k, v, scale)
+
+
+attn_fwd.tc_launches = attn_fwd_v2.tc_launches = 0
+attn_fwd.f32_source = attn_fwd_v2.f32_source = _SRC  # the CUDA-core body, f32 and other D
 
 
 def attn_fwd_bias_plain(q, k, v, bias, heads: int, scale: float):

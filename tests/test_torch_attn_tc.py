@@ -1,0 +1,196 @@
+"""The tensor-core attention body (csrc/attention_tc.cu) on the CPU.
+
+The CUDA body itself runs only on the card (`chip_smoke.py` holds it against
+the plain versions there). Here: the rule that picks it (`tc_body`), the
+wrappers' alignment check and counters for it, the f32 prescale, and a
+plain-torch emulation of its key-tile walk in bf16 (128-key tiles, p rounded
+to bf16 against the running max of the tiles so far, f32 denominators of the
+unrounded p) against JAX's `flash_attention_v2` and `flash_attention` in
+interpret mode on the same numpy inputs: within one bf16 step of the output,
+the bound the CUDA source's note states for its tile walk.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tango_tpu.ops.flash_attention as jfa
+from tango_tpu_torch import configs
+from tango_tpu_torch import ops
+from tango_tpu_torch.ops import flash_attention as tfa
+
+# One intra-op thread: pytest-xdist workers share the cores, and torch's
+# pool of one thread per core then spends most of its time waiting.
+torch.set_num_threads(1)
+
+TILE = 128  # keys a K/V tile of the tensor-core body
+
+
+def _unet_head_dims(cfg):
+    """Head dims of every attention of a UNet config: channels / heads."""
+    return {ch // cfg.heads_for_level(i) for i, ch in enumerate(cfg.block_out_channels)}
+
+
+@pytest.mark.parametrize("d", tfa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tc_body_rule(dtype, d):
+    """bf16 at head dim 64 takes the tensor-core body; f32 (the trainer's
+    type, held to JAX's f32 limits) and every other head dim the CUDA-core
+    one."""
+    assert tfa.tc_body(dtype, d) == (dtype == torch.bfloat16 and d == 64)
+
+
+def test_tc_body_takes_every_full_width_unet_attention():
+    """Every attention of the full-width UNet (heads 5, 10, 20 over 320, 640,
+    1280 channels) has head dim 64: in bf16 all of them take the tensor-core
+    body, in f32 none."""
+    dims = _unet_head_dims(configs.TANGO_UNET)
+    assert dims == {64}
+    assert all(tfa.tc_body(torch.bfloat16, d) for d in dims)
+    assert not any(tfa.tc_body(torch.float32, d) for d in dims)
+
+
+def _misaligned(shape, dtype=torch.bfloat16):
+    """A contiguous view whose data starts one element (2 bytes) past a
+    16-byte boundary."""
+    base = torch.zeros(int(np.prod(shape)) + 1, dtype=dtype)
+    view = base[1:].view(*shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def test_check_tc_aligned():
+    ok = torch.zeros(2, 128, 64, dtype=torch.bfloat16)
+    tfa.check_tc_aligned("attn_fwd", ok, ok, ok, ok)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.check_tc_aligned("attn_fwd", ok, _misaligned((2, 128, 64)), ok, ok)
+
+
+@pytest.mark.parametrize("fn", [tfa.attn_fwd, tfa.attn_fwd_v2])
+def test_launch_checks_alignment_and_counts_tc(fn, monkeypatch):
+    """The wrappers' launch path (with the C call replaced by a recorder):
+    a misaligned bf16 D = 64 view raises before any launch; an aligned one
+    launches and counts a tensor-core launch; f32 or another head dim
+    launches the CUDA-core body with no alignment demand and no tc count;
+    reset_counters zeroes tc_launches."""
+    calls = []
+
+    def fake_launch(f, inputs, *args):
+        calls.append(f.__name__)
+        f.launches += 1
+
+    monkeypatch.setattr(tfa, "_launch", fake_launch)
+    ops.reset_counters()
+    bad = _misaligned((2, 128, 64))
+    good = torch.zeros(2, 128, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._launch_fwd(fn, bad, good, good, 0.125)
+    assert calls == [] and fn.tc_launches == 0
+    tfa._launch_fwd(fn, good, good, good, 0.125)
+    assert fn.launches == 1 and fn.tc_launches == 1
+    for t in (_misaligned((2, 128, 64), torch.float32), _misaligned((2, 128, 32))):
+        tfa._launch_fwd(fn, t, t, t, 0.125)
+    assert fn.launches == 3 and fn.tc_launches == 1
+    ops.reset_counters()
+    assert fn.launches == 0 and fn.tc_launches == 0
+
+
+@pytest.mark.parametrize("d", sorted({8, 16, 24, 32, 40, 64, 80, 128, 160}))
+def test_qscale_rounds_as_a_float32_tensor(d):
+    """The prescale scale*log2(e), rounded to f32 by numpy, equals the f32
+    tensor rounding it replaced, for the UNet's head dim 64 and others."""
+    scale = d**-0.5
+    assert tfa._qscale(scale) == float(torch.tensor(scale * tfa.LOG2_E, dtype=torch.float32))
+
+
+# ------------------------------------------------ the key-tile walk in bf16
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def tc_walk(q, k, v, scale, online):
+    """The tensor-core body's arithmetic on (BH, S, 64) f32 tensors that hold
+    bf16 values: 128-key tiles, f32 logits, p rounded to bf16 for the PV
+    product, f32 denominators of the unrounded p; the static form with its
+    fixed shift, the online form with the running max of the tiles so far."""
+    qs = _bf16(q * tfa._qscale(scale))
+    bh, sq, d = q.shape
+    m = torch.full((bh, sq, 1), -1e30)
+    den = torch.zeros(bh, sq, 1)
+    acc = torch.zeros(bh, sq, d)
+    for k0 in range(0, k.shape[1], TILE):
+        s = torch.matmul(qs, k[:, k0:k0 + TILE].transpose(-1, -2))
+        if online:
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            den = alpha * den + p.sum(-1, keepdim=True)
+            acc = alpha * acc + torch.matmul(_bf16(p), v[:, k0:k0 + TILE])
+            m = m_new
+        else:
+            p = torch.exp2(torch.clamp(s - tfa.SOFTMAX_SHIFT, max=tfa.SOFTMAX_CLAMP))
+            den = den + p.sum(-1, keepdim=True)
+            acc = acc + torch.matmul(_bf16(p), v[:, k0:k0 + TILE])
+    if not online:
+        den = torch.where(den == 0.0, torch.ones_like(den), den)
+    return _bf16(acc / den)
+
+
+def _bf16_inputs(b, h, sq, skv, seed):
+    """numpy q, k, v (B, H, S, 64) rounded to bf16, as JAX bf16 arrays and as
+    (B*H, S, 64) f32 torch tensors holding the same values."""
+    rng = np.random.RandomState(seed)
+    arrays = [jnp.asarray(rng.randn(b, h, s, 64).astype(np.float32), jnp.bfloat16)
+              for s in (sq, skv, skv)]
+    flat = [torch.from_numpy(np.asarray(a, np.float32).reshape(b * h, a.shape[2], 64))
+            for a in arrays]
+    return arrays, flat
+
+
+def _one_bf16_step(ref):
+    """The spacing of bf16 values at the output's largest magnitude."""
+    return 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+
+
+def _assert_within_one_step(out, ref):
+    step = _one_bf16_step(ref)
+    err = np.abs(out - ref).max()
+    assert err <= step, f"max abs error {err} > one bf16 step {step}"
+
+
+@pytest.mark.parametrize("b,h,sq,skv", [(1, 2, 256, 1024), (1, 1, 128, 2048)])
+def test_tc_walk_online_matches_pallas_v2(b, h, sq, skv):
+    """JAX's blocked-KV kernel takes the max over 1024-key blocks, the walk
+    over 128-key tiles: bf16 p is rounded against different maxes, and the
+    outputs stay within one bf16 step."""
+    (qj, kj, vj), (q, k, v) = _bf16_inputs(b, h, sq, skv, 11)
+    ref = np.asarray(jfa.flash_attention_v2(qj, kj, vj, scale=0.125, block_q=128,
+                                            block_kv=1024, interpret=True), np.float32)
+    out = tc_walk(q, k, v, 0.125, online=True).numpy().reshape(ref.shape)
+    _assert_within_one_step(out, ref)
+
+
+@pytest.mark.parametrize("b,h,sq,skv", [(1, 2, 256, 384), (2, 1, 256, 333)])
+def test_tc_walk_static_matches_pallas(b, h, sq, skv):
+    """JAX's static-shift kernel sums over the whole key set at once, the
+    walk over 128-key tiles (333 keys: a ragged last tile of 77): with a
+    fixed shift that changes only the f32 summation order."""
+    (qj, kj, vj), (q, k, v) = _bf16_inputs(b, h, sq, skv, 12)
+    ref = np.asarray(jfa.flash_attention(qj, kj, vj, scale=0.125, interpret=True), np.float32)
+    out = tc_walk(q, k, v, 0.125, online=False).numpy().reshape(ref.shape)
+    _assert_within_one_step(out, ref)
+
+
+@pytest.mark.parametrize("online", [False, True])
+def test_tc_walk_matches_plain_versions(online):
+    """The walk against the port's plain versions in bf16, which the card
+    holds the tensor-core body against (atol 4e-3, rtol 1e-2): within one
+    bf16 step, at a ragged key count."""
+    _, (q, k, v) = _bf16_inputs(1, 2, 200, 333, 13)
+    plain = tfa.attn_fwd_v2_plain if online else tfa.attn_fwd_plain
+    ref = plain(*(t.to(torch.bfloat16) for t in (q, k, v)), 0.125).float().numpy()
+    out = tc_walk(q, k, v, 0.125, online).numpy()
+    _assert_within_one_step(out, ref)
