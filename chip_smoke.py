@@ -50,8 +50,10 @@ Phases, one short JSON line each:
            validation batch, the best checkpoint loaded back bit-equal and
            deleted. Counters zeroed just before fit and read just after: the
            seven kernels of training, forward and backward, must have
-           launched. Every loss must be finite, and the parameters must change
-           after the 2nd and 4th micro-step only;
+           launched; every f32 attn_bwd_dq / attn_bwd_dkv launch (head dim 64)
+           must have taken the tensor-core body (tc_launches == launches), and
+           no f32 attn_fwd launch the bf16 one. Every loss must be finite, and
+           the parameters must change after the 2nd and 4th micro-step only;
   kernels  every kernel against its plain PyTorch version at every shape
            any path launched it at, in f32 and bf16. Forward kernels: f32
            atol 2e-5, rtol 1e-4 (the stats partial sums rtol 1e-4 alone),
@@ -66,7 +68,15 @@ Phases, one short JSON line each:
            timed (f32 in the `f32` field).
            Backward kernels: f32 attention atol 1e-4, rtol 1e-3 and GroupNorm
            atol 2e-4, rtol 1e-3, bf16 attention 4e-3 / 1e-2 and GroupNorm
-           2e-2 / 2e-2, lse and delta 1e-4 / 1e-3. Then one shape past each
+           2e-2 / 2e-2, lse and delta 1e-4 / 1e-3. attn_bwd_dq and
+           attn_bwd_dkv run their tensor-core body in f32 and bf16 at head
+           dim 64: also checked at a ragged shape (BWD_TC_RAGGED), with q and
+           k at amplitude 3 in f32 at the training shapes, in two draws
+           (against the same formula in float64, at 1e-4 / 1e-3: there the
+           plain versions' own f32 error reaches ~0.65 of that limit, so the
+           kernel is not held to the plain versions in this case; phase
+           `bwd_amplitude` logs all three distances), and against a
+           misaligned view, which must raise. Then one shape past each
            of the wrappers' old launch limits (LIMIT_*), checked, not timed.
            Kernel, plain and library device times per call (bf16 inputs, and
            f32 as well for the backward kernels; 10 calls captured in a CUDA
@@ -87,7 +97,11 @@ Phases, one short JSON line each:
            f32 1e-4 / 1e-4 (the JAX test's), bf16 2e-2 / 2e-2; library
            F.conv2d (cuDNN). Bounds: int8 operations over 1979 TOP/s or
            bytes; Winograd's 4 multiply-adds an output per input channel
-           over the bf16 (or f32) peak, or bytes.
+           over the bf16 (or f32) peak, or bytes. f32 attention, forward and
+           backward, is bounded product by product at the least the tensor
+           cores can do it in within JAX's f32 limits (attn_bound_ms): the
+           logit products as 3xTF32, the gradient products as split bf16;
+           GroupNorm by bytes.
 The last three lines are the card's `nvidia-smi` name and power limit, the
 `kernels` JSON, and the result line. Any failure exits non-zero before the
 result line; so does a card-less machine. The script writes nothing but
@@ -114,6 +128,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS = 989e12         # dense tensor-core bf16
 INT8_OPS = 1979e12          # dense tensor-core int8
 F32_FLOPS = 67e12           # f32 outside the tensor cores
+TF32_FLOPS = 495e12         # dense tensor-core TF32
+# f32 attention within JAX's f32 limits, the least the card can do it with
+# (attn_bound_ms): the logit products (S = Q K^T, dP = dO V^T) as 3xTF32 and
+# the gradient products (P V, dQ, dK, dV) as split bf16, three products each
+F32_LOGIT_FLOPS = TF32_FLOPS / 3
+F32_GRAD_FLOPS = BF16_FLOPS / 3
 TRAIN_WAVS = 8
 TRAIN_BATCH = 2
 TRAIN_CAPTIONS = ["a dog barks", "rain on a tin roof", "an engine idles", "birds sing"]
@@ -140,6 +160,12 @@ TC_SHAPES = {
     "attn_fwd": (((3, 200, 64), (3, 333, 64)), ((1, 128, 64), (1, 128, 64))),
     "attn_fwd_v2": (((2, 8320, 64), (2, 8320, 64)), ((1, 128, 64), (1, 128, 64))),
 }
+# the backward's tensor-core body (f32 and bf16 at D = 64), checked only: a
+# ragged shape ((BH, Sq, D), (BH, Skv, D)), and the amplitude of q and k in
+# its large-logit case, drawn from each of two seeds
+BWD_TC_RAGGED = ((3, 200, 64), (3, 333, 64))
+BWD_TC_AMPLITUDE = 3.0
+BWD_TC_AMPLITUDE_SEEDS = (31, 32)
 # the serving paths: every attention kernel launch there is bf16 at D = 64
 TC_PATHS = ("serve", "long_clip", "long_prompt", "int8", "int8_conv")
 # the kernels each counted path must launch
@@ -196,8 +222,21 @@ def cuda_ms(fn, reps: int = 10, per_graph: int = 10) -> float:
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+    return _larger(nbytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3)
+
+
+def attn_bound_ms(nbytes: float, product_flops: float, logits: int, grads: int,
+                  tag: str) -> tuple[float, str]:
+    """bound_ms of an attention kernel that does `logits` logit products and
+    `grads` gradient products of product_flops each: in bf16 all at
+    BF16_FLOPS, in f32 at F32_LOGIT_FLOPS and F32_GRAD_FLOPS."""
+    peak_logit, peak_grad = ((BF16_FLOPS, BF16_FLOPS) if tag == "bf16"
+                             else (F32_LOGIT_FLOPS, F32_GRAD_FLOPS))
+    return _larger(nbytes / HBM_BYTES_PER_S * 1e3,
+                   product_flops * (logits / peak_logit + grads / peak_grad) * 1e3)
+
+
+def _larger(t_bytes: float, t_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -376,12 +415,11 @@ def check_kernels(ops, shapes: dict, detail: bool):
         """attn_fwd or attn_fwd_v2 at every launched shape, in f32 (the
         CUDA-core body) and bf16 (the tensor-core body at D = 64), each
         checked and timed, and at TC_SHAPES, checked only."""
-        peak = {"f32": F32_FLOPS, "bf16": BF16_FLOPS}
         for qshape, kshape in sorted(shapes[name], key=str):
             bh, sq, d = qshape
             skv = kshape[1]
             scale = d**-0.5
-            flops = 4 * bh * sq * skv * d
+            product = 2 * bh * sq * skv * d  # S = Q K^T, then P V
             for tag, dt in dtypes.items():
                 q, k, v = (randn(*s, dtype=dt) for s in (qshape, kshape, kshape))
                 out = K[name](q, k, v, scale)
@@ -393,9 +431,9 @@ def check_kernels(ops, shapes: dict, detail: bool):
                 add(cuda_ms(lambda: K[name](q, k, v, scale)),
                     cuda_ms(lambda: plain(q, k, v, scale)),
                     cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
-                    *bound_ms(q.element_size() * (2 * bh * sq * d + 2 * bh * skv * d), flops,
-                              peak[tag]),
-                    [qshape, kshape], flops=flops)
+                    *attn_bound_ms(q.element_size() * (2 * bh * sq * d + 2 * bh * skv * d),
+                                   product, 1, 1, tag),
+                    [qshape, kshape], flops=2 * product)
         for qshape, kshape in TC_SHAPES[name]:
             q, k, v = (randn(*s, dtype=torch.bfloat16) for s in (qshape, kshape, kshape))
             cases[name].add_err("bf16", assert_close(
@@ -497,7 +535,6 @@ def check_kernels(ops, shapes: dict, detail: bool):
     attn_bwd_tol = {"f32": (1e-4, 1e-3), "bf16": (4e-3, 1e-2)}
     gn_bwd_tol = {"f32": (2e-4, 1e-3), "bf16": (2e-2, 2e-2)}
     stat_tol = (1e-4, 1e-3)
-    peaks = {"f32": F32_FLOPS, "bf16": BF16_FLOPS}
     for qshape, kshape in sorted(shapes["attn_bwd_dq"] | shapes["attn_bwd_dkv"], key=str):
         bh, sq, d = qshape
         skv = kshape[1]
@@ -505,35 +542,30 @@ def check_kernels(ops, shapes: dict, detail: bool):
         for tag, dt in dtypes.items():
             q, k, v = (randn(*s, dtype=dt) for s in (qshape, kshape, kshape))
             do = randn(*qshape, dtype=dt)
-            what = f"{qshape} {kshape} {tag}"
-            dq, lse, delta = K["attn_bwd_dq"](q, k, v, do, scale)
-            rq, rl, rd = attn_bwd_dq_plain(q, k, v, do, scale)
-            cases["attn_bwd_dq"].add_err(tag, max(
-                assert_close(dq, rq, *attn_bwd_tol[tag], f"attn_bwd_dq dq {what}"),
-                assert_close(lse, rl, *stat_tol, f"attn_bwd_dq lse {what}"),
-                assert_close(delta, rd, *stat_tol, f"attn_bwd_dq delta {what}")))
-            dk, dv = K["attn_bwd_dkv"](q, k, v, do, lse, delta, scale)
-            rk, rv = attn_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
-            cases["attn_bwd_dkv"].add_err(tag, max(
-                assert_close(dk, rk, *attn_bwd_tol[tag], f"attn_bwd_dkv dk {what}"),
-                assert_close(dv, rv, *attn_bwd_tol[tag], f"attn_bwd_dkv dv {what}")))
+            lse, delta = check_bwd(K, cases, q, k, v, do, scale, attn_bwd_tol[tag], stat_tol,
+                                   f"{qshape} {kshape} {tag}")
 
             lib = cuda_ms(sdpa_backward(q, k, v, do, scale))
             isz = q.element_size()
             qkvo = bh * (2 * sq + 2 * skv) * d * isz  # q, k, v, do read
             stats = 2 * 4 * bh * sq                     # lse, delta
-            flops = 2 * bh * sq * skv * d
+            product = 2 * bh * sq * skv * d
+            # (name, kernel, plain version, bytes moved, logit and gradient
+            # products): dq S, dP and dQ; dkv S^T, dP^T, dV and dK
             timing = [
                 ("attn_bwd_dq", lambda: K["attn_bwd_dq"](q, k, v, do, scale),
                  lambda: attn_bwd_dq_plain(q, k, v, do, scale),
-                 bound_ms(qkvo + bh * sq * d * isz + stats, 3 * flops, peaks[tag])),
+                 qkvo + bh * sq * d * isz + stats, 2, 1),
                 ("attn_bwd_dkv", lambda: K["attn_bwd_dkv"](q, k, v, do, lse, delta, scale),
                  lambda: attn_bwd_dkv_plain(q, k, v, do, lse, delta, scale),
-                 bound_ms(qkvo + stats + 2 * bh * skv * d * isz, 4 * flops, peaks[tag])),
+                 qkvo + stats + 2 * bh * skv * d * isz, 2, 2),
             ]
-            for name, kern, plain, bound in timing:
+            for name, kern, plain, nbytes, logits, grads in timing:
                 add = cases[name].add_time if tag == "bf16" else cases[name].add_time_f32
-                add(cuda_ms(kern), cuda_ms(plain), lib, *bound, [qshape, kshape])
+                add(cuda_ms(kern), cuda_ms(plain), lib,
+                    *attn_bound_ms(nbytes, product, logits, grads, tag), [qshape, kshape],
+                    flops=(logits + grads) * product)
+    bwd_tc_checks(K, cases, shapes, randn, attn_bwd_tol, stat_tol)
 
     for shape, groups, act in sorted(shapes["gn_silu_bwd"], key=str):
         c = shape[1]
@@ -573,6 +605,125 @@ def check_kernels(ops, shapes: dict, detail: bool):
             for row in case.detail:
                 log("kernel_shape", name=case.name, **row)
     return cases
+
+
+def check_bwd(K, cases, q, k, v, do, scale, tol, stat_tol, what):
+    """attn_bwd_dq, then attn_bwd_dkv on its lse and delta, against their
+    plain versions; returns the kernel's lse and delta."""
+    from tango_tpu_torch.ops.flash_attention import attn_bwd_dkv_plain, attn_bwd_dq_plain
+
+    tag = "f32" if q.dtype == torch.float32 else "bf16"
+    dq, lse, delta = K["attn_bwd_dq"](q, k, v, do, scale)
+    rq, rl, rd = attn_bwd_dq_plain(q, k, v, do, scale)
+    cases["attn_bwd_dq"].add_err(tag, max(
+        assert_close(dq, rq, *tol, f"attn_bwd_dq dq {what}"),
+        assert_close(lse, rl, *stat_tol, f"attn_bwd_dq lse {what}"),
+        assert_close(delta, rd, *stat_tol, f"attn_bwd_dq delta {what}")))
+    dk, dv = K["attn_bwd_dkv"](q, k, v, do, lse, delta, scale)
+    rk, rv = attn_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    cases["attn_bwd_dkv"].add_err(tag, max(
+        assert_close(dk, rk, *tol, f"attn_bwd_dkv dk {what}"),
+        assert_close(dv, rv, *tol, f"attn_bwd_dkv dv {what}")))
+    return lse, delta
+
+
+def attn_bwd_float64(q, k, v, do, scale):
+    """(dq, dk, dv, lse, delta) of softmax(q k^T * scale) v in float64: the
+    plain versions' formula, exact to f32's eye."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.exp(s - lse)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    return (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+            torch.matmul(p.transpose(-1, -2), do), lse[..., 0], delta[..., 0])
+
+
+def bound_ratio(out, ref, atol, rtol) -> float:
+    """The largest |out - ref| / (atol + rtol |ref|): at most 1 meets the
+    limits."""
+    return ((out.double() - ref.double()).abs() / (atol + rtol * ref.double().abs())).max().item()
+
+
+def bwd_tc_checks(K, cases, shapes, randn, attn_bwd_tol, stat_tol):
+    """The backward's tensor-core body (f32 and bf16 at head dim 64) beyond
+    the launched shapes, checked only: a ragged shape in both types; q and k
+    at amplitude BWD_TC_AMPLITUDE in f32 at the training shapes, drawn from
+    each of BWD_TC_AMPLITUDE_SEEDS (logits three times as large: 3xTF32 keeps
+    them within JAX's f32 limits, split bf16 would not); and a misaligned
+    view, which must raise before any launch.
+
+    At amplitude 3 the f32 logits of the plain versions carry ~5e-5 of
+    rounding, which exp turns into a relative error of p: the plain versions
+    sit up to ~0.65 of JAX's limits from the exact values there (delta), so
+    a comparison of kernel and plain version adds two errors of that size
+    and can exceed the limits with neither at fault. The kernel is held to
+    JAX's limits against the same formula in float64; its distance from the
+    plain versions, and theirs from float64, are logged (phase
+    `bwd_amplitude`)."""
+    from tango_tpu_torch.ops.flash_attention import (
+        attn_bwd_dkv_plain,
+        attn_bwd_dq_plain,
+        bwd_tc_body,
+    )
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    qshape, kshape = BWD_TC_RAGGED
+    for tag, dt in dtypes.items():
+        q, do = (randn(*qshape, dtype=dt) for _ in range(2))
+        k, v = (randn(*kshape, dtype=dt) for _ in range(2))
+        check_bwd(K, cases, q, k, v, do, 0.125, attn_bwd_tol[tag], stat_tol,
+                  f"{qshape} x {kshape[1]} keys {tag}")
+    names = ("dq", "dk", "dv", "lse", "delta")
+    launched = [s for s in sorted(shapes["attn_bwd_dq"], key=str)
+                if bwd_tc_body(torch.float32, s[0][2])]
+    for seed in BWD_TC_AMPLITUDE_SEEDS:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        for qshape, kshape in launched:
+            q, k = (torch.randn(s, generator=gen, device=DEVICE) * BWD_TC_AMPLITUDE
+                    for s in (qshape, kshape))
+            v = torch.randn(kshape, generator=gen, device=DEVICE)
+            do = torch.randn(qshape, generator=gen, device=DEVICE)
+            scale = qshape[2] ** -0.5
+            dq, lse, delta = K["attn_bwd_dq"](q, k, v, do, scale)
+            kern = (dq, *K["attn_bwd_dkv"](q, k, v, do, lse, delta, scale), lse, delta)
+            rq, rl, rd = attn_bwd_dq_plain(q, k, v, do, scale)
+            plain = (rq, *attn_bwd_dkv_plain(q, k, v, do, rl, rd, scale), rl, rd)
+            exact = attn_bwd_float64(q, k, v, do, scale)
+            what = f"{qshape} q, k at amplitude {BWD_TC_AMPLITUDE} f32, seed {seed}"
+            # raises on a miss; not added to the kernels line's errors, which
+            # are against the plain versions
+            for i, name in enumerate(names):
+                tol = attn_bwd_tol["f32"] if i < 3 else stat_tol
+                kernel = "attn_bwd_dq" if name in ("dq", "lse", "delta") else "attn_bwd_dkv"
+                assert_close(kern[i], exact[i], *tol, f"{kernel} {name} {what}, against float64")
+            log("bwd_amplitude", shape=[qshape, kshape], amplitude=BWD_TC_AMPLITUDE, seed=seed,
+                **{f"{who}_share_of_limit": {
+                    n: round(bound_ratio(a, b, *(attn_bwd_tol["f32"] if i < 3 else stat_tol)), 4)
+                    for i, (n, a, b) in enumerate(zip(names, x, y))}
+                   for who, x, y in (("kernel_vs_float64", kern, exact),
+                                     ("plain_vs_float64", plain, exact),
+                                     ("kernel_vs_plain", kern, plain))})
+            del kern, plain, exact
+            torch.cuda.empty_cache()
+    good = randn(1, 128, 64)
+    bad = torch.zeros(good.numel() + 1, device=good.device)[1:].view(1, 128, 64)
+    lse = torch.zeros(1, 128, device=good.device)
+    launches = (K["attn_bwd_dq"].launches, K["attn_bwd_dkv"].launches)
+    for name, call in (("attn_bwd_dq", lambda: K["attn_bwd_dq"](good, good, bad, good, 0.125)),
+                       ("attn_bwd_dkv",
+                        lambda: K["attn_bwd_dkv"](good, good, good, bad, lse, lse, 0.125))):
+        try:
+            call()
+        except ValueError as e:
+            if "16-byte" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} took a misaligned view onto the tensor-core body")
+    if (K["attn_bwd_dq"].launches, K["attn_bwd_dkv"].launches) != launches:
+        raise AssertionError("a misaligned view launched a backward kernel")
 
 
 def int8_and_winograd(K, cases, shapes, randn):
@@ -640,8 +791,6 @@ def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
     used to have (a grid.y of 65535 rows or heads, 2^31 elements): checked
     against the plain version, not timed (no path launches these shapes)."""
     from tango_tpu_torch.ops.flash_attention import (
-        attn_bwd_dkv_plain,
-        attn_bwd_dq_plain,
         attn_fwd_bias_plain,
         attn_fwd_plain,
         attn_fwd_v2_plain,
@@ -724,28 +873,20 @@ def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
         K["attn_fwd_bias"](q, k, v, bias, 2, d**-0.5),
         attn_fwd_bias_plain(q, k, v, bias, 2, d**-0.5), *attn_tol["f32"],
         f"attn_fwd_bias {bh} heads"))
-    dq, lse, delta = K["attn_bwd_dq"](q, k, v, do, d**-0.5)
-    rq, rl, rd = attn_bwd_dq_plain(q, k, v, do, d**-0.5)
-    cases["attn_bwd_dq"].add_err("f32", max(
-        assert_close(dq, rq, *attn_bwd_tol["f32"], f"attn_bwd_dq {bh} heads"),
-        assert_close(lse, rl, 1e-4, 1e-3, f"attn_bwd_dq lse {bh} heads"),
-        assert_close(delta, rd, 1e-4, 1e-3, f"attn_bwd_dq delta {bh} heads")))
-    dk, dv = K["attn_bwd_dkv"](q, k, v, do, lse, delta, d**-0.5)
-    rk, rv = attn_bwd_dkv_plain(q, k, v, do, lse, delta, d**-0.5)
-    cases["attn_bwd_dkv"].add_err("f32", max(
-        assert_close(dk, rk, *attn_bwd_tol["f32"], f"attn_bwd_dkv dk {bh} heads"),
-        assert_close(dv, rv, *attn_bwd_tol["f32"], f"attn_bwd_dkv dv {bh} heads")))
+    check_bwd(K, cases, q, k, v, do, d**-0.5, attn_bwd_tol["f32"], (1e-4, 1e-3),
+              f"{bh} heads f32")
 
 
 def tc_fields(fn, tc_by_path) -> dict:
-    """The kernels line's extra fields of attn_fwd and attn_fwd_v2: launches
-    that took the tensor-core body (`source`) on the serving paths, and the
-    source of the CUDA-core body that runs f32 (the `f32` times of the
-    `kernels` phase)."""
+    """The kernels line's extra fields of the attention kernels with a
+    tensor-core body (`source`): its launches on the counted paths, and the
+    source of the CUDA-core body that runs what it does not take (forward:
+    f32 and other head dims, the `f32` times of the `kernels` phase;
+    backward: other head dims)."""
     if not hasattr(fn, "tc_launches"):
         return {}
     return {"tc_launches": sum(tc.get(fn.__name__, 0) for tc in tc_by_path.values()),
-            "f32_source": fn.f32_source}
+            "core_source": fn.core_source}
 
 
 def write_wavs(root: str, n: int, seconds: float, seed: int) -> str:
@@ -774,11 +915,12 @@ def write_wavs(root: str, n: int, seconds: float, seed: int) -> str:
     return manifest
 
 
-def train_phase(C, ops) -> tuple[dict, dict]:
+def train_phase(C, ops) -> tuple[dict, dict, dict]:
     """One full-width f32 SFTTrainer.fit on the card: 4 micro-steps at batch
     2 with accumulation 2 (2 updates), one validation batch, the best
-    checkpoint saved, loaded back and deleted. Returns the launches and
-    shapes of the counted run; raises on any failed check."""
+    checkpoint saved, loaded back and deleted. Returns the launches, shapes
+    and tensor-core launches of the counted run; raises on any failed
+    check."""
     import shutil
 
     from tango_tpu_torch.models.diffusion import AudioDiffusion
@@ -855,7 +997,7 @@ def train_phase(C, ops) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated()
     launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
     shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
-    tc = {n: fn.tc_launches for n, fn in ops.KERNELS.items() if hasattr(fn, "tc_launches")}
+    tc = {n: fn.tc_launches for n, fn in ops.all_kernels().items() if hasattr(fn, "tc_launches")}
     trainer.train_step, sft.save_native = step, save
 
     problems = []
@@ -879,9 +1021,15 @@ def train_phase(C, ops) -> tuple[dict, dict]:
     idle = [n for n in PATH_KERNELS["train"] if launches[n] == 0]
     if idle:
         problems.append(f"kernels never launched on the training path: {idle}")
-    if any(tc.values()):
-        problems.append(f"f32 attention launches took the bf16 tensor-core body: {tc}")
-    log("train", fit_s=round(fit_s, 3), micro_steps=len(micro),
+    fwd_tc = {n: tc[n] for n in tc if n in ops.KERNELS}
+    if any(fwd_tc.values()):
+        problems.append(f"f32 forward attention launches took the bf16 tensor-core body: {fwd_tc}")
+    bwd_off = {n: (launches[n], tc[n]) for n in tc if n in ops.BACKWARD_KERNELS
+               and tc[n] != launches[n]}
+    if bwd_off:
+        problems.append(f"f32 D = 64 backward launches off the tensor-core body "
+                        f"(launches, tensor-core): {bwd_off}")
+    log("train", fit_s=round(fit_s, 3), micro_steps=len(micro), tc_launches=tc,
         ms_per_micro_step=[round(1e3 * m[0], 3) for m in micro],
         losses=[m[1] for m in micro], val_loss=[r["val_loss"] for r in records],
         peak_memory_bytes=peak, checkpoint_save_s=[round(v, 3) for v in saves],
@@ -892,7 +1040,7 @@ def train_phase(C, ops) -> tuple[dict, dict]:
         raise AssertionError("; ".join(problems))
     del trainer, state, diffusion, vae, t5
     torch.cuda.empty_cache()
-    return launches, shapes
+    return launches, shapes, tc
 
 
 def main(argv) -> int:
@@ -937,7 +1085,7 @@ def main(argv) -> int:
 
     # ---- the serving paths, each counted on its own
     checks = {}
-    tc_launches = {}  # path -> tensor-core launches of attn_fwd and attn_fwd_v2
+    tc_launches = {}  # path -> tensor-core launches of each kernel that has such a body
     sample_times = {}  # CFG batch of the UNet -> [seconds, steps]
     first_latents = {}  # path -> the latents of its first decode
 
@@ -981,7 +1129,8 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
         shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
-        tc = {n: fn.tc_launches for n, fn in ops.KERNELS.items() if hasattr(fn, "tc_launches")}
+        tc = {n: fn.tc_launches for n, fn in ops.all_kernels().items()
+              if hasattr(fn, "tc_launches")}
         problems = []
         if path in TC_PATHS and any(tc[n] != launches[n] for n in tc):
             problems.append(f"bf16 attention launches off the tensor-core body: launches "
@@ -1123,7 +1272,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # ---- the training path, counted
-    by_path["train"] = train_phase(C, ops)
+    train_launches, train_shapes, tc_launches["train"] = train_phase(C, ops)
+    by_path["train"] = (train_launches, train_shapes)
     launches = {n: sum(p[0][n] for p in by_path.values()) for n in ops.all_kernels()}
     for n, v in by_path["train"][1].items():
         shapes[n] |= v

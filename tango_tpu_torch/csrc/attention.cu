@@ -39,10 +39,12 @@
 //
 // Which body a call takes: tt_attn_fwd and tt_attn_fwd_v2 send bf16 at head
 // dim 64 (tc_body below; every attention of the full-width UNet in bf16) to
-// the tensor-core body of attention_tc.cu, the same arithmetic on wgmma. This
-// file's body runs everything else: f32 (the trainer's type, held to JAX's
-// f32 limits, which TF32 tensor cores cannot meet), head dims 8, 16, 32 and
-// 128, and kBias (tt_attn_fwd_bias) in every type.
+// the tensor-core body of attention_tc.cu, the same arithmetic on wgmma, and
+// say so by returning kTcLaunched. This file's body runs everything else: f32
+// (the trainer's type, held to JAX's f32 limits, which one-product TF32
+// cannot meet; the 3xTF32 split of attention_bwd_tc.cu could, and is not in
+// that body), head dims 8, 16, 32 and 128, and kBias (tt_attn_fwd_bias) in
+// every type.
 //
 // What bounds them on the H100: operations. At the UNet's shapes (S = 8192,
 // 4096, 1024, 256, head dim 64; Skv = 256 for the biased cross-attention)
@@ -291,7 +293,8 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, Bia
 
 // tc_body(dtype, D): the rule by which tt_attn_fwd and tt_attn_fwd_v2 take the
 // tensor-core body, bf16 at head dim 64 (tc_body in ops/flash_attention.py is
-// the same rule, for the wrappers' counters and alignment check).
+// the same rule, for the wrappers' alignment check; their counters read the
+// kTcLaunched report).
 bool tc_body(int dtype, int D) { return dtype == kBF16 && D == 64; }
 
 template <int MODE>
@@ -299,7 +302,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, BiasArg bias,
              int Skv, int D, float qscale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (MODE != kBias && tc_body(dtype, D))
-    return (int)attn_fwd_tc(q, k, v, o, BH, Sq, Skv, qscale, MODE == kOnline, st);
+    return tc_result(attn_fwd_tc(q, k, v, o, BH, Sq, Skv, qscale, MODE == kOnline, st));
   if (dtype == kF32)
     return (int)dispatch_d<float, MODE>(q, k, v, o, bias, BH, Sq, Skv, D, qscale, st);
   if (dtype == kBF16)

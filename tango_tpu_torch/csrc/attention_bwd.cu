@@ -1,4 +1,8 @@
-// Backward of bias-free softmax attention, f32 accumulation: two kernels.
+// Backward of bias-free softmax attention, f32 accumulation: two kernels on
+// the CUDA cores, for the head dims that bwd_tc_body does not take (8, 16, 32
+// and 128; no attention of the UNet has them). f32 and bf16 at head dim 64,
+// every attention of the full-width UNet, run the tensor-core body of
+// attention_bwd_tc.cu from the same entry points.
 //
 // Replaces tango_tpu/ops/flash_attention.py: _bwd_dq_kernel and
 // _bwd_dkv_kernel (via flash_attention_bwd). Like them, it is the gradient of
@@ -31,9 +35,9 @@
 // on the current stream, dq first.
 //
 // What bounds them on the H100: operations. dq does 3 and dkv 4 products of
-// 2*S*S*D flops per head against 8*S*D bytes (f32 K, V, Q, dO). This first
-// version runs every product on the CUDA cores in f32 (no tensor cores), and
-// dq recomputes s and dp in its second pass (5 products instead of 3). What
+// 2*S*S*D flops per head against 8*S*D bytes (f32 K, V, Q, dO). This body
+// runs every product on the CUDA cores in f32 (no tensor cores), and dq
+// recomputes s and dp in its second pass (5 products instead of 3). What
 // the design does about the bound: the (S x S) probabilities never reach
 // device memory, each K/V (or Q/dO) tile is staged once in shared memory for
 // 64 rows, and the accumulators stay in registers.
@@ -50,6 +54,22 @@
 #include "common.cuh"
 
 namespace tt {
+
+// The tensor-core body (attention_bwd_tc.cu), f32 (3xTF32 logits, split-bf16
+// gradients) or bf16.
+cudaError_t attn_bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                           void* dq, float* lse, float* delta, int BH, int Sq, int Skv,
+                           float scale, bool f32, cudaStream_t st);
+cudaError_t attn_bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dk, void* dv, int BH,
+                            int Sq, int Skv, float scale, bool f32, cudaStream_t st);
+
+// bwd_tc_body(dtype, D): the rule by which tt_attn_bwd_dq and tt_attn_bwd_dkv
+// take the tensor-core body, f32 or bf16 at head dim 64, and then return
+// kTcLaunched (bwd_tc_body in ops/flash_attention.py is the same rule, for the
+// wrappers' alignment check; their counters read the report).
+bool bwd_tc_body(int dtype, int D) { return (dtype == kF32 || dtype == kBF16) && D == 64; }
+
 namespace {
 
 constexpr int kRows = 64;   // rows of q (dq) or k/v (dkv) per block
@@ -394,6 +414,9 @@ int tt_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   float* dl = static_cast<float*>(delta);
+  if (tt::bwd_tc_body(dtype, D))
+    return tt::tc_result(tt::attn_bwd_dq_tc(q, k, v, dout, dq, l, dl, BH, Sq, Skv, scale,
+                                            dtype == tt::kF32, st));
   if (dtype == tt::kF32)
     return (int)tt::dispatch_dq<float>(q, k, v, dout, dq, l, dl, BH, Sq, Skv, D, scale, st);
   if (dtype == tt::kBF16)
@@ -408,6 +431,9 @@ int tt_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dou
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  if (tt::bwd_tc_body(dtype, D))
+    return tt::tc_result(tt::attn_bwd_dkv_tc(q, k, v, dout, l, dl, dk, dv, BH, Sq, Skv, scale,
+                                             dtype == tt::kF32, st));
   if (dtype == tt::kF32)
     return (int)tt::dispatch_dkv<float>(q, k, v, dout, l, dl, dk, dv, BH, Sq, Skv, D, scale, st);
   if (dtype == tt::kBF16)

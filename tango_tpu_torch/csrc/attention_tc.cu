@@ -3,8 +3,10 @@
 // points tt_attn_fwd and tt_attn_fwd_v2 (attention.cu) take it where
 // tc_body(dtype, D) holds: bf16 and D == 64, every attention of the
 // full-width UNet (heads 5, 10, 20 over 320, 640, 1280 channels). f32 (the
-// trainer's type, whose limits TF32 wgmma cannot meet), other head dims and
-// the biased form keep attention.cu's CUDA-core body.
+// trainer's type), other head dims and the biased form keep attention.cu's
+// CUDA-core body: one-product TF32 wgmma cannot meet JAX's f32 limits, and
+// the 3xTF32 split that can (attention_bwd_tc.cu's logit products) is not in
+// this body.
 //
 // Replaces, as that body does, tango_tpu/ops/flash_attention.py:
 //   _attn_kernel (:56)     through tt_attn_fwd, the static-shift form;
@@ -65,6 +67,7 @@
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace tt {
 namespace {
@@ -80,19 +83,6 @@ constexpr int kTile = kKeys * kD * 2;    // bytes of the Q tile and of a K or V 
 constexpr int kSmem = (1 + 2 * kStages) * kTile + 1024;
 constexpr float kShift = 20.0f;
 constexpr float kClamp = 96.0f;
-
-// Byte offset of the 16-byte chunk c (head-dim elements 8c .. 8c+7) of row r
-// in a (rows, 64) bf16 tile under the 128-byte swizzle.
-__device__ __forceinline__ uint32_t sw128(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
-}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
   // bytes 0 copies nothing and fills the 16 bytes with zeros
@@ -110,42 +100,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Makes this thread's shared-memory writes (st.shared, cp.async) visible to
-// wgmma's reads, which go through the async proxy.
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Orders the compiler's reads and writes of these registers against the
-// wgmma instructions around them (the accumulators are written
-// asynchronously, between the mma and its wait).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define TT_ACC8(i)                                                                         \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
 // d (+)= A B^T for one k16 step: A 64 x 16 and B 128 x 16, bf16, both K-major
 // in shared memory; d is the m64n128 f32 accumulator (overwritten if !acc).
 __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b, int acc) {
@@ -160,27 +114,6 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b,
       : TT_ACC8(0), TT_ACC8(8), TT_ACC8(16), TT_ACC8(24), TT_ACC8(32), TT_ACC8(40),
         TT_ACC8(48), TT_ACC8(56)
       : "l"(a), "l"(b), "r"(acc));
-}
-
-// d += A B for one k16 step: A 64 x 16 bf16 in registers (the k16 A
-// fragment), B 16 x 64 bf16 in shared memory stored (k, n), i.e. MN-major:
-// transposed (imm-trans-b = 1); d is the m64n64 f32 accumulator.
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : TT_ACC8(0), TT_ACC8(8), TT_ACC8(16), TT_ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-#undef TT_ACC8
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Accumulator layout of m64nNk16 (f32), per thread of a warpgroup: warp w,
@@ -334,7 +267,7 @@ attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     const uint64_t dv = smem_desc(sV + slot * kTile, 1024, 1024);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) wgmma_pv(acc, p[kk], dv + kk * (16 * 128 >> 4));
+    for (int kk = 0; kk < kKeys / 16; ++kk) wgmma_rs64(acc, p[kk], dv + kk * (16 * 128 >> 4));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);

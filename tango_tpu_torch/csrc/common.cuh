@@ -11,6 +11,12 @@ namespace tt {
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
+// What an entry point that has a tensor-core body returns after launching it;
+// 0 is a launch of its CUDA-core body and a positive code a cudaError_t. The
+// wrappers count tc_launches from this report.
+constexpr int kTcLaunched = -1;
+inline int tc_result(cudaError_t e) { return e == cudaSuccess ? kTcLaunched : (int)e; }
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 

@@ -1,0 +1,81 @@
+// Hopper building blocks shared by the tensor-core attention bodies
+// (attention_tc.cu, attention_bwd_tc.cu): the 128-byte swizzle, wgmma
+// shared-memory descriptors, the proxy and wgmma fences, and the register-A
+// m64n64k16 bf16 product. sm_90a only.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace tt {
+
+// Byte offset of the 16-byte chunk c of row r in a tile of 128-byte rows
+// under the 128-byte swizzle (chunk c of row r at c ^ (r % 8)); the tile's
+// base is 1024-byte aligned, where the swizzle pattern repeats.
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// Makes this thread's shared-memory writes (st.shared, cp.async) visible to
+// wgmma's reads, which go through the async proxy.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Orders the compiler's reads and writes of these registers against the
+// wgmma instructions around them (the accumulators are written
+// asynchronously, between the mma and its wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define TT_ACC8(i)                                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d += A B for one k16 step: A 64 x 16 bf16 in registers (the k16 A
+// fragment), B 16 x 64 bf16 in shared memory stored (k, n), i.e. MN-major:
+// transposed (imm-trans-b = 1); d is the m64n64 f32 accumulator.
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TT_ACC8(0), TT_ACC8(8), TT_ACC8(16), TT_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+}  // namespace tt

@@ -4,8 +4,9 @@ Every kernel wrapper is registered by name: the forward kernels (serving and
 training) in `KERNELS`, the backward kernels (training only) in
 `BACKWARD_KERNELS`; `all_kernels()` gives both. A wrapper runs its kernel
 for a CUDA tensor and its plain version for a CPU tensor, and counts its
-launches in `wrapper.launches` (a plain integer). `attn_fwd` and
-`attn_fwd_v2` also count the launches that took their tensor-core body in
+launches in `wrapper.launches` (a plain integer). The attention wrappers
+with a tensor-core body (`attn_fwd`, `attn_fwd_v2`, `attn_bwd_dq`,
+`attn_bwd_dkv`) also count the launches that took it in
 `wrapper.tc_launches`.
 """
 

@@ -16,21 +16,25 @@ tensor-core (wgmma) body of the same arithmetic in csrc/attention_tc.cu:
     an additive f32 bias (B, 1 | Sq, Skv) scaled by log2(e), shared by the
     heads of a batch row.
 
-Backward, `attn_bwd_dq` and `attn_bwd_dkv` (csrc/attention_bwd.cu) replace
-`_bwd_dq_kernel` and `_bwd_dkv_kernel` (:231, 259): the gradient of the exact
-max-subtracted softmax, recomputed from q, k and v, with JAX's roundings (ds
-to the storage type before both products that take it, p to dO's type before
-dV = p^T dO). dq also writes the per-row lse and delta that dkv reads, as
-(BH, Sq) f32. Bound on the H100: operations (see the CUDA files' notes).
+Backward, `attn_bwd_dq` and `attn_bwd_dkv` replace `_bwd_dq_kernel` and
+`_bwd_dkv_kernel` (:231, 259): the gradient of the exact max-subtracted
+softmax, recomputed from q, k and v, with JAX's roundings (ds to the storage
+type before both products that take it, p to dO's type before dV = p^T dO).
+dq also writes the per-row lse and delta that dkv reads, as (BH, Sq) f32. In
+f32 and bf16 at head dim 64 (`bwd_tc_body`) both run the tensor-core body of
+csrc/attention_bwd_tc.cu (f32: 3xTF32 logit products, split-bf16 gradient
+products), other head dims the CUDA-core body of csrc/attention_bwd.cu.
+Bound on the H100: operations (see the CUDA files' notes).
 
 Layout: q and do (BH, Sq, D), k and v (BH, Skv, D), contiguous, f32 or bf16.
 The kernels take D in `KERNEL_HEAD_DIMS` and any BH and S whose
 (b*h, 64-row tile) block count fits 32 bits (`kernel_shape_ok`); the dispatch
 in ops/attention.py asks that before it picks a kernel. Each wrapper launches
 its kernel for CUDA tensors and runs its plain version for CPU tensors; any
-other device raises. Where the tensor-core body runs, q, k, v and o must also
-be 16-byte aligned (its 16-byte copies), and `attn_fwd.tc_launches` /
-`attn_fwd_v2.tc_launches` count its launches beside `launches`.
+other device raises. Where a tensor-core body runs, every input and output
+must also be 16-byte aligned (its 16-byte copies). The C entry point
+reports which body it launched, and the wrapper's `tc_launches` counts the
+tensor-core ones beside `launches`.
 """
 
 from __future__ import annotations
@@ -48,7 +52,9 @@ TC_HEAD_DIM = 64
 _SRC = "tango_tpu_torch/csrc/attention.cu"
 _TC_SRC = "tango_tpu_torch/csrc/attention_tc.cu"  # the bf16 D = 64 body, the serving paths'
 _BWD_SRC = "tango_tpu_torch/csrc/attention_bwd.cu"
+_BWD_TC_SRC = "tango_tpu_torch/csrc/attention_bwd_tc.cu"  # f32 and bf16 at D = 64, training's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TC_LAUNCHED = -1  # an entry point's return after a tensor-core launch (tt::kTcLaunched)
 _ROWS = 64  # query (or key) rows a block
 
 
@@ -70,17 +76,29 @@ def tc_body(dtype: torch.dtype, d: int) -> bool:
     """Whether attn_fwd and attn_fwd_v2 run on the tensor-core body
     (csrc/attention_tc.cu) rather than the CUDA-core one: bf16 at head dim 64,
     every attention of the full-width UNet in bf16. f32 (the trainer's type)
-    keeps the CUDA-core body, which meets JAX's f32 limits. The C entry points
-    apply the same rule (`tc_body` in csrc/attention.cu)."""
+    keeps the CUDA-core body: one-product TF32 would miss JAX's f32 limits,
+    and the 3xTF32 split that meets them (as the backward's `bwd_tc_body`
+    shows) is not in this body. The C entry points apply the same rule
+    (`tc_body` in csrc/attention.cu); here it decides the alignment check."""
     return dtype == torch.bfloat16 and d == TC_HEAD_DIM
 
 
+def bwd_tc_body(dtype: torch.dtype, d: int) -> bool:
+    """Whether attn_bwd_dq and attn_bwd_dkv run on the tensor-core body
+    (csrc/attention_bwd_tc.cu) rather than the CUDA-core one: f32 or bf16 at
+    head dim 64, every attention of the full-width UNet, the trainer's f32
+    included (3xTF32 logits and split-bf16 gradients keep it within JAX's f32
+    limits). The C entry points apply the same rule (`bwd_tc_body` in
+    csrc/attention_bwd.cu); here it decides the alignment check."""
+    return dtype in (torch.float32, torch.bfloat16) and d == TC_HEAD_DIM
+
+
 def check_tc_aligned(name: str, *tensors) -> None:
-    """Raise unless every tensor's data is 16-byte aligned, as the
-    tensor-core body's 16-byte copies and stores need."""
+    """Raise unless every tensor's data is 16-byte aligned, as a tensor-core
+    body's 16-byte copies and stores need."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: the tensor-core body needs 16-byte aligned q, k, v and o "
-                         f"(offsets mod 16: {[t.data_ptr() % 16 for t in tensors]})")
+        raise ValueError(f"{name}: the tensor-core body needs 16-byte aligned inputs and "
+                         f"outputs (offsets mod 16: {[t.data_ptr() % 16 for t in tensors]})")
 
 
 def _check(name: str, q, k, v, *like_q) -> bool:
@@ -133,17 +151,29 @@ def _max_subtracted(logits, v, dtype):
     return (acc / p.sum(-1, keepdim=True)).to(dtype)
 
 
-def _launch(fn, inputs, *args) -> None:
+def _launch(fn, inputs, *args) -> bool:
     """Call fn's C entry point tt_<name>(*args, dtype, stream) on the stream of
     inputs[0], raise on a CUDA error, count the launch and record the inputs'
-    shapes."""
+    shapes; True where the entry point reports a tensor-core launch."""
     q = inputs[0]
     lib = _build.load()
     code = getattr(lib, f"tt_{fn.__name__}")(
         *args, _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, code, fn.__name__)
+    tc = code == TC_LAUNCHED
+    _build.check(lib, 0 if tc else code, fn.__name__)
     fn.launches += 1
     fn.shapes.add(tuple(tuple(t.shape) for t in inputs))
+    return tc
+
+
+def _count_tc(fn, rule: bool, ran: bool) -> None:
+    """Count in fn.tc_launches a launch the C entry point reported as a
+    tensor-core one (ran); raise where that report disagrees with the rule
+    the wrapper checked alignment by."""
+    if ran != rule:
+        raise RuntimeError(f"{fn.__name__}: the entry point launched the "
+                           f"{'tensor' if ran else 'CUDA'}-core body against the wrapper's rule")
+    fn.tc_launches += ran
 
 
 def attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
@@ -158,14 +188,13 @@ def attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
 def _launch_fwd(fn, q, k, v, scale):
     """Launch attn_fwd or attn_fwd_v2 (fn) into a new output; the C entry
     point picks the body by `tc_body`, and fn.tc_launches counts the
-    tensor-core ones."""
+    tensor-core ones it reports."""
     o = torch.empty_like(q)
     tc = tc_body(q.dtype, q.shape[2])
     if tc:
         check_tc_aligned(fn.__name__, q, k, v, o)
-    _launch(fn, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *_dims(q, k),
-            _qscale(scale))
-    fn.tc_launches += tc
+    _count_tc(fn, tc, _launch(fn, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              o.data_ptr(), *_dims(q, k), _qscale(scale)))
     return o
 
 
@@ -192,7 +221,7 @@ def attn_fwd_v2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float)
 
 
 attn_fwd.tc_launches = attn_fwd_v2.tc_launches = 0
-attn_fwd.f32_source = attn_fwd_v2.f32_source = _SRC  # the CUDA-core body, f32 and other D
+attn_fwd.core_source = attn_fwd_v2.core_source = _SRC  # the CUDA-core body, f32 and other D
 
 
 def attn_fwd_bias_plain(q, k, v, bias, heads: int, scale: float):
@@ -245,18 +274,29 @@ def attn_bwd_dq_plain(q, k, v, do, scale: float):
     return dq.to(q.dtype), lse[..., 0], delta[..., 0]
 
 
-@kernel_wrapper(_BWD_SRC, "tango_tpu/ops/flash_attention.py:231", backward=True)
+@kernel_wrapper(_BWD_TC_SRC, "tango_tpu/ops/flash_attention.py:231", backward=True)
 def attn_bwd_dq(q, k, v, do, scale: float):
     """dq of softmax(q k^T * scale) v for the output gradient do, all
     (BH, S, D); also the per-row lse and delta, (BH, Sq) f32."""
     if not _check("attn_bwd_dq", q, k, v, do):
         return attn_bwd_dq_plain(q, k, v, do, scale)
-    bh, sq, _ = q.shape
+    return _launch_dq(q, k, v, do, scale)
+
+
+def _launch_dq(q, k, v, do, scale):
+    """Launch attn_bwd_dq into new outputs; the C entry point picks the body
+    by `bwd_tc_body`, and attn_bwd_dq.tc_launches counts the tensor-core
+    ones it reports."""
+    bh, sq, d = q.shape
     dq = torch.empty_like(q)
     lse = torch.empty((bh, sq), device=q.device, dtype=torch.float32)
     delta = torch.empty_like(lse)
-    _launch(attn_bwd_dq, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_dims(q, k), float(scale))
+    tc = bwd_tc_body(q.dtype, d)
+    if tc:
+        check_tc_aligned("attn_bwd_dq", q, k, v, do, dq)
+    _count_tc(attn_bwd_dq, tc, _launch(
+        attn_bwd_dq, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_dims(q, k), float(scale)))
     return dq, lse, delta
 
 
@@ -272,7 +312,7 @@ def attn_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-@kernel_wrapper(_BWD_SRC, "tango_tpu/ops/flash_attention.py:259", backward=True)
+@kernel_wrapper(_BWD_TC_SRC, "tango_tpu/ops/flash_attention.py:259", backward=True)
 def attn_bwd_dkv(q, k, v, do, lse, delta, scale: float):
     """dk, dv of softmax(q k^T * scale) v from the lse and delta of attn_bwd_dq."""
     use_kernel = _check("attn_bwd_dkv", q, k, v, do)
@@ -284,12 +324,27 @@ def attn_bwd_dkv(q, k, v, do, lse, delta, scale: float):
         return attn_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
     if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError("attn_bwd_dkv: lse and delta must be contiguous")
+    return _launch_dkv(q, k, v, do, lse, delta, scale)
+
+
+def _launch_dkv(q, k, v, do, lse, delta, scale):
+    """Launch attn_bwd_dkv into new outputs; the C entry point picks the body
+    by `bwd_tc_body`, and attn_bwd_dkv.tc_launches counts the tensor-core
+    ones it reports."""
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch(attn_bwd_dkv, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q, k),
-            float(scale))
+    tc = bwd_tc_body(q.dtype, q.shape[2])
+    if tc:
+        check_tc_aligned("attn_bwd_dkv", q, k, v, do, dk, dv)
+    _count_tc(attn_bwd_dkv, tc, _launch(
+        attn_bwd_dkv, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q, k),
+        float(scale)))
     return dk, dv
+
+
+attn_bwd_dq.tc_launches = attn_bwd_dkv.tc_launches = 0
+attn_bwd_dq.core_source = attn_bwd_dkv.core_source = _BWD_SRC  # other head dims
 
 
 def flash_bwd_supported(sq: int, skv: int, d: int) -> bool:

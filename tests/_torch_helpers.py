@@ -1,7 +1,12 @@
 """Shared pieces of the port's parity tests (tests/test_torch_*.py)."""
 
+import types
+
 import jax
 import numpy as np
+import torch
+
+from tango_tpu_torch.ops import _build
 
 EMBEDDINGS = ("token_embedding", "relative_attention_bias")
 
@@ -32,3 +37,28 @@ def random_jax_params(init_fn, seed: int):
         return v.astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def fake_kernel_library(monkeypatch, codes):
+    """Run the attention wrappers' launch path on the CPU: the kernel library
+    becomes a recorder whose entry points return the next of `codes` (what a
+    C entry point reports: `TC_LAUNCHED` for a tensor-core launch, 0 for a
+    CUDA-core one, a positive CUDA error code), and the CUDA stream a stub.
+    Returns the list of entry points called, in order."""
+    calls, codes = [], iter(codes)
+
+    class Library:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append(name)
+                return next(codes)
+            return entry
+
+        @staticmethod
+        def tt_error_string(code):
+            return b"recorded error"
+
+    monkeypatch.setattr(_build, "load", Library)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    return calls

@@ -19,6 +19,7 @@ import tango_tpu.ops.flash_attention as jfa
 from tango_tpu_torch import configs
 from tango_tpu_torch import ops
 from tango_tpu_torch.ops import flash_attention as tfa
+from tests._torch_helpers import fake_kernel_library
 
 # One intra-op thread: pytest-xdist workers share the cores, and torch's
 # pool of one thread per core then spends most of its time waiting.
@@ -69,18 +70,13 @@ def test_check_tc_aligned():
 
 @pytest.mark.parametrize("fn", [tfa.attn_fwd, tfa.attn_fwd_v2])
 def test_launch_checks_alignment_and_counts_tc(fn, monkeypatch):
-    """The wrappers' launch path (with the C call replaced by a recorder):
-    a misaligned bf16 D = 64 view raises before any launch; an aligned one
-    launches and counts a tensor-core launch; f32 or another head dim
-    launches the CUDA-core body with no alignment demand and no tc count;
-    reset_counters zeroes tc_launches."""
-    calls = []
-
-    def fake_launch(f, inputs, *args):
-        calls.append(f.__name__)
-        f.launches += 1
-
-    monkeypatch.setattr(tfa, "_launch", fake_launch)
+    """The wrappers' launch path (with the C library replaced by a recorder
+    that reports the body a C entry point would launch): a misaligned bf16
+    D = 64 view raises before any launch; an aligned one launches and counts
+    the reported tensor-core launch; f32 or another head dim launches the
+    CUDA-core body with no alignment demand and no tc count; reset_counters
+    zeroes tc_launches."""
+    calls = fake_kernel_library(monkeypatch, [tfa.TC_LAUNCHED, 0, 0])
     ops.reset_counters()
     bad = _misaligned((2, 128, 64))
     good = torch.zeros(2, 128, 64, dtype=torch.bfloat16)
@@ -91,7 +87,7 @@ def test_launch_checks_alignment_and_counts_tc(fn, monkeypatch):
     assert fn.launches == 1 and fn.tc_launches == 1
     for t in (_misaligned((2, 128, 64), torch.float32), _misaligned((2, 128, 32))):
         tfa._launch_fwd(fn, t, t, t, 0.125)
-    assert fn.launches == 3 and fn.tc_launches == 1
+    assert fn.launches == 3 and fn.tc_launches == 1 and calls == [f"tt_{fn.__name__}"] * 3
     ops.reset_counters()
     assert fn.launches == 0 and fn.tc_launches == 0
 
