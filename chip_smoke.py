@@ -32,13 +32,18 @@ Phases, one short JSON line each:
            batch 2 (PATH_KERNELS["int8"], w8a8_matmul included) with its UNet
            step time, w8a8 launches per evaluation and the relative L2 of
            its final latents against the bf16 slice's at the same seed;
+           every w8a8_matmul launch (K % 16 == 0 at every int8 shape) must
+           have taken the tensor-core body (tc_launches == launches);
   int8_conv
            an uncounted 2-step generate with quant="conv" (the JAX bench's
            default scope: int8 convolutions on torch._int_mm), which must
            launch no w8a8_matmul;
   per_eval launches of each kernel in one UNet evaluation, bf16 and int8
            (w8a8_matmul once for every quantized Linear: 16 transformers x 9
-           projections), and the 3x3 stride-1 convolution shapes of the bf16
+           projections, each on the tensor-core body), the device time of
+           one evaluation of each (torch.profiler: the kernels' own time,
+           no host gaps) with the int8 one's W8A8 kernels and the (M, K, N)
+           of its GEMMs, and the 3x3 stride-1 convolution shapes of the bf16
            evaluation, recorded by forward hooks, for winograd_conv3x3, which
            no path calls (in JAX neither);
   train_model, train
@@ -88,14 +93,24 @@ Phases, one short JSON line each:
            backward kernels aten's GroupNorm (and SiLU) backward and the
            attention backward kernels sdpa's autograd runs, called directly.
            w8a8_matmul at every shape the int8 path launched it at and at
-           tests/test_quant.py's (300, 320) x (320, 256), and two ragged
-           shapes, checked only: f32 atol 1e-5 / rtol 1e-5 (the JAX
-           test's), bf16 one bf16 step (1e-2 / 8e-3);
-           library torch._int_mm on the pre-quantized operands, and bf16
-           F.linear as a note. winograd_conv3x3, called directly, at
-           tests/test_winograd.py's shapes and at the hooked UNet shapes:
-           f32 1e-4 / 1e-4 (the JAX test's), bf16 2e-2 / 2e-2; library
-           F.conv2d (cuDNN). Bounds: int8 operations over 1979 TOP/s or
+           tests/test_quant.py's (300, 320) x (320, 256) (the tensor-core
+           body: quantize pass plus s8 wgmma GEMM, timed together), two
+           ragged shapes (K % 16 != 0: the __dp4a body) and three ragged
+           ones of the tensor-core body (W8A8_TC_RAGGED), checked only: f32
+           atol 1e-5 / rtol 1e-5 (the JAX test's), bf16 one bf16 step (1e-2
+           / 8e-3); library torch._int_mm on the pre-quantized operands,
+           and bf16 F.linear as a note (--detail: per shape, with TOP/s).
+           winograd_conv3x3, called directly, at tests/test_winograd.py's
+           shapes and at the hooked UNet shapes: bf16 on the tensor-core
+           body, f32 on the CUDA-core one, and at a ragged shape
+           (WINO_TC_RAGGED, checked only); f32 1e-4 / 1e-4 (the JAX
+           test's), bf16 2e-2 / 2e-2; timed as the whole wrapper and as the
+           kernel alone (kernel_only_ms: `launch` on a prepared U; with
+           --detail both kernels' rows also split one call's device time by
+           kernel, `by_kernel_ms`, from torch.profiler), its U
+           kernel (`weight_tc`) held within one bf16 step of the torch U;
+           library F.conv2d (cuDNN). Every call of both must take the body
+           its rule names. Bounds: int8 operations over 1979 TOP/s or
            bytes; Winograd's 4 multiply-adds an output per input channel
            over the bf16 (or f32) peak, or bytes. f32 attention, forward and
            backward, is bounded product by product at the least the tensor
@@ -111,10 +126,12 @@ deletes) and stops itself after 720 s.
 
 from __future__ import annotations
 
+import collections
 import faulthandler
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -182,8 +199,16 @@ PATH_KERNELS = {
 # (K not a multiple of 4, M and N not of the 64-wide tiles), checked only
 W8A8_TEST_SHAPE = (300, 320, 256)
 W8A8_RAGGED = ((37, 70, 24), (5, 3, 8))
+# ragged shapes of the tensor-core body (K % 16 == 0), checked only: M and N
+# off the 128-wide tiles; rows of y that are not whole 16-byte packets (N =
+# 7: the epilogue's direct stores); a split K with N % 4 != 0 (the finishing
+# pass one element a thread)
+W8A8_TC_RAGGED = ((37, 64, 24), (5, 32, 7), (70, 2560, 6))
 WINO_TEST_SHAPES = ((2, 8, 6, 16, 24), (1, 256, 16, 8, 8), (2, 4, 4, 8, 16),
                     (2, 8, 8, 16, 24), (1, 64, 16, 32, 8), (2, 256, 16, 16, 16))
+# a ragged shape of the tensor-core Winograd body, checked only: Ci not a
+# multiple of 8 (V and U zero-padded to 32 channels), odd Co, a 3 x 4 tile grid
+WINO_TC_RAGGED = ((1, 6, 8, 20, 13),)
 
 
 def log(phase: str, **kw) -> None:
@@ -219,6 +244,27 @@ def cuda_ms(fn, reps: int = 10, per_graph: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / per_graph)
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int) -> dict:
+    """Device time of one call of `fn` by kernel (function) name, in ms:
+    the kernels' own time in a torch.profiler trace of `calls` calls, so the
+    host's gaps between launches are left out. (A trace of one short call
+    came back without its kernels, so several calls go into one trace.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = re.search(r"(\w+)[<(]", e.key)
+            out[name.group(1) if name else e.key] += e.device_time_total / 1e3 / calls
+    return dict(out)
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -266,7 +312,9 @@ class KernelCase:
         self.detail = []
         # the backward kernels are also timed with f32 inputs, the trainer's type
         self.f32 = None
-        # other yardsticks, summed over the shapes (w8a8_matmul: bf16 F.linear)
+        # other numbers, summed over the shapes: bf16 F.linear (w8a8_matmul),
+        # the kernel alone (winograd_conv3x3), launches that took the
+        # tensor-core body in this phase's checks (both)
         self.notes = {}
 
     @property
@@ -276,8 +324,9 @@ class KernelCase:
     def add_err(self, tag, err):
         self.err[tag] = max(self.err[tag], err)
 
-    def add_time(self, ms, plain_ms, lib_ms, bound, by, shape, flops=None):
-        """Times of one call at one shape; the case's totals are over its shapes."""
+    def add_time(self, ms, plain_ms, lib_ms, bound, by, shape, flops=None, **extra):
+        """Times of one call at one shape; the case's totals are over its
+        shapes. `extra` goes into the shape's --detail row only."""
         self.ms += ms
         self.plain_ms += plain_ms
         if lib_ms is not None:
@@ -285,7 +334,8 @@ class KernelCase:
         self.bound += bound
         self.bound_share[by] += bound
         self.detail.append(dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=bound, bound_by=by, **_rates(ms, bound, flops)))
+                                bound_ms=bound, bound_by=by, **_rates(ms, bound, flops),
+                                **extra))
 
     def add_time_f32(self, ms, plain_ms, lib_ms, bound, by, shape, flops=None):
         if self.f32 is None:
@@ -300,7 +350,8 @@ class KernelCase:
 
 def _rates(ms, bound, flops):
     """The --detail rates of one shape: the share of its bound that the
-    kernel reached and, where the operations are given, TFLOP/s."""
+    kernel reached and, where the operations are given, TFLOP/s (TOP/s for
+    the int8 GEMM)."""
     out = {"bound_share": bound / ms}
     if flops is not None:
         out["tflops"] = flops / ms / 1e9
@@ -598,7 +649,7 @@ def check_kernels(ops, shapes: dict, detail: bool):
                 cuda_ms(lib), *bound_ms(3 * n * x.element_size(), 24 * n, F32_FLOPS),
                 [shape, groups, act])
 
-    int8_and_winograd(K, cases, shapes, randn)
+    int8_and_winograd(K, cases, shapes, randn, detail)
     limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol)
     if detail:
         for case in cases.values():
@@ -726,64 +777,99 @@ def bwd_tc_checks(K, cases, shapes, randn, attn_bwd_tol, stat_tol):
         raise AssertionError("a misaligned view launched a backward kernel")
 
 
-def int8_and_winograd(K, cases, shapes, randn):
+def int8_and_winograd(K, cases, shapes, randn, detail):
     """w8a8_matmul at the int8 path's shapes and tests/test_quant.py's;
     winograd_conv3x3 (no path calls it) at tests/test_winograd.py's shapes
     and at the UNet's 3x3 stride-1 shapes. Checked in f32 and bf16, timed
-    with bf16 inputs."""
-    from tango_tpu_torch.ops.int8_gemm import quantize_rows, w8a8_matmul_plain
+    with bf16 inputs. Each call must take the body its rule names
+    (`w8a8_tc_body`, `wino_tc_body`): the tensor-core one at every int8-path
+    and UNet shape, the CUDA-core one for the ragged GEMMs and f32 Winograd.
+    Winograd is timed as the whole wrapper (U = G w G^T in torch, then the
+    kernel: the `ms` of the kernels line, as before) and as the kernel alone
+    (`launch` on a prepared U), both beside cuDNN. With `detail`, each
+    shape's row also splits one call's device time by kernel."""
+    from tango_tpu_torch.ops import winograd as wg
+    from tango_tpu_torch.ops.int8_gemm import quantize_rows, w8a8_matmul_plain, w8a8_tc_body
     from tango_tpu_torch.ops.quant import int_mm_ok, quantize_weight
-    from tango_tpu_torch.ops.winograd import winograd_conv3x3_plain
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def took(fn, rule, call, what):
+        """Run `call` and raise unless it launched fn's tensor-core body
+        exactly when `rule` says so; returns the call's result."""
+        before = fn.tc_launches
+        out = call()
+        if fn.tc_launches - before != int(rule):
+            raise AssertionError(f"{what}: took the {'CUDA' if rule else 'tensor'}-core body")
+        case = cases[fn.__name__]
+        case.notes["tc_checked"] = case.notes.get("tc_checked", 0) + int(rule)
+        return out
+
     w8a8_tol = {"f32": (1e-5, 1e-5), "bf16": (1e-2, 8e-3)}
     m, k, n = W8A8_TEST_SHAPE
     gemms = sorted(shapes["w8a8_matmul"] | {((m, k), (n, k))})
+    w8a8 = K["w8a8_matmul"]
     for (m, k), (n, _) in gemms:
         case = cases["w8a8_matmul"]
         q, s = quantize_weight(randn(n, k, scale=k**-0.5), out_axis=0)
         for tag, dt in dtypes.items():
             x = randn(m, k, dtype=dt)
-            case.add_err(tag, assert_close(K["w8a8_matmul"](x, q, s), w8a8_matmul_plain(x, q, s),
-                                           *w8a8_tol[tag], f"w8a8_matmul ({m}, {k}, {n}) {tag}"))
+            what = f"w8a8_matmul ({m}, {k}, {n}) {tag}"
+            out = took(w8a8, w8a8_tc_body(k), lambda: w8a8(x, q, s), what)
+            case.add_err(tag, assert_close(out, w8a8_matmul_plain(x, q, s), *w8a8_tol[tag], what))
         xq, _ = quantize_rows(x)
         lib = cuda_ms(lambda: torch._int_mm(xq, q.t())) if int_mm_ok(m, k, n) else None
         wl = randn(n, k, dtype=x.dtype, scale=k**-0.5)
-        case.notes["linear_bf16_ms"] = case.notes.get("linear_bf16_ms", 0.0) + cuda_ms(
-            lambda: F.linear(x, wl))
-        case.add_time(cuda_ms(lambda: K["w8a8_matmul"](x, q, s)),
+        linear = cuda_ms(lambda: F.linear(x, wl))
+        case.notes["linear_bf16_ms"] = case.notes.get("linear_bf16_ms", 0.0) + linear
+        case.add_time(cuda_ms(lambda: w8a8(x, q, s)),
                       cuda_ms(lambda: w8a8_matmul_plain(x, q, s)), lib,
                       *bound_ms(2 * m * k + n * k + 4 * n + 2 * m * n, 2 * m * n * k, INT8_OPS),
-                      [[m, k], [n, k]])
+                      [[m, k], [n, k]], flops=2 * m * n * k, linear_bf16_ms=linear,
+                      **({"by_kernel_ms": device_ms(lambda: w8a8(x, q, s), 20)} if detail else {}))
 
-    for m, k, n in W8A8_RAGGED:
+    for m, k, n in W8A8_RAGGED + W8A8_TC_RAGGED:
         q, s = quantize_weight(randn(n, k, scale=k**-0.5), out_axis=0)
         for tag, dt in dtypes.items():
             x = randn(m, k, dtype=dt)
+            what = f"w8a8_matmul ({m}, {k}, {n}) {tag}"
+            out = took(w8a8, w8a8_tc_body(k), lambda: w8a8(x, q, s), what)
             cases["w8a8_matmul"].add_err(tag, assert_close(
-                K["w8a8_matmul"](x, q, s), w8a8_matmul_plain(x, q, s), *w8a8_tol[tag],
-                f"w8a8_matmul ({m}, {k}, {n}) {tag}"))
+                out, w8a8_matmul_plain(x, q, s), *w8a8_tol[tag], what))
 
     wino_tol = {"f32": (1e-4, 1e-4), "bf16": (2e-2, 2e-2)}
     convs = set(shapes["winograd_conv3x3"])
     convs |= {((b, ci, h, w), (co, ci, 3, 3)) for b, h, w, ci, co in WINO_TEST_SHAPES}
-    for xshape, wshape in sorted(convs):
+    checked_only = {((b, ci, h, w), (co, ci, 3, 3)) for b, h, w, ci, co in WINO_TC_RAGGED}
+    wino = K["winograd_conv3x3"]
+    for xshape, wshape in sorted(convs | checked_only):
         case = cases["winograd_conv3x3"]
         b, ci, h, w_ = xshape
         co = wshape[0]
         wt = randn(*wshape, scale=(9 * ci) ** -0.5)
         for tag, dt in dtypes.items():
             x = randn(*xshape, dtype=dt)
-            case.add_err(tag, assert_close(
-                K["winograd_conv3x3"](x, wt), winograd_conv3x3_plain(x, wt), *wino_tol[tag],
-                f"winograd_conv3x3 {xshape} -> {co} {tag}"))
+            what = f"winograd_conv3x3 {xshape} -> {co} {tag}"
+            out = took(wino, wg.wino_tc_body(dt), lambda: wino(x, wt), what)
+            case.add_err(tag, assert_close(out, wg.winograd_conv3x3_plain(x, wt), *wino_tol[tag],
+                                           what))
         wl = wt.to(x.dtype)
+        u = wg.kernel_weight(wt, x.dtype)
+        # the U kernel against its torch version: the same f32 sums of halves
+        # (in another order at most) rounded to bf16, so within one bf16 step
+        assert_close(wg.weight_tc(wt), u, 0.0, 2**-7, f"winograd_conv3x3 U of {wshape}")
+        if (xshape, wshape) in checked_only:
+            continue
+        alone = cuda_ms(lambda: wg.launch(x, u, co))
+        case.notes["kernel_only_ms"] = case.notes.get("kernel_only_ms", 0.0) + alone
         nbytes = (b * ci * h * w_ + b * co * h * w_ + 16 * ci * co) * x.element_size()
-        case.add_time(cuda_ms(lambda: K["winograd_conv3x3"](x, wt)),
-                      cuda_ms(lambda: winograd_conv3x3_plain(x, wt)),
+        flops = 2 * 4 * b * h * w_ * co * ci
+        case.add_time(cuda_ms(lambda: wino(x, wt)),
+                      cuda_ms(lambda: wg.winograd_conv3x3_plain(x, wt)),
                       cuda_ms(lambda: F.conv2d(x, wl, padding=1)),
-                      *bound_ms(nbytes, 2 * 4 * b * h * w_ * co * ci, BF16_FLOPS),
-                      [list(xshape), list(wshape)])
+                      *bound_ms(nbytes, flops, BF16_FLOPS),
+                      [list(xshape), list(wshape)], flops=flops, kernel_only_ms=alone,
+                      **({"by_kernel_ms": device_ms(lambda: wino(x, wt), 20)} if detail else {}))
 
 
 def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
@@ -1133,7 +1219,7 @@ def main(argv) -> int:
               if hasattr(fn, "tc_launches")}
         problems = []
         if path in TC_PATHS and any(tc[n] != launches[n] for n in tc):
-            problems.append(f"bf16 attention launches off the tensor-core body: launches "
+            problems.append(f"launches off the tensor-core body: launches "
                             f"{ {n: launches[n] for n in tc} }, tensor-core {tc}")
         for w in outs:
             if w.dtype.name != "int16" or w.shape != (expect_len,):
@@ -1256,18 +1342,39 @@ def main(argv) -> int:
     for h in hooks:
         h.remove()
     per_eval = {n: fn.launches for n, fn in ops.KERNELS.items()}
+    gemms = collections.Counter()  # (M, K, N) of the int8 evaluation's W8A8 GEMMs
+
+    def record_gemm(mod, inputs, out):
+        gemms[(math.prod(inputs[0].shape[:-1]), inputs[0].shape[-1], out.shape[-1])] += 1
+
+    hooks = [mod.register_forward_hook(record_gemm) for mod in tq.model.unet.modules()
+             if isinstance(mod, QLinear)]
     ops.reset_counters()
     with torch.inference_mode():
         tq.model.unet(lat, steps, ctx, mask)
     torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
     per_eval_int8 = {n: fn.launches for n, fn in ops.KERNELS.items()}
+    w8a8_tc = ops.KERNELS["w8a8_matmul"].tc_launches
     n_qlinear = sum(isinstance(mod, QLinear) for mod in tq.model.unet.modules())
+    # device time of one evaluation, bf16 and int8, and the int8 one's W8A8
+    # kernels (quantize pass and GEMM)
+    with torch.inference_mode():
+        bf16_ms = device_ms(lambda: unet(lat, steps, ctx, mask), 3)
+        int8_ms = device_ms(lambda: tq.model.unet(lat, steps, ctx, mask), 3)
     log("per_eval", launches=per_eval, group_norms=per_eval["gn_silu_fwd"] + per_eval["gn_stats"],
-        int8_launches=per_eval_int8, quantized_linears=n_qlinear,
-        conv3x3_shapes=len(shapes["winograd_conv3x3"]))
-    if "w8a8_matmul" in PATH_KERNELS["int8"] and per_eval_int8["w8a8_matmul"] != n_qlinear:
-        raise AssertionError(f"{per_eval_int8['w8a8_matmul']} w8a8_matmul launches in one int8 "
-                             f"UNet evaluation for {n_qlinear} quantized Linear layers")
+        int8_launches=per_eval_int8, int8_w8a8_tc_launches=w8a8_tc, quantized_linears=n_qlinear,
+        conv3x3_shapes=len(shapes["winograd_conv3x3"]),
+        device_ms_per_eval={"bf16": sum(bf16_ms.values()), "int8": sum(int8_ms.values()),
+                            "int8_w8a8": sum(t for k, t in int8_ms.items()
+                                             if "w8a8" in k or "quantize_rows" in k)},
+        w8a8_gemms_per_eval=[[*g, c] for g, c in sorted(gemms.items())])
+    if "w8a8_matmul" in PATH_KERNELS["int8"] and not (
+            per_eval_int8["w8a8_matmul"] == w8a8_tc == n_qlinear):
+        raise AssertionError(f"{per_eval_int8['w8a8_matmul']} w8a8_matmul launches ({w8a8_tc} on "
+                             f"the tensor-core body) in one int8 UNet evaluation for {n_qlinear} "
+                             "quantized Linear layers")
     del tango, tq, unet, m
     torch.cuda.empty_cache()
 

@@ -84,22 +84,6 @@ constexpr int kSmem = (1 + 2 * kStages) * kTile + 1024;
 constexpr float kShift = 20.0f;
 constexpr float kClamp = 96.0f;
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  // bytes 0 copies nothing and fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // d (+)= A B^T for one k16 step: A 64 x 16 and B 128 x 16, bf16, both K-major
 // in shared memory; d is the m64n128 f32 accumulator (overwritten if !acc).
 __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b, int acc) {

@@ -1,5 +1,8 @@
 // W8A8 GEMM with dynamic per-row activation quantization, entry point
-// tt_w8a8_gemm.
+// tt_w8a8_gemm, and its CUDA-core (__dp4a) body. The entry point takes the
+// tensor-core body of int8_gemm_tc.cu where w8a8_tc_body(K) holds (K % 16 ==
+// 0: every dense layer of the int8 UNet) and reports it by returning
+// kTcLaunched; this file's body runs every other K (the ragged shapes).
 //
 // Replaces tango_tpu/ops/int8_gemm.py: _w8a8_kernel (through w8a8_matmul).
 // Same function, step for step:
@@ -155,14 +158,34 @@ void launch(const void* x, const void* w, const void* ws, void* y, int M, int N,
 }
 
 }  // namespace
+
+cudaError_t w8a8_gemm_tc(const void* x, const void* w, const void* w_scale, void* y, void* xq,
+                         void* scale, void* part, int splits, int M, int N, int K, int dtype,
+                         cudaStream_t st);
+
+// w8a8_tc_body(K): the rule by which tt_w8a8_gemm takes the tensor-core body,
+// K % 16 == 0 (w8a8_tc_body in ops/int8_gemm.py is the same rule, for the
+// wrapper's scratch and alignment check; its counter reads the kTcLaunched
+// report).
+bool w8a8_tc_body(int K) { return K % 16 == 0; }
+
 }  // namespace tt
 
 extern "C" {
 
-int tt_w8a8_gemm(const void* x, const void* w, const void* w_scale, void* y, int M, int N,
-                 int K, int dtype, void* stream) {
+// xq (M, K) int8, scale (M,) f32 and, for splits > 1, part (splits, M, N)
+// int32 are the tensor-core body's scratch (null for the CUDA-core body, and
+// part for one split).
+int tt_w8a8_gemm(const void* x, const void* w, const void* w_scale, void* y, void* xq,
+                 void* scale, void* part, int splits, int M, int N, int K, int dtype,
+                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (tt::w8a8_tc_body(K)) {
+    if (xq == nullptr || scale == nullptr) return (int)cudaErrorInvalidValue;
+    return tt::tc_result(
+        tt::w8a8_gemm_tc(x, w, w_scale, y, xq, scale, part, splits, M, N, K, dtype, st));
+  }
   if (dtype == tt::kF32)
     tt::launch<float>(x, w, w_scale, y, M, N, K, st);
   else if (dtype == tt::kBF16)

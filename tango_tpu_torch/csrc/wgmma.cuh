@@ -1,7 +1,9 @@
-// Hopper building blocks shared by the tensor-core attention bodies
-// (attention_tc.cu, attention_bwd_tc.cu): the 128-byte swizzle, wgmma
-// shared-memory descriptors, the proxy and wgmma fences, and the register-A
-// m64n64k16 bf16 product. sm_90a only.
+// Hopper building blocks shared by the tensor-core bodies (attention_tc.cu,
+// attention_bwd_tc.cu, int8_gemm_tc.cu, winograd_tc.cu): the 128-byte
+// swizzle, wgmma shared-memory descriptors, the cp.async ring's copies, the
+// proxy and wgmma fences, the register-A m64n64k16 bf16 product, the
+// shared-memory-A m64n64k16 bf16 product and the m64n128k32 s8 product.
+// sm_90a only.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,6 +23,22 @@ __device__ __forceinline__ uint32_t sw128(int r, int c) {
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
          (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  // bytes 0 copies nothing and fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Makes this thread's shared-memory writes (st.shared, cp.async) visible to
@@ -55,6 +73,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 #define TT_ACC8(i)                                                                         \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -71,6 +95,41 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : TT_ACC8(0), TT_ACC8(8), TT_ACC8(16), TT_ACC8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (+)= A B^T for one k16 step: A 64 x 16 and B 64 x 16 bf16, both K-major
+// in shared memory; d is the m64n64 f32 accumulator (overwritten if !acc).
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TT_ACC8(0), TT_ACC8(8), TT_ACC8(16), TT_ACC8(24)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+#define TT_IACC8(i)                                                                        \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (+)= A B^T for one k32 step: A 64 x 32 and B 128 x 32 int8, both K-major
+// in shared memory (8-bit operands have no transposed form); d is the m64n128
+// s32 accumulator (overwritten if !acc), exact. Its layout is the f32
+// accumulator's.
+__device__ __forceinline__ void wgmma_s8_128(int (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : TT_IACC8(0), TT_IACC8(8), TT_IACC8(16), TT_IACC8(24), TT_IACC8(32), TT_IACC8(40),
+        TT_IACC8(48), TT_IACC8(56)
+      : "l"(a), "l"(b), "r"(acc));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

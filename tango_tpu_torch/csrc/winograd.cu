@@ -1,5 +1,9 @@
 // Winograd F(2x2, 3x3) convolution, 3x3 stride-1 SAME, entry point
-// tt_wino_conv3x3.
+// tt_wino_conv3x3, and its CUDA-core body. The entry point takes the
+// tensor-core body of winograd_tc.cu where wino_tc_body(dtype) holds (bf16)
+// and reports it by returning kTcLaunched; this file's body runs f32. The
+// two bodies take U in different layouts (the wrapper applies the same
+// rule): (16, Ci, Co) here, (16, Co, Cs) K-major there.
 //
 // Replaces tango_tpu/ops/winograd.py: _wino_kernel (through
 // winograd_conv3x3_pallas). Same function, step for step, for each 2x2 output
@@ -171,15 +175,39 @@ void launch(const void* x, const void* u, void* y, int B, int Ci, int H, int W, 
 }
 
 }  // namespace
+
+cudaError_t wino_conv3x3_tc(const void* x, const void* u, void* y, void* v, void* part,
+                            int splits, int B, int Ci, int H, int W, int Co, cudaStream_t st);
+cudaError_t wino_weight_tc(const void* w, void* u, int Co, int Ci, cudaStream_t st);
+
+// wino_tc_body(dtype): the rule by which tt_wino_conv3x3 takes the
+// tensor-core body, bf16 (wino_tc_body in ops/winograd.py is the same rule,
+// for U's layout and V's scratch; its counter reads the kTcLaunched report).
+bool wino_tc_body(int dtype) { return dtype == kBF16; }
+
 }  // namespace tt
 
 extern "C" {
 
-int tt_wino_conv3x3(const void* x, const void* u, void* y, int B, int Ci, int H, int W, int Co,
-                    int dtype, void* stream) {
+// U (16, Co, Cs) bf16 of the tensor-core body from an f32 OIHW weight (Co,
+// Ci, 3, 3), Cs = Ci rounded up to 16.
+int tt_wino_weight(const void* w, void* u, int Co, int Ci, void* stream) {
+  if (Co <= 0 || Ci <= 0) return (int)cudaErrorInvalidValue;
+  return (int)tt::wino_weight_tc(w, u, Co, Ci, static_cast<cudaStream_t>(stream));
+}
+
+// v and part are the tensor-core body's scratch: V (16, B*(H/2)*(W/2), Ci
+// rounded up to 16) bf16 and, for splits > 1, the partial sums (splits, B,
+// Co, H, W) f32 (null for the CUDA-core body, and part for one split).
+int tt_wino_conv3x3(const void* x, const void* u, void* y, void* v, void* part, int splits,
+                    int B, int Ci, int H, int W, int Co, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Ci <= 0 || Co <= 0 || H <= 0 || W <= 0 || H % 2 || W % 2)
     return (int)cudaErrorInvalidValue;
+  if (tt::wino_tc_body(dtype)) {
+    if (v == nullptr) return (int)cudaErrorInvalidValue;
+    return tt::tc_result(tt::wino_conv3x3_tc(x, u, y, v, part, splits, B, Ci, H, W, Co, st));
+  }
   if (dtype == tt::kF32)
     tt::launch<float>(x, u, y, B, Ci, H, W, Co, st);
   else if (dtype == tt::kBF16)

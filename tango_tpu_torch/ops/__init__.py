@@ -4,14 +4,18 @@ Every kernel wrapper is registered by name: the forward kernels (serving and
 training) in `KERNELS`, the backward kernels (training only) in
 `BACKWARD_KERNELS`; `all_kernels()` gives both. A wrapper runs its kernel
 for a CUDA tensor and its plain version for a CPU tensor, and counts its
-launches in `wrapper.launches` (a plain integer). The attention wrappers
-with a tensor-core body (`attn_fwd`, `attn_fwd_v2`, `attn_bwd_dq`,
-`attn_bwd_dkv`) also count the launches that took it in
-`wrapper.tc_launches`.
+launches in `wrapper.launches` (a plain integer). The wrappers with a
+tensor-core body (`attn_fwd`, `attn_fwd_v2`, `attn_bwd_dq`, `attn_bwd_dkv`,
+`w8a8_matmul`, `winograd_conv3x3`) also count the launches that took it in
+`wrapper.tc_launches`, from what the C entry point reports (`reported_tc`,
+`count_tc`).
 """
+
+from tango_tpu_torch.ops import _build
 
 KERNELS: dict = {}
 BACKWARD_KERNELS: dict = {}
+TC_LAUNCHED = -1  # a C entry point's return after a tensor-core launch (tt::kTcLaunched)
 
 
 def kernel_wrapper(source: str, replaces: str, backward: bool = False):
@@ -43,3 +47,29 @@ def reset_counters() -> None:
         fn.shapes.clear()
         if hasattr(fn, "tc_launches"):
             fn.tc_launches = 0
+
+
+def check_tc_aligned(name: str, *tensors) -> None:
+    """Raise unless every tensor's data is 16-byte aligned, as a tensor-core
+    body's 16-byte copies and stores need."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the tensor-core body needs 16-byte aligned inputs and "
+                         f"outputs (offsets mod 16: {[t.data_ptr() % 16 for t in tensors]})")
+
+
+def reported_tc(lib, code: int, name: str) -> bool:
+    """Raise if a C entry point returned a CUDA error; True where it reports a
+    tensor-core launch."""
+    tc = code == TC_LAUNCHED
+    _build.check(lib, 0 if tc else code, name)
+    return tc
+
+
+def count_tc(fn, rule: bool, ran: bool) -> None:
+    """Count in fn.tc_launches a launch the C entry point reported as a
+    tensor-core one (ran); raise where that report disagrees with the rule
+    the wrapper prepared the launch by."""
+    if ran != rule:
+        raise RuntimeError(f"{fn.__name__}: the entry point launched the "
+                           f"{'tensor' if ran else 'CUDA'}-core body against the wrapper's rule")
+    fn.tc_launches += ran

@@ -49,10 +49,12 @@ _SIGNATURES = {
     "tt_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, do, lse, delta, dk, dv, BH, Sq, Skv, D, scale, dtype, stream
     "tt_attn_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # x, w, w_scale, y, M, N, K, dtype, stream
-    "tt_w8a8_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, u, y, B, Ci, H, W, Co, dtype, stream
-    "tt_wino_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, w_scale, y, xq, scale, part, splits, M, N, K, dtype, stream
+    "tt_w8a8_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, u, y, v, part, splits, B, Ci, H, W, Co, dtype, stream
+    "tt_wino_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # w, u, Co, Ci, stream
+    "tt_wino_weight": [_P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -42,7 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tango_tpu_torch.ops import _build, kernel_wrapper
+from tango_tpu_torch.ops import _build, check_tc_aligned, count_tc, kernel_wrapper, reported_tc
 
 LOG2_E = 1.4426950408889634
 SOFTMAX_SHIFT = 20.0
@@ -54,7 +54,6 @@ _TC_SRC = "tango_tpu_torch/csrc/attention_tc.cu"  # the bf16 D = 64 body, the se
 _BWD_SRC = "tango_tpu_torch/csrc/attention_bwd.cu"
 _BWD_TC_SRC = "tango_tpu_torch/csrc/attention_bwd_tc.cu"  # f32 and bf16 at D = 64, training's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TC_LAUNCHED = -1  # an entry point's return after a tensor-core launch (tt::kTcLaunched)
 _ROWS = 64  # query (or key) rows a block
 
 
@@ -91,14 +90,6 @@ def bwd_tc_body(dtype: torch.dtype, d: int) -> bool:
     limits). The C entry points apply the same rule (`bwd_tc_body` in
     csrc/attention_bwd.cu); here it decides the alignment check."""
     return dtype in (torch.float32, torch.bfloat16) and d == TC_HEAD_DIM
-
-
-def check_tc_aligned(name: str, *tensors) -> None:
-    """Raise unless every tensor's data is 16-byte aligned, as a tensor-core
-    body's 16-byte copies and stores need."""
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: the tensor-core body needs 16-byte aligned inputs and "
-                         f"outputs (offsets mod 16: {[t.data_ptr() % 16 for t in tensors]})")
 
 
 def _check(name: str, q, k, v, *like_q) -> bool:
@@ -159,21 +150,10 @@ def _launch(fn, inputs, *args) -> bool:
     lib = _build.load()
     code = getattr(lib, f"tt_{fn.__name__}")(
         *args, _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    tc = code == TC_LAUNCHED
-    _build.check(lib, 0 if tc else code, fn.__name__)
+    tc = reported_tc(lib, code, fn.__name__)
     fn.launches += 1
     fn.shapes.add(tuple(tuple(t.shape) for t in inputs))
     return tc
-
-
-def _count_tc(fn, rule: bool, ran: bool) -> None:
-    """Count in fn.tc_launches a launch the C entry point reported as a
-    tensor-core one (ran); raise where that report disagrees with the rule
-    the wrapper checked alignment by."""
-    if ran != rule:
-        raise RuntimeError(f"{fn.__name__}: the entry point launched the "
-                           f"{'tensor' if ran else 'CUDA'}-core body against the wrapper's rule")
-    fn.tc_launches += ran
 
 
 def attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
@@ -193,8 +173,8 @@ def _launch_fwd(fn, q, k, v, scale):
     tc = tc_body(q.dtype, q.shape[2])
     if tc:
         check_tc_aligned(fn.__name__, q, k, v, o)
-    _count_tc(fn, tc, _launch(fn, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              o.data_ptr(), *_dims(q, k), _qscale(scale)))
+    count_tc(fn, tc, _launch(fn, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             o.data_ptr(), *_dims(q, k), _qscale(scale)))
     return o
 
 
@@ -294,7 +274,7 @@ def _launch_dq(q, k, v, do, scale):
     tc = bwd_tc_body(q.dtype, d)
     if tc:
         check_tc_aligned("attn_bwd_dq", q, k, v, do, dq)
-    _count_tc(attn_bwd_dq, tc, _launch(
+    count_tc(attn_bwd_dq, tc, _launch(
         attn_bwd_dq, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         dq.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_dims(q, k), float(scale)))
     return dq, lse, delta
@@ -336,7 +316,7 @@ def _launch_dkv(q, k, v, do, lse, delta, scale):
     tc = bwd_tc_body(q.dtype, q.shape[2])
     if tc:
         check_tc_aligned("attn_bwd_dkv", q, k, v, do, dk, dv)
-    _count_tc(attn_bwd_dkv, tc, _launch(
+    count_tc(attn_bwd_dkv, tc, _launch(
         attn_bwd_dkv, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q, k),
         float(scale)))

@@ -1,6 +1,6 @@
 """W8A8 GEMM with dynamic per-row activation quantization, and its plain version.
 
-One kernel from `csrc/int8_gemm.cu`, `w8a8_matmul`, replaces `_w8a8_kernel`
+One kernel, `w8a8_matmul`, replaces `_w8a8_kernel`
 (tango_tpu/ops/int8_gemm.py:30). It computes, for x (..., K) f32 or bf16 and
 an int8 weight w_q (N, K) with f32 per-output-channel scales w_scale (N,):
 
@@ -10,10 +10,18 @@ an int8 weight w_q (N, K) with f32 per-output-channel scales w_scale (N,):
     out   = acc * scale * w_scale                     (f32, cast to x.dtype)
 
 The weight is in `F.linear`'s layout (out, in), the transpose of JAX's
-(K, N) kernel: a row of w_q is K contiguous bytes, what `__dp4a` reads four
-at a time. The scale formula is the Pallas kernel's `amax * (1/127)`; JAX's
-XLA route (`int8_dot`) divides by 127 instead, which can differ in the last
-bit and flip one int8 value sitting on a .5 boundary.
+(K, N) kernel: a row of w_q is K contiguous bytes, the K-major B operand an
+8-bit `wgmma` takes. The scale formula is the Pallas kernel's
+`amax * (1/127)`; JAX's XLA route (`int8_dot`) divides by 127 instead, which
+can differ in the last bit and flip one int8 value sitting on a .5 boundary.
+
+Two bodies, chosen by `w8a8_tc_body(K)` (K % 16 == 0, every dense layer of
+the int8 UNet): the tensor-core body of `csrc/int8_gemm_tc.cu` quantizes x
+once into scratch (xq (M, K) int8, scale (M,) f32) and multiplies on the
+int8 tensor cores (`wgmma` s8); the CUDA-core body of `csrc/int8_gemm.cu`
+(`__dp4a`) takes every other K. Both are bit-equal to the plain version. The
+C entry point applies the same rule and reports the body it launched;
+`w8a8_matmul.tc_launches` counts the tensor-core ones.
 
 The wrapper launches the kernel for a CUDA tensor and runs the plain version
 for a CPU tensor; any other device raises.
@@ -25,12 +33,14 @@ import math
 
 import torch
 
-from tango_tpu_torch.ops import _build, kernel_wrapper
+from tango_tpu_torch.ops import _build, check_tc_aligned, count_tc, kernel_wrapper, reported_tc
 
-_SRC = "tango_tpu_torch/csrc/int8_gemm.cu"
+_SRC = "tango_tpu_torch/csrc/int8_gemm.cu"  # the entry point and the __dp4a body
+_TC_SRC = "tango_tpu_torch/csrc/int8_gemm_tc.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32 = 2**31
-_TILE = 64  # the kernel's rows and columns a block
+_TILE = 64  # the __dp4a body's rows and columns a block
+_TC_TILE = 128  # the tensor-core body's rows and columns a block, and K bytes a stage
 
 
 def kernel_shape_ok(m: int, k: int, n: int) -> bool:
@@ -39,6 +49,31 @@ def kernel_shape_ok(m: int, k: int, n: int) -> bool:
     int32 accumulator holds K * 127^2."""
     return (0 < m < _INT32 and 0 < n and 0 < k and k * 127 * 127 < _INT32
             and math.ceil(n / _TILE) <= 65535)
+
+
+def w8a8_tc_body(k: int) -> bool:
+    """Whether w8a8_matmul runs on the tensor-core body (csrc/int8_gemm_tc.cu)
+    rather than the __dp4a one: K % 16 == 0, so that every row of x, of its
+    int8 copy and of w_q is whole 16-byte copies; ragged M and N are masked.
+    The C entry point applies the same rule (`w8a8_tc_body` in
+    csrc/int8_gemm.cu); here it decides the scratch and the alignment check."""
+    return k % 16 == 0
+
+
+def w8a8_splits(m: int, k: int, n: int, sms: int) -> int:
+    """Over how many blocks the tensor-core body splits K for each 128 x 128
+    tile of y: the largest power of two, up to 16, that keeps at least 8 of
+    the 128-byte K chunks in each split and the blocks within one wave on the
+    card's `sms` SMs. Only a long K with few tiles splits (on the int8 path
+    the feed-forward output projection, K = 5120, at M = 128 and 512);
+    shorter K lose more to the partial sums than they gain on the H100
+    (PERF.md). The splits' int32 partial sums add up exactly."""
+    tiles = math.ceil(m / _TC_TILE) * math.ceil(n / _TC_TILE)
+    chunks = math.ceil(k / _TC_TILE)
+    splits = 1
+    while 2 * splits <= 16 and chunks >= 8 * 2 * splits and tiles * 2 * splits <= sms:
+        splits *= 2
+    return splits
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -59,7 +94,7 @@ def w8a8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor)
     return out.to(x.dtype).reshape(*x.shape[:-1], w_q.shape[0])
 
 
-@kernel_wrapper(_SRC, "tango_tpu/ops/int8_gemm.py:30")
+@kernel_wrapper(_TC_SRC, "tango_tpu/ops/int8_gemm.py:30")
 def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
     """x (..., K) f32/bf16 @ w_q (N, K) int8 with w_scale (N,) f32 -> (..., N) in x.dtype."""
     if x.dtype not in _DTYPES:
@@ -80,16 +115,41 @@ def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> to
         raise RuntimeError(f"w8a8_matmul: no kernel for device {x.device}")
     if w_q.device != x.device or w_scale.device != x.device:
         raise ValueError("w8a8_matmul: w_q and w_scale must be on x's device")
-    lib = _build.load()
-    x2 = x.reshape(m, k).contiguous()
-    wq = w_q.contiguous()
-    ws = w_scale.to(torch.float32).contiguous()
+    y = _launch(x.reshape(m, k).contiguous(), w_q.contiguous(),
+                w_scale.to(torch.float32).contiguous())
+    return y.reshape(*x.shape[:-1], n)
+
+
+def _launch(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """Launch w8a8_matmul on contiguous x (M, K), w_q (N, K) and f32 w_scale
+    into a new (M, N) output; the C entry point picks the body by
+    `w8a8_tc_body`, and w8a8_matmul.tc_launches counts the tensor-core ones
+    it reports."""
+    (m, k), n = x.shape, w_q.shape[0]
     y = torch.empty((m, n), device=x.device, dtype=x.dtype)
+    tc = w8a8_tc_body(k)
+    xq = scale = part = None
+    splits = 1
+    if tc:  # the tensor-core body's scratch: xq, the row scales, the splits' partial sums
+        check_tc_aligned("w8a8_matmul", x, w_q, y)
+        xq = torch.empty((m, k), device=x.device, dtype=torch.int8)
+        scale = torch.empty(m, device=x.device, dtype=torch.float32)
+        splits = w8a8_splits(m, k, n, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        if splits > 1:
+            part = torch.empty((splits, m, n), device=x.device, dtype=torch.int32)
+    lib = _build.load()
     code = lib.tt_w8a8_gemm(
-        x2.data_ptr(), wq.data_ptr(), ws.data_ptr(), y.data_ptr(), m, n, k,
+        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), y.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in (xq, scale, part)), splits, m, n, k,
         _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(lib, code, "w8a8_matmul")
+    ran = reported_tc(lib, code, "w8a8_matmul")
     w8a8_matmul.launches += 1
     w8a8_matmul.shapes.add(((m, k), (n, k)))
-    return y.reshape(*x.shape[:-1], n)
+    count_tc(w8a8_matmul, tc, ran)
+    return y
+
+
+w8a8_matmul.tc_launches = 0
+w8a8_matmul.core_source = _SRC  # the __dp4a body, K % 16 != 0

@@ -1,14 +1,23 @@
 """Winograd F(2x2, 3x3) convolution: the kernel, its plain version, its VJP.
 
-`winograd_conv3x3` (kernel `tt_wino_conv3x3`, `csrc/winograd.cu`) replaces
-`_wino_kernel` (tango_tpu/ops/winograd.py:100): a 3x3 stride-1 SAME conv
-computed per 2x2 output tile from a 4x4 input tile,
+`winograd_conv3x3` (C entry point `tt_wino_conv3x3`) replaces `_wino_kernel`
+(tango_tpu/ops/winograd.py:100): a 3x3 stride-1 SAME conv computed per 2x2
+output tile from a 4x4 input tile,
 
     Y = A^T [ (G g G^T) . (B^T d B) ] A
 
 with the 16 channel contractions M[pq] = V[pq] @ U[pq] accumulated in f32.
 V = B^T d B is computed in f32 and rounded to x.dtype, U = G g G^T likewise
 (tango_tpu/ops/winograd.py:74, 198): in bf16 both packages round there.
+
+Two bodies, chosen by `wino_tc_body(dtype)`: bf16 (every 3x3 stride-1
+convolution of the UNet in serving) runs the tensor-core body of
+`csrc/winograd_tc.cu` (V for all 16 points into scratch, then the 16
+contractions on bf16 `wgmma` with the output transform in registers), which
+takes U as (16, Co, Cs), K-major, Cs = Ci rounded up to 16 with zeros; f32
+runs the CUDA-core body of `csrc/winograd.cu`, U as (16, Ci, Co).
+The C entry point applies the same rule and reports the body it launched;
+`winograd_conv3x3.tc_launches` counts the tensor-core ones.
 
 The port's layout is NCHW for x and y and OIHW for the weight, PyTorch's;
 `winograd_weight_transform` keeps JAX's (4, 4, Ci, Co) result. As in JAX,
@@ -28,12 +37,14 @@ import math
 import torch
 import torch.nn.functional as F
 
-from tango_tpu_torch.ops import _build, kernel_wrapper
+from tango_tpu_torch.ops import _build, count_tc, kernel_wrapper, reported_tc
 
-_SRC = "tango_tpu_torch/csrc/winograd.cu"
+_SRC = "tango_tpu_torch/csrc/winograd.cu"  # the entry point and the CUDA-core body
+_TC_SRC = "tango_tpu_torch/csrc/winograd_tc.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32 = 2**31
-_TILES, _CO_BLOCK = 32, 32  # the kernel's 2x2 tiles and output channels a block
+_TILES, _CO_BLOCK = 32, 32  # the CUDA-core body's 2x2 tiles and output channels a block
+_TC_TILES, _TC_CO = 128, 64  # the tensor-core body's 2x2 tiles and output channels a block
 
 # F(2x2, 3x3) transform matrices (Lavin & Gray, arXiv:1509.09308)
 _MATRICES = {
@@ -68,12 +79,66 @@ def wino_supported(x_shape, k_shape, strides) -> bool:
     )
 
 
+def wino_tc_body(dtype: torch.dtype) -> bool:
+    """Whether winograd_conv3x3 runs on the tensor-core body
+    (csrc/winograd_tc.cu) rather than the CUDA-core one: bf16, any Ci (V and
+    U are zero-padded to Cs = Ci rounded up to 16 channels). f32 keeps the
+    CUDA-core body (one-product TF32 would miss JAX's f32 limit). The C entry
+    point applies the same rule (`wino_tc_body` in csrc/winograd.cu); here it
+    decides U's layout and the scratch."""
+    return dtype == torch.bfloat16
+
+
+def kernel_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """U = G w G^T of an OIHW weight, computed in f32 and rounded to `dtype`,
+    in the layout of the body `wino_tc_body` picks: (16, Co, Cs) with Cs = Ci
+    rounded up to 16 (zeros past Ci) for the tensor-core body, (16, Ci, Co)
+    for the CUDA-core one."""
+    co, ci = w.shape[:2]
+    u = winograd_weight_transform(w.float()).to(dtype).reshape(16, ci, co)
+    if not wino_tc_body(dtype):
+        return u.contiguous()
+    return F.pad(u.transpose(1, 2), (0, -ci % 16)).contiguous()
+
+
+def weight_tc(w: torch.Tensor) -> torch.Tensor:
+    """U of the tensor-core body from an OIHW weight on the card, by its own
+    kernel (`tt_wino_weight`): the same values and layout as
+    `kernel_weight(w, torch.bfloat16)` (the f32 sums of halves in another
+    order at most)."""
+    co, ci = w.shape[:2]
+    wf = w.float().contiguous()
+    u = torch.empty((16, co, ci + -ci % 16), device=w.device, dtype=torch.bfloat16)
+    lib = _build.load()
+    _build.check(lib, lib.tt_wino_weight(wf.data_ptr(), u.data_ptr(), co, ci,
+                                         torch.cuda.current_stream(w.device).cuda_stream),
+                 "winograd_conv3x3")
+    return u
+
+
+def wino_splits(tiles: int, co: int, sms: int) -> int:
+    """Over how many blocks the tensor-core body splits the 16 points of a
+    (128-tile, 64-channel) output block: 1 where those blocks number at
+    least half of the card's `sms` SMs, else the smallest power of two up to
+    16 that gives every SM a block (the UNet's deep levels: 20 to 40
+    blocks). The splits' f32 partial sums are added in order."""
+    blocks = math.ceil(tiles / _TC_TILES) * math.ceil(co / _TC_CO)
+    splits = 1
+    if 2 * blocks < sms:
+        while splits < 16 and blocks * splits < sms:
+            splits *= 2
+    return splits
+
+
 def kernel_shape_ok(x_shape, co: int) -> bool:
     """Whether the kernel takes x (B, Ci, H, W) to Co channels: the block
-    counts fit grid.x (2^31 - 1) and grid.y (65535), the dimensions 32 bits."""
+    counts of either body fit grid.x (2^31 - 1) and grid.y (65535), the
+    dimensions 32 bits."""
     b, ci, h, w = x_shape
     tiles = (h // 2) * (w // 2)
     return (b * math.ceil(tiles / _TILES) < _INT32 and math.ceil(co / _CO_BLOCK) <= 65535
+            and math.ceil(b * tiles / _TC_TILES) * 16 * math.ceil(co / _TC_CO) < _INT32
+            and math.ceil(b * tiles / 32) * math.ceil((ci + -ci % 16) / 32) < _INT32
             and max(ci, h * w, co) < _INT32)
 
 
@@ -110,7 +175,7 @@ def winograd_conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(b, co, h, ww).to(x.dtype)
 
 
-@kernel_wrapper(_SRC, "tango_tpu/ops/winograd.py:100")
+@kernel_wrapper(_TC_SRC, "tango_tpu/ops/winograd.py:100")
 def winograd_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 SAME conv of x (B, Ci, H, W), H and W even, with w
     (Co, Ci, 3, 3), no bias -> (B, Co, H, W) in x.dtype."""
@@ -121,20 +186,43 @@ def winograd_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"winograd_conv3x3: no kernel for device {x.device}")
     if w.device != x.device:
         raise ValueError("winograd_conv3x3: w must be on x's device")
+    u = weight_tc(w) if wino_tc_body(x.dtype) else kernel_weight(w, x.dtype)
+    return launch(x.contiguous(), u, w.shape[0])
+
+
+def launch(x: torch.Tensor, u: torch.Tensor, co: int) -> torch.Tensor:
+    """The kernel alone: launch winograd_conv3x3 on a contiguous CUDA x
+    (B, Ci, H, W) with U from `kernel_weight(w, x.dtype)` (or `weight_tc`)
+    into a new (B, Co, H, W) output; the C entry point picks the body by
+    `wino_tc_body`, and winograd_conv3x3.tc_launches counts the tensor-core
+    ones it reports."""
     b, ci, h, ww = x.shape
-    co = w.shape[0]
-    lib = _build.load()
-    xc = x.contiguous()
-    u = winograd_weight_transform(w.float()).to(x.dtype).reshape(16, ci, co).contiguous()
     y = torch.empty((b, co, h, ww), device=x.device, dtype=x.dtype)
+    tc = wino_tc_body(x.dtype)
+    v = part = None
+    splits = 1
+    if tc:  # the tensor-core body's scratch: V (16, tiles, Cs), the splits' partial sums
+        tiles = b * (h // 2) * (ww // 2)
+        v = torch.empty((16, tiles, ci + -ci % 16), device=x.device, dtype=x.dtype)
+        splits = wino_splits(tiles, co, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        if splits > 1:
+            part = torch.empty((splits, b, co, h, ww), device=x.device, dtype=torch.float32)
+    lib = _build.load()
     code = lib.tt_wino_conv3x3(
-        xc.data_ptr(), u.data_ptr(), y.data_ptr(), b, ci, h, ww, co, _DTYPES[x.dtype],
+        x.data_ptr(), u.data_ptr(), y.data_ptr(), v.data_ptr() if tc else None,
+        part.data_ptr() if splits > 1 else None, splits, b, ci, h, ww, co, _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(lib, code, "winograd_conv3x3")
+    ran = reported_tc(lib, code, "winograd_conv3x3")
     winograd_conv3x3.launches += 1
-    winograd_conv3x3.shapes.add((tuple(x.shape), tuple(w.shape)))
+    winograd_conv3x3.shapes.add((tuple(x.shape), (co, ci, 3, 3)))
+    count_tc(winograd_conv3x3, tc, ran)
     return y
+
+
+winograd_conv3x3.tc_launches = 0
+winograd_conv3x3.core_source = _SRC  # the CUDA-core body: f32
 
 
 class _WinogradConv(torch.autograd.Function):

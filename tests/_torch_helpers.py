@@ -39,18 +39,21 @@ def random_jax_params(init_fn, seed: int):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-def fake_kernel_library(monkeypatch, codes):
-    """Run the attention wrappers' launch path on the CPU: the kernel library
+def fake_kernel_library(monkeypatch, codes, args=None):
+    """Run the kernel wrappers' launch path on the CPU: the kernel library
     becomes a recorder whose entry points return the next of `codes` (what a
     C entry point reports: `TC_LAUNCHED` for a tensor-core launch, 0 for a
     CUDA-core one, a positive CUDA error code), and the CUDA stream a stub.
-    Returns the list of entry points called, in order."""
+    Returns the list of entry points called, in order; `args`, a list, also
+    receives each call's arguments."""
     calls, codes = [], iter(codes)
 
     class Library:
         def __getattr__(self, name):
-            def entry(*args):
+            def entry(*a):
                 calls.append(name)
+                if args is not None:
+                    args.append(a)
                 return next(codes)
             return entry
 

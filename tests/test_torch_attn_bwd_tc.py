@@ -91,7 +91,7 @@ def test_bwd_launch_checks_alignment_and_counts_tc(fn, launch, monkeypatch):
     counts the reported tensor-core launch in either type; another head dim
     launches the CUDA-core body with no alignment demand and no tc count;
     reset_counters zeroes tc_launches."""
-    calls = fake_kernel_library(monkeypatch, [tfa.TC_LAUNCHED, tfa.TC_LAUNCHED, 0])
+    calls = fake_kernel_library(monkeypatch, [ops.TC_LAUNCHED, ops.TC_LAUNCHED, 0])
     ops.reset_counters()
     good = torch.zeros(2, 128, 64)
     for dt in (torch.float32, torch.bfloat16):
@@ -120,7 +120,7 @@ def test_tc_launches_count_the_entry_points_report(name, monkeypatch):
     launch = {"attn_fwd": lambda *t: tfa._launch_fwd(fn, *t[:3], 0.125),
               "attn_fwd_v2": lambda *t: tfa._launch_fwd(fn, *t[:3], 0.125),
               "attn_bwd_dq": _launch_dq, "attn_bwd_dkv": _launch_dkv}[name]
-    fake_kernel_library(monkeypatch, [0, tfa.TC_LAUNCHED, 700, tfa.TC_LAUNCHED])
+    fake_kernel_library(monkeypatch, [0, ops.TC_LAUNCHED, 700, ops.TC_LAUNCHED])
     ops.reset_counters()
     tc = torch.zeros(2, 128, 64, dtype=tc_dtype)
     core = torch.zeros(2, 128, 32, dtype=tc_dtype)

@@ -76,7 +76,7 @@ def test_launch_checks_alignment_and_counts_tc(fn, monkeypatch):
     the reported tensor-core launch; f32 or another head dim launches the
     CUDA-core body with no alignment demand and no tc count; reset_counters
     zeroes tc_launches."""
-    calls = fake_kernel_library(monkeypatch, [tfa.TC_LAUNCHED, 0, 0])
+    calls = fake_kernel_library(monkeypatch, [ops.TC_LAUNCHED, 0, 0])
     ops.reset_counters()
     bad = _misaligned((2, 128, 64))
     good = torch.zeros(2, 128, 64, dtype=torch.bfloat16)
