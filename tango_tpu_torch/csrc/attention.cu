@@ -37,14 +37,13 @@
 // with the kOnline carry instead, so the same bf16 remark holds. A row whose
 // keys are all masked (bias -10000) stays finite: the max is subtracted.
 //
-// Which body a call takes: tt_attn_fwd and tt_attn_fwd_v2 send bf16 at head
-// dim 64 (tc_body below; every attention of the full-width UNet in bf16) to
-// the tensor-core body of attention_tc.cu, the same arithmetic on wgmma, and
-// say so by returning kTcLaunched. This file's body runs everything else: f32
-// (the trainer's type, held to JAX's f32 limits, which one-product TF32
-// cannot meet; the 3xTF32 split of attention_bwd_tc.cu could, and is not in
-// that body), head dims 8, 16, 32 and 128, and kBias (tt_attn_fwd_bias) in
-// every type.
+// Which body a call takes: tc_body(dtype, D, mode) below sends head dim 64
+// to the tensor-core bodies of attention_tc.cu (every attention of the
+// full-width UNet), the same arithmetic on wgmma: bf16 in all three forms,
+// f32 in the static form (the trainer's, held to JAX's f32 limits by 3xTF32
+// products); the entry point says so by returning kTcLaunched. This file's
+// body runs everything else: head dims 8, 16, 32 and 128, and f32 in the
+// online and biased forms.
 //
 // What bounds them on the H100: operations. At the UNet's shapes (S = 8192,
 // 4096, 1024, 256, head dim 64; Skv = 256 for the biased cross-attention)
@@ -69,9 +68,11 @@
 
 namespace tt {
 
-// The tensor-core body (attention_tc.cu): online false is kStatic, true kOnline.
-cudaError_t attn_fwd_tc(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
-                        int Skv, float qscale, bool online, cudaStream_t st);
+// The tensor-core bodies (attention_tc.cu): mode is an AttnMode; f32 takes
+// only kStatic.
+cudaError_t attn_fwd_tc(const void* q, const void* k, const void* v, const float* bias,
+                        int heads, int bias_rows, void* o, int BH, int Sq, int Skv, float qscale,
+                        int mode, bool f32, cudaStream_t st);
 
 namespace {
 
@@ -88,8 +89,6 @@ constexpr size_t attn_smem_bytes() {
   // pads rows so that columns fall in distinct shared-memory banks
   return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
 }
-
-enum Mode : int { kStatic = 0, kOnline = 1, kBias = 2 };
 
 // The bias operand of kBias: bias[(bh / heads) * rows * Skv + row * Skv + key],
 // rows 1 (one row for every query) or Sq.
@@ -291,18 +290,21 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, Bia
   }
 }
 
-// tc_body(dtype, D): the rule by which tt_attn_fwd and tt_attn_fwd_v2 take the
-// tensor-core body, bf16 at head dim 64 (tc_body in ops/flash_attention.py is
-// the same rule, for the wrappers' alignment check; their counters read the
-// kTcLaunched report).
-bool tc_body(int dtype, int D) { return dtype == kBF16 && D == 64; }
+// tc_body(dtype, D, mode): the rule by which the three entry points take a
+// tensor-core body: head dim 64, bf16 in every form, f32 in the static one
+// (tc_body in ops/flash_attention.py is the same rule, for the wrappers'
+// alignment check; their counters read the kTcLaunched report).
+bool tc_body(int dtype, int D, int mode) {
+  return D == 64 && (dtype == kBF16 || (dtype == kF32 && mode == kStatic));
+}
 
 template <int MODE>
 int dispatch(const void* q, const void* k, const void* v, void* o, BiasArg bias, int BH, int Sq,
              int Skv, int D, float qscale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (MODE != kBias && tc_body(dtype, D))
-    return tc_result(attn_fwd_tc(q, k, v, o, BH, Sq, Skv, qscale, MODE == kOnline, st));
+  if (tc_body(dtype, D, MODE))
+    return tc_result(attn_fwd_tc(q, k, v, bias.ptr, bias.heads, bias.rows, o, BH, Sq, Skv,
+                                 qscale, MODE, dtype == kF32, st));
   if (dtype == kF32)
     return (int)dispatch_d<float, MODE>(q, k, v, o, bias, BH, Sq, Skv, D, qscale, st);
   if (dtype == kBF16)

@@ -22,30 +22,29 @@
 // them logits (S = Q K^T, dP = dO V^T; in dkv S^T = K Q^T, dP^T = V dO^T)
 // and three gradients (dQ = dS K, dK = dS^T Q, dV = P^T dO).
 //   * f32 inputs are the trainer's type, held to JAX's f32 limits (atol 1e-4,
-//     rtol 1e-3). A logit's error leaves exp unchanged as a relative error of
-//     p, so the logits take 3xTF32: each operand x splits into
-//     hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and wgmma m64nNk8
-//     .tf32 runs a_hi b_hi into one f32 accumulator and a_hi b_lo + a_lo b_hi
-//     into a second, added at the end: the tensor cores round every f32
-//     addition, so the small cross terms are kept apart from the large sum,
-//     as CUTLASS's 3xTF32 does. Both operands are K-major (the head dim is
-//     contiguous in q, k, v and dO), the only layout .tf32 takes.
-//     The gradients take split bf16 (hi = bf16(x), lo = bf16(x - hi), and
-//     a_hi b_lo + a_lo b_hi + a_hi b_hi) as wgmma m64n64k16 with A from
-//     registers: the accumulator of S or S^T, after the softmax, packs
-//     pairwise into the k16 A fragment (as P does in attention_tc.cu), and B
-//     (K, Q or dO, stored (rows, D): MN-major) is transposed through the
-//     descriptor, which .tf32 cannot do. Plain one-product TF32 misses JAX's
-//     limits; split bf16 on the logits fails once they are large; this
-//     hybrid stays in f32's class (tests/test_torch_attn_bwd_tc.py pins all
-//     three).
+//     rtol 1e-3). All five products run in 3xTF32 (wgmma.cuh): each operand
+//     x splits into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and
+//     wgmma m64nNk8 .tf32 runs a_hi b_hi into one f32 accumulator and
+//     a_hi b_lo + a_lo b_hi into a second, added in f32 (the gradients' per
+//     tile, into the running sum). .tf32 takes K-major operands only. The
+//     logits' operands are (rows, D) with D contiguous, as stored. The
+//     gradients' A is the accumulator of S or S^T after the softmax, split
+//     in registers (Tf32A: the accumulator's column pairs fed in kpos order);
+//     their B (K, Q, dO: the contraction runs over the streamed tile's rows)
+//     is staged transposed, as (D, rows) tf32 hi and lo tiles with the rows
+//     in kpos order. Plain one-product TF32 misses JAX's limits, split bf16
+//     on the logits fails once they are large, and split-bf16 gradient
+//     products used most of the margin with q and k at amplitude 3
+//     (tests/test_torch_attn_bwd_tc.py and tests/test_torch_attn_f32_tc.py
+//     pin all three).
 //   * bf16 inputs run each product once in bf16 (m64nNk16), logits as SS,
-//     gradients as RS on ds (and p) rounded to bf16 as the JAX kernels round.
+//     gradients as RS on ds (and p) rounded to bf16 as the JAX kernels round,
+//     with B (stored (rows, D): MN-major) transposed through the descriptor.
 //
 // What bounds it on the H100: operations. A head does 2 S^2 D flops per
 // product against 8 S D bytes (f32 q, k, v, dO). f32 has no tensor-core rate
-// of its own: 3xTF32 runs at a third of TF32's 495 TFLOP/s, the f32-class
-// rate chip_smoke.py bounds these kernels by. What the design does about it:
+// of its own: 3xTF32 runs at a third of TF32's 495 TFLOP/s, the rate
+// chip_smoke.py bounds these kernels by. What the design does about it:
 //   * All five products on the tensor cores; the (S x S) p and ds never leave
 //     registers (p and ds are the A operands of the gradient products).
 //   * A block of 2 warpgroups (256 threads) owns 128 rows (queries in dq, keys
@@ -53,12 +52,15 @@
 //     shared memory in tiles (64 keys in dq; 32 queries in f32 dkv, 64 in
 //     bf16), shared by both warpgroups. The split copies are made on the way
 //     in: the f32 row side holds tf32 hi and lo of two tensors (128 KB); a
-//     streamed f32 tile holds tf32 hi and lo, plus bf16 hi and lo of the
-//     tensors that are B of a gradient product (80 KB in dq, 48 KB in dkv).
-//     One stage: the next tile's raw 16-byte chunks are loaded into
-//     registers while the current tile is computed, then split and stored
-//     after the barrier that frees the stage. bf16 dq (48 KB) runs 2 blocks
-//     an SM, the others 1.
+//     streamed f32 tile holds tf32 hi and lo of both tensors, plus the
+//     transposed hi and lo of the tensors that are B of a gradient product
+//     (96 KB in dq, 64 KB in dkv; 225.5 KB in all for f32 dq, of the 227 a
+//     block may have). One stage: the next tile's raw 16-byte chunks are
+//     loaded into registers while the current tile is computed, then split
+//     and stored after the barrier that frees the stage; in f32 a warp
+//     stages 32 consecutive rows of one chunk, which keeps the transposed
+//     stores free of bank conflicts. bf16 dq (48 KB) runs 2 blocks an SM,
+//     the others 1.
 //   * All tiles use the 128-byte swizzle (chunk c of row r at c ^ (r % 8)).
 //     An f32 row of 64 is 256 bytes, two swizzle atoms: a tile is stored as
 //     two (rows, 32) halves, and a k8 step moves the descriptor by 32 bytes
@@ -83,6 +85,8 @@
 
 #include <math_constants.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -102,61 +106,30 @@ template <typename T> constexpr int kDqCols = 64;
 template <typename T> constexpr int kDkvCols = sizeof(T) == 4 ? 32 : 64;
 // Blocks an SM for dq: bf16's 48 KB of shared memory leave room for 2 (its
 // registers then fit 128 a thread, with a few bytes spilled: faster on the
-// H100 all the same); f32 takes 208 KB.
+// H100 all the same); f32 takes 225.5 KB.
 template <typename T> constexpr int kDqMinBlocks = sizeof(T) == 2 ? 2 : 1;
 
 // What differs between the two input types.
 template <typename T>
 struct Body {
-  static constexpr bool kSplit = sizeof(T) == 4;          // f32: 3xTF32 / split bf16
+  static constexpr bool kSplit = sizeof(T) == 4;          // f32: 3xTF32
   static constexpr int kRowChunks = kD * sizeof(T) / 16;  // 16-byte chunks a row: 16 or 8
-  // bytes of a logit operand of R rows: f32 tf32 hi and lo, each two
-  // (R, 128-byte) halves; bf16 one (R, 128-byte) tile
+  // bytes of a logit operand of R rows: f32 a rows operand (tf32 hi and lo,
+  // each two (R, 128-byte) halves); bf16 one (R, 128-byte) tile
   __host__ __device__ static constexpr int logit_bytes(int R) { return (kSplit ? 4 : 1) * R * 128; }
-  // bytes of the bf16 copies a gradient product's B needs (f32: hi and lo;
-  // bf16: none, the logit tile serves)
-  __host__ __device__ static constexpr int grad_bytes(int R) { return kSplit ? 2 * R * 128 : 0; }
+  // bytes of the transposed copy a gradient product's B needs (f32: a cols
+  // operand of R columns; bf16: none, the logit tile serves)
+  __host__ __device__ static constexpr int grad_bytes(int R) { return kSplit ? 512 * R : 0; }
 };
 
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
 // Stage raw 16-byte chunk c of row r (of R rows) into a logit operand at
-// `logit` and, where `grad` is given, into its bf16 gradient copies.
+// `logit` and, where `grad` is given, into its transposed gradient copy.
 template <typename T>
 __device__ __forceinline__ void stage(uint8_t* logit, uint8_t* grad, int R, int r, int c,
                                       uint4 raw) {
   if constexpr (Body<T>::kSplit) {
-    const float x[4] = {__uint_as_float(raw.x), __uint_as_float(raw.y),
-                        __uint_as_float(raw.z), __uint_as_float(raw.w)};
-    float hi[4], lo[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      hi[i] = tf32_rna(x[i]);
-      lo[i] = tf32_rna(x[i] - hi[i]);
-    }
-    const int h = c >> 3;  // which half of the row: head dims 0-31 or 32-63
-    const uint32_t off = sw128(r, c & 7);
-    *reinterpret_cast<uint4*>(logit + h * R * 128 + off) =
-        make_uint4(__float_as_uint(hi[0]), __float_as_uint(hi[1]), __float_as_uint(hi[2]), __float_as_uint(hi[3]));
-    *reinterpret_cast<uint4*>(logit + (2 + h) * R * 128 + off) =
-        make_uint4(__float_as_uint(lo[0]), __float_as_uint(lo[1]), __float_as_uint(lo[2]), __float_as_uint(lo[3]));
-    if (grad != nullptr) {
-      // 4 head dims of a 64-wide bf16 row: half of its 16-byte chunk c / 2
-      const uint32_t g = sw128(r, c >> 1) + (c & 1) * 8;
-      uint2 bh, bl;
-      bh.x = pack_bf16(x[0], x[1]);
-      bh.y = pack_bf16(x[2], x[3]);
-      const float2 h01 = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&bh.x));
-      const float2 h23 = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&bh.y));
-      bl.x = pack_bf16(x[0] - h01.x, x[1] - h01.y);
-      bl.y = pack_bf16(x[2] - h23.x, x[3] - h23.y);
-      *reinterpret_cast<uint2*>(grad + g) = bh;
-      *reinterpret_cast<uint2*>(grad + R * 128 + g) = bl;
-    }
+    stage_tf32_rows(logit, R, r, c, raw);
+    if (grad != nullptr) stage_tf32_cols(grad, R, r, c, raw);
   } else {
     *reinterpret_cast<uint4*>(logit + sw128(r, c)) = raw;
   }
@@ -176,9 +149,12 @@ struct Prefetch {
   static constexpr int kPer = NC * Body<T>::kRowChunks / kThreads;
   uint4 raw[2][kPer];
 
-  // (row, chunk) of the i-th chunk of thread tid
+  // (row, chunk) of the i-th chunk of thread tid. f32: rows vary fastest,
+  // so a warp stages 32 rows of one chunk (NC is 32 or 64), as the
+  // transposed copies want; bf16: chunks vary fastest, whole rows a load.
   __device__ __forceinline__ static int2 at(int tid, int i) {
     const int y = tid + i * kThreads;
+    if constexpr (Body<T>::kSplit) return make_int2(y % NC, y / NC);
     return make_int2(y / Body<T>::kRowChunks, y % Body<T>::kRowChunks);
   }
 
@@ -203,57 +179,11 @@ struct Prefetch {
   }
 };
 
-#define TT_ACC16(i) TT_ACC8(i), TT_ACC8(i + 8)
-#define TT_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define TT_D32                                                                         \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (+)= A B^T for one k step (k8 in TF32, k16 in bf16): A 64 rows, B N rows,
-// both K-major in shared memory; d is the m64nN f32 accumulator (overwritten
-// if !acc). N = 32 is f32 dkv's query tile, N = 64 the others.
-template <int N> struct Mma;
-
-template <>
-struct Mma<32> {
-  __device__ __forceinline__ static void tf32(float (&d)[16], uint64_t a, uint64_t b, int acc) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " TT_D16
-                 ", %16, %17, p, 1, 1;\n}\n"
-                 : TT_ACC16(0)
-                 : "l"(a), "l"(b), "r"(acc));
-  }
-};
-
-template <>
-struct Mma<64> {
-  __device__ __forceinline__ static void tf32(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " TT_D32
-                 ", %32, %33, p, 1, 1;\n}\n"
-                 : TT_ACC16(0), TT_ACC16(16)
-                 : "l"(a), "l"(b), "r"(acc));
-  }
-  __device__ __forceinline__ static void bf16(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TT_D32
-                 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-                 : TT_ACC16(0), TT_ACC16(16)
-                 : "l"(a), "l"(b), "r"(acc));
-  }
-};
-
-#undef TT_D32
-#undef TT_D16
-#undef TT_ACC16
-
 // s = A_s B_s^T and dp = A_p B_p^T over the 64 head dims, waited for: A_s,
 // A_p are the 64 rows from row a0 of logit operands of ra rows at shared
-// addresses as, ap; B_s, B_p the NC rows of logit operands at bs, bp. f32:
-// a_hi b_hi into the result, a_hi b_lo + a_lo b_hi into a second accumulator
-// added at the end, so that the small terms are not rounded against the
-// large sum (the tensor cores' f32 accumulation rounds every addition); the
-// two products run one after the other, sharing the second accumulator.
+// addresses as, ap; B_s, B_p the NC rows of logit operands at bs, bp. f32 in
+// 3xTF32, the two products one after the other, sharing the cross-term
+// accumulator.
 template <typename T, int NC>
 __device__ __forceinline__ void logits(float (&s)[NC / 2], float (&dp)[NC / 2], uint32_t as,
                                        uint32_t ap, uint32_t bs, uint32_t bp, int ra, int a0) {
@@ -261,16 +191,7 @@ __device__ __forceinline__ void logits(float (&s)[NC / 2], float (&dp)[NC / 2], 
     float e[NC / 2];
     auto product = [&](float (&d)[NC / 2], uint32_t a, uint32_t b) {
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kD / 8; ++kk) {
-        const int h = kk >> 2, o = (kk & 3) * 32;  // half, bytes into it
-        const uint32_t ah = a + h * ra * 128 + a0 * 128 + o, bh = b + h * NC * 128 + o;
-        const uint64_t a_hi = smem_desc(ah, 16, 1024), a_lo = smem_desc(ah + 2 * ra * 128, 16, 1024);
-        const uint64_t b_hi = smem_desc(bh, 16, 1024), b_lo = smem_desc(bh + 2 * NC * 128, 16, 1024);
-        Mma<NC>::tf32(d, a_hi, b_hi, kk);
-        Mma<NC>::tf32(e, a_hi, b_lo, kk);
-        Mma<NC>::tf32(e, a_lo, b_hi, 1);
-      }
+      mma_tf32x3_ss<NC>(d, e, a, ra, a0, b);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(d);
@@ -296,48 +217,47 @@ __device__ __forceinline__ void logits(float (&s)[NC / 2], float (&dp)[NC / 2], 
   }
 }
 
-// The A operand of a gradient product, packed from a logit accumulator x
-// (m64 x NC): k16 step kk takes x[8kk .. 8kk+7] pairwise. f32: bf16 hi and
-// lo = bf16(x - hi); bf16: x rounded to bf16 (hi only).
-template <typename T, int NC>
-struct PackedA {
-  static constexpr int kSteps = NC / 16;
-  uint32_t hi[kSteps][4];
-  uint32_t lo[Body<T>::kSplit ? kSteps : 1][4];
+// The A operand of a gradient product, from a logit accumulator x (m64 x
+// NC). bf16: k16 step kk takes x[8kk .. 8kk+7] pairwise, rounded to bf16.
+template <int NC>
+struct Bf16A {
+  uint32_t hi[NC / 16][4];
 
   __device__ __forceinline__ void pack(const float (&x)[NC / 2]) {
 #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
+    for (int kk = 0; kk < NC / 16; ++kk) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float a = x[8 * kk + 2 * e], b = x[8 * kk + 2 * e + 1];
-        hi[kk][e] = pack_bf16(a, b);
-        if constexpr (Body<T>::kSplit) {
-          const float2 h = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&hi[kk][e]));
-          lo[kk][e] = pack_bf16(a - h.x, b - h.y);
-        }
-      }
+      for (int e = 0; e < 4; ++e) hi[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
       fence_regs(hi[kk]);
-      if constexpr (Body<T>::kSplit) fence_regs(lo[kk]);
     }
   }
 };
 
-// d += A B (issued, not waited for): A packed in registers, B the NC x 64
-// bf16 tile(s) at b_hi (and b_lo), stored (k, n): MN-major, transposed by the
-// descriptor; a k16 step is 16 rows, 2048 bytes.
+// f32: the tf32 hi and lo split (wgmma.cuh); bf16: the bf16 rounding
 template <typename T, int NC>
-__device__ __forceinline__ void grad_product(float (&d)[32], const PackedA<T, NC>& a,
-                                             uint32_t b_hi, uint32_t b_lo) {
+using PackedA = std::conditional_t<Body<T>::kSplit, Tf32A<NC>, Bf16A<NC>>;
+
+// d += A B, issued (bf16) or waited for (f32). f32: 3xTF32 with B the cols
+// operand (64, NC) at b, the cross terms of this tile added to d in f32.
+// bf16: B the NC x 64 bf16 tile at b, stored (k, n): MN-major, transposed by
+// the descriptor; a k16 step is 16 rows, 2048 bytes.
+template <typename T, int NC>
+__device__ __forceinline__ void grad_product(float (&d)[32], const PackedA<T, NC>& a, uint32_t b) {
+  if constexpr (Body<T>::kSplit) {
+    float e[32];
+    fence_regs(d);
+    wgmma_fence();
+    mma_tf32x3_rs<NC>(d, e, a, b);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(d);
+    fence_regs(e);
 #pragma unroll
-  for (int kk = 0; kk < NC / 16; ++kk) {
-    const uint64_t bh = smem_desc(b_hi + kk * 2048, 1024, 1024);
-    if constexpr (Body<T>::kSplit) {
-      const uint64_t bl = smem_desc(b_lo + kk * 2048, 1024, 1024);
-      wgmma_rs64(d, a.hi[kk], bl);
-      wgmma_rs64(d, a.lo[kk], bh);
-    }
-    wgmma_rs64(d, a.hi[kk], bh);
+    for (int i = 0; i < 32; ++i) d[i] += e[i];
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < NC / 16; ++kk)
+      wgmma_rs64(d, a.hi[kk], smem_desc(b + kk * 2048, 1024, 1024));
   }
 }
 
@@ -372,8 +292,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // Shared memory of a block: the 128-row side (two logit operands), a streamed
-// tile of NC rows (two logit operands and the gradient copies of `grads` of
-// them), room for the tile's lse and delta (dkv), and 1024 bytes to align the
+// tile of NC rows (two logit operands and the transposed copies of `grads`
+// of them), room for the tile's lse and delta (dkv), and 1024 bytes to align the
 // base to the swizzle's period.
 template <typename T, int NC>
 constexpr int smem_bytes(int grads) {
@@ -397,11 +317,11 @@ bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);
-  // Q, dO (128 rows), K, V (NC rows), K's bf16 copies (f32)
+  // Q, dO (128 rows), K, V (NC rows), K transposed (f32)
   constexpr int oQ = 0, odO = oQ + B::logit_bytes(kRows), oK = odO + B::logit_bytes(kRows);
   constexpr int oV = oK + B::logit_bytes(NC), oKg = oV + B::logit_bytes(NC);
-  // B of dQ = dS K: K's bf16 hi and lo (f32), or the K tile itself (bf16)
-  const uint32_t kg_hi = base + (B::kSplit ? oKg : oK), kg_lo = kg_hi + NC * 128;
+  // B of dQ = dS K: K transposed (f32), or the K tile itself (bf16)
+  const uint32_t kg = base + (B::kSplit ? oKg : oK);
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t4 = lane & 3;
@@ -492,12 +412,16 @@ bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
       PackedA<T, NC> a;
       a.pack(s);
-      fence_regs(acc);
-      wgmma_fence();
-      grad_product<T, NC>(acc, a, kg_hi, kg_lo);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(acc);
+      if constexpr (B::kSplit) {
+        grad_product<T, NC>(acc, a, kg);
+      } else {
+        fence_regs(acc);
+        wgmma_fence();
+        grad_product<T, NC>(acc, a, kg);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
     }
   }
 
@@ -527,7 +451,7 @@ bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);
-  // K, V (128 rows), Q, dO (NC rows), their bf16 copies (f32), lse and delta
+  // K, V (128 rows), Q, dO (NC rows), both transposed (f32), lse and delta
   constexpr int oK = 0, oV = oK + B::logit_bytes(kRows), oQ = oV + B::logit_bytes(kRows);
   constexpr int odO = oQ + B::logit_bytes(NC), oQg = odO + B::logit_bytes(NC);
   constexpr int odOg = oQg + B::grad_bytes(NC), oStats = odOg + B::grad_bytes(NC);
@@ -599,15 +523,20 @@ bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     PackedA<T, NC> ap, as;
     ap.pack(s);   // p, rounded to dO's type for bf16
     as.pack(dp);  // ds, rounded to q's type for bf16
-    fence_regs(adv);
-    fence_regs(adk);
-    wgmma_fence();
-    grad_product<T, NC>(adv, ap, dog, dog + NC * 128);
-    grad_product<T, NC>(adk, as, qg, qg + NC * 128);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(adv);
-    fence_regs(adk);
+    if constexpr (B::kSplit) {  // one after the other, each waited for
+      grad_product<T, NC>(adv, ap, dog);
+      grad_product<T, NC>(adk, as, qg);
+    } else {
+      fence_regs(adv);
+      fence_regs(adk);
+      wgmma_fence();
+      grad_product<T, NC>(adv, ap, dog);
+      grad_product<T, NC>(adk, as, qg);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(adv);
+      fence_regs(adk);
+    }
   }
 
   const int r0 = k0 + wg * 64 + warp * 16 + (lane >> 2);

@@ -1,36 +1,44 @@
-// Tensor-core body of the bias-free forward attention: bf16 q, k, v, o at head
-// dim 64, on Hopper's warpgroup matrix multiply (wgmma, sm_90a). The C entry
-// points tt_attn_fwd and tt_attn_fwd_v2 (attention.cu) take it where
-// tc_body(dtype, D) holds: bf16 and D == 64, every attention of the
-// full-width UNet (heads 5, 10, 20 over 320, 640, 1280 channels). f32 (the
-// trainer's type), other head dims and the biased form keep attention.cu's
-// CUDA-core body: one-product TF32 wgmma cannot meet JAX's f32 limits, and
-// the 3xTF32 split that can (attention_bwd_tc.cu's logit products) is not in
-// this body.
+// Tensor-core bodies of the forward attention at head dim 64, on Hopper's
+// warpgroup matrix multiply (wgmma, sm_90a). The C entry points of
+// attention.cu take them where tc_body(dtype, D, mode) holds:
+//   * bf16 at D == 64, all three forms (tt_attn_fwd, tt_attn_fwd_v2,
+//     tt_attn_fwd_bias): attn_tc_kernel, bf16 products;
+//   * f32 at D == 64, the static form (tt_attn_fwd, every forward attention
+//     of the trainer): attn_tc_f32_kernel, 3xTF32 products.
+// Every attention of the full-width UNet has head dim 64 (heads 5, 10, 20
+// over 320, 640, 1280 channels). f32 in the online and biased forms and the
+// other head dims keep attention.cu's CUDA-core body.
 //
 // Replaces, as that body does, tango_tpu/ops/flash_attention.py:
-//   _attn_kernel (:56)     through tt_attn_fwd, the static-shift form;
-//   _attn_kernel_v2 (:103) through tt_attn_fwd_v2, the online max-subtracted form.
+//   _attn_kernel (:56)      through tt_attn_fwd, the static-shift form;
+//   _attn_kernel_bias (:84) through tt_attn_fwd_bias, the biased form;
+//   _attn_kernel_v2 (:103)  through tt_attn_fwd_v2, the online max-subtracted form.
 // The arithmetic is attention.cu's, step for step:
-//   qs    = round_bf16(q * qscale)             (qscale = scale * log2(e), f32)
+//   qs    = round_T(q * qscale)                (qscale = scale * log2(e), f32;
+//                                               no rounding in f32)
 //   s     = qs . k                             (f32 accumulation)
+//   bias: s += bias * log2(e), before the max  (bias f32 (B, 1 | Sq, Skv), head
+//                                               bh reads batch row bh / heads)
 //   static: p = exp2(min(s - 20, 96)), denom and acc add up over key tiles,
 //           o = acc / (denom == 0 ? 1 : denom)
-//   online: m' = max(m, max_j s_j), alpha = exp2(m - m'), p = exp2(s - m'),
+//   online, bias: m' = max(m, max_j s_j), alpha = exp2(m - m'), p = exp2(s - m'),
 //           denom = alpha * denom + sum p, acc = alpha * acc + ..., m from -1e30,
 //           o = acc / denom
-//   denom sums the unrounded f32 p; the PV product takes round_bf16(p).
-// JAX walks 1024-key blocks (v2) or the whole key set (static), this body
-// 128-key tiles: for the static form that changes only the f32 summation
-// order; for the online form round_bf16(p) is taken against the running max
-// of the tiles so far, which moves the output by at most one bf16 step
-// (tests/test_torch_attn_tc.py emulates this walk against both JAX kernels).
+//   denom sums the unrounded f32 p; the PV product takes round_T(p).
+// JAX walks 1024-key blocks (v2) or the whole key set (static, bias), these
+// bodies 128-key (bf16) or 64-key (f32) tiles: for the static form that
+// changes only the f32 summation order; for the online and biased forms
+// round_bf16(p) is taken against the running max of the tiles so far, which
+// moves the output by at most one bf16 step (tests/test_torch_attn_tc.py and
+// tests/test_torch_attn_bias_tc.py emulate this walk against the JAX kernels).
+// A row whose keys are all masked (bias -10000) stays finite: the max is
+// subtracted. Keys past Skv get s = -inf after the bias is added.
 //
 // What bounds it on the H100: operations. A query row does 4*Skv*D flops
 // against 8*D bytes of q and o (k and v are shared by the rows of a head),
 // far above the card's ~295 bf16 flops a byte, and at D = 64 the softmax's
 // one exp2 per logit costs the multi-function units about as long as the
-// logit's 256 tensor-core flops. What the design does about it:
+// logit's 256 tensor-core flops. What the bf16 design does about it:
 //   * Both products run on the tensor cores in bf16 with f32 accumulation:
 //     S = Q K^T as wgmma m64n128k16 with both operands read from shared
 //     memory through descriptors (Q is A and K is B, both K-major: K is
@@ -43,7 +51,9 @@
 //     k-step kk. The softmax runs on the accumulator fragments: a row's 128
 //     values lie in the 4 threads of a quad, so a row max takes 2 shuffles;
 //     the denominators stay per thread and are summed over the quad once,
-//     at the end.
+//     at the end. The bias is read per fragment (the thread's two rows, its
+//     key columns) from device memory, where L1 serves the rows a block
+//     shares: the path passes one bias row per batch row.
 //   * A block of 2 warpgroups (256 threads) owns 128 query rows of one
 //     (b*h); the Q tile (16 KB) is staged once, scaled and rounded on the
 //     way in. K and V tiles of 128 keys x 64 (16 KB each) sit in a 2-stage
@@ -55,14 +65,29 @@
 //     both wgmma's reads and the staging writes are free of bank conflicts.
 //     80 KB of shared memory a block: 2 blocks an SM, so one block's softmax
 //     overlaps the other's products.
+// The f32 body holds JAX's f32 limits (atol 2e-5, rtol 1e-4): one-product
+// TF32 misses them at unit amplitude, and 3xTF32 logits with split-bf16 P V
+// miss them with q and k at amplitude 3, so both products run in 3xTF32
+// (wgmma.cuh: hi/lo splits, the cross terms in their own accumulator):
+//   * S = Qs K^T as wgmma m64n64k8 .tf32, both operands rows operands in
+//     shared memory; O += P V with P split in registers (Tf32A) and V staged
+//     transposed (a cols operand: .tf32 takes only K-major B, and cannot
+//     transpose V through the descriptor as bf16 does).
+//   * The splits are made on the way into shared memory, which cp.async
+//     cannot do: the next tile's raw chunks are loaded into registers during
+//     the current tile, split and stored into the other of 2 stages while
+//     the P V products run, one barrier a tile. Q hi/lo (128 rows, 64 KB)
+//     plus 2 stages of K and V^T hi/lo at 64 keys (64 KB a stage): 192 KB,
+//     one block an SM.
 // Headroom left for later: TMA loads with mbarriers from a producer warp,
 // and ping-pong scheduling of the two warpgroups' softmax against the other
 // one's wgmma (FlashAttention-3), instead of the block-wide barrier a tile.
 //
-// Layout: q, o (BH, Sq, 64) and k, v (BH, Skv, 64) bf16, contiguous, 16-byte
-// aligned (the wrapper checks). One block per (b*h, 128-row query tile),
-// flattened onto grid.x. Rows past Sq are zero in shared memory and not
-// stored; keys past Skv get s = -inf, so p = 0. Element offsets are 64-bit.
+// Layout: q, o (BH, Sq, 64) and k, v (BH, Skv, 64), contiguous, 16-byte
+// aligned, as the bias (the wrappers check). One block per (b*h, 128-row
+// query tile), flattened onto grid.x. Rows past Sq are zero in shared memory
+// and not stored; keys past Skv get s = -inf, so p = 0. Element offsets are
+// 64-bit.
 
 #include <math_constants.h>
 
@@ -72,9 +97,9 @@
 namespace tt {
 namespace {
 
-constexpr int kD = 64;                   // head dim of this body
+constexpr int kD = 64;                   // head dim of these bodies
 constexpr int kRows = 128;               // query rows a block, 64 a warpgroup
-constexpr int kKeys = 128;               // keys a K/V tile
+constexpr int kKeys = 128;               // keys a K/V tile (bf16)
 constexpr int kThreads = 256;            // two warpgroups
 constexpr int kMinBlocks = 2;            // blocks an SM (registers <= 128 a thread)
 constexpr int kStages = 2;               // K/V tiles in the ring
@@ -83,6 +108,32 @@ constexpr int kTile = kKeys * kD * 2;    // bytes of the Q tile and of a K or V 
 constexpr int kSmem = (1 + 2 * kStages) * kTile + 1024;
 constexpr float kShift = 20.0f;
 constexpr float kClamp = 96.0f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// f32 body: 64-key tiles; Q hi/lo, then 2 stages of K hi/lo (a rows
+// operand) and V^T hi/lo (a cols operand)
+constexpr int kF32Keys = 64;
+constexpr int kF32Q = 4 * kRows * 128;           // 64 KB
+constexpr int kF32K = 4 * kF32Keys * 128;        // 32 KB
+constexpr int kF32Stage = kF32K + 512 * kF32Keys;  // + V^T, 32 KB
+constexpr int kF32Smem = kF32Q + 2 * kF32Stage + 1024;
+
+// The bias operand of the biased form: bias[(bh / heads) * rows * Skv + row * Skv + key].
+struct Bias {
+  const float* ptr;
+  int heads;
+  int rows;  // 1 (one row for every query) or Sq
+};
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
 // d (+)= A B^T for one k16 step: A 64 x 16 and B 128 x 16, bf16, both K-major
 // in shared memory; d is the m64n128 f32 accumulator (overwritten if !acc).
@@ -100,14 +151,49 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// The online (and biased) softmax step on a thread's N accumulator values s
+// of rows r0 (s[4b], s[4b+1]) and r1 (s[4b+2], s[4b+3]): new running maxes
+// m0, m1, the accumulator acc and the denominators l0, l1 rescaled, s
+// replaced by p = exp2(s - m).
+template <int N>
+__device__ __forceinline__ void online_step(float (&s)[N], float (&acc)[32], float& m0, float& m1,
+                                            float& l0, float& l1) {
+  float t0 = -CUDART_INF_F, t1 = -CUDART_INF_F;
+#pragma unroll
+  for (int b = 0; b < N / 4; ++b) {
+    t0 = fmaxf(t0, fmaxf(s[4 * b], s[4 * b + 1]));
+    t1 = fmaxf(t1, fmaxf(s[4 * b + 2], s[4 * b + 3]));
+  }
+  const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
+  const float a0 = exp2f(m0 - n0), a1 = exp2f(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  l0 *= a0;
+  l1 *= a1;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    acc[4 * b] *= a0;
+    acc[4 * b + 1] *= a0;
+    acc[4 * b + 2] *= a1;
+    acc[4 * b + 3] *= a1;
+  }
+#pragma unroll
+  for (int b = 0; b < N / 4; ++b) {
+    s[4 * b] = exp2f(s[4 * b] - n0);
+    s[4 * b + 1] = exp2f(s[4 * b + 1] - n0);
+    s[4 * b + 2] = exp2f(s[4 * b + 2] - n1);
+    s[4 * b + 3] = exp2f(s[4 * b + 3] - n1);
+  }
+}
+
 // Accumulator layout of m64nNk16 (f32), per thread of a warpgroup: warp w,
 // lane l, quad position t = l % 4; rows r0 = 16w + l/4 and r1 = r0 + 8;
 // d[4b + e] holds row (e < 2 ? r0 : r1), column 8b + 2t + (e & 1).
-template <bool ONLINE>
+template <int MODE>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
-               int Skv, float qscale) {
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Bias bias,
+               int Sq, int Skv, float qscale) {
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the tiles to it
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -123,6 +209,16 @@ attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   const __nv_bfloat16* kh = k + head * Skv * kD;
   const __nv_bfloat16* vh = v + head * Skv * kD;
   const int n_tiles = (Skv + kKeys - 1) / kKeys;
+  const int r0 = q0 + wg * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+
+  // the bias rows of r0 and r1 (a ragged row past Sq reads row Sq - 1)
+  const float* b0 = nullptr;
+  const float* b1 = nullptr;
+  if constexpr (MODE == kBias) {
+    const float* bb = bias.ptr + (head / bias.heads) * (int64_t)bias.rows * Skv;
+    b0 = bb + (bias.rows == 1 ? 0 : (int64_t)min(r0, Sq - 1) * Skv);
+    b1 = bb + (bias.rows == 1 ? 0 : (int64_t)min(r1, Sq - 1) * Skv);
+  }
 
   auto load_kv = [&](int j) {  // tile j into ring slot j % kStages
     const int k0 = j * kKeys, slot = j % kStages;
@@ -165,7 +261,7 @@ attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   float acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-  float m0 = -1e30f, m1 = -1e30f;  // running row maxes (ONLINE)
+  float m0 = -1e30f, m1 = -1e30f;  // running row maxes (kOnline, kBias)
   float l0 = 0.0f, l1 = 0.0f;      // this thread's share of the two denominators
   // this warpgroup's 64 Q rows; a k16 step advances 32 bytes along D
   const uint64_t dq = smem_desc(sQ + wg * 64 * 128, 16, 1024);
@@ -190,47 +286,24 @@ attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     fence_regs(s);
 
     const int lim = Skv - j * kKeys;  // keys of this tile that exist
-    if (lim < kKeys) {
+    if constexpr (MODE == kBias) {
+      const int k0 = j * kKeys;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int col = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        s[i] = col < lim ? s[i] + __ldg(((i & 2) ? b1 : b0) + k0 + col) * kLog2e : -CUDART_INF_F;
+      }
+    } else if (lim < kKeys) {
 #pragma unroll
       for (int i = 0; i < 64; ++i)
         if (8 * (i >> 2) + 2 * t4 + (i & 1) >= lim) s[i] = -CUDART_INF_F;
     }
 
-    if constexpr (ONLINE) {
-      float t0 = -CUDART_INF_F, t1 = -CUDART_INF_F;
-#pragma unroll
-      for (int b = 0; b < 16; ++b) {
-        t0 = fmaxf(t0, fmaxf(s[4 * b], s[4 * b + 1]));
-        t1 = fmaxf(t1, fmaxf(s[4 * b + 2], s[4 * b + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, off));
-        t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, off));
-      }
-      const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
-      const float a0 = exp2f(m0 - n0), a1 = exp2f(m1 - n1);
-      m0 = n0;
-      m1 = n1;
-      l0 *= a0;
-      l1 *= a1;
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        acc[4 * b] *= a0;
-        acc[4 * b + 1] *= a0;
-        acc[4 * b + 2] *= a1;
-        acc[4 * b + 3] *= a1;
-      }
-#pragma unroll
-      for (int b = 0; b < 16; ++b) {
-        s[4 * b] = exp2f(s[4 * b] - n0);
-        s[4 * b + 1] = exp2f(s[4 * b + 1] - n0);
-        s[4 * b + 2] = exp2f(s[4 * b + 2] - n1);
-        s[4 * b + 3] = exp2f(s[4 * b + 3] - n1);
-      }
-    } else {
+    if constexpr (MODE == kStatic) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) s[i] = exp2f(fminf(s[i] - kShift, kClamp));
+    } else {
+      online_step(s, acc, m0, m1, l0, l1);
     }
 #pragma unroll
     for (int b = 0; b < 16; ++b) {
@@ -257,16 +330,12 @@ attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     fence_regs(acc);
   }
 
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  if constexpr (!ONLINE) {
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if constexpr (MODE == kStatic) {
     l0 = l0 == 0.0f ? 1.0f : l0;  // an underflowed row is a zero row
     l1 = l1 == 0.0f ? 1.0f : l1;
   }
-  const int r0 = q0 + wg * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
   __nv_bfloat16* oh = o + head * Sq * kD + 2 * t4;
 #pragma unroll
   for (int b = 0; b < 8; ++b) {
@@ -279,26 +348,172 @@ attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
 }
 
-template <bool ONLINE>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Skv,
-                   float qscale, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(attn_tc_kernel<ONLINE>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (e != cudaSuccess) return e;
-  const int64_t blocks = (int64_t)BH * ((Sq + kRows - 1) / kRows);
+// Raw chunk c (f32 head dims 4c .. 4c+3) of row `row` of a (S, 64) head, zeros past S.
+__device__ __forceinline__ uint4 load_chunk(const float* head, int row, int c, int S) {
+  if (row >= S) return make_uint4(0u, 0u, 0u, 0u);
+  return *reinterpret_cast<const uint4*>(head + (int64_t)row * kD + c * 4);
+}
+
+// The static form in f32 on 3xTF32 products (see the note at the top).
+__global__ void __launch_bounds__(kThreads, 1)
+attn_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
+                   float qscale) {
+  constexpr int NC = kF32Keys, kPer = NC * 16 / kThreads;  // raw chunks a thread, each of K, V
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t4 = lane & 3;
+  const int tiles = (Sq + kRows - 1) / kRows;
+  const int64_t head = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x % tiles) * kRows;
+  const float* kh = k + head * Skv * kD;
+  const float* vh = v + head * Skv * kD;
+  const int n = (Skv + NC - 1) / NC;
+
+  // the next tile's raw chunks, rows fastest: a warp holds 32 keys of one chunk
+  uint4 rk[kPer], rv[kPer];
+  auto load = [&](int j) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int y = tid + i * kThreads, r = j * NC + y % NC, c = y / NC;
+      rk[i] = load_chunk(kh, r, c, Skv);
+      rv[i] = load_chunk(vh, r, c, Skv);
+    }
+  };
+  auto stage = [&](int slot) {
+    uint8_t* st = gbase + kF32Q + slot * kF32Stage;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int y = tid + i * kThreads, r = y % NC, c = y / NC;
+      stage_tf32_rows(st, NC, r, c, rk[i]);
+      stage_tf32_cols(st + kF32K, NC, r, c, rv[i]);
+    }
+  };
+
+  load(0);
+  {  // Q, scaled by qscale in f32 and split on the way in
+    const float* qh = q + head * Sq * kD;
+    for (int x = tid; x < kRows * 16; x += kThreads) {
+      const int r = x >> 4, c = x & 15;
+      stage_tf32_rows(gbase, kRows, r, c, load_chunk(qh, q0 + r, c, Sq), qscale);
+    }
+  }
+  stage(0);
+  fence_async_proxy();
+  __syncthreads();
+  if (n > 1) load(1);
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  float l0 = 0.0f, l1 = 0.0f;  // this thread's share of the two denominators
+
+  for (int j = 0; j < n; ++j) {
+    const uint32_t sK = base + kF32Q + (j & 1) * kF32Stage, sV = sK + kF32K;
+    float s[NC / 2], e[32];  // NC / 2 == 32: S, then P; the cross terms of S, then of P V
+    wgmma_fence();
+    mma_tf32x3_ss<NC>(s, e, base, kRows, wg * 64, sK);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(e);
+
+    const int lim = Skv - j * NC;  // keys of this tile that exist
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) {
+      const bool in = 8 * (i >> 2) + 2 * t4 + (i & 1) < lim;
+      s[i] = in ? exp2f(fminf(s[i] + e[i] - kShift, kClamp)) : 0.0f;
+      if (i & 2) l1 += s[i];
+      else l0 += s[i];
+    }
+    Tf32A<NC> a;
+    a.pack(s);
+    fence_regs(acc);
+    wgmma_fence();
+    mma_tf32x3_rs<NC>(acc, e, a, sV);
+    wgmma_commit();
+    // while the P V products run: stage tile j + 1 into the other stage (free
+    // since the barrier that ended tile j - 1), then load tile j + 2
+    if (j + 1 < n) {
+      stage((j + 1) & 1);
+      fence_async_proxy();
+      if (j + 2 < n) load(j + 2);
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(e);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += e[i];
+    __syncthreads();  // tile j + 1 is staged, and no warpgroup reads tile j any more
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  l0 = l0 == 0.0f ? 1.0f : l0;  // an underflowed row is a zero row
+  l1 = l1 == 0.0f ? 1.0f : l1;
+  const int r0 = q0 + wg * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  float* oh = o + head * Sq * kD + 2 * t4;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    if (r0 < Sq)
+      *reinterpret_cast<float2*>(oh + (int64_t)r0 * kD + 8 * b) =
+          make_float2(acc[4 * b] / l0, acc[4 * b + 1] / l0);
+    if (r1 < Sq)
+      *reinterpret_cast<float2*>(oh + (int64_t)r1 * kD + 8 * b) =
+          make_float2(acc[4 * b + 2] / l1, acc[4 * b + 3] / l1);
+  }
+}
+
+template <typename K>
+cudaError_t prepare(K kernel, int smem, int64_t blocks) {
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  attn_tc_kernel<ONLINE><<<(unsigned)blocks, kThreads, kSmem, st>>>(
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <int MODE>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, Bias bias, int BH,
+                   int Sq, int Skv, float qscale, cudaStream_t st) {
+  const int64_t blocks = (int64_t)BH * ((Sq + kRows - 1) / kRows);
+  cudaError_t e = prepare(attn_tc_kernel<MODE>, kSmem, blocks);
+  if (e != cudaSuccess) return e;
+  attn_tc_kernel<MODE><<<(unsigned)blocks, kThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, qscale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), bias, Sq, Skv,
+      qscale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
+                       int Skv, float qscale, cudaStream_t st) {
+  const int64_t blocks = (int64_t)BH * ((Sq + kRows - 1) / kRows);
+  cudaError_t e = prepare(attn_tc_f32_kernel, kF32Smem, blocks);
+  if (e != cudaSuccess) return e;
+  attn_tc_f32_kernel<<<(unsigned)blocks, kThreads, kF32Smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Sq, Skv, qscale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-cudaError_t attn_fwd_tc(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
-                        int Skv, float qscale, bool online, cudaStream_t st) {
-  return online ? launch<true>(q, k, v, o, BH, Sq, Skv, qscale, st)
-                : launch<false>(q, k, v, o, BH, Sq, Skv, qscale, st);
+cudaError_t attn_fwd_tc(const void* q, const void* k, const void* v, const float* bias,
+                        int heads, int bias_rows, void* o, int BH, int Sq, int Skv, float qscale,
+                        int mode, bool f32, cudaStream_t st) {
+  if (f32) {
+    if (mode != kStatic) return cudaErrorInvalidValue;
+    return launch_f32(q, k, v, o, BH, Sq, Skv, qscale, st);
+  }
+  const Bias b{bias, heads, bias_rows};
+  switch (mode) {
+    case kStatic: return launch<kStatic>(q, k, v, o, b, BH, Sq, Skv, qscale, st);
+    case kOnline: return launch<kOnline>(q, k, v, o, b, BH, Sq, Skv, qscale, st);
+    case kBias: return launch<kBias>(q, k, v, o, b, BH, Sq, Skv, qscale, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace tt

@@ -11,6 +11,10 @@ namespace tt {
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
+// The forward attention's three softmax forms (attention.cu, attention_tc.cu):
+// kStatic tt_attn_fwd, kOnline tt_attn_fwd_v2, kBias tt_attn_fwd_bias.
+enum AttnMode : int { kStatic = 0, kOnline = 1, kBias = 2 };
+
 // What an entry point that has a tensor-core body returns after launching it;
 // 0 is a launch of its CUDA-core body and a positive code a cudaError_t. The
 // wrappers count tc_launches from this report.

@@ -5,8 +5,8 @@ training) in `KERNELS`, the backward kernels (training only) in
 `BACKWARD_KERNELS`; `all_kernels()` gives both. A wrapper runs its kernel
 for a CUDA tensor and its plain version for a CPU tensor, and counts its
 launches in `wrapper.launches` (a plain integer). The wrappers with a
-tensor-core body (`attn_fwd`, `attn_fwd_v2`, `attn_bwd_dq`, `attn_bwd_dkv`,
-`w8a8_matmul`, `winograd_conv3x3`) also count the launches that took it in
+tensor-core body (`attn_fwd`, `attn_fwd_v2`, `attn_fwd_bias`, `attn_bwd_dq`,
+`attn_bwd_dkv`, `w8a8_matmul`, `winograd_conv3x3`) also count the launches that took it in
 `wrapper.tc_launches`, from what the C entry point reports (`reported_tc`,
 `count_tc`).
 """

@@ -1,8 +1,8 @@
 """Attention kernels and their plain versions.
 
-Forward, three kernels of one tile loop in csrc/attention.cu, and for
-`attn_fwd` and `attn_fwd_v2` in bf16 at head dim 64 (`tc_body`) a
-tensor-core (wgmma) body of the same arithmetic in csrc/attention_tc.cu:
+Forward, three kernels of one tile loop in csrc/attention.cu, and at head
+dim 64 (`tc_body`: bf16 in all three, f32 in `attn_fwd`) tensor-core (wgmma)
+bodies of the same arithmetic in csrc/attention_tc.cu (f32: 3xTF32 products):
   * `attn_fwd` replaces `_attn_kernel` (tango_tpu/ops/flash_attention.py:56),
     the static-shift exp2 softmax with deferred division: q is prescaled by
     scale*log2(e) and rounded to the storage type, p = exp2(min(l - 20, 96)),
@@ -22,8 +22,8 @@ softmax, recomputed from q, k and v, with JAX's roundings (ds to the storage
 type before both products that take it, p to dO's type before dV = p^T dO).
 dq also writes the per-row lse and delta that dkv reads, as (BH, Sq) f32. In
 f32 and bf16 at head dim 64 (`bwd_tc_body`) both run the tensor-core body of
-csrc/attention_bwd_tc.cu (f32: 3xTF32 logit products, split-bf16 gradient
-products), other head dims the CUDA-core body of csrc/attention_bwd.cu.
+csrc/attention_bwd_tc.cu (f32: 3xTF32 products), other head dims the
+CUDA-core body of csrc/attention_bwd.cu.
 Bound on the H100: operations (see the CUDA files' notes).
 
 Layout: q and do (BH, Sq, D), k and v (BH, Skv, D), contiguous, f32 or bf16.
@@ -50,11 +50,12 @@ SOFTMAX_CLAMP = 96.0
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 TC_HEAD_DIM = 64
 _SRC = "tango_tpu_torch/csrc/attention.cu"
-_TC_SRC = "tango_tpu_torch/csrc/attention_tc.cu"  # the bf16 D = 64 body, the serving paths'
+_TC_SRC = "tango_tpu_torch/csrc/attention_tc.cu"  # D = 64: bf16, and f32 static (training)
 _BWD_SRC = "tango_tpu_torch/csrc/attention_bwd.cu"
 _BWD_TC_SRC = "tango_tpu_torch/csrc/attention_bwd_tc.cu"  # f32 and bf16 at D = 64, training's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS = 64  # query (or key) rows a block
+_MODES = ("static", "online", "bias")
 
 
 def kernel_shape_ok(bh: int, sq: int, skv: int, d: int) -> bool:
@@ -71,24 +72,28 @@ def v2_route(sq: int, skv: int) -> bool:
     return skv > 4096 and skv % 512 == 0 and sq % 128 == 0
 
 
-def tc_body(dtype: torch.dtype, d: int) -> bool:
-    """Whether attn_fwd and attn_fwd_v2 run on the tensor-core body
-    (csrc/attention_tc.cu) rather than the CUDA-core one: bf16 at head dim 64,
-    every attention of the full-width UNet in bf16. f32 (the trainer's type)
-    keeps the CUDA-core body: one-product TF32 would miss JAX's f32 limits,
-    and the 3xTF32 split that meets them (as the backward's `bwd_tc_body`
-    shows) is not in this body. The C entry points apply the same rule
+def tc_body(dtype: torch.dtype, d: int, mode: str) -> bool:
+    """Whether a forward attention of `mode` ("static" attn_fwd, "online"
+    attn_fwd_v2, "bias" attn_fwd_bias) runs on a tensor-core body
+    (csrc/attention_tc.cu) rather than the CUDA-core one: head dim 64, the
+    width of every attention of the full-width UNet, in bf16 in every form
+    and in f32 in the static form, the trainer's (3xTF32 products keep it
+    within JAX's f32 limits). f32 in the online and biased forms, on no f32
+    path, keeps the CUDA-core body. The C entry points apply the same rule
     (`tc_body` in csrc/attention.cu); here it decides the alignment check."""
-    return dtype == torch.bfloat16 and d == TC_HEAD_DIM
+    if mode not in _MODES:
+        raise ValueError(f"tc_body: mode {mode!r} (one of {_MODES})")
+    return d == TC_HEAD_DIM and (dtype == torch.bfloat16
+                                 or (dtype == torch.float32 and mode == "static"))
 
 
 def bwd_tc_body(dtype: torch.dtype, d: int) -> bool:
     """Whether attn_bwd_dq and attn_bwd_dkv run on the tensor-core body
     (csrc/attention_bwd_tc.cu) rather than the CUDA-core one: f32 or bf16 at
     head dim 64, every attention of the full-width UNet, the trainer's f32
-    included (3xTF32 logits and split-bf16 gradients keep it within JAX's f32
-    limits). The C entry points apply the same rule (`bwd_tc_body` in
-    csrc/attention_bwd.cu); here it decides the alignment check."""
+    included (3xTF32 products keep it within JAX's f32 limits). The C entry
+    points apply the same rule (`bwd_tc_body` in csrc/attention_bwd.cu);
+    here it decides the alignment check."""
     return dtype in (torch.float32, torch.bfloat16) and d == TC_HEAD_DIM
 
 
@@ -165,16 +170,23 @@ def attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     return (acc / torch.where(denom == 0.0, torch.ones_like(denom), denom)).to(q.dtype)
 
 
-def _launch_fwd(fn, q, k, v, scale):
-    """Launch attn_fwd or attn_fwd_v2 (fn) into a new output; the C entry
-    point picks the body by `tc_body`, and fn.tc_launches counts the
-    tensor-core ones it reports."""
+def _launch_fwd(fn, q, k, v, scale, bias=None, heads=1):
+    """Launch attn_fwd, attn_fwd_v2 or (with a bias) attn_fwd_bias (fn) into
+    a new output; the C entry point picks the body by `tc_body`, and
+    fn.tc_launches counts the tensor-core ones it reports."""
     o = torch.empty_like(q)
-    tc = tc_body(q.dtype, q.shape[2])
+    mode = "bias" if bias is not None else "online" if fn is attn_fwd_v2 else "static"
+    tc = tc_body(q.dtype, q.shape[2], mode)
     if tc:
-        check_tc_aligned(fn.__name__, q, k, v, o)
-    count_tc(fn, tc, _launch(fn, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             o.data_ptr(), *_dims(q, k), _qscale(scale)))
+        check_tc_aligned(fn.__name__, q, k, v, *(() if bias is None else (bias,)), o)
+    if bias is None:
+        ran = _launch(fn, (q, k), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      *_dims(q, k), _qscale(scale))
+    else:
+        ran = _launch(fn, (q, k, bias), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      bias.data_ptr(), o.data_ptr(), *_dims(q, k), heads, bias.shape[1],
+                      _qscale(scale))
+    count_tc(fn, tc, ran)
     return o
 
 
@@ -201,7 +213,7 @@ def attn_fwd_v2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float)
 
 
 attn_fwd.tc_launches = attn_fwd_v2.tc_launches = 0
-attn_fwd.core_source = attn_fwd_v2.core_source = _SRC  # the CUDA-core body, f32 and other D
+attn_fwd.core_source = attn_fwd_v2.core_source = _SRC  # the CUDA-core body, other D (v2: f32)
 
 
 def attn_fwd_bias_plain(q, k, v, bias, heads: int, scale: float):
@@ -212,7 +224,7 @@ def attn_fwd_bias_plain(q, k, v, bias, heads: int, scale: float):
     return _max_subtracted(logits, v, q.dtype)
 
 
-@kernel_wrapper(_SRC, "tango_tpu/ops/flash_attention.py:84")
+@kernel_wrapper(_TC_SRC, "tango_tpu/ops/flash_attention.py:84")
 def attn_fwd_bias(q, k, v, bias, heads: int, scale: float):
     """softmax(q k^T * scale + bias) v over (BH, S, D) heads; bias is f32
     (B, 1 | Sq, Skv) with B * heads == BH, and head bh adds row bh // heads."""
@@ -232,10 +244,11 @@ def attn_fwd_bias(q, k, v, bias, heads: int, scale: float):
         return attn_fwd_bias_plain(q, k, v, bias, heads, scale)
     if not bias.is_contiguous():
         raise ValueError("attn_fwd_bias: bias must be contiguous")
-    o = torch.empty_like(q)
-    _launch(attn_fwd_bias, (q, k, bias), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr(), o.data_ptr(), *_dims(q, k), heads, bias.shape[1], _qscale(scale))
-    return o
+    return _launch_fwd(attn_fwd_bias, q, k, v, scale, bias, heads)
+
+
+attn_fwd_bias.tc_launches = 0
+attn_fwd_bias.core_source = _SRC  # the CUDA-core body, f32 and other D
 
 
 def attn_bwd_dq_plain(q, k, v, do, scale: float):

@@ -14,12 +14,14 @@ the single-prompt output at the same seed, padding a tail chunk leaves the
 real rows unchanged, and each chunk of a seeded call gets distinct noise.
 
 int8 serving: `quant="conv" | "dense" | "all"` quantizes the UNet once at
-build time, after the compute-dtype cast (so the weights quantized on the
-card are the bf16 ones, and the scales stay f32), as tango_tpu/pipeline.py
-does after its optional cast: the scope's Linear layers then run the
-`w8a8_matmul` kernel, its Conv2d layers the int8 convolution
-(ops/quant.py). The T5 encoder, the VAE and HiFi-GAN stay in the compute
-dtype.
+build time, in JAX's order (tango_tpu/pipeline.py `_build`): with
+`cast_params=False` (`from_components`' default, as JAX's) the f32 weights
+are quantized and the float remainder cast to the compute dtype after; with
+`cast_params=True` (`Tango()`'s default) the weights are cast first, so on
+the card the bf16 ones are quantized. The scales stay f32 either way. The
+scope's Linear layers then run the `w8a8_matmul` kernel, its Conv2d layers
+the int8 convolution (ops/quant.py). The T5 encoder, the VAE and HiFi-GAN
+stay in the compute dtype.
 
 Not ported yet: snapshot loading (`Tango(path)`), the device mesh, the DDIM
 scheduler.
@@ -39,7 +41,7 @@ from tango_tpu_torch.models.hifigan import HiFiGANGenerator, waveform_to_int16
 from tango_tpu_torch.models.t5 import T5Encoder
 from tango_tpu_torch.models.unet import UNet2DConditionModel
 from tango_tpu_torch.models.vae import AutoencoderKL
-from tango_tpu_torch.ops.quant import SCOPES, quantize_unet_
+from tango_tpu_torch.ops.quant import SCOPES, QConv2d, QLinear, quantize_unet_
 from tango_tpu_torch.tokenizer import WordHashTokenizer
 from tango_tpu_torch.utils.init import init_random_
 
@@ -49,12 +51,21 @@ def _row_seed(base: int, chunk: int, row: int) -> int:
     return int(state[0]) & (2**63 - 1)
 
 
+def _cast_float_(module: torch.nn.Module, dtype: torch.dtype) -> None:
+    """Cast a quantized module's float parameters and buffers to dtype in
+    place, keeping its int8 layers' f32 `weight_scale`."""
+    scales = {m: m.weight_scale for m in module.modules() if isinstance(m, (QLinear, QConv2d))}
+    module.to(dtype=dtype)
+    for m, scale in scales.items():
+        m.weight_scale = scale
+
+
 class Tango:
     """Text -> 16 kHz audio (reference tango.py:9-64)."""
 
     def __init__(self, name_or_path: Optional[str] = None, tokenizer=None, device=None,
                  dtype: Optional[torch.dtype] = None, max_text_length: int = 128,
-                 rng_seed: int = 0, quant: Optional[str] = None):
+                 rng_seed: int = 0, cast_params: bool = True, quant: Optional[str] = None):
         if name_or_path is not None:
             raise NotImplementedError(
                 "snapshot loading is not ported yet; build with Tango.from_components")
@@ -62,6 +73,7 @@ class Tango:
             # a typo must not serve an unquantized pipeline
             raise ValueError(f"quant must be one of None/'conv'/'dense'/'all', got {quant!r}")
         self.quant = quant or None
+        self.cast_params = cast_params
         self.device = C.resolve_device(device)
         self.dtype = dtype or C.default_dtype(self.device)
         self.max_text_length = max_text_length
@@ -88,6 +100,7 @@ class Tango:
         latent_t_size: int = 256,
         latent_f_size: int = 16,
         max_text_length: int = 128,
+        cast_params: bool = False,
         quant: Optional[str] = None,
         init_seed: int = 0,
     ) -> "Tango":
@@ -96,16 +109,25 @@ class Tango:
         component whose params are None gets seeded random weights drawn on
         the device from `init_seed`. T5 and HiFi-GAN are built when their
         config is given; the tokenizer defaults to WordHashTokenizer. With
-        `quant`, `unet_params` is still the float UNet's: it is quantized here."""
+        `quant`, `unet_params` is still the float UNet's: it is quantized here.
+
+        `cast_params` (JAX's flag, False here as in JAX's `from_components`)
+        decides the int8 quantize order only: False builds (or draws) the
+        UNet in f32, quantizes it, then casts the float remainder to the
+        compute dtype, so the int8 weights and f32 scales come from the f32
+        weights, as JAX quantizes its uncast tree; True casts first, as
+        `Tango()` does. Without `quant` it changes nothing: the modules store
+        the compute dtype either way, which is where JAX casts its uncast
+        weights at use."""
         self = cls(None, tokenizer=tokenizer, device=device, dtype=dtype,
-                   max_text_length=max_text_length, quant=quant)
+                   max_text_length=max_text_length, cast_params=cast_params, quant=quant)
         if self.tokenizer is None and t5_config is not None:
             self.tokenizer = WordHashTokenizer(t5_config.vocab_size)
 
-        def build(k: int, make, params):
+        def build(k: int, make, params, dtype=self.dtype):
             with torch.device("meta"):
                 m = make()
-            m = m.to_empty(device=self.device).to(dtype=self.dtype)
+            m = m.to_empty(device=self.device).to(dtype=dtype)
             if params is None:
                 gen = torch.Generator(device=self.device).manual_seed(init_seed * 16 + k)
                 init_random_(m, gen)
@@ -113,9 +135,13 @@ class Tango:
                 m.load_state_dict(params)
             return m.eval().requires_grad_(False)
 
-        unet = build(0, lambda: UNet2DConditionModel(unet_config), unet_params)
+        quant_f32 = self.quant is not None and not self.cast_params
+        unet = build(0, lambda: UNet2DConditionModel(unet_config), unet_params,
+                     torch.float32 if quant_f32 else self.dtype)
         if self.quant:
             quantize_unet_(unet, self.quant)
+            if quant_f32:
+                _cast_float_(unet, self.dtype)
             unet.cfg = dataclasses.replace(unet_config, quant_int8=True, quant_scope=self.quant)
         self.model = AudioDiffusion(unet, scheduler_config or C.SD21_SCHEDULER,
                                     latent_t_size=latent_t_size, latent_f_size=latent_f_size)

@@ -4,8 +4,8 @@ The CUDA body itself runs only on the card (`chip_smoke.py` holds it against
 the plain versions there). Here: the rule that picks it (`bwd_tc_body`), the
 wrappers' alignment check and counters for it, and `bwd_walk`, a plain-torch
 emulation of its arithmetic: the products under the body's splits (f32:
-3xTF32 with round-to-nearest-away splits for the logit products S and dP,
-three split-bf16 products for dQ, dK and dV; bf16: one product each, ds and
+3xTF32 with round-to-nearest-away splits for all five products, the logits
+S and dP and the gradients dQ, dK and dV; bf16: one product each, ds and
 p rounded to bf16), its tile walks (64 keys in dq; 32 queries in f32 dkv,
 64 in bf16) and dq's online first pass (m, l and dl rescaled as the max grows). The
 emulation is held against JAX's `flash_attention_bwd` in interpret mode on
@@ -14,8 +14,10 @@ tests/test_flash_attention.py:156-158) with q and k at amplitude 1 and 3,
 and in bf16 at the bf16 bar of tests/test_torch_ops_bwd.py. Two tests pin
 the choice of products: one-product TF32 misses the f32 limits, and split
 bf16 on the logit products misses them once the logits are large, where the
-hybrid meets them on the same inputs; a third shows that the split-bf16
-gradient products carry most of the hybrid's error there.
+hybrid of 3xTF32 logits and split-bf16 gradients meets them on the same
+inputs; a third shows that the hybrid's split-bf16 gradient products carry
+most of its error there, which is why the body's gradient products are
+3xTF32 too (tests/test_torch_attn_f32_tc.py).
 """
 
 import math
@@ -56,12 +58,12 @@ def test_bwd_tc_body_rule(dtype, d):
 
 def test_bwd_tc_body_takes_every_full_width_unet_attention():
     """Every attention of the full-width UNet has head dim 64: its backward
-    takes the tensor-core body in the trainer's f32 and in bf16, while the
-    f32 forward keeps the CUDA-core body."""
+    takes the tensor-core body in the trainer's f32 and in bf16, and so does
+    the f32 forward the trainer runs (the static form)."""
     dims = _unet_head_dims(configs.TANGO_UNET)
     assert dims == {64}
     assert all(tfa.bwd_tc_body(dt, d) for d in dims for dt in (torch.float32, torch.bfloat16))
-    assert not any(tfa.tc_body(torch.float32, d) for d in dims)
+    assert all(tfa.tc_body(torch.float32, d, "static") for d in dims)
 
 
 def _misaligned(shape, dtype=torch.float32):
@@ -165,7 +167,7 @@ def product(a, b, scheme):
     return (ah @ split(b - bh) + split(a - ah) @ bh) + ah @ bh
 
 
-def bwd_walk(q, k, v, do, scale, logit="3xtf32", grad="split_bf16", tiles=(64, 32),
+def bwd_walk(q, k, v, do, scale, logit="3xtf32", grad="3xtf32", tiles=(64, 32),
              bf16_io=False):
     """(dq, dk, dv, lse, delta) of (BH, S, D) f32 tensors by the body's
     arithmetic: base-2 logits t = (q . k) * scale * log2 e; dq's first pass
@@ -241,8 +243,8 @@ def _pallas(arrays):
 @pytest.mark.parametrize("amp", [1.0, 3.0])
 @pytest.mark.parametrize("s", [256, 512])
 def test_bwd_walk_f32_matches_pallas(s, amp):
-    """The f32 body's hybrid (3xTF32 logits, split-bf16 gradients, its tile
-    walks) within JAX's f32 limits of the Pallas backward kernels, with q and
+    """The f32 body (3xTF32 logits and gradients, its tile walks) within
+    JAX's f32 limits of the Pallas backward kernels, with q and
     k at amplitude 1 and 3; its lse and delta within the same limits of the
     port's plain attn_bwd_dq."""
     arrays, (q, k, v, do) = _inputs(1, 2, s, s, amp, 21)

@@ -1,0 +1,129 @@
+"""The f32 tensor-core attention bodies on the CPU: the static forward of
+csrc/attention_tc.cu (`attn_fwd` in f32 at head dim 64, the trainer's) and
+the gradient products of csrc/attention_bwd_tc.cu, both on 3xTF32 products.
+
+The CUDA bodies run only on the card (`chip_smoke.py` holds them against the
+plain versions and float64 there). Here: `fwd_walk`, a plain-torch emulation
+of the forward body (64-key tiles, q prescaled in f32, both products S = Qs
+K^T and P V as 3xTF32 with round-to-nearest-away splits, the static shift,
+f32 denominators), held to JAX's f32 forward limits (atol 2e-5, rtol 1e-4,
+tests/test_flash_attention.py) against `flash_attention(interpret=True)` at
+unit amplitude and against float64 with q and k at amplitude 3; two tests
+that pin why both products take 3xTF32 (one-product TF32 misses the limits
+at unit amplitude, split-bf16 P V at amplitude 3); and the backward's
+3xTF32 gradient products (tests/test_torch_attn_bwd_tc.py's `bwd_walk`)
+within 1.1x of exact f32 gradient products against float64 at amplitude 3,
+where split bf16 took most of the margin.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tango_tpu.ops.flash_attention as jfa
+from tango_tpu_torch.ops import flash_attention as tfa
+from tests.test_torch_attn_bwd_tc import _inputs, _ratio, _worst_ratio, product
+
+# One intra-op thread: pytest-xdist workers share the cores, and torch's
+# pool of one thread per core then spends most of its time waiting.
+torch.set_num_threads(1)
+
+FWD_TOL = (2e-5, 1e-4)  # JAX's f32 forward limits
+TILE = 64  # keys a K/V tile of the f32 forward body
+
+
+def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32"):
+    """The f32 forward body's arithmetic on (BH, S, 64) f32 tensors: qs = q *
+    qscale in f32, 64-key tiles, s = qs . k and acc += p . v under the given
+    product schemes (`product`: "3xtf32", "tf32", "split_bf16", "f32"),
+    p = exp2(min(s - 20, 96)), denominators of the f32 p, a zero row where
+    the denominator underflows."""
+    qs = q * tfa._qscale(scale)
+    bh, sq, d = q.shape
+    den = torch.zeros(bh, sq, 1)
+    acc = torch.zeros(bh, sq, d)
+    for k0 in range(0, k.shape[1], TILE):
+        s = product(qs, k[:, k0:k0 + TILE].transpose(-1, -2), logit)
+        p = torch.exp2(torch.clamp(s - tfa.SOFTMAX_SHIFT, max=tfa.SOFTMAX_CLAMP))
+        den = den + p.sum(-1, keepdim=True)
+        acc = acc + product(p, v[:, k0:k0 + TILE], pv)
+    return acc / torch.where(den == 0.0, torch.ones_like(den), den)
+
+
+def _float64_fwd(q, k, v, scale):
+    q, k, v = (t.double() for t in (q, k, v))
+    return torch.softmax(q @ k.transpose(-1, -2) * scale, -1) @ v
+
+
+def _fwd_ratio(tensors, logit="3xtf32", pv="3xtf32"):
+    """The walk's worst share of JAX's forward limits against float64."""
+    q, k, v = tensors[:3]
+    return _ratio(fwd_walk(q, k, v, 0.125, logit, pv).numpy(),
+                  _float64_fwd(q, k, v, 0.125).numpy(), FWD_TOL)
+
+
+@pytest.mark.parametrize("b,h,sq,skv", [(1, 2, 256, 256), (2, 1, 256, 333)])
+def test_fwd_walk_matches_pallas(b, h, sq, skv):
+    """The 3xTF32 walk within JAX's f32 limits of `_attn_kernel` in interpret
+    mode, at unit amplitude (333 keys: a ragged last tile of 13)."""
+    arrays, tensors = _inputs(b, h, sq, skv, 1.0, 41)
+    q, k, v = arrays[:3]
+    ref = np.asarray(jfa.flash_attention(q, k, v, scale=0.125, interpret=True), np.float32)
+    out = fwd_walk(*tensors[:3], 0.125).numpy().reshape(ref.shape)
+    np.testing.assert_allclose(out, ref, atol=FWD_TOL[0], rtol=FWD_TOL[1])
+
+
+def test_fwd_walk_matches_plain_version_ragged():
+    """The walk against the port's plain attn_fwd, which the card holds the
+    body against, at the smoke's ragged shape (200 queries, 333 keys) and
+    limits (2e-5 / 1e-4)."""
+    _, (q, k, v, _) = _inputs(1, 3, 200, 333, 1.0, 42)
+    np.testing.assert_allclose(fwd_walk(q, k, v, 0.125).numpy(),
+                               tfa.attn_fwd_plain(q, k, v, 0.125).numpy(),
+                               atol=FWD_TOL[0], rtol=FWD_TOL[1])
+
+
+@pytest.mark.parametrize("seed", [27, 41])
+def test_fwd_walk_within_f32_limits_at_amplitude_3(seed):
+    """With q and k at amplitude 3 (base-2 logits up to ~60) the walk stays
+    within JAX's f32 limits against float64 (10 heads of 1024), as close as
+    the plain f32 version."""
+    _, tensors = _inputs(1, 10, 1024, 1024, 3.0, seed)
+    walk = _fwd_ratio(tensors)
+    q, k, v = tensors[:3]
+    plain = _ratio(tfa.attn_fwd_plain(q, k, v, 0.125).numpy(),
+                   _float64_fwd(q, k, v, 0.125).numpy(), FWD_TOL)
+    assert walk < 1.0 and walk < 1.5 * plain, (walk, plain)
+
+
+def test_one_product_tf32_forward_misses_f32_limits():
+    """One TF32 product each (operands rounded to 10 mantissa bits) misses
+    JAX's f32 forward limits against float64 already at unit amplitude
+    (several times over); 3xTF32 meets them with a wide margin on the same
+    inputs."""
+    _, tensors = _inputs(1, 2, 512, 512, 1.0, 43)
+    assert _fwd_ratio(tensors, "tf32", "tf32") > 2.0
+    assert _fwd_ratio(tensors) < 0.1
+
+
+def test_split_bf16_pv_misses_f32_limits_at_amplitude_3():
+    """3xTF32 logits with a split-bf16 P V product (hi + lo keep p and v to
+    ~2^-17) miss JAX's f32 forward limits against float64 with q and k at
+    amplitude 3 (10 heads of 1024, seed 27); 3xTF32 on both products meets
+    them on the same inputs."""
+    _, tensors = _inputs(1, 10, 1024, 1024, 3.0, 27)
+    assert _fwd_ratio(tensors, "3xtf32", "split_bf16") > 1.0
+    assert _fwd_ratio(tensors) < 1.0
+
+
+@pytest.mark.parametrize("seed", [27, 28, 29])
+def test_3xtf32_gradients_match_f32_gradients_at_amplitude_3(seed):
+    """The backward body's 3xTF32 gradient products (with its 3xTF32 logits
+    and tile walks) are within 1.1x of exact f32 gradient products against
+    float64 with q and k at amplitude 3 (512 tokens), where split-bf16
+    gradient products read more than 1.5x (tests/test_torch_attn_bwd_tc.py)."""
+    _, tensors = _inputs(1, 2, 512, 512, 3.0, seed)
+    tf32x3 = _worst_ratio("3xtf32", "3xtf32", tensors)
+    assert tf32x3 <= 1.1 * _worst_ratio("3xtf32", "f32", tensors)
+    assert tf32x3 < 0.5

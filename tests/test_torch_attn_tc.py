@@ -1,7 +1,9 @@
 """The tensor-core attention body (csrc/attention_tc.cu) on the CPU.
 
 The CUDA body itself runs only on the card (`chip_smoke.py` holds it against
-the plain versions there). Here: the rule that picks it (`tc_body`), the
+the plain versions there). Here: the rule that picks it (`tc_body`; the
+biased form's and the f32 body's own tests are tests/test_torch_attn_bias_tc.py
+and tests/test_torch_attn_f32_tc.py), the
 wrappers' alignment check and counters for it, the f32 prescale, and a
 plain-torch emulation of its key-tile walk in bf16 (128-key tiles, p rounded
 to bf16 against the running max of the tiles so far, f32 denominators of the
@@ -36,20 +38,27 @@ def _unet_head_dims(cfg):
 @pytest.mark.parametrize("d", tfa.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_tc_body_rule(dtype, d):
-    """bf16 at head dim 64 takes the tensor-core body; f32 (the trainer's
-    type, held to JAX's f32 limits) and every other head dim the CUDA-core
-    one."""
-    assert tfa.tc_body(dtype, d) == (dtype == torch.bfloat16 and d == 64)
+    """Head dim 64 takes a tensor-core body in bf16 in every form and in f32
+    (the trainer's type, held to JAX's f32 limits by 3xTF32) in the static
+    form only; every other head dim the CUDA-core one; an unknown form
+    raises."""
+    for mode in ("static", "online", "bias"):
+        assert tfa.tc_body(dtype, d, mode) == (
+            d == 64 and (dtype == torch.bfloat16 or mode == "static"))
+    with pytest.raises(ValueError, match="mode"):
+        tfa.tc_body(dtype, d, "v2")
 
 
 def test_tc_body_takes_every_full_width_unet_attention():
     """Every attention of the full-width UNet (heads 5, 10, 20 over 320, 640,
-    1280 channels) has head dim 64: in bf16 all of them take the tensor-core
-    body, in f32 none."""
+    1280 channels) has head dim 64: in bf16 all of them take a tensor-core
+    body in every form, in f32 in the static form (the trainer's) only."""
     dims = _unet_head_dims(configs.TANGO_UNET)
     assert dims == {64}
-    assert all(tfa.tc_body(torch.bfloat16, d) for d in dims)
-    assert not any(tfa.tc_body(torch.float32, d) for d in dims)
+    assert all(tfa.tc_body(torch.bfloat16, d, m) for d in dims
+               for m in ("static", "online", "bias"))
+    assert all(tfa.tc_body(torch.float32, d, "static") for d in dims)
+    assert not any(tfa.tc_body(torch.float32, d, m) for d in dims for m in ("online", "bias"))
 
 
 def _misaligned(shape, dtype=torch.bfloat16):
@@ -71,23 +80,31 @@ def test_check_tc_aligned():
 @pytest.mark.parametrize("fn", [tfa.attn_fwd, tfa.attn_fwd_v2])
 def test_launch_checks_alignment_and_counts_tc(fn, monkeypatch):
     """The wrappers' launch path (with the C library replaced by a recorder
-    that reports the body a C entry point would launch): a misaligned bf16
-    D = 64 view raises before any launch; an aligned one launches and counts
-    the reported tensor-core launch; f32 or another head dim launches the
+    that reports the body a C entry point would launch): a misaligned D = 64
+    view raises before any launch in bf16, and for attn_fwd in f32 too (its
+    3xTF32 body); an aligned one launches and counts the reported
+    tensor-core launch; attn_fwd_v2 in f32 or another head dim launches the
     CUDA-core body with no alignment demand and no tc count; reset_counters
     zeroes tc_launches."""
-    calls = fake_kernel_library(monkeypatch, [ops.TC_LAUNCHED, 0, 0])
+    tc_types = [torch.bfloat16] + ([torch.float32] if fn is tfa.attn_fwd else [])
+    core = [_misaligned((2, 128, 32))] + ([] if fn is tfa.attn_fwd else
+                                          [_misaligned((2, 128, 64), torch.float32)])
+    calls = fake_kernel_library(monkeypatch, [ops.TC_LAUNCHED] * len(tc_types) + [0] * len(core))
     ops.reset_counters()
-    bad = _misaligned((2, 128, 64))
-    good = torch.zeros(2, 128, 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="16-byte"):
-        tfa._launch_fwd(fn, bad, good, good, 0.125)
+    for dt in tc_types:
+        good = torch.zeros(2, 128, 64, dtype=dt)
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa._launch_fwd(fn, _misaligned((2, 128, 64), dt), good, good, 0.125)
     assert calls == [] and fn.tc_launches == 0
-    tfa._launch_fwd(fn, good, good, good, 0.125)
-    assert fn.launches == 1 and fn.tc_launches == 1
-    for t in (_misaligned((2, 128, 64), torch.float32), _misaligned((2, 128, 32))):
+    for dt in tc_types:
+        good = torch.zeros(2, 128, 64, dtype=dt)
+        tfa._launch_fwd(fn, good, good, good, 0.125)
+    n = len(tc_types)
+    assert fn.launches == n and fn.tc_launches == n
+    for t in core:
         tfa._launch_fwd(fn, t, t, t, 0.125)
-    assert fn.launches == 3 and fn.tc_launches == 1 and calls == [f"tt_{fn.__name__}"] * 3
+    assert fn.launches == n + len(core) and fn.tc_launches == n
+    assert calls == [f"tt_{fn.__name__}"] * (n + len(core))
     ops.reset_counters()
     assert fn.launches == 0 and fn.tc_launches == 0
 
