@@ -63,7 +63,9 @@ Phases, one short JSON line each:
            seven kernels of training, forward and backward, must have
            launched; every f32 attn_fwd (3xTF32), attn_bwd_dq and attn_bwd_dkv
            launch (head dim 64) must have taken its tensor-core body
-           (tc_launches == launches). Every loss must be finite, and
+           (tc_launches == launches), and every gn_silu_bwd launch its
+           thread-block-cluster body (cluster_launches == launches). Every
+           loss must be finite, and
            the parameters must change after the 2nd and 4th micro-step only;
   kernels  every kernel against its plain PyTorch version at every shape
            any path launched it at, in f32 and bf16. Forward kernels: f32
@@ -73,17 +75,18 @@ Phases, one short JSON line each:
            window and its underflow row; v2 past the window) and a fully
            masked batch row for the bias kernel (f32 atol 1e-3 on that row).
            At head dim 64 the forward kernels run tensor-core bodies: bf16 in
-           all three, f32 in attn_fwd (3xTF32); f32 attn_fwd_v2 and
-           attn_fwd_bias run the CUDA-core body. Every call is checked at
+           all three, f32 in attn_fwd and attn_fwd_v2 (3xTF32); f32
+           attn_fwd_bias runs the CUDA-core body. Every call is checked at
            every launched shape and must take the body `tc_body` names; the
            tensor-core bodies also at ragged shapes and one 128 x 128 tile
-           (TC_SHAPES; attn_fwd in f32 too) and the biased one at a ragged
-           shape with one bias row and with a row a query (BIAS_TC_SHAPES);
-           a misaligned view where a tensor-core body runs must raise; both
-           types are timed (f32 in the `f32` field). f32 attn_fwd with q and
-           k at amplitude 3 at the training shapes, from two seeds, is held
-           against float64 at 2e-5 / 1e-4 (phase `fwd_amplitude` logs its
-           and the plain version's share of the limits).
+           (TC_SHAPES, in both types) and the biased one at a ragged shape
+           with one bias row and with a row a query (BIAS_TC_SHAPES); a
+           misaligned view where a tensor-core body runs must raise; both
+           types are timed (f32 in the `f32` field), attn_fwd_bias too. f32
+           attn_fwd at the training shapes and f32 attn_fwd_v2 at the long
+           clip's, with q and k at amplitude 3, from two seeds, are held
+           against float64 at 2e-5 / 1e-4 (phase `fwd_amplitude` logs each
+           one's and its plain version's share of the limits).
            Backward kernels: f32 attention atol 1e-4, rtol 1e-3 and GroupNorm
            atol 2e-4, rtol 1e-3, bf16 attention 4e-3 / 1e-2 and GroupNorm
            2e-2 / 2e-2, lse and delta 1e-4 / 1e-3. attn_bwd_dq and
@@ -95,8 +98,13 @@ Phases, one short JSON line each:
            there the plain versions' own f32 error reaches ~0.65 of that
            limit; phase `bwd_amplitude` logs all three distances' shares
            and the max-abs and max-rel differences), and against a
-           misaligned view, which must raise. Then one shape past each
-           of the wrappers' old launch limits (LIMIT_*), checked, not timed.
+           misaligned view, which must raise. gn_silu_bwd at every training
+           shape in both types, each call held to the body
+           `gn_bwd_cluster_size` names (all of them the cluster body;
+           --detail rows carry each launch's cluster size and CTAs), and its
+           streaming body at GN_BWD_STREAMING, checked only. Then
+           one shape past each of the wrappers' old launch limits (LIMIT_*),
+           checked, not timed; its gn_silu_bwd also held to the rule.
            Kernel, plain and library device times per call (bf16 inputs, and
            f32 as well for the backward kernels; 10 calls captured in a CUDA
            graph, median of 10 replays between CUDA events), summed over the
@@ -119,7 +127,8 @@ Phases, one short JSON line each:
            body, f32 on the CUDA-core one, and at a ragged shape
            (WINO_TC_RAGGED, checked only); f32 1e-4 / 1e-4 (the JAX
            test's), bf16 2e-2 / 2e-2; timed as the whole wrapper and as the
-           kernel alone (kernel_only_ms: `launch` on a prepared U; with
+           kernel alone, and in f32 beside cuDNN without TF32 (the `f32`
+           field) (kernel_only_ms: `launch` on a prepared U; with
            --detail both kernels' rows also split one call's device time by
            kernel, `by_kernel_ms`, from torch.profiler), its U
            kernel (`weight_tc`) held within one bf16 step of the torch U;
@@ -129,7 +138,7 @@ Phases, one short JSON line each:
            over the bf16 (or f32) peak, or bytes. f32 attention, forward and
            backward, is bounded at the least the tensor cores can do it in
            within JAX's f32 limits (attn_bound_ms): every product as 3xTF32,
-           a third of TF32's rate; GroupNorm by bytes.
+           a third of TF32's rate (so is f32 Winograd); GroupNorm by bytes.
 The last three lines are the card's `nvidia-smi` name and power limit, the
 `kernels` JSON, and the result line. Any failure exits non-zero before the
 result line; so does a card-less machine. The script writes nothing but
@@ -159,11 +168,12 @@ BF16_FLOPS = 989e12         # dense tensor-core bf16
 INT8_OPS = 1979e12          # dense tensor-core int8
 F32_FLOPS = 67e12           # f32 outside the tensor cores
 TF32_FLOPS = 495e12         # dense tensor-core TF32
-# f32 attention within JAX's f32 limits, the least the card can do it with
-# (attn_bound_ms): every product (S = Q K^T, dP = dO V^T, P V, dQ, dK, dV) as
-# 3xTF32, three TF32 products each, the scheme the f32 bodies run (split bf16
-# missed the limits at amplitude 3 on P V and used most of them on dQ, dK, dV)
-F32_ATTN_FLOPS = TF32_FLOPS / 3
+# f32 products within f32's accuracy, the least the card can do them with:
+# 3xTF32, three TF32 products each, the scheme the f32 attention bodies run
+# for every product (S = Q K^T, dP = dO V^T, P V, dQ, dK, dV; split bf16 missed
+# JAX's limits at amplitude 3 on P V and used most of them on dQ, dK, dV);
+# also the bound of the f32 Winograd convolution's products
+F32_TC_FLOPS = TF32_FLOPS / 3
 TRAIN_WAVS = 8
 TRAIN_BATCH = 2
 TRAIN_CAPTIONS = ["a dog barks", "rain on a tin roof", "an engine idles", "birds sing"]
@@ -215,6 +225,13 @@ PATH_KERNELS = {
               "attn_bwd_dkv", "gn_silu_bwd"),
     "int8": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd", "w8a8_matmul"),
 }
+# gn_silu_bwd's streaming body, which every training shape leaves for the
+# cluster body, checked only: a group too large for 8 CTAs' shared memory
+# (2 MiB of f32 x and g), a misaligned view (offset one element) of a
+# training shape, and a bf16 map whose HW is no whole number of packets;
+# (shape, dtype, offset)
+GN_BWD_STREAMING = (((2, 128, 256, 256), torch.float32, 0), ((2, 320, 256, 16), torch.float32, 1),
+                    ((2, 64, 5, 5), torch.bfloat16, 0))
 # the JAX tests' shapes: tests/test_quant.py:54-65 (M, K, N) and
 # tests/test_winograd.py:21-28, :37-44 (B, H, W, Ci, Co); and ragged GEMMs
 # (K not a multiple of 4, M and N not of the 64-wide tiles), checked only
@@ -294,8 +311,8 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str
 
 def attn_bound_ms(nbytes: float, flops: float, tag: str) -> tuple[float, str]:
     """bound_ms of an attention kernel's products: in bf16 at BF16_FLOPS, in
-    f32 at F32_ATTN_FLOPS."""
-    return bound_ms(nbytes, flops, BF16_FLOPS if tag == "bf16" else F32_ATTN_FLOPS)
+    f32 at F32_TC_FLOPS."""
+    return bound_ms(nbytes, flops, BF16_FLOPS if tag == "bf16" else F32_TC_FLOPS)
 
 
 def _larger(t_bytes: float, t_ops: float) -> tuple[float, str]:
@@ -353,7 +370,7 @@ class KernelCase:
                                 bound_ms=bound, bound_by=by, **_rates(ms, bound, flops),
                                 **extra))
 
-    def add_time_f32(self, ms, plain_ms, lib_ms, bound, by, shape, flops=None):
+    def add_time_f32(self, ms, plain_ms, lib_ms, bound, by, shape, flops=None, **extra):
         if self.f32 is None:
             self.f32 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
@@ -361,7 +378,7 @@ class KernelCase:
             self.f32[key] += val
         self.detail.append(dict(shape=shape, dtype="f32", ms=ms, plain_ms=plain_ms,
                                 library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                                **_rates(ms, bound, flops)))
+                                **_rates(ms, bound, flops), **extra))
 
 
 def _rates(ms, bound, flops):
@@ -374,15 +391,16 @@ def _rates(ms, bound, flops):
     return out
 
 
-def took(case, fn, rule, call, what):
-    """Run `call` and raise unless it launched fn's tensor-core body exactly
-    when `rule` says so (counted in case.notes["tc_checked"]); returns the
-    call's result."""
-    before = fn.tc_launches
+def took(case, fn, rule, call, what, body="tc"):
+    """Run `call` and raise unless it launched fn's tensor-core body (`body`
+    "tc") or cluster body ("cluster") exactly when `rule` says so (counted in
+    case.notes["<body>_checked"]); returns the call's result."""
+    counter = f"{body}_launches"
+    before = getattr(fn, counter)
     out = call()
-    if fn.tc_launches - before != int(rule):
-        raise AssertionError(f"{what}: took the {'CUDA' if rule else 'tensor'}-core body")
-    case.notes["tc_checked"] = case.notes.get("tc_checked", 0) + int(rule)
+    if getattr(fn, counter) - before != int(rule):
+        raise AssertionError(f"{what}: {'did not take' if rule else 'took'} the {body} body")
+    case.notes[f"{body}_checked"] = case.notes.get(f"{body}_checked", 0) + int(rule)
     return out
 
 
@@ -436,6 +454,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
     )
     from tango_tpu_torch.ops.gn_silu import (
         gn_apply_plain,
+        gn_bwd_cluster_size,
         gn_silu_bwd_plain,
         gn_silu_fwd_plain,
         gn_stats_plain,
@@ -509,9 +528,9 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
 
     def attention_fwd(name, plain, mode):
         """attn_fwd or attn_fwd_v2 at every launched shape, in f32 and bf16,
-        each checked, held to the body `tc_body` names (f32 attn_fwd and
-        every bf16 call on a tensor-core body) and timed; at TC_SHAPES,
-        checked only, in each type that has a tensor-core body."""
+        each checked, held to the body `tc_body` names (every call at head
+        dim 64 on a tensor-core body, 3xTF32 in f32) and timed; at
+        TC_SHAPES, checked only, in each type that has a tensor-core body."""
         fn = K[name]
         for qshape, kshape in sorted(shapes[name], key=str):
             bh, sq, d = qshape
@@ -543,7 +562,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
                                                       what))
 
     attention_fwd("attn_fwd", attn_fwd_plain, "static")
-    fwd_amplitude_checks(K, cases, sorted(train_shapes["attn_fwd"], key=str))
+    fwd_amplitude_checks(K, cases, "attn_fwd", sorted(train_shapes["attn_fwd"], key=str))
 
     # the extreme-logit window and the underflow row (tests/test_flash_attention.py)
     for tag, dt in dtypes.items():
@@ -570,6 +589,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
 
     # ---- the long-clip and long-prompt forward kernels
     attention_fwd("attn_fwd_v2", attn_fwd_v2_plain, "online")
+    fwd_amplitude_checks(K, cases, "attn_fwd_v2", sorted(shapes["attn_fwd_v2"], key=str))
 
     def bias_case(qshape, kshape, bshape, dt):
         """q, k, v of the shapes, and the padding bias (B, 1 | Sq, Skv) of a
@@ -599,18 +619,20 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
                        lambda: fn(q, k, v, bias, heads, scale), what)
             cases["attn_fwd_bias"].add_err(tag, assert_close(
                 out, attn_fwd_bias_plain(q, k, v, bias, heads, scale), *attn_tol[tag], what))
-        if not timed:
-            continue
-        q4, k4, v4 = (t.reshape(nb, heads, -1, d) for t in (q, k, v))
-        mask4 = bias[:, None].to(q.dtype)  # sdpa takes a float mask of q's type
-        cases["attn_fwd_bias"].add_time(
-            cuda_ms(lambda: fn(q, k, v, bias, heads, scale)),
-            cuda_ms(lambda: attn_fwd_bias_plain(q, k, v, bias, heads, scale)),
-            cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4,
-                                                           scale=scale)),
-            *bound_ms(2 * (2 * bh * sq * d + 2 * bh * skv * d) + 4 * nb * rows * skv,
-                      4 * bh * sq * skv * d, BF16_FLOPS),
-            [qshape, kshape, bshape], flops=4 * bh * sq * skv * d)
+            if not timed:
+                continue
+            # both types timed (f32 on the CUDA-core body, in the `f32` field)
+            q4, k4, v4 = (t.reshape(nb, heads, -1, d) for t in (q, k, v))
+            mask4 = bias[:, None].to(q.dtype)  # sdpa takes a float mask of q's type
+            add = cases["attn_fwd_bias"].add_time if tag == "bf16" else \
+                cases["attn_fwd_bias"].add_time_f32
+            add(cuda_ms(lambda: fn(q, k, v, bias, heads, scale)),
+                cuda_ms(lambda: attn_fwd_bias_plain(q, k, v, bias, heads, scale)),
+                cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4,
+                                                               scale=scale)),
+                *attn_bound_ms(q.element_size() * (2 * bh * sq * d + 2 * bh * skv * d)
+                               + 4 * nb * rows * skv, 4 * bh * sq * skv * d, tag),
+                [qshape, kshape, bshape], flops=4 * bh * sq * skv * d)
 
     # misaligned views where a tensor-core forward body runs: must raise
     good16, bias1 = randn(2, 128, 64, dtype=torch.bfloat16), torch.zeros(1, 1, 128, device=dev)
@@ -621,8 +643,9 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
                              "attn_fwd_bias bf16")
     good32 = randn(2, 128, 64)
     bad32 = torch.zeros(good32.numel() + 1, device=dev)[1:].view(2, 128, 64)
-    expect_misaligned_raises(K["attn_fwd"], (lambda: K["attn_fwd"](good32, bad32, good32, 0.125),),
-                             "attn_fwd f32")
+    for name in ("attn_fwd", "attn_fwd_v2"):
+        expect_misaligned_raises(K[name], (lambda: K[name](good32, bad32, good32, 0.125),),
+                                 f"{name} f32")
 
     # JAX's extreme-logit case for v2 (row maxes near natural +100, past the
     # static-shift window): the kernel stays exact; and a batch row whose keys
@@ -638,7 +661,8 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
         q = (cq * u + 0.01 * randn(128, 64))[None].to(dt)
         k = (ck * u + 0.01 * randn(256, 64))[None].to(dt)
         v = randn(1, 256, 64, dtype=dt)
-        out = K["attn_fwd_v2"](q, k, v, 0.125)
+        out = took(cases["attn_fwd_v2"], K["attn_fwd_v2"], tc_body(dt, 64, "online"),
+                   lambda: K["attn_fwd_v2"](q, k, v, 0.125), f"attn_fwd_v2 extreme logits {tag}")
         ref = attn_fwd_v2_plain(q, k, v, 0.125)
         atol, rtol = (5e-5, 1e-3) if tag == "f32" else attn_tol[tag]
         cases["attn_fwd_v2"].add_err(tag, assert_close(out, ref, atol, rtol,
@@ -696,6 +720,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
                     flops=products * product)
     bwd_tc_checks(K, cases, shapes, randn, attn_bwd_tol, stat_tol)
 
+    bwd = K["gn_silu_bwd"]
     for shape, groups, act in sorted(shapes["gn_silu_bwd"], key=str):
         c = shape[1]
         w, b = randn(c, scale=0.2, loc=1.0), randn(c, scale=0.1)
@@ -703,7 +728,10 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
         for tag, dt in dtypes.items():
             x = randn(*shape, dtype=dt, scale=2.0, loc=0.5)
             g = randn(*shape, dtype=dt)
-            out = K["gn_silu_bwd"](x, g, w, b, groups, 1e-5, act)
+            r = gn_bwd_cluster_size(dt, shape[0], c, n // (shape[0] * c), groups)
+            out = took(cases["gn_silu_bwd"], bwd, r > 0,
+                       lambda: bwd(x, g, w, b, groups, 1e-5, act),
+                       f"gn_silu_bwd {shape} {tag}", body="cluster")
             ref = gn_silu_bwd_plain(x, g, w, b, groups, 1e-5, act)
             cases["gn_silu_bwd"].add_err(tag, max(
                 assert_close(o, r, *gn_bwd_tol[tag], f"gn_silu_bwd {part} {shape} {tag}")
@@ -722,10 +750,25 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
 
             add = cases["gn_silu_bwd"].add_time if tag == "bf16" else \
                 cases["gn_silu_bwd"].add_time_f32
-            add(cuda_ms(lambda: K["gn_silu_bwd"](x, g, w, b, groups, 1e-5, act)),
+            add(cuda_ms(lambda: bwd(x, g, w, b, groups, 1e-5, act)),
                 cuda_ms(lambda: gn_silu_bwd_plain(x, g, w, b, groups, 1e-5, act)),
                 cuda_ms(lib), *bound_ms(3 * n * x.element_size(), 24 * n, F32_FLOPS),
-                [shape, groups, act])
+                [shape, groups, act], cluster_size=r, ctas=shape[0] * groups * r)
+
+    for shape, dt, offset in GN_BWD_STREAMING:
+        c, n = shape[1], math.prod(shape)
+        w, b = randn(c, scale=0.2, loc=1.0), randn(c, scale=0.1)
+        x = randn(n + offset, dtype=dt, scale=2.0, loc=0.5)[offset:].view(shape)
+        g = randn(n + offset, dtype=dt)[offset:].view(shape)
+        tag = "f32" if dt == torch.float32 else "bf16"
+        what = f"gn_silu_bwd {shape} {tag}, offset {offset}, streaming body"
+        out = took(cases["gn_silu_bwd"], bwd, False, lambda: bwd(x, g, w, b, 32, 1e-5, "silu"),
+                   what, body="cluster")
+        ref = gn_silu_bwd_plain(x, g, w, b, 32, 1e-5, "silu")
+        cases["gn_silu_bwd"].add_err(tag, max(
+            assert_close(o, r, *gn_bwd_tol[tag], f"{what} {part}")
+            for o, r, part in zip(out, ref, ("dx", "dgamma", "dbeta"))))
+        del x, g, out, ref
 
     int8_and_winograd(K, cases, shapes, randn, detail)
     limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol)
@@ -785,15 +828,18 @@ def max_abs_rel(out, ref, floor) -> dict:
     return {"max_abs": d.max().item(), "max_rel": rel}
 
 
-def fwd_amplitude_checks(K, cases, launched):
-    """The f32 forward's tensor-core body (attn_fwd, 3xTF32) with q and k at
-    amplitude BWD_TC_AMPLITUDE at the training path's shapes `launched`,
-    drawn from each of FWD_TC_AMPLITUDE_SEEDS: held to JAX's f32 forward
-    limits (2e-5 / 1e-4) against the same softmax in float64, raising on a
-    miss. Phase `fwd_amplitude` logs the kernel's and the plain version's
-    share of those limits and their max-abs and max-rel differences."""
-    from tango_tpu_torch.ops.flash_attention import attn_fwd_plain
+def fwd_amplitude_checks(K, cases, name, launched):
+    """The f32 forward's tensor-core body (3xTF32) of attn_fwd or
+    attn_fwd_v2 (`name`) with q and k at amplitude BWD_TC_AMPLITUDE at the
+    shapes `launched`, drawn from each of FWD_TC_AMPLITUDE_SEEDS: held to
+    JAX's f32 forward limits (2e-5 / 1e-4) against the same softmax in
+    float64, raising on a miss; the float64 reference is taken a few heads
+    at a time (at most 2^28 logits, 2 GB). Phase `fwd_amplitude` logs the
+    kernel's and the plain version's share of those limits and their
+    max-abs and max-rel differences."""
+    from tango_tpu_torch.ops import flash_attention as fa
 
+    plain = getattr(fa, f"{name}_plain")
     tol = (2e-5, 1e-4)
     for seed in FWD_TC_AMPLITUDE_SEEDS:
         gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -802,19 +848,25 @@ def fwd_amplitude_checks(K, cases, launched):
                     for s in (qshape, kshape))
             v = torch.randn(kshape, generator=gen, device=DEVICE)
             scale = qshape[2] ** -0.5
-            what = f"attn_fwd {qshape} q, k at amplitude {BWD_TC_AMPLITUDE} f32, seed {seed}"
-            kern = took(cases["attn_fwd"], K["attn_fwd"], True,
-                        lambda: K["attn_fwd"](q, k, v, scale), what)
-            plain = attn_fwd_plain(q, k, v, scale)
-            qd, kd, vd = (t.double() for t in (q, k, v))
-            exact = torch.softmax(qd @ kd.transpose(-1, -2) * scale, -1) @ vd
-            assert_close(kern, exact, *tol, f"{what}, against float64")
-            log("fwd_amplitude", shape=[qshape, kshape], amplitude=BWD_TC_AMPLITUDE, seed=seed,
-                kernel_vs_float64={"share_of_limit": round(bound_ratio(kern, exact, *tol), 4),
-                                   **max_abs_rel(kern, exact, tol[0])},
-                plain_vs_float64={"share_of_limit": round(bound_ratio(plain, exact, *tol), 4),
-                                  **max_abs_rel(plain, exact, tol[0])})
-            del kern, plain, exact, qd, kd, vd
+            what = f"{name} {qshape} q, k at amplitude {BWD_TC_AMPLITUDE} f32, seed {seed}"
+            kern = took(cases[name], K[name], True, lambda: K[name](q, k, v, scale), what)
+            ref = plain(q, k, v, scale)
+            share = {"kernel": 0.0, "plain": 0.0}
+            diff = {w: {"max_abs": 0.0, "max_rel": 0.0} for w in share}
+            step = max(1, 2**28 // (qshape[1] * kshape[1]))
+            for h in range(0, qshape[0], step):
+                qd, kd, vd = (t[h:h + step].double() for t in (q, k, v))
+                exact = torch.softmax(qd @ kd.transpose(-1, -2) * scale, -1) @ vd
+                assert_close(kern[h:h + step], exact, *tol, f"{what}, against float64")
+                for who, out in (("kernel", kern), ("plain", ref)):
+                    share[who] = max(share[who], bound_ratio(out[h:h + step], exact, *tol))
+                    d = max_abs_rel(out[h:h + step], exact, tol[0])
+                    diff[who] = {f: max(diff[who][f], d[f]) for f in d}
+                del qd, kd, vd, exact
+            log("fwd_amplitude", name=name, shape=[qshape, kshape], amplitude=BWD_TC_AMPLITUDE,
+                seed=seed, **{f"{who}_vs_float64": {"share_of_limit": round(share[who], 4),
+                                                    **diff[who]} for who in share})
+            del kern, ref
             torch.cuda.empty_cache()
 
 
@@ -977,6 +1029,20 @@ def int8_and_winograd(K, cases, shapes, randn, detail):
                       *bound_ms(nbytes, flops, BF16_FLOPS),
                       [list(xshape), list(wshape)], flops=flops, kernel_only_ms=alone,
                       **({"by_kernel_ms": device_ms(lambda: wino(x, wt), 20)} if detail else {}))
+        # f32 (the CUDA-core body) in the `f32` field, beside cuDNN at f32's
+        # precision (without TF32, which cuDNN's f32 convolutions use by
+        # default), bounded as 3xTF32 products
+        x32 = randn(*xshape)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib32 = cuda_ms(lambda: F.conv2d(x32, wt, padding=1))
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        case.add_time_f32(cuda_ms(lambda: wino(x32, wt)),
+                          cuda_ms(lambda: wg.winograd_conv3x3_plain(x32, wt)), lib32,
+                          *bound_ms(2 * nbytes, flops, F32_TC_FLOPS),
+                          [list(xshape), list(wshape)], flops=flops)
 
 
 def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
@@ -990,6 +1056,7 @@ def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
     )
     from tango_tpu_torch.ops.gn_silu import (
         gn_apply_plain,
+        gn_bwd_cluster_size,
         gn_silu_bwd_plain,
         gn_silu_fwd_plain,
         gn_stats_plain,
@@ -1036,7 +1103,10 @@ def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
         K["gn_silu_fwd"](xs, gam, bet, 32, 1e-5, "silu"),
         lambda i: gn_silu_fwd_plain(xs[i:i + 16], gam, bet, 32, 1e-5, "silu"), 4 * nb,
         *tol["bf16"], f"gn_silu_fwd {tuple(xs.shape)}"))
-    dx, dgam, dbet = K["gn_silu_bwd"](xs, xs, gam, bet, 32, 1e-5, "silu")
+    r = gn_bwd_cluster_size(bf16, *xs.shape[:2], math.prod(xs.shape[2:]), 32)
+    dx, dgam, dbet = took(cases["gn_silu_bwd"], K["gn_silu_bwd"], r > 0,
+                          lambda: K["gn_silu_bwd"](xs, xs, gam, bet, 32, 1e-5, "silu"),
+                          f"gn_silu_bwd {tuple(xs.shape)}", body="cluster")
     parts = [gn_silu_bwd_plain(xs[i:i + 16], xs[i:i + 16], gam, bet, 32, 1e-5, "silu")
              for i in range(0, 4 * nb, 16)]
     what = f"gn_silu_bwd {tuple(xs.shape)}"
@@ -1070,12 +1140,15 @@ def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
               f"{bh} heads f32")
 
 
-def tc_fields(fn, tc_by_path) -> dict:
-    """The kernels line's extra fields of the attention kernels with a
-    tensor-core body (`source`): its launches on the counted paths, and the
-    source of the CUDA-core body that runs what it does not take (forward:
-    f32 and other head dims, the `f32` times of the `kernels` phase;
-    backward: other head dims)."""
+def tc_fields(fn, tc_by_path, cluster: int) -> dict:
+    """The kernels line's extra fields of the kernels with a tensor-core body
+    (`source`): its launches on the counted paths, and the source of the
+    CUDA-core body that runs what it does not take (forward: other head dims
+    and f32 attn_fwd_bias, the `f32` times of the `kernels` phase; backward:
+    other head dims); of gn_silu_bwd, its launches on the cluster body (the
+    training path's, `cluster`)."""
+    if hasattr(fn, "cluster_launches"):
+        return {"cluster_launches": cluster}
     if not hasattr(fn, "tc_launches"):
         return {}
     return {"tc_launches": sum(tc.get(fn.__name__, 0) for tc in tc_by_path.values()),
@@ -1150,12 +1223,12 @@ def write_wavs(root: str, n: int, seconds: float, seed: int) -> str:
     return manifest
 
 
-def train_phase(C, ops) -> tuple[dict, dict, dict]:
+def train_phase(C, ops) -> tuple[dict, dict, dict, int]:
     """One full-width f32 SFTTrainer.fit on the card: 4 micro-steps at batch
     2 with accumulation 2 (2 updates), one validation batch, the best
-    checkpoint saved, loaded back and deleted. Returns the launches, shapes
-    and tensor-core launches of the counted run; raises on any failed
-    check."""
+    checkpoint saved, loaded back and deleted. Returns the launches, shapes,
+    tensor-core launches and gn_silu_bwd's cluster launches of the counted
+    run; raises on any failed check."""
     import shutil
 
     from tango_tpu_torch.models.diffusion import AudioDiffusion
@@ -1233,6 +1306,7 @@ def train_phase(C, ops) -> tuple[dict, dict, dict]:
     launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
     shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
     tc = {n: fn.tc_launches for n, fn in ops.all_kernels().items() if hasattr(fn, "tc_launches")}
+    cluster = ops.BACKWARD_KERNELS["gn_silu_bwd"].cluster_launches
     trainer.train_step, sft.save_native = step, save
 
     problems = []
@@ -1262,7 +1336,12 @@ def train_phase(C, ops) -> tuple[dict, dict, dict]:
     if off:
         problems.append(f"f32 D = 64 launches off the tensor-core body "
                         f"(launches, tensor-core): {off}")
+    # and every GroupNorm backward on the cluster body
+    if cluster != launches["gn_silu_bwd"]:
+        problems.append(f"{launches['gn_silu_bwd'] - cluster} of {launches['gn_silu_bwd']} "
+                        "gn_silu_bwd launches off the cluster body")
     log("train", fit_s=round(fit_s, 3), micro_steps=len(micro), tc_launches=tc,
+        cluster_launches={"gn_silu_bwd": cluster},
         ms_per_micro_step=[round(1e3 * m[0], 3) for m in micro],
         losses=[m[1] for m in micro], val_loss=[r["val_loss"] for r in records],
         peak_memory_bytes=peak, checkpoint_save_s=[round(v, 3) for v in saves],
@@ -1273,7 +1352,7 @@ def train_phase(C, ops) -> tuple[dict, dict, dict]:
         raise AssertionError("; ".join(problems))
     del trainer, state, diffusion, vae, t5
     torch.cuda.empty_cache()
-    return launches, shapes, tc
+    return launches, shapes, tc, cluster
 
 
 def main(argv) -> int:
@@ -1527,7 +1606,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # ---- the training path, counted
-    train_launches, train_shapes, tc_launches["train"] = train_phase(C, ops)
+    train_launches, train_shapes, tc_launches["train"], train_cluster = train_phase(C, ops)
     by_path["train"] = (train_launches, train_shapes)
     launches = {n: sum(p[0][n] for p in by_path.values()) for n in ops.all_kernels()}
     for n, v in by_path["train"][1].items():
@@ -1549,7 +1628,7 @@ def main(argv) -> int:
          "launches_by_path": {p: v[0][n] for p, v in by_path.items()},
          "max_abs_err": max(c.err.values()), "ms": c.ms, "plain_ms": c.plain_ms,
          "bound_ms": c.bound, "bound_by": c.bound_by, "library_ms": c.library_ms,
-         **tc_fields(kernels[n], {p: tc_launches.get(p, {}) for p in by_path})}
+         **tc_fields(kernels[n], {p: tc_launches.get(p, {}) for p in by_path}, train_cluster)}
         for n, c in cases.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -40,10 +40,10 @@
 // Which body a call takes: tc_body(dtype, D, mode) below sends head dim 64
 // to the tensor-core bodies of attention_tc.cu (every attention of the
 // full-width UNet), the same arithmetic on wgmma: bf16 in all three forms,
-// f32 in the static form (the trainer's, held to JAX's f32 limits by 3xTF32
-// products); the entry point says so by returning kTcLaunched. This file's
-// body runs everything else: head dims 8, 16, 32 and 128, and f32 in the
-// online and biased forms.
+// f32 in the static form (the trainer's) and the online form (long clips),
+// held to JAX's f32 limits by 3xTF32 products; the entry point says so by
+// returning kTcLaunched. This file's body runs everything else: head dims 8,
+// 16, 32 and 128, and f32 in the biased form.
 //
 // What bounds them on the H100: operations. At the UNet's shapes (S = 8192,
 // 4096, 1024, 256, head dim 64; Skv = 256 for the biased cross-attention)
@@ -69,7 +69,7 @@
 namespace tt {
 
 // The tensor-core bodies (attention_tc.cu): mode is an AttnMode; f32 takes
-// only kStatic.
+// kStatic and kOnline.
 cudaError_t attn_fwd_tc(const void* q, const void* k, const void* v, const float* bias,
                         int heads, int bias_rows, void* o, int BH, int Sq, int Skv, float qscale,
                         int mode, bool f32, cudaStream_t st);
@@ -291,11 +291,11 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, Bia
 }
 
 // tc_body(dtype, D, mode): the rule by which the three entry points take a
-// tensor-core body: head dim 64, bf16 in every form, f32 in the static one
-// (tc_body in ops/flash_attention.py is the same rule, for the wrappers'
-// alignment check; their counters read the kTcLaunched report).
+// tensor-core body: head dim 64, bf16 in every form, f32 in the static and
+// online ones (tc_body in ops/flash_attention.py is the same rule, for the
+// wrappers' alignment check; their counters read the kTcLaunched report).
 bool tc_body(int dtype, int D, int mode) {
-  return D == 64 && (dtype == kBF16 || (dtype == kF32 && mode == kStatic));
+  return D == 64 && (dtype == kBF16 || (dtype == kF32 && mode != kBias));
 }
 
 template <int MODE>

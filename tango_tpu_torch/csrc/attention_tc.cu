@@ -4,10 +4,11 @@
 //   * bf16 at D == 64, all three forms (tt_attn_fwd, tt_attn_fwd_v2,
 //     tt_attn_fwd_bias): attn_tc_kernel, bf16 products;
 //   * f32 at D == 64, the static form (tt_attn_fwd, every forward attention
-//     of the trainer): attn_tc_f32_kernel, 3xTF32 products.
+//     of the trainer) and the online form (tt_attn_fwd_v2, clips over
+//     10.24 s): attn_tc_f32_kernel, 3xTF32 products.
 // Every attention of the full-width UNet has head dim 64 (heads 5, 10, 20
-// over 320, 640, 1280 channels). f32 in the online and biased forms and the
-// other head dims keep attention.cu's CUDA-core body.
+// over 320, 640, 1280 channels). f32 in the biased form and the other head
+// dims keep attention.cu's CUDA-core body.
 //
 // Replaces, as that body does, tango_tpu/ops/flash_attention.py:
 //   _attn_kernel (:56)      through tt_attn_fwd, the static-shift form;
@@ -65,7 +66,10 @@
 //     both wgmma's reads and the staging writes are free of bank conflicts.
 //     80 KB of shared memory a block: 2 blocks an SM, so one block's softmax
 //     overlaps the other's products.
-// The f32 body holds JAX's f32 limits (atol 2e-5, rtol 1e-4): one-product
+// The f32 body (static and online forms; the online one takes s + e, the
+// cross terms added, as the logit before the running max, and rescales acc
+// before its P V products are issued, while e, the P V cross terms, starts
+// afresh each tile) holds JAX's f32 limits (atol 2e-5, rtol 1e-4): one-product
 // TF32 misses them at unit amplitude, and 3xTF32 logits with split-bf16 P V
 // miss them with q and k at amplitude 3, so both products run in 3xTF32
 // (wgmma.cuh: hi/lo splits, the cross terms in their own accumulator):
@@ -354,7 +358,8 @@ __device__ __forceinline__ uint4 load_chunk(const float* head, int row, int c, i
   return *reinterpret_cast<const uint4*>(head + (int64_t)row * kD + c * 4);
 }
 
-// The static form in f32 on 3xTF32 products (see the note at the top).
+// The static and online forms in f32 on 3xTF32 products (see the note at the top).
+template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
@@ -410,7 +415,8 @@ attn_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-  float l0 = 0.0f, l1 = 0.0f;  // this thread's share of the two denominators
+  float m0 = -1e30f, m1 = -1e30f;  // running row maxes (kOnline)
+  float l0 = 0.0f, l1 = 0.0f;      // this thread's share of the two denominators
 
   for (int j = 0; j < n; ++j) {
     const uint32_t sK = base + kF32Q + (j & 1) * kF32Stage, sV = sK + kF32K;
@@ -423,10 +429,22 @@ attn_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     fence_regs(e);
 
     const int lim = Skv - j * NC;  // keys of this tile that exist
+    if constexpr (MODE == kStatic) {
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) {
+        const bool in = 8 * (i >> 2) + 2 * t4 + (i & 1) < lim;
+        s[i] = in ? exp2f(fminf(s[i] + e[i] - kShift, kClamp)) : 0.0f;
+      }
+    } else {
+      // keys past Skv at -inf before the max: a padded logit of 0 would raise
+      // the max of a row whose logits are all negative
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i)
+        s[i] = 8 * (i >> 2) + 2 * t4 + (i & 1) < lim ? s[i] + e[i] : -CUDART_INF_F;
+      online_step(s, acc, m0, m1, l0, l1);  // acc rescaled here, before P V is issued
+    }
 #pragma unroll
     for (int i = 0; i < NC / 2; ++i) {
-      const bool in = 8 * (i >> 2) + 2 * t4 + (i & 1) < lim;
-      s[i] = in ? exp2f(fminf(s[i] + e[i] - kShift, kClamp)) : 0.0f;
       if (i & 2) l1 += s[i];
       else l0 += s[i];
     }
@@ -453,8 +471,10 @@ attn_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  l0 = l0 == 0.0f ? 1.0f : l0;  // an underflowed row is a zero row
-  l1 = l1 == 0.0f ? 1.0f : l1;
+  if constexpr (MODE == kStatic) {
+    l0 = l0 == 0.0f ? 1.0f : l0;  // an underflowed row is a zero row
+    l1 = l1 == 0.0f ? 1.0f : l1;
+  }
   const int r0 = q0 + wg * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
   float* oh = o + head * Sq * kD + 2 * t4;
 #pragma unroll
@@ -487,12 +507,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, Bias bi
   return cudaGetLastError();
 }
 
+template <int MODE>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
                        int Skv, float qscale, cudaStream_t st) {
   const int64_t blocks = (int64_t)BH * ((Sq + kRows - 1) / kRows);
-  cudaError_t e = prepare(attn_tc_f32_kernel, kF32Smem, blocks);
+  cudaError_t e = prepare(attn_tc_f32_kernel<MODE>, kF32Smem, blocks);
   if (e != cudaSuccess) return e;
-  attn_tc_f32_kernel<<<(unsigned)blocks, kThreads, kF32Smem, st>>>(
+  attn_tc_f32_kernel<MODE><<<(unsigned)blocks, kThreads, kF32Smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), Sq, Skv, qscale);
   return cudaGetLastError();
@@ -504,8 +525,11 @@ cudaError_t attn_fwd_tc(const void* q, const void* k, const void* v, const float
                         int heads, int bias_rows, void* o, int BH, int Sq, int Skv, float qscale,
                         int mode, bool f32, cudaStream_t st) {
   if (f32) {
-    if (mode != kStatic) return cudaErrorInvalidValue;
-    return launch_f32(q, k, v, o, BH, Sq, Skv, qscale, st);
+    switch (mode) {
+      case kStatic: return launch_f32<kStatic>(q, k, v, o, BH, Sq, Skv, qscale, st);
+      case kOnline: return launch_f32<kOnline>(q, k, v, o, BH, Sq, Skv, qscale, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
   const Bias b{bias, heads, bias_rows};
   switch (mode) {

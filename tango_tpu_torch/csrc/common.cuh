@@ -21,6 +21,11 @@ enum AttnMode : int { kStatic = 0, kOnline = 1, kBias = 2 };
 constexpr int kTcLaunched = -1;
 inline int tc_result(cudaError_t e) { return e == cudaSuccess ? kTcLaunched : (int)e; }
 
+// The same report for an entry point with a thread-block-cluster body
+// (tt_gn_silu_bwd): its wrapper counts cluster_launches from it.
+constexpr int kClusterLaunched = -2;
+inline int cluster_result(cudaError_t e) { return e == cudaSuccess ? kClusterLaunched : (int)e; }
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 

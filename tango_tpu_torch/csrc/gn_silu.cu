@@ -28,10 +28,42 @@
 // extent (B*G, B*G*chunks, B*C) on grid.x, so a tensor may hold 2^31 elements
 // or more; only B, C, HW and those block counts are 32-bit (below 2^31).
 //
-// gn_bwd: one block per (batch, group) again, streaming the group from device
-// memory (the Pallas kernel held a whole sample in VMEM, hence its 8 MB
-// limit; this one has none, so it also serves the backward of the two-stage
-// sites). Three passes over the group, the later two mostly from L2:
+// gn_bwd, the cluster body (gn_bwd_cluster_kernel): R CTAs per (batch,
+// group), R a power of two up to 16 (gn_bwd_cluster_size), in one
+// thread-block cluster with those of the group's other samples where B*R is
+// at most 16 (the trainer's batch 2 at R <= 8), else on their own
+// (gn_bwd_cluster_samples). Each CTA copies its 1/R slice of the group's x and
+// g into shared memory once (cp.async, 16-byte packets: x in one copy group,
+// g in a second, so the statistics start while g lands), and every later
+// pass reads that copy: device memory sees one read of x and g and one
+// write of dx, the bytes bound. The CTAs of a cluster combine what the
+// group needs through distributed shared memory (mapa + ld.shared::cluster
+// after barrier.cluster), each CTA summing the R partials in rank order, so
+// that every CTA holds the same bits:
+//   1. sum x, x^2 of the slice -> the group's mean, inv;
+//   2. per-channel dbeta_c, dgamma_c of the slice (a channel may straddle
+//      slices: each CTA sums only its own elements, and the R partials of a
+//      channel add up to it once) -> the group's, and the two group means
+//      of dx; rank 0 writes them to dparam, summed over the cluster's
+//      samples (no global atomics, and no sum over B left to the caller
+//      where the cluster holds the batch); in f32 on the
+//      SiLU route dpre replaces g in shared memory;
+//   3. dx for the slice (from that dpre, not a second sigmoid).
+// A CTA reads its peers' shared memory only between the first cluster
+// barrier and its last arrive, and waits for every peer's arrive before it
+// exits. R is the least power of two whose slice fits 72 KB (three CTAs an
+// SM) with at least 132 CTAs (the H100's SMs) in the grid; else R = 8 if
+// the slice fits one CTA's 226 KB; else the streaming body below. At the
+// trainer's batch 2 and 32 groups that is 256-1024 CTAs instead of 64
+// blocks, of 256 threads, or 128 where many small CTAs share an SM. It
+// needs HW a whole number of packets and 16-byte aligned x, g, dx; the
+// entry point reports it by returning kClusterLaunched.
+//
+// gn_bwd, the streaming body (gn_bwd_kernel): one block per (batch, group),
+// streaming the group from device memory (the Pallas kernel held a whole
+// sample in VMEM, hence its 8 MB limit; this one has none, so it also serves
+// groups too large for the cluster body, e.g. the VAE decoder's). Three
+// passes over the group, the later two mostly from L2:
 //   1. sum x, x^2 -> mean, inv (the forward's statistics, recomputed);
 //   2. per channel: dbeta_c = sum dpre, dgamma_c = sum dpre * xhat, where
 //      dpre = g * silu'(y) on the SiLU route (y = xhat*gamma + beta) and g
@@ -43,13 +75,17 @@
 //   3. dx = inv * (gamma_c*dpre - mean_g(gamma*dpre) - xhat *
 //      mean_g(gamma*dpre*xhat)), the two group means taken from the
 //      per-channel sums of pass 2.
-// dgamma, dbeta come out per sample, (B, 2, C) f32; the caller sums over B.
-// Bound: bytes, one read of x and g and one write of dx.
+// dgamma, dbeta come out per sample, (B, 2, C) f32 (from the cluster body
+// where a cluster holds one sample); the caller sums over B. Bound: bytes,
+// one read of x and g and one write of dx.
 //
 // Statistics follow the Pallas kernels: var = E[x^2] - mean^2, inv =
 // 1/sqrt(var + eps).
 
+#include <climits>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace tt {
 namespace {
@@ -215,6 +251,98 @@ __device__ __forceinline__ float gn_dpre(float g, float xh, float gam, float bet
   return g * (sg * (1.0f + y * (1.0f - sg)));
 }
 
+// N values from p (a 16-byte packet of T where N > 1), as f32, and back.
+template <typename T, int N>
+__device__ __forceinline__ void load_n(const T* p, float* v) {
+  if constexpr (N == 1) v[0] = to_f32(*p);
+  else load_pack(p, v);
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_n(T* p, const float* v) {
+  if constexpr (N == 1) *p = from_f32<T>(v[0]);
+  else store_pack(p, v);
+}
+
+// The backward's pass 2 over the window [lo, hi) of a group (offsets into
+// the group; xw, gw hold its elements from lo on, in device or shared
+// memory): adds sum dpre and sum dpre * xhat of each channel c of the group
+// into sdb[c], sdg[c] (shared memory), where dpre = g * silu'(y) on the SiLU
+// route (y = xhat*gamma + beta) and g otherwise. The work is cut into
+// (channel, piece) items, one warp per item, at least as many items as
+// warps: at 64 or 256 tokens a channel is one warp's work (a block-wide loop
+// channel by channel would idle most of the block, the forward's lesson), at
+// 4096 tokens a channel is split across warps. Where keep is not null, dpre
+// is written there in place of g. I: the offsets' type, int where the window
+// lies below 2^31 (fewer instructions a packet), else int64_t.
+template <typename T, int N, int NT, typename I>
+__device__ __forceinline__ void channel_sums(const T* xw, const T* gw, T* keep, I lo, I hi, int HW,
+                                             const float* gam_g, const float* bet_g, float mean,
+                                             float inv, int act, float* sdb, float* sdg) {
+  constexpr int kWarps = NT / 32;
+  if (hi <= lo) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = (int)(lo / HW), nch = (int)((hi - 1) / HW) - c0 + 1;
+  int pieces = (kWarps + nch - 1) / nch;
+  const int max_pieces = HW / (32 * N) > 1 ? HW / (32 * N) : 1;  // >= one packet a lane
+  if (pieces > max_pieces) pieces = max_pieces;
+  const int plen = ((HW + pieces - 1) / pieces + N - 1) / N * N;
+  for (int item = warp; item < nch * pieces; item += kWarps) {
+    const int c = c0 + item / pieces;
+    const I p0 = (I)c * HW + (I)(item % pieces) * plen;
+    const I cend = (I)(c + 1) * HW, pend = p0 + plen < cend ? p0 + plen : cend;
+    const I start = p0 > lo ? p0 : lo, end = pend < hi ? pend : hi;
+    const float gam = gam_g[c], bet = bet_g[c];
+    float adb = 0.0f, adg = 0.0f, v[N], w[N];
+    for (I i = start + lane * N; i < end; i += 32 * N) {
+      load_n<T, N>(xw + (i - lo), v);
+      load_n<T, N>(gw + (i - lo), w);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xh = (v[j] - mean) * inv;
+        w[j] = gn_dpre(w[j], xh, gam, bet, act);
+        adb += w[j];
+        adg = fmaf(w[j], xh, adg);
+      }
+      if (keep) store_n<T, N>(keep + (i - lo), w);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      adb += __shfl_xor_sync(0xffffffffu, adb, o);
+      adg += __shfl_xor_sync(0xffffffffu, adg, o);
+    }
+    if (lane == 0) {
+      atomicAdd(&sdb[c], adb);
+      atomicAdd(&sdg[c], adg);
+    }
+  }
+}
+
+// The backward's pass 3 over the window [lo, lo + len) of a group (xw, gw,
+// dxw from lo on): dx = inv * (gamma_c*dpre - m1 - xhat*m2), m1 and m2 the
+// group means of gamma*dpre and gamma*dpre*xhat; gw holds dpre where kept,
+// else g. A packet never straddles two channels (lo and HW are whole
+// packets). I as for channel_sums.
+template <typename T, int N, int NT, typename I>
+__device__ __forceinline__ void dx_pass(const T* xw, const T* gw, T* dxw, I lo, I len, int HW,
+                                        const float* gam_g, const float* bet_g, float mean,
+                                        float inv, float m1, float m2, int act, bool kept) {
+  float v[N], w[N];
+  for (I i = (I)threadIdx.x * N; i < len; i += (I)NT * N) {
+    const int c = (int)((lo + i) / HW);
+    const float gam = gam_g[c], bet = bet_g[c];
+    load_n<T, N>(xw + i, v);
+    load_n<T, N>(gw + i, w);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float xh = (v[j] - mean) * inv;
+      const float dxh = (kept ? w[j] : gn_dpre(w[j], xh, gam, bet, act)) * gam;
+      w[j] = inv * (dxh - m1 - xh * m2);
+    }
+    store_n<T, N>(dxw + i, w);
+  }
+}
+
 // grid (B*G): block bg writes dx for its group and dparam[b][0|1][channels of
 // the group] = dgamma, dbeta of sample b. Dynamic shared memory: 2 * C/G f32.
 template <typename T, bool VEC>
@@ -239,50 +367,12 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __r
   const float mean = s / nf;
   const float inv = 1.0f / sqrtf(ss / nf - mean * mean + eps);
 
-  // 2. per-channel sums over (channel, slice) items, one warp each
+  // 2. per-channel sums
   constexpr int N = VEC ? Pack<T>::N : 1;
-  constexpr int kWarps = kBwdThreads / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int slices = (kWarps + cg - 1) / cg;
-  const int max_slices = HW / (32 * N) > 1 ? HW / (32 * N) : 1;  // >= one packet a lane
-  if (slices > max_slices) slices = max_slices;
-  const int len = ((HW + slices - 1) / slices + N - 1) / N * N;
-  for (int item = warp; item < cg * slices; item += kWarps) {
-    const int c = item / slices;
-    const int start = (item % slices) * len;
-    const int end = start + len < HW ? start + len : HW;
-    const int ch = gi * cg + c;
-    const float gam = gamma[ch], bet = beta[ch];
-    const T* xr = x + base + (int64_t)c * HW;
-    const T* gr = g + base + (int64_t)c * HW;
-    float adb = 0.0f, adg = 0.0f;
-    float xv[N], gv[N];
-    for (int i = start + lane * N; i < end; i += 32 * N) {
-      if constexpr (VEC) {
-        load_pack(xr + i, xv);
-        load_pack(gr + i, gv);
-      } else {
-        xv[0] = to_f32(xr[i]);
-        gv[0] = to_f32(gr[i]);
-      }
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float xh = (xv[j] - mean) * inv;
-        const float dp = gn_dpre(gv[j], xh, gam, bet, act);
-        adb += dp;
-        adg = fmaf(dp, xh, adg);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      adb += __shfl_xor_sync(0xffffffffu, adb, o);
-      adg += __shfl_xor_sync(0xffffffffu, adg, o);
-    }
-    if (lane == 0) {
-      atomicAdd(&sdb[c], adb);
-      atomicAdd(&sdg[c], adg);
-    }
-  }
+  const float* gam_g = gamma + gi * cg;
+  const float* bet_g = beta + gi * cg;
+  channel_sums<T, N, kBwdThreads, int64_t>(x + base, g + base, nullptr, 0, n, HW, gam_g, bet_g,
+                                           mean, inv, act, sdb, sdg);
   __syncthreads();
 
   // per-sample parameter gradients, and the two group means of pass 3
@@ -298,32 +388,252 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __r
   m1 /= nf;
   m2 /= nf;
 
-  // 3. dx over the whole group (a packet never straddles two channels)
-  const T* xg = x + base;
-  const T* gg = g + base;
-  T* dxg = dx + base;
-  float xv[N], gv[N], out[N];
-  for (int64_t i = (int64_t)threadIdx.x * N; i < n; i += (int64_t)kBwdThreads * N) {
-    const int ch = gi * cg + (int)(i / HW);
-    const float gam = gamma[ch], bet = beta[ch];
-    if constexpr (VEC) {
-      load_pack(xg + i, xv);
-      load_pack(gg + i, gv);
-    } else {
-      xv[0] = to_f32(xg[i]);
-      gv[0] = to_f32(gg[i]);
-    }
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const float xh = (xv[j] - mean) * inv;
-      const float dxh = gn_dpre(gv[j], xh, gam, bet, act) * gam;
-      out[j] = inv * (dxh - m1 - xh * m2);
-    }
-    if constexpr (VEC)
-      store_pack(dxg + i, out);
-    else
-      dxg[i] = from_f32<T>(out[0]);
+  // 3. dx over the whole group
+  dx_pass<T, N, kBwdThreads, int64_t>(x + base, g + base, dx + base, 0, n, HW, gam_g, bet_g,
+                                      mean, inv, m1, m2, act, false);
+}
+
+// ------------------------------------------------------------ cluster body
+
+// CTAs of 256 threads, or 128 where the grid has at least 512 CTAs (about
+// four an SM) and a slice fits 45 KB (five an SM): there more CTAs at a time
+// on an SM overlap one's copies with another's passes, measured faster (and
+// slower with fewer or larger CTAs, where the passes want the threads)
+constexpr int kClusterThreads = 256;
+constexpr int kSmallCtaThreads = 128;
+constexpr int kSmallCtaGrid = 512;
+constexpr int64_t kSmallCtaSlice = 45 * 1024;
+constexpr int kMaxCluster = 16;                 // non-portable above 8
+constexpr int kMinCtas = 132;                   // the H100's SMs
+constexpr int64_t kSliceTarget = 72 * 1024;     // three CTAs an SM
+constexpr int64_t kSliceMax = 226 * 1024;       // one CTA an SM, beside the static 256 bytes
+
+// Elements of a CTA's slice of an n-element group cut R ways: a whole number
+// of 16-byte packets.
+int64_t slice_len(int esize, int64_t n, int R) {
+  const int N = 16 / esize;
+  return ((n + R - 1) / R + N - 1) / N * N;
+}
+
+// Dynamic shared memory of a CTA: the slices of x and g, the per-channel sums
+// (2 * C/G f32) and the CTA's two statistics.
+int64_t cluster_smem(int esize, int64_t n, int cg, int R) {
+  return 2 * slice_len(esize, n, R) * esize + 8 * (int64_t)cg + 8;
+}
+
+// The cluster size the backward takes for (B, C, HW, G) in elements of
+// esize bytes, 0 for the streaming body. gn_bwd_cluster_size in
+// ops/gn_silu.py is its twin (the wrappers' counters check the report
+// against it).
+int gn_bwd_cluster_size(int esize, int B, int C, int HW, int G) {
+  if (HW % (16 / esize)) return 0;
+  const int cg = C / G;
+  const int64_t n = (int64_t)cg * HW, groups = (int64_t)B * G;
+  for (int R = 1; R <= kMaxCluster && groups * R <= INT_MAX; R *= 2)
+    if (cluster_smem(esize, n, cg, R) <= kSliceTarget &&
+        (groups * R >= kMinCtas || R == kMaxCluster))
+      return R;
+  return cluster_smem(esize, n, cg, 8) <= kSliceMax && groups * 8 <= INT_MAX ? 8 : 0;
+}
+
+// Samples a cluster holds: the whole batch where its B*R CTAs make one
+// cluster (rank 0 then writes the batch's sums of dgamma and dbeta, so the
+// caller sums nothing), else one (gn_bwd_cluster_samples in ops/gn_silu.py).
+int gn_bwd_cluster_samples(int B, int R) { return (int64_t)B * R <= kMaxCluster ? B : 1; }
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// barrier.cluster in two halves: arrive (release: this thread's shared-memory
+// writes become visible to the cluster) and wait (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The f32 at shared-memory address p of the cluster's CTA `rank`.
+__device__ __forceinline__ float ld_peer(const float* p, uint32_t rank) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t m;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(m) : "r"(a), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(m) : "memory");
+  return v;
+}
+
+// grid (B*G*R) in clusters of S*R, S samples of one group: cluster q holds
+// group q % G of samples (q / G)*S .. (q / G)*S + S - 1, rank s*R + r slice r
+// (elements [r*L, (r+1)*L), clipped to the group) of its sample s. It writes
+// dx for them and dparam[q / G][0|1][channels of the group] = dgamma, dbeta
+// summed over its S samples. NT threads a CTA (registers <= 85 at 256: three
+// CTAs an SM).
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT, NT == kClusterThreads ? 3 : 4)
+gn_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      const float* __restrict__ gamma, const float* __restrict__ beta,
+                      T* __restrict__ dx, float* __restrict__ dparam, int C, int HW, int G, int R,
+                      int S, int L, float eps, int act) {
+  constexpr int N = Pack<T>::N;
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  T* gs = xs + L;
+  float* sdg = reinterpret_cast<float*>(gs + L);  // [cg] dgamma, then [cg] dbeta
+  const int cg = C / G;
+  float* sdb = sdg + cg;
+  float* red = sdb + cg;  // this CTA's sum x, sum x^2
+  const int rank = cluster_rank(), q = blockIdx.x / (S * R), s0 = rank / R;
+  const int b = q / G * S + s0, gi = q % G, peer0 = s0 * R;  // peer0: this sample's rank 0
+  const int n = cg * HW;  // at most 16 slices of at most 226 KB here
+  const int lo = min(rank % R * L, n), hi = min(lo + L, n), len = hi - lo;
+  const int64_t base = ((int64_t)b * C + (int64_t)gi * cg) * HW + lo;
+  const int tid = threadIdx.x;
+
+  // the slice of x, then of g, into shared memory: two copy groups
+  for (int i = tid * N; i < len; i += NT * N)
+    cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(xs + i)), x + base + i, 16);
+  cp_async_commit();
+  for (int i = tid * N; i < len; i += NT * N)
+    cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(gs + i)), g + base + i, 16);
+  cp_async_commit();
+  for (int i = tid; i < 2 * cg; i += NT) sdg[i] = 0.0f;
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // 1. statistics: the slice's sums, then the group's, in rank order
+  float s = 0.0f, ss = 0.0f;
+  partial_sums<T, true>(xs, len, s, ss);
+  block_sum2<NT>(s, ss);
+  if (tid == 0) {
+    red[0] = s;
+    red[1] = ss;
   }
+  cluster_arrive();
+  cluster_wait();
+  s = ss = 0.0f;
+  for (int r = peer0; r < peer0 + R; ++r) {
+    s += ld_peer(red, r);
+    ss += ld_peer(red + 1, r);
+  }
+  const float nf = (float)n;
+  const float mean = s / nf;
+  const float inv = 1.0f / sqrtf(ss / nf - mean * mean + eps);
+
+  // 2. per-channel sums of the slice. In f32 on the SiLU route dpre replaces
+  // g in shared memory (each element belongs to one item), so pass 3 does
+  // not recompute the sigmoid.
+  const bool keep = sizeof(T) == 4 && act;
+  const float* gam_g = gamma + gi * cg;
+  const float* bet_g = beta + gi * cg;
+  cp_async_wait<0>();
+  __syncthreads();
+  channel_sums<T, N, NT, int>(xs, gs, keep ? gs : nullptr, lo, hi, HW, gam_g, bet_g, mean, inv,
+                              act, sdb, sdg);
+  cluster_arrive();
+  cluster_wait();
+
+  // the group's per-channel sums, in rank order, for the two group means of
+  // dx; rank 0 adds those of the cluster's samples, in order, into dparam
+  auto peer_sums = [&](int c, int first, float& db, float& dg) {
+    db = dg = 0.0f;
+    for (int r = first; r < first + R; ++r) {
+      db += ld_peer(sdb + c, r);
+      dg += ld_peer(sdg + c, r);
+    }
+  };
+  float m1 = 0.0f, m2 = 0.0f;
+  for (int c = tid; c < cg; c += NT) {
+    float db, dg;
+    peer_sums(c, peer0, db, dg);
+    const int ch = gi * cg + c;
+    if (rank == 0) {
+      float tb = db, tg = dg, pb, pg;
+      for (int sp = 1; sp < S; ++sp) {
+        peer_sums(c, sp * R, pb, pg);
+        tb += pb;
+        tg += pg;
+      }
+      dparam[((int64_t)(q / G) * 2 + 0) * C + ch] = tg;
+      dparam[((int64_t)(q / G) * 2 + 1) * C + ch] = tb;
+    }
+    m1 = fmaf(gamma[ch], db, m1);
+    m2 = fmaf(gamma[ch], dg, m2);
+  }
+  cluster_arrive();  // this CTA reads no peer's shared memory any more
+  block_sum2<NT>(m1, m2);
+  m1 /= nf;
+  m2 /= nf;
+
+  // 3. dx for the slice, from the same copy (the barriers since pass 2 order
+  // its dpre writes before these reads)
+  dx_pass<T, N, NT, int>(xs, gs, dx + base, lo, len, HW, gam_g, bet_g, mean, inv, m1, m2, act,
+                         keep);
+  cluster_wait();  // no peer reads this CTA's shared memory any more: it may exit
+}
+
+template <typename T, int NT>
+cudaError_t launch_bwd_cluster_nt(const void* x, const void* g, const float* gamma,
+                                  const float* beta, void* dx, float* dparam, int B, int C,
+                                  int HW, int G, int R, float eps, int act, cudaStream_t st) {
+  auto kernel = gn_bwd_cluster_kernel<T, NT>;
+  const int64_t n = (int64_t)(C / G) * HW;
+  const int L = (int)slice_len(sizeof(T), n, R), S = gn_bwd_cluster_samples(B, R);
+  const int smem = (int)cluster_smem(sizeof(T), n, C / G, R);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kSliceMax);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = S * R;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((int64_t)B * G * R));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // all CTAs of a cluster must be resident on one GPC at once: ask once for
+  // each (cluster size, shared memory) of this instantiation, and return the
+  // refusal
+  static int seen[64][2];
+  static int n_seen = 0;
+  bool known = false;
+  for (int i = 0; i < n_seen; ++i) known |= seen[i][0] == S * R && seen[i][1] == smem;
+  if (!known) {
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    if (n_seen < 64) {
+      seen[n_seen][0] = S * R;
+      seen[n_seen][1] = smem;
+      ++n_seen;
+    }
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(g), gamma,
+                         beta, static_cast<T*>(dx), dparam, C, HW, G, R, S, L, eps, act);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_cluster(const void* x, const void* g, const float* gamma,
+                               const float* beta, void* dx, float* dparam, int B, int C, int HW,
+                               int G, int R, float eps, int act, cudaStream_t st) {
+  const int64_t n = (int64_t)(C / G) * HW;
+  if ((int64_t)B * G * R >= kSmallCtaGrid && cluster_smem(sizeof(T), n, C / G, R) <= kSmallCtaSlice)
+    return launch_bwd_cluster_nt<T, kSmallCtaThreads>(x, g, gamma, beta, dx, dparam, B, C, HW,
+                                                      G, R, eps, act, st);
+  return launch_bwd_cluster_nt<T, kClusterThreads>(x, g, gamma, beta, dx, dparam, B, C, HW, G, R,
+                                                   eps, act, st);
 }
 
 template <typename T>
@@ -435,6 +745,10 @@ int tt_gn_apply(const void* x, const void* a, const void* b, void* y, int B, int
   return (int)cudaGetLastError();
 }
 
+// The cluster body where gn_bwd_cluster_size gives a cluster and x, g, dx are
+// 16-byte aligned (reported as kClusterLaunched; dparam's first B /
+// gn_bwd_cluster_samples rows hold the sums), else the streaming body (all B
+// rows). dparam has room for B rows either way.
 int tt_gn_silu_bwd(const void* x, const void* g, const void* gamma, const void* beta, void* dx,
                    void* dparam, int B, int C, int HW, int G, float eps, int act, int dtype,
                    void* stream) {
@@ -442,6 +756,16 @@ int tt_gn_silu_bwd(const void* x, const void* g, const void* gamma, const void* 
   const float* ga = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
   float* dp = static_cast<float*>(dparam);
+  if (dtype != tt::kF32 && dtype != tt::kBF16) return (int)cudaErrorInvalidValue;
+  const int R = tt::gn_bwd_cluster_size(dtype == tt::kF32 ? 4 : 2, B, C, HW, G);
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
+                        reinterpret_cast<uintptr_t>(dx)) % 16 == 0;
+  if (R && aligned)
+    return tt::cluster_result(
+        dtype == tt::kF32
+            ? tt::launch_bwd_cluster<float>(x, g, ga, be, dx, dp, B, C, HW, G, R, eps, act, st)
+            : tt::launch_bwd_cluster<__nv_bfloat16>(x, g, ga, be, dx, dp, B, C, HW, G, R, eps,
+                                                    act, st));
   if (dtype == tt::kF32)
     return (int)tt::launch_bwd<float>(x, g, ga, be, dx, dp, B, C, HW, G, eps, act, st);
   if (dtype == tt::kBF16)

@@ -4,7 +4,7 @@
 // proxy and wgmma fences, the register-A m64n64k16 bf16 product, the
 // shared-memory-A m64n64k16 bf16 product, the m64n128k32 s8 product, and the
 // 3xTF32 products of the f32 attention bodies (splits, staging, fragments).
-// sm_90a only.
+// gn_silu.cu's cluster body takes the cp.async copies. sm_90a only.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -8,7 +8,8 @@ launches in `wrapper.launches` (a plain integer). The wrappers with a
 tensor-core body (`attn_fwd`, `attn_fwd_v2`, `attn_fwd_bias`, `attn_bwd_dq`,
 `attn_bwd_dkv`, `w8a8_matmul`, `winograd_conv3x3`) also count the launches that took it in
 `wrapper.tc_launches`, from what the C entry point reports (`reported_tc`,
-`count_tc`).
+`count_tc`); `gn_silu_bwd` counts its thread-block-cluster launches in
+`wrapper.cluster_launches` the same way.
 """
 
 from tango_tpu_torch.ops import _build
@@ -16,6 +17,7 @@ from tango_tpu_torch.ops import _build
 KERNELS: dict = {}
 BACKWARD_KERNELS: dict = {}
 TC_LAUNCHED = -1  # a C entry point's return after a tensor-core launch (tt::kTcLaunched)
+CLUSTER_LAUNCHED = -2  # ... after a thread-block-cluster launch (tt::kClusterLaunched)
 
 
 def kernel_wrapper(source: str, replaces: str, backward: bool = False):
@@ -45,8 +47,9 @@ def reset_counters() -> None:
     for fn in all_kernels().values():
         fn.launches = 0
         fn.shapes.clear()
-        if hasattr(fn, "tc_launches"):
-            fn.tc_launches = 0
+        for counter in ("tc_launches", "cluster_launches"):
+            if hasattr(fn, counter):
+                setattr(fn, counter, 0)
 
 
 def check_tc_aligned(name: str, *tensors) -> None:

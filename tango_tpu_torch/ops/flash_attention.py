@@ -1,8 +1,9 @@
 """Attention kernels and their plain versions.
 
 Forward, three kernels of one tile loop in csrc/attention.cu, and at head
-dim 64 (`tc_body`: bf16 in all three, f32 in `attn_fwd`) tensor-core (wgmma)
-bodies of the same arithmetic in csrc/attention_tc.cu (f32: 3xTF32 products):
+dim 64 (`tc_body`: bf16 in all three, f32 in `attn_fwd` and `attn_fwd_v2`)
+tensor-core (wgmma) bodies of the same arithmetic in csrc/attention_tc.cu
+(f32: 3xTF32 products):
   * `attn_fwd` replaces `_attn_kernel` (tango_tpu/ops/flash_attention.py:56),
     the static-shift exp2 softmax with deferred division: q is prescaled by
     scale*log2(e) and rounded to the storage type, p = exp2(min(l - 20, 96)),
@@ -50,7 +51,7 @@ SOFTMAX_CLAMP = 96.0
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 TC_HEAD_DIM = 64
 _SRC = "tango_tpu_torch/csrc/attention.cu"
-_TC_SRC = "tango_tpu_torch/csrc/attention_tc.cu"  # D = 64: bf16, and f32 static (training)
+_TC_SRC = "tango_tpu_torch/csrc/attention_tc.cu"  # D = 64: bf16, and f32 static and online
 _BWD_SRC = "tango_tpu_torch/csrc/attention_bwd.cu"
 _BWD_TC_SRC = "tango_tpu_torch/csrc/attention_bwd_tc.cu"  # f32 and bf16 at D = 64, training's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -77,14 +78,15 @@ def tc_body(dtype: torch.dtype, d: int, mode: str) -> bool:
     attn_fwd_v2, "bias" attn_fwd_bias) runs on a tensor-core body
     (csrc/attention_tc.cu) rather than the CUDA-core one: head dim 64, the
     width of every attention of the full-width UNet, in bf16 in every form
-    and in f32 in the static form, the trainer's (3xTF32 products keep it
-    within JAX's f32 limits). f32 in the online and biased forms, on no f32
-    path, keeps the CUDA-core body. The C entry points apply the same rule
-    (`tc_body` in csrc/attention.cu); here it decides the alignment check."""
+    and in f32 in the static form (the trainer's) and the online form (f32
+    clips over 10.24 s), 3xTF32 products keeping both within JAX's f32
+    limits. f32 in the biased form keeps the CUDA-core body. The C entry
+    points apply the same rule (`tc_body` in csrc/attention.cu); here it
+    decides the alignment check."""
     if mode not in _MODES:
         raise ValueError(f"tc_body: mode {mode!r} (one of {_MODES})")
     return d == TC_HEAD_DIM and (dtype == torch.bfloat16
-                                 or (dtype == torch.float32 and mode == "static"))
+                                 or (dtype == torch.float32 and mode != "bias"))
 
 
 def bwd_tc_body(dtype: torch.dtype, d: int) -> bool:
@@ -213,7 +215,7 @@ def attn_fwd_v2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float)
 
 
 attn_fwd.tc_launches = attn_fwd_v2.tc_launches = 0
-attn_fwd.core_source = attn_fwd_v2.core_source = _SRC  # the CUDA-core body, other D (v2: f32)
+attn_fwd.core_source = attn_fwd_v2.core_source = _SRC  # the CUDA-core body, other D
 
 
 def attn_fwd_bias_plain(q, k, v, bias, heads: int, scale: float):

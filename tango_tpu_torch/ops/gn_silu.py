@@ -8,7 +8,12 @@ Four kernels from `csrc/gn_silu.cu`:
     them, as it was XLA between the two Pallas calls;
   * `gn_silu_bwd` — the backward, replaces `_gn_bwd_kernel` (:119): dx and
     per-sample dgamma/dbeta with the statistics recomputed, summed over the
-    batch here in torch, as `group_norm_pallas_bwd` sums them in XLA.
+    batch here in torch, as `group_norm_pallas_bwd` sums them in XLA. Where
+    `gn_bwd_cluster_size` gives a cluster size R (every training shape), one
+    thread-block cluster of R CTAs a group holds the group in shared memory
+    and reads x and g once; `gn_silu_bwd.cluster_launches` counts the
+    launches the C entry point reports as such. Other groups (too large for
+    R CTAs' shared memory, or unaligned) take the streaming body.
 
 Layout: channels-first, x is (B, C, *spatial) and contiguous, so one
 (batch, group) is one contiguous run of (C/G)*HW elements. Storage f32 or
@@ -26,7 +31,7 @@ import math
 
 import torch
 
-from tango_tpu_torch.ops import _build, kernel_wrapper
+from tango_tpu_torch.ops import CLUSTER_LAUNCHED, _build, kernel_wrapper
 
 _SRC = "tango_tpu_torch/csrc/gn_silu.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -225,6 +230,56 @@ def gn_bwd_supported(x: torch.Tensor, num_groups: int) -> bool:
             and kernel_shape_ok(x, num_groups))
 
 
+# the cluster body's sizing (csrc/gn_silu.cu): CTAs a grid should reach (the
+# H100's SMs), the largest cluster, and the shared memory of a CTA's slice
+# that lets three CTAs share an SM and that one CTA may hold
+_CLUSTER_MIN_CTAS = 132
+_CLUSTER_MAX = 16
+_SLICE_TARGET = 72 * 1024
+_SLICE_MAX = 226 * 1024
+
+
+def cluster_slice_len(esize: int, n: int, r: int) -> int:
+    """Elements of a CTA's slice of an n-element group cut r ways: a whole
+    number of 16-byte packets (`slice_len` in csrc/gn_silu.cu)."""
+    pack = 16 // esize
+    return (-(-n // r) + pack - 1) // pack * pack
+
+
+def _cluster_smem(esize: int, n: int, cg: int, r: int) -> int:
+    return 2 * cluster_slice_len(esize, n, r) * esize + 8 * cg + 8
+
+
+def gn_bwd_cluster_size(dtype: torch.dtype, b: int, c: int, hw: int, num_groups: int) -> int:
+    """The cluster size R gn_silu_bwd's cluster body takes for x (B, C, HW) in
+    `dtype`, 0 for the streaming body: the least power of two up to 16 whose
+    CTA slice (x and g, 1/R of a group each, plus 8 bytes a channel) fits 72
+    KB with at least 132 CTAs in the grid; else 8 where the slice fits 226
+    KB; else 0. HW must be a whole number of 16-byte packets. The C entry
+    point applies the same rule (`gn_bwd_cluster_size` in csrc/gn_silu.cu),
+    together with 16-byte aligned x, g and dx."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    if hw % (16 // esize):
+        return 0
+    cg = c // num_groups
+    n, groups = cg * hw, b * num_groups
+    r = 1
+    while r <= _CLUSTER_MAX and groups * r < _INT32:
+        if _cluster_smem(esize, n, cg, r) <= _SLICE_TARGET and (
+                groups * r >= _CLUSTER_MIN_CTAS or r == _CLUSTER_MAX):
+            return r
+        r *= 2
+    return 8 if _cluster_smem(esize, n, cg, 8) <= _SLICE_MAX and groups * 8 < _INT32 else 0
+
+
+def gn_bwd_cluster_samples(b: int, r: int) -> int:
+    """Samples one cluster of the cluster body holds: the whole batch where
+    its b * r CTAs make one cluster (at most 16; its rank 0 then writes the
+    batch's sums of dgamma and dbeta), else one (`gn_bwd_cluster_samples` in
+    csrc/gn_silu.cu)."""
+    return b if b * r <= _CLUSTER_MAX else 1
+
+
 def gn_silu_bwd_plain(x, g, gamma, beta, num_groups: int, eps: float, act: str | None):
     """Plain version of gn_silu_bwd, the arithmetic of _gn_bwd_kernel in f32."""
     b, c = x.shape[0], x.shape[1]
@@ -269,18 +324,39 @@ def gn_silu_bwd(x, g, gamma, beta, num_groups: int, eps: float = 1e-6, act: str 
                          f"{_BWD_MAX_GROUP_CHANNELS}")
     if g.device != x.device:
         raise ValueError("gn_silu_bwd: g must be on x's device")
+    return _launch_bwd(x, g, gamma, beta, num_groups, eps, act)
+
+
+def _launch_bwd(x, g, gamma, beta, num_groups: int, eps: float, act: str | None):
+    """Launch gn_silu_bwd into new outputs; the C entry point takes the
+    cluster body by `gn_bwd_cluster_size` and 16-byte alignment, and
+    gn_silu_bwd.cluster_launches counts the cluster launches it reports.
+    dparam has a row of (dgamma, dbeta) for each sample, or one for the
+    whole batch where a cluster holds it (`gn_bwd_cluster_samples`)."""
+    b, c, hw = x.shape[0], x.shape[1], math.prod(x.shape[2:])
     lib = _build.load()
     g32 = _param_f32(gamma, c, x.device)
     b32 = _param_f32(beta, c, x.device)
     dx = torch.empty_like(x)
     dparam = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    r = gn_bwd_cluster_size(x.dtype, b, c, hw, num_groups)
+    cluster = r > 0 and not any(t.data_ptr() % 16 for t in (x, g, dx))
     code = lib.tt_gn_silu_bwd(
         x.data_ptr(), g.data_ptr(), g32.data_ptr(), b32.data_ptr(), dx.data_ptr(),
         dparam.data_ptr(), b, c, hw, num_groups, float(eps), int(act == "silu"),
         _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(lib, code, "gn_silu_bwd")
+    ran = code == CLUSTER_LAUNCHED
+    _build.check(lib, 0 if ran else code, "gn_silu_bwd")
+    if ran != cluster:
+        raise RuntimeError("gn_silu_bwd: the entry point launched the "
+                           f"{'cluster' if ran else 'streaming'} body against the wrapper's rule")
     gn_silu_bwd.launches += 1
+    gn_silu_bwd.cluster_launches += ran
     gn_silu_bwd.shapes.add((tuple(x.shape), num_groups, act))
-    dsum = dparam.sum(0)
+    rows = b // gn_bwd_cluster_samples(b, r) if ran else b
+    dsum = dparam[0] if rows == 1 else dparam.sum(0)
     return dx, dsum[0].to(gamma.dtype), dsum[1].to(beta.dtype)
+
+
+gn_silu_bwd.cluster_launches = 0

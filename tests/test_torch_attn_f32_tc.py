@@ -1,14 +1,17 @@
-"""The f32 tensor-core attention bodies on the CPU: the static forward of
-csrc/attention_tc.cu (`attn_fwd` in f32 at head dim 64, the trainer's) and
-the gradient products of csrc/attention_bwd_tc.cu, both on 3xTF32 products.
+"""The f32 tensor-core attention bodies on the CPU: the forward of
+csrc/attention_tc.cu (`attn_fwd` and `attn_fwd_v2` in f32 at head dim 64)
+and the gradient products of csrc/attention_bwd_tc.cu, both on 3xTF32
+products.
 
 The CUDA bodies run only on the card (`chip_smoke.py` holds them against the
 plain versions and float64 there). Here: `fwd_walk`, a plain-torch emulation
 of the forward body (64-key tiles, q prescaled in f32, both products S = Qs
-K^T and P V as 3xTF32 with round-to-nearest-away splits, the static shift,
-f32 denominators), held to JAX's f32 forward limits (atol 2e-5, rtol 1e-4,
-tests/test_flash_attention.py) against `flash_attention(interpret=True)` at
-unit amplitude and against float64 with q and k at amplitude 3; two tests
+K^T and P V as 3xTF32 with round-to-nearest-away splits, the static shift or
+the running max, f32 denominators), held to JAX's f32 forward limits (atol
+2e-5, rtol 1e-4, tests/test_flash_attention.py) against
+`flash_attention(interpret=True)` and, in its online form,
+`flash_attention_v2(interpret=True)` at unit amplitude, JAX's extreme-logit
+case, and against float64 with q and k at amplitude 3; two tests
 that pin why both products take 3xTF32 (one-product TF32 misses the limits
 at unit amplitude, split-bf16 P V at amplitude 3); and the backward's
 3xTF32 gradient products (tests/test_torch_attn_bwd_tc.py's `bwd_walk`)
@@ -24,6 +27,7 @@ import torch
 import tango_tpu.ops.flash_attention as jfa
 from tango_tpu_torch.ops import flash_attention as tfa
 from tests.test_torch_attn_bwd_tc import _inputs, _ratio, _worst_ratio, product
+from tests.test_torch_ops_long import _extreme_qk
 
 # One intra-op thread: pytest-xdist workers share the cores, and torch's
 # pool of one thread per core then spends most of its time waiting.
@@ -33,21 +37,33 @@ FWD_TOL = (2e-5, 1e-4)  # JAX's f32 forward limits
 TILE = 64  # keys a K/V tile of the f32 forward body
 
 
-def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32"):
+def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32", online=False):
     """The f32 forward body's arithmetic on (BH, S, 64) f32 tensors: qs = q *
-    qscale in f32, 64-key tiles, s = qs . k and acc += p . v under the given
-    product schemes (`product`: "3xtf32", "tf32", "split_bf16", "f32"),
-    p = exp2(min(s - 20, 96)), denominators of the f32 p, a zero row where
-    the denominator underflows."""
+    qscale in f32, 64-key tiles (the last one ragged), s = qs . k and acc +=
+    p . v under the given product schemes (`product`: "3xtf32", "tf32",
+    "split_bf16", "f32"), denominators of the f32 p. Static form: p =
+    exp2(min(s - 20, 96)), a zero row where the denominator underflows.
+    Online form (`attn_fwd_v2`): the running max m' = max(m, max s) from m =
+    -1e30, acc and the denominators rescaled by exp2(m - m') before the
+    tile's P V, p = exp2(s - m'), o = acc / denominator."""
     qs = q * tfa._qscale(scale)
     bh, sq, d = q.shape
     den = torch.zeros(bh, sq, 1)
     acc = torch.zeros(bh, sq, d)
+    m = torch.full((bh, sq, 1), -1e30)
     for k0 in range(0, k.shape[1], TILE):
         s = product(qs, k[:, k0:k0 + TILE].transpose(-1, -2), logit)
-        p = torch.exp2(torch.clamp(s - tfa.SOFTMAX_SHIFT, max=tfa.SOFTMAX_CLAMP))
+        if online:
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            den, acc, m = alpha * den, alpha * acc, m_new
+            p = torch.exp2(s - m)
+        else:
+            p = torch.exp2(torch.clamp(s - tfa.SOFTMAX_SHIFT, max=tfa.SOFTMAX_CLAMP))
         den = den + p.sum(-1, keepdim=True)
         acc = acc + product(p, v[:, k0:k0 + TILE], pv)
+    if online:
+        return acc / den
     return acc / torch.where(den == 0.0, torch.ones_like(den), den)
 
 
@@ -56,10 +72,10 @@ def _float64_fwd(q, k, v, scale):
     return torch.softmax(q @ k.transpose(-1, -2) * scale, -1) @ v
 
 
-def _fwd_ratio(tensors, logit="3xtf32", pv="3xtf32"):
+def _fwd_ratio(tensors, logit="3xtf32", pv="3xtf32", online=False):
     """The walk's worst share of JAX's forward limits against float64."""
     q, k, v = tensors[:3]
-    return _ratio(fwd_walk(q, k, v, 0.125, logit, pv).numpy(),
+    return _ratio(fwd_walk(q, k, v, 0.125, logit, pv, online).numpy(),
                   _float64_fwd(q, k, v, 0.125).numpy(), FWD_TOL)
 
 
@@ -93,6 +109,46 @@ def test_fwd_walk_within_f32_limits_at_amplitude_3(seed):
     walk = _fwd_ratio(tensors)
     q, k, v = tensors[:3]
     plain = _ratio(tfa.attn_fwd_plain(q, k, v, 0.125).numpy(),
+                   _float64_fwd(q, k, v, 0.125).numpy(), FWD_TOL)
+    assert walk < 1.0 and walk < 1.5 * plain, (walk, plain)
+
+
+@pytest.mark.parametrize("b,h,sq,skv", [(1, 2, 128, 4608), (2, 1, 128, 4200)])
+def test_online_walk_matches_pallas_v2(b, h, sq, skv):
+    """The online 3xTF32 walk (`attn_fwd_v2`'s f32 body) within JAX's f32
+    limits of `_attn_kernel_v2` in interpret mode at unit amplitude: 4608
+    keys take the v2 route (over 4096, a multiple of 512), 4200 keys end in a
+    ragged tile of 40 (JAX takes them as one block)."""
+    arrays, tensors = _inputs(b, h, sq, skv, 1.0, 44)
+    q, k, v = arrays[:3]
+    ref = np.asarray(jfa.flash_attention_v2(q, k, v, scale=0.125, interpret=True), np.float32)
+    out = fwd_walk(*tensors[:3], 0.125, online=True).numpy().reshape(ref.shape)
+    np.testing.assert_allclose(out, ref, atol=FWD_TOL[0], rtol=FWD_TOL[1])
+    assert tfa.v2_route(sq, 4608) and not tfa.v2_route(sq, 4200)
+
+
+def test_online_walk_matches_pallas_v2_at_extreme_logits():
+    """JAX's extreme-logit case (row maxes near natural +100, past the static
+    shift's window; tests/test_flash_attention.py): the online walk stays
+    within the JAX test's limits (5e-5 / 1e-3) of `flash_attention_v2`."""
+    q, k, v = _extreme_qk(380.0, 0)
+    ref = np.asarray(jfa.flash_attention_v2(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                            scale=0.125, block_q=128, block_kv=128,
+                                            interpret=True))
+    out = fwd_walk(*(torch.from_numpy(a[0]) for a in (q, k, v)), 0.125, online=True)
+    assert np.all(np.isfinite(out.numpy()))
+    np.testing.assert_allclose(out.numpy()[None], ref, atol=5e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("seed", [27, 41])
+def test_online_walk_within_f32_limits_at_amplitude_3(seed):
+    """With q and k at amplitude 3 the online walk stays within JAX's f32
+    limits against float64 (4 heads, 256 queries over 4608 keys), as close
+    as the plain f32 version of attn_fwd_v2."""
+    _, tensors = _inputs(1, 4, 256, 4608, 3.0, seed)
+    walk = _fwd_ratio(tensors, online=True)
+    q, k, v = tensors[:3]
+    plain = _ratio(tfa.attn_fwd_v2_plain(q, k, v, 0.125).numpy(),
                    _float64_fwd(q, k, v, 0.125).numpy(), FWD_TOL)
     assert walk < 1.0 and walk < 1.5 * plain, (walk, plain)
 

@@ -39,12 +39,12 @@ def _unet_head_dims(cfg):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_tc_body_rule(dtype, d):
     """Head dim 64 takes a tensor-core body in bf16 in every form and in f32
-    (the trainer's type, held to JAX's f32 limits by 3xTF32) in the static
-    form only; every other head dim the CUDA-core one; an unknown form
+    (held to JAX's f32 limits by 3xTF32) in the static and online forms, not
+    the biased one; every other head dim the CUDA-core one; an unknown form
     raises."""
     for mode in ("static", "online", "bias"):
         assert tfa.tc_body(dtype, d, mode) == (
-            d == 64 and (dtype == torch.bfloat16 or mode == "static"))
+            d == 64 and (dtype == torch.bfloat16 or mode != "bias"))
     with pytest.raises(ValueError, match="mode"):
         tfa.tc_body(dtype, d, "v2")
 
@@ -52,13 +52,14 @@ def test_tc_body_rule(dtype, d):
 def test_tc_body_takes_every_full_width_unet_attention():
     """Every attention of the full-width UNet (heads 5, 10, 20 over 320, 640,
     1280 channels) has head dim 64: in bf16 all of them take a tensor-core
-    body in every form, in f32 in the static form (the trainer's) only."""
+    body in every form, in f32 in the static form (the trainer's) and the
+    online form (clips over 10.24 s), not the biased one."""
     dims = _unet_head_dims(configs.TANGO_UNET)
     assert dims == {64}
     assert all(tfa.tc_body(torch.bfloat16, d, m) for d in dims
                for m in ("static", "online", "bias"))
-    assert all(tfa.tc_body(torch.float32, d, "static") for d in dims)
-    assert not any(tfa.tc_body(torch.float32, d, m) for d in dims for m in ("online", "bias"))
+    assert all(tfa.tc_body(torch.float32, d, m) for d in dims for m in ("static", "online"))
+    assert not any(tfa.tc_body(torch.float32, d, "bias") for d in dims)
 
 
 def _misaligned(shape, dtype=torch.bfloat16):
@@ -81,14 +82,12 @@ def test_check_tc_aligned():
 def test_launch_checks_alignment_and_counts_tc(fn, monkeypatch):
     """The wrappers' launch path (with the C library replaced by a recorder
     that reports the body a C entry point would launch): a misaligned D = 64
-    view raises before any launch in bf16, and for attn_fwd in f32 too (its
-    3xTF32 body); an aligned one launches and counts the reported
-    tensor-core launch; attn_fwd_v2 in f32 or another head dim launches the
-    CUDA-core body with no alignment demand and no tc count; reset_counters
-    zeroes tc_launches."""
-    tc_types = [torch.bfloat16] + ([torch.float32] if fn is tfa.attn_fwd else [])
-    core = [_misaligned((2, 128, 32))] + ([] if fn is tfa.attn_fwd else
-                                          [_misaligned((2, 128, 64), torch.float32)])
+    view raises before any launch in bf16 and in f32 (the 3xTF32 bodies of
+    both forms); an aligned one launches and counts the reported
+    tensor-core launch; another head dim launches the CUDA-core body with no
+    alignment demand and no tc count; reset_counters zeroes tc_launches."""
+    tc_types = [torch.bfloat16, torch.float32]
+    core = [_misaligned((2, 128, 32)), _misaligned((2, 128, 32), torch.float32)]
     calls = fake_kernel_library(monkeypatch, [ops.TC_LAUNCHED] * len(tc_types) + [0] * len(core))
     ops.reset_counters()
     for dt in tc_types:
