@@ -37,13 +37,12 @@
 // with the kOnline carry instead, so the same bf16 remark holds. A row whose
 // keys are all masked (bias -10000) stays finite: the max is subtracted.
 //
-// Which body a call takes: tc_body(dtype, D, mode) below sends head dim 64
+// Which body a call takes: tc_body(dtype, D) (common.cuh) sends head dim 64
 // to the tensor-core bodies of attention_tc.cu (every attention of the
-// full-width UNet), the same arithmetic on wgmma: bf16 in all three forms,
-// f32 in the static form (the trainer's) and the online form (long clips),
-// held to JAX's f32 limits by 3xTF32 products; the entry point says so by
-// returning kTcLaunched. This file's body runs everything else: head dims 8,
-// 16, 32 and 128, and f32 in the biased form.
+// full-width UNet), the same arithmetic on wgmma, in all three forms: bf16,
+// and f32 held to JAX's f32 limits by 3xTF32 products; the entry point says
+// so by returning kTcLaunched. This file's body runs the other head dims: 8,
+// 16, 32 and 128.
 //
 // What bounds them on the H100: operations. At the UNet's shapes (S = 8192,
 // 4096, 1024, 256, head dim 64; Skv = 256 for the biased cross-attention)
@@ -290,19 +289,11 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, Bia
   }
 }
 
-// tc_body(dtype, D, mode): the rule by which the three entry points take a
-// tensor-core body: head dim 64, bf16 in every form, f32 in the static and
-// online ones (tc_body in ops/flash_attention.py is the same rule, for the
-// wrappers' alignment check; their counters read the kTcLaunched report).
-bool tc_body(int dtype, int D, int mode) {
-  return D == 64 && (dtype == kBF16 || (dtype == kF32 && mode != kBias));
-}
-
 template <int MODE>
 int dispatch(const void* q, const void* k, const void* v, void* o, BiasArg bias, int BH, int Sq,
              int Skv, int D, float qscale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tc_body(dtype, D, MODE))
+  if (tc_body(dtype, D))
     return tc_result(attn_fwd_tc(q, k, v, bias.ptr, bias.heads, bias.rows, o, BH, Sq, Skv,
                                  qscale, MODE, dtype == kF32, st));
   if (dtype == kF32)

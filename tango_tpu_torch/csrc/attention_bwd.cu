@@ -1,5 +1,5 @@
 // Backward of bias-free softmax attention, f32 accumulation: two kernels on
-// the CUDA cores, for the head dims that bwd_tc_body does not take (8, 16, 32
+// the CUDA cores, for the head dims that tc_body does not take (8, 16, 32
 // and 128; no attention of the UNet has them). f32 and bf16 at head dim 64,
 // every attention of the full-width UNet, run the tensor-core body of
 // attention_bwd_tc.cu from the same entry points.
@@ -63,12 +63,6 @@ cudaError_t attn_bwd_dq_tc(const void* q, const void* k, const void* v, const vo
 cudaError_t attn_bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                             const float* lse, const float* delta, void* dk, void* dv, int BH,
                             int Sq, int Skv, float scale, bool f32, cudaStream_t st);
-
-// bwd_tc_body(dtype, D): the rule by which tt_attn_bwd_dq and tt_attn_bwd_dkv
-// take the tensor-core body, f32 or bf16 at head dim 64, and then return
-// kTcLaunched (bwd_tc_body in ops/flash_attention.py is the same rule, for the
-// wrappers' alignment check; their counters read the report).
-bool bwd_tc_body(int dtype, int D) { return (dtype == kF32 || dtype == kBF16) && D == 64; }
 
 namespace {
 
@@ -414,7 +408,7 @@ int tt_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (tt::bwd_tc_body(dtype, D))
+  if (tt::tc_body(dtype, D))
     return tt::tc_result(tt::attn_bwd_dq_tc(q, k, v, dout, dq, l, dl, BH, Sq, Skv, scale,
                                             dtype == tt::kF32, st));
   if (dtype == tt::kF32)
@@ -431,7 +425,7 @@ int tt_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dou
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (tt::bwd_tc_body(dtype, D))
+  if (tt::tc_body(dtype, D))
     return tt::tc_result(tt::attn_bwd_dkv_tc(q, k, v, dout, l, dl, dk, dv, BH, Sq, Skv, scale,
                                              dtype == tt::kF32, st));
   if (dtype == tt::kF32)

@@ -1,14 +1,14 @@
 // Tensor-core bodies of the forward attention at head dim 64, on Hopper's
 // warpgroup matrix multiply (wgmma, sm_90a). The C entry points of
-// attention.cu take them where tc_body(dtype, D, mode) holds:
-//   * bf16 at D == 64, all three forms (tt_attn_fwd, tt_attn_fwd_v2,
-//     tt_attn_fwd_bias): attn_tc_kernel, bf16 products;
-//   * f32 at D == 64, the static form (tt_attn_fwd, every forward attention
-//     of the trainer) and the online form (tt_attn_fwd_v2, clips over
-//     10.24 s): attn_tc_f32_kernel, 3xTF32 products.
+// attention.cu take them where tc_body(dtype, D) holds, head dim 64, in all
+// three forms (tt_attn_fwd, tt_attn_fwd_v2, tt_attn_fwd_bias):
+//   * bf16: attn_tc_kernel, bf16 products;
+//   * f32 (the trainer's static form, clips over 10.24 s in the online
+//     form, long prompts in the biased form): attn_tc_f32_kernel, 3xTF32
+//     products.
 // Every attention of the full-width UNet has head dim 64 (heads 5, 10, 20
-// over 320, 640, 1280 channels). f32 in the biased form and the other head
-// dims keep attention.cu's CUDA-core body.
+// over 320, 640, 1280 channels). The other head dims keep attention.cu's
+// CUDA-core body.
 //
 // Replaces, as that body does, tango_tpu/ops/flash_attention.py:
 //   _attn_kernel (:56)      through tt_attn_fwd, the static-shift form;
@@ -66,13 +66,15 @@
 //     both wgmma's reads and the staging writes are free of bank conflicts.
 //     80 KB of shared memory a block: 2 blocks an SM, so one block's softmax
 //     overlaps the other's products.
-// The f32 body (static and online forms; the online one takes s + e, the
-// cross terms added, as the logit before the running max, and rescales acc
-// before its P V products are issued, while e, the P V cross terms, starts
-// afresh each tile) holds JAX's f32 limits (atol 2e-5, rtol 1e-4): one-product
-// TF32 misses them at unit amplitude, and 3xTF32 logits with split-bf16 P V
-// miss them with q and k at amplitude 3, so both products run in 3xTF32
-// (wgmma.cuh: hi/lo splits, the cross terms in their own accumulator):
+// The f32 body (all three forms; the online and biased ones take s + e, the
+// cross terms added, as the logit before the running max, the biased one
+// with bias * log2(e) as the logit accumulator's initial value, and rescale
+// acc before its P V products are issued, while e, the P V cross terms,
+// starts afresh each tile) holds JAX's f32 limits (atol 2e-5, rtol 1e-4):
+// one-product TF32 misses them at unit amplitude, and 3xTF32 logits with
+// split-bf16 P V miss them with q and k at amplitude 3, so both products run
+// in 3xTF32 (wgmma.cuh: hi/lo splits, the cross terms in their own
+// accumulator):
 //   * S = Qs K^T as wgmma m64n64k8 .tf32, both operands rows operands in
 //     shared memory; O += P V with P split in registers (Tf32A) and V staged
 //     transposed (a cols operand: .tf32 takes only K-major B, and cannot
@@ -358,12 +360,12 @@ __device__ __forceinline__ uint4 load_chunk(const float* head, int row, int c, i
   return *reinterpret_cast<const uint4*>(head + (int64_t)row * kD + c * 4);
 }
 
-// The static and online forms in f32 on 3xTF32 products (see the note at the top).
+// The three forms in f32 on 3xTF32 products (see the note at the top).
 template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-                   float qscale) {
+                   const float* __restrict__ v, float* __restrict__ o, Bias bias, int Sq,
+                   int Skv, float qscale) {
   constexpr int NC = kF32Keys, kPer = NC * 16 / kThreads;  // raw chunks a thread, each of K, V
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -378,6 +380,17 @@ attn_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kh = k + head * Skv * kD;
   const float* vh = v + head * Skv * kD;
   const int n = (Skv + NC - 1) / NC;
+
+  // the bias rows of this thread's rows r and r + 8 (a ragged row past Sq
+  // reads row Sq - 1)
+  const float* b0 = nullptr;
+  const float* b1 = nullptr;
+  if constexpr (MODE == kBias) {
+    const int r = q0 + wg * 64 + warp * 16 + (lane >> 2);
+    const float* bb = bias.ptr + (head / bias.heads) * (int64_t)bias.rows * Skv;
+    b0 = bb + (bias.rows == 1 ? 0 : (int64_t)min(r, Sq - 1) * Skv);
+    b1 = bb + (bias.rows == 1 ? 0 : (int64_t)min(r + 8, Sq - 1) * Skv);
+  }
 
   // the next tile's raw chunks, rows fastest: a warp holds 32 keys of one chunk
   uint4 rk[kPer], rv[kPer];
@@ -415,20 +428,31 @@ attn_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-  float m0 = -1e30f, m1 = -1e30f;  // running row maxes (kOnline)
+  float m0 = -1e30f, m1 = -1e30f;  // running row maxes (kOnline, kBias)
   float l0 = 0.0f, l1 = 0.0f;      // this thread's share of the two denominators
 
   for (int j = 0; j < n; ++j) {
     const uint32_t sK = base + kF32Q + (j & 1) * kF32Stage, sV = sK + kF32K;
+    const int k0 = j * NC, lim = Skv - k0;  // the tile's first key, its keys that exist
     float s[NC / 2], e[32];  // NC / 2 == 32: S, then P; the cross terms of S, then of P V
+    if constexpr (MODE == kBias) {
+      // bias * log2(e) is the logit accumulator's initial value: its loads
+      // are in flight while Q K^T is issued, and no loaded value waits in a
+      // register of its own beside S and its cross terms
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) {
+        const int col = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        s[i] = col < lim ? __ldg(((i & 2) ? b1 : b0) + k0 + col) * kLog2e : 0.0f;
+      }
+      fence_regs(s);
+    }
     wgmma_fence();
-    mma_tf32x3_ss<NC>(s, e, base, kRows, wg * 64, sK);
+    mma_tf32x3_ss<NC>(s, e, base, kRows, wg * 64, sK, MODE == kBias);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
     fence_regs(e);
 
-    const int lim = Skv - j * NC;  // keys of this tile that exist
     if constexpr (MODE == kStatic) {
 #pragma unroll
       for (int i = 0; i < NC / 2; ++i) {
@@ -508,14 +532,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, Bias bi
 }
 
 template <int MODE>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
-                       int Skv, float qscale, cudaStream_t st) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, Bias bias, int BH,
+                       int Sq, int Skv, float qscale, cudaStream_t st) {
   const int64_t blocks = (int64_t)BH * ((Sq + kRows - 1) / kRows);
   cudaError_t e = prepare(attn_tc_f32_kernel<MODE>, kF32Smem, blocks);
   if (e != cudaSuccess) return e;
   attn_tc_f32_kernel<MODE><<<(unsigned)blocks, kThreads, kF32Smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Sq, Skv, qscale);
+      static_cast<float*>(o), bias, Sq, Skv, qscale);
   return cudaGetLastError();
 }
 
@@ -524,14 +548,15 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
 cudaError_t attn_fwd_tc(const void* q, const void* k, const void* v, const float* bias,
                         int heads, int bias_rows, void* o, int BH, int Sq, int Skv, float qscale,
                         int mode, bool f32, cudaStream_t st) {
+  const Bias b{bias, heads, bias_rows};
   if (f32) {
     switch (mode) {
-      case kStatic: return launch_f32<kStatic>(q, k, v, o, BH, Sq, Skv, qscale, st);
-      case kOnline: return launch_f32<kOnline>(q, k, v, o, BH, Sq, Skv, qscale, st);
+      case kStatic: return launch_f32<kStatic>(q, k, v, o, b, BH, Sq, Skv, qscale, st);
+      case kOnline: return launch_f32<kOnline>(q, k, v, o, b, BH, Sq, Skv, qscale, st);
+      case kBias: return launch_f32<kBias>(q, k, v, o, b, BH, Sq, Skv, qscale, st);
       default: return cudaErrorInvalidValue;
     }
   }
-  const Bias b{bias, heads, bias_rows};
   switch (mode) {
     case kStatic: return launch<kStatic>(q, k, v, o, b, BH, Sq, Skv, qscale, st);
     case kOnline: return launch<kOnline>(q, k, v, o, b, BH, Sq, Skv, qscale, st);

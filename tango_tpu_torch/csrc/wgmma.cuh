@@ -3,7 +3,8 @@
 // swizzle, wgmma shared-memory descriptors, the cp.async ring's copies, the
 // proxy and wgmma fences, the register-A m64n64k16 bf16 product, the
 // shared-memory-A m64n64k16 bf16 product, the m64n128k32 s8 product, and the
-// 3xTF32 products of the f32 attention bodies (splits, staging, fragments).
+// 3xTF32 products of the f32 attention bodies and the f32 Winograd GEMM
+// (splits, staging, fragments).
 // gn_silu.cu's cluster body takes the cp.async copies. sm_90a only.
 #pragma once
 
@@ -143,8 +144,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // splits into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (x to ~2^-22),
 // and a b = a_hi b_hi + (a_hi b_lo + a_lo b_hi), the cross terms in an
 // accumulator of their own, added at the end in f32: the tensor cores round
-// every addition, so small terms are kept apart from the large sum (as
-// CUTLASS's 3xTF32 does). .tf32 wgmma takes K-major operands only.
+// every addition, so small terms are kept apart from the large sum; where
+// registers are short, the cross terms go first into the one accumulator
+// (mma_tf32x3_ss_folded, CUTLASS's order). .tf32 wgmma takes K-major
+// operands only.
 //
 // Two shared-memory layouts of 64-column f32 operands, both 128-byte
 // swizzled on 1024-byte aligned bases, each as tf32 hi then lo:
@@ -290,22 +293,49 @@ struct Mma<64> {
 #undef TT_D16
 #undef TT_ACC16
 
-// d = A B^T over the 64 head dims in 3xTF32 (issued, not waited for): A the
-// 64 rows from row a0 of a rows operand of ra rows at shared address a, B
-// the N rows of a rows operand at b; e receives the cross terms, to be added
-// to d once waited for.
+// d (+)= A B^T over the 64 head dims in 3xTF32 (issued, not waited for): A
+// the 64 rows from row a0 of a rows operand of ra rows at shared address a,
+// B the N rows of a rows operand at b; d is overwritten unless acc (then the
+// products add to what it holds); e receives the cross terms, to be added to
+// d once waited for.
 template <int N>
 __device__ __forceinline__ void mma_tf32x3_ss(float (&d)[N / 2], float (&e)[N / 2], uint32_t a,
-                                              int ra, int a0, uint32_t b) {
+                                              int ra, int a0, uint32_t b, int acc = 0) {
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     const int h = kk >> 2, o = (kk & 3) * 32;  // half of the row, bytes into it
     const uint32_t ah = a + h * ra * 128 + a0 * 128 + o, bh = b + h * N * 128 + o;
     const uint64_t a_hi = smem_desc(ah, 16, 1024), a_lo = smem_desc(ah + 2 * ra * 128, 16, 1024);
     const uint64_t b_hi = smem_desc(bh, 16, 1024), b_lo = smem_desc(bh + 2 * N * 128, 16, 1024);
-    Mma<N>::tf32(d, a_hi, b_hi, kk);
+    Mma<N>::tf32(d, a_hi, b_hi, kk > 0 || acc);
     Mma<N>::tf32(e, a_hi, b_lo, kk);
     Mma<N>::tf32(e, a_lo, b_hi, 1);
+  }
+}
+
+// d = A B^T over 64 columns in 3xTF32 with the cross terms in d itself
+// (issued, not waited for; operands as in mma_tf32x3_ss): the 16 cross-term
+// products first, from d = 0, then the 8 large ones, so the small terms add
+// up at their own scale before the large sum arrives (CUTLASS's 3xTF32
+// order). One accumulator instead of two, for a body whose registers hold
+// other sums (winograd_tc.cu's f32 GEMM); each call starts a fresh sum.
+template <int N>
+__device__ __forceinline__ void mma_tf32x3_ss_folded(float (&d)[N / 2], uint32_t a, int ra, int a0,
+                                                     uint32_t b) {
+#pragma unroll
+  for (int big = 0; big < 2; ++big) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int h = kk >> 2, o = (kk & 3) * 32;
+      const uint32_t ah = a + h * ra * 128 + a0 * 128 + o, bh = b + h * N * 128 + o;
+      const uint64_t a_hi = smem_desc(ah, 16, 1024), b_hi = smem_desc(bh, 16, 1024);
+      if (big) {
+        Mma<N>::tf32(d, a_hi, b_hi, 1);
+      } else {
+        Mma<N>::tf32(d, a_hi, smem_desc(bh + 2 * N * 128, 16, 1024), kk);
+        Mma<N>::tf32(d, smem_desc(ah + 2 * ra * 128, 16, 1024), b_hi, 1);
+      }
+    }
   }
 }
 

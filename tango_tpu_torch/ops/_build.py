@@ -53,8 +53,8 @@ _SIGNATURES = {
     "tt_w8a8_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, u, y, v, part, splits, B, Ci, H, W, Co, dtype, stream
     "tt_wino_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # w, u, Co, Ci, stream
-    "tt_wino_weight": [_P, _P, _I, _I, _P],
+    # w, u, Co, Ci, dtype, stream
+    "tt_wino_weight": [_P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

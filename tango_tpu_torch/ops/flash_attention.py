@@ -1,9 +1,8 @@
 """Attention kernels and their plain versions.
 
 Forward, three kernels of one tile loop in csrc/attention.cu, and at head
-dim 64 (`tc_body`: bf16 in all three, f32 in `attn_fwd` and `attn_fwd_v2`)
-tensor-core (wgmma) bodies of the same arithmetic in csrc/attention_tc.cu
-(f32: 3xTF32 products):
+dim 64 (`tc_body`: f32 and bf16, all three) tensor-core (wgmma) bodies of
+the same arithmetic in csrc/attention_tc.cu (f32: 3xTF32 products):
   * `attn_fwd` replaces `_attn_kernel` (tango_tpu/ops/flash_attention.py:56),
     the static-shift exp2 softmax with deferred division: q is prescaled by
     scale*log2(e) and rounded to the storage type, p = exp2(min(l - 20, 96)),
@@ -22,7 +21,7 @@ Backward, `attn_bwd_dq` and `attn_bwd_dkv` replace `_bwd_dq_kernel` and
 softmax, recomputed from q, k and v, with JAX's roundings (ds to the storage
 type before both products that take it, p to dO's type before dV = p^T dO).
 dq also writes the per-row lse and delta that dkv reads, as (BH, Sq) f32. In
-f32 and bf16 at head dim 64 (`bwd_tc_body`) both run the tensor-core body of
+f32 and bf16 at head dim 64 (`tc_body`) both run the tensor-core body of
 csrc/attention_bwd_tc.cu (f32: 3xTF32 products), other head dims the
 CUDA-core body of csrc/attention_bwd.cu.
 Bound on the H100: operations (see the CUDA files' notes).
@@ -51,12 +50,11 @@ SOFTMAX_CLAMP = 96.0
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 TC_HEAD_DIM = 64
 _SRC = "tango_tpu_torch/csrc/attention.cu"
-_TC_SRC = "tango_tpu_torch/csrc/attention_tc.cu"  # D = 64: bf16, and f32 static and online
+_TC_SRC = "tango_tpu_torch/csrc/attention_tc.cu"  # D = 64, f32 and bf16
 _BWD_SRC = "tango_tpu_torch/csrc/attention_bwd.cu"
 _BWD_TC_SRC = "tango_tpu_torch/csrc/attention_bwd_tc.cu"  # f32 and bf16 at D = 64, training's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS = 64  # query (or key) rows a block
-_MODES = ("static", "online", "bias")
 
 
 def kernel_shape_ok(bh: int, sq: int, skv: int, d: int) -> bool:
@@ -73,30 +71,16 @@ def v2_route(sq: int, skv: int) -> bool:
     return skv > 4096 and skv % 512 == 0 and sq % 128 == 0
 
 
-def tc_body(dtype: torch.dtype, d: int, mode: str) -> bool:
-    """Whether a forward attention of `mode` ("static" attn_fwd, "online"
-    attn_fwd_v2, "bias" attn_fwd_bias) runs on a tensor-core body
-    (csrc/attention_tc.cu) rather than the CUDA-core one: head dim 64, the
-    width of every attention of the full-width UNet, in bf16 in every form
-    and in f32 in the static form (the trainer's) and the online form (f32
-    clips over 10.24 s), 3xTF32 products keeping both within JAX's f32
-    limits. f32 in the biased form keeps the CUDA-core body. The C entry
-    points apply the same rule (`tc_body` in csrc/attention.cu); here it
+def tc_body(dtype: torch.dtype, d: int) -> bool:
+    """Whether an attention kernel, forward (attn_fwd, attn_fwd_v2,
+    attn_fwd_bias: csrc/attention_tc.cu) or backward (attn_bwd_dq,
+    attn_bwd_dkv: csrc/attention_bwd_tc.cu), runs on its tensor-core body
+    rather than the CUDA-core one: head dim 64, the width of every attention
+    of the full-width UNet, in f32 or bf16, in every form (f32 on 3xTF32
+    products, within JAX's f32 limits; the trainer's f32 included). The C
+    entry points apply the same rule (`tc_body` in csrc/common.cuh); here it
     decides the alignment check."""
-    if mode not in _MODES:
-        raise ValueError(f"tc_body: mode {mode!r} (one of {_MODES})")
-    return d == TC_HEAD_DIM and (dtype == torch.bfloat16
-                                 or (dtype == torch.float32 and mode != "bias"))
-
-
-def bwd_tc_body(dtype: torch.dtype, d: int) -> bool:
-    """Whether attn_bwd_dq and attn_bwd_dkv run on the tensor-core body
-    (csrc/attention_bwd_tc.cu) rather than the CUDA-core one: f32 or bf16 at
-    head dim 64, every attention of the full-width UNet, the trainer's f32
-    included (3xTF32 products keep it within JAX's f32 limits). The C entry
-    points apply the same rule (`bwd_tc_body` in csrc/attention_bwd.cu);
-    here it decides the alignment check."""
-    return dtype in (torch.float32, torch.bfloat16) and d == TC_HEAD_DIM
+    return d == TC_HEAD_DIM and dtype in (torch.float32, torch.bfloat16)
 
 
 def _check(name: str, q, k, v, *like_q) -> bool:
@@ -177,8 +161,7 @@ def _launch_fwd(fn, q, k, v, scale, bias=None, heads=1):
     a new output; the C entry point picks the body by `tc_body`, and
     fn.tc_launches counts the tensor-core ones it reports."""
     o = torch.empty_like(q)
-    mode = "bias" if bias is not None else "online" if fn is attn_fwd_v2 else "static"
-    tc = tc_body(q.dtype, q.shape[2], mode)
+    tc = tc_body(q.dtype, q.shape[2])
     if tc:
         check_tc_aligned(fn.__name__, q, k, v, *(() if bias is None else (bias,)), o)
     if bias is None:
@@ -250,7 +233,7 @@ def attn_fwd_bias(q, k, v, bias, heads: int, scale: float):
 
 
 attn_fwd_bias.tc_launches = 0
-attn_fwd_bias.core_source = _SRC  # the CUDA-core body, f32 and other D
+attn_fwd_bias.core_source = _SRC  # the CUDA-core body, other D
 
 
 def attn_bwd_dq_plain(q, k, v, do, scale: float):
@@ -280,13 +263,13 @@ def attn_bwd_dq(q, k, v, do, scale: float):
 
 def _launch_dq(q, k, v, do, scale):
     """Launch attn_bwd_dq into new outputs; the C entry point picks the body
-    by `bwd_tc_body`, and attn_bwd_dq.tc_launches counts the tensor-core
+    by `tc_body`, and attn_bwd_dq.tc_launches counts the tensor-core
     ones it reports."""
     bh, sq, d = q.shape
     dq = torch.empty_like(q)
     lse = torch.empty((bh, sq), device=q.device, dtype=torch.float32)
     delta = torch.empty_like(lse)
-    tc = bwd_tc_body(q.dtype, d)
+    tc = tc_body(q.dtype, d)
     if tc:
         check_tc_aligned("attn_bwd_dq", q, k, v, do, dq)
     count_tc(attn_bwd_dq, tc, _launch(
@@ -324,11 +307,11 @@ def attn_bwd_dkv(q, k, v, do, lse, delta, scale: float):
 
 def _launch_dkv(q, k, v, do, lse, delta, scale):
     """Launch attn_bwd_dkv into new outputs; the C entry point picks the body
-    by `bwd_tc_body`, and attn_bwd_dkv.tc_launches counts the tensor-core
+    by `tc_body`, and attn_bwd_dkv.tc_launches counts the tensor-core
     ones it reports."""
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    tc = bwd_tc_body(q.dtype, q.shape[2])
+    tc = tc_body(q.dtype, q.shape[2])
     if tc:
         check_tc_aligned("attn_bwd_dkv", q, k, v, do, dk, dv)
     count_tc(attn_bwd_dkv, tc, _launch(

@@ -10,14 +10,13 @@ with the 16 channel contractions M[pq] = V[pq] @ U[pq] accumulated in f32.
 V = B^T d B is computed in f32 and rounded to x.dtype, U = G g G^T likewise
 (tango_tpu/ops/winograd.py:74, 198): in bf16 both packages round there.
 
-Two bodies, chosen by `wino_tc_body(dtype)`: bf16 (every 3x3 stride-1
-convolution of the UNet in serving) runs the tensor-core body of
-`csrc/winograd_tc.cu` (V for all 16 points into scratch, then the 16
-contractions on bf16 `wgmma` with the output transform in registers), which
-takes U as (16, Co, Cs), K-major, Cs = Ci rounded up to 16 with zeros; f32
-runs the CUDA-core body of `csrc/winograd.cu`, U as (16, Ci, Co).
-The C entry point applies the same rule and reports the body it launched;
-`winograd_conv3x3.tc_launches` counts the tensor-core ones.
+Both types run the tensor-core body of `csrc/winograd_tc.cu`
+(`wino_tc_body`): V for all 16 points into scratch, then the 16
+contractions on `wgmma` with the output transform in registers, bf16
+products in bf16 and 3xTF32 products in f32 (one-product TF32 would miss
+JAX's f32 limit). It takes U as (16, Co, Cs), K-major, Cs = Ci rounded up to
+16 with zeros. The C entry point (`csrc/winograd.cu`) reports the body it
+launched; `winograd_conv3x3.tc_launches` counts the tensor-core launches.
 
 The port's layout is NCHW for x and y and OIHW for the weight, PyTorch's;
 `winograd_weight_transform` keeps JAX's (4, 4, Ci, Co) result. As in JAX,
@@ -39,12 +38,11 @@ import torch.nn.functional as F
 
 from tango_tpu_torch.ops import _build, count_tc, kernel_wrapper, reported_tc
 
-_SRC = "tango_tpu_torch/csrc/winograd.cu"  # the entry point and the CUDA-core body
-_TC_SRC = "tango_tpu_torch/csrc/winograd_tc.cu"
+_TC_SRC = "tango_tpu_torch/csrc/winograd_tc.cu"  # the bodies; the entry point is winograd.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32 = 2**31
-_TILES, _CO_BLOCK = 32, 32  # the CUDA-core body's 2x2 tiles and output channels a block
-_TC_TILES, _TC_CO = 128, 64  # the tensor-core body's 2x2 tiles and output channels a block
+_TC_TILES, _TC_CO = 128, 64  # the GEMM's 2x2 tiles and output channels a block
+_IN_TILES, _IN_F32_CHANNELS = 32, 16  # the input transform's tiles and f32 channels a block
 
 # F(2x2, 3x3) transform matrices (Lavin & Gray, arXiv:1509.09308)
 _MATRICES = {
@@ -81,36 +79,32 @@ def wino_supported(x_shape, k_shape, strides) -> bool:
 
 def wino_tc_body(dtype: torch.dtype) -> bool:
     """Whether winograd_conv3x3 runs on the tensor-core body
-    (csrc/winograd_tc.cu) rather than the CUDA-core one: bf16, any Ci (V and
-    U are zero-padded to Cs = Ci rounded up to 16 channels). f32 keeps the
-    CUDA-core body (one-product TF32 would miss JAX's f32 limit). The C entry
-    point applies the same rule (`wino_tc_body` in csrc/winograd.cu); here it
-    decides U's layout and the scratch."""
-    return dtype == torch.bfloat16
+    (csrc/winograd_tc.cu): f32 (3xTF32 products) and bf16, every type it
+    takes, at any Ci (V and U are zero-padded to Cs = Ci rounded up to 16
+    channels). The C entry point applies the same rule (`wino_tc_body` in
+    csrc/winograd.cu); the counter checks its report against this one."""
+    return dtype in _DTYPES
 
 
 def kernel_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """U = G w G^T of an OIHW weight, computed in f32 and rounded to `dtype`,
-    in the layout of the body `wino_tc_body` picks: (16, Co, Cs) with Cs = Ci
-    rounded up to 16 (zeros past Ci) for the tensor-core body, (16, Ci, Co)
-    for the CUDA-core one."""
+    in the body's layout: (16, Co, Cs) with Cs = Ci rounded up to 16 (zeros
+    past Ci)."""
     co, ci = w.shape[:2]
     u = winograd_weight_transform(w.float()).to(dtype).reshape(16, ci, co)
-    if not wino_tc_body(dtype):
-        return u.contiguous()
     return F.pad(u.transpose(1, 2), (0, -ci % 16)).contiguous()
 
 
-def weight_tc(w: torch.Tensor) -> torch.Tensor:
-    """U of the tensor-core body from an OIHW weight on the card, by its own
-    kernel (`tt_wino_weight`): the same values and layout as
-    `kernel_weight(w, torch.bfloat16)` (the f32 sums of halves in another
-    order at most)."""
+def weight_tc(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """U of the tensor-core body in `dtype` from an OIHW weight on the card,
+    by its own kernel (`tt_wino_weight`): the same values and layout as
+    `kernel_weight(w, dtype)` (the f32 sums of halves in another order at
+    most)."""
     co, ci = w.shape[:2]
     wf = w.float().contiguous()
-    u = torch.empty((16, co, ci + -ci % 16), device=w.device, dtype=torch.bfloat16)
+    u = torch.empty((16, co, ci + -ci % 16), device=w.device, dtype=dtype)
     lib = _build.load()
-    _build.check(lib, lib.tt_wino_weight(wf.data_ptr(), u.data_ptr(), co, ci,
+    _build.check(lib, lib.tt_wino_weight(wf.data_ptr(), u.data_ptr(), co, ci, _DTYPES[dtype],
                                          torch.cuda.current_stream(w.device).cuda_stream),
                  "winograd_conv3x3")
     return u
@@ -132,14 +126,13 @@ def wino_splits(tiles: int, co: int, sms: int) -> int:
 
 def kernel_shape_ok(x_shape, co: int) -> bool:
     """Whether the kernel takes x (B, Ci, H, W) to Co channels: the block
-    counts of either body fit grid.x (2^31 - 1) and grid.y (65535), the
-    dimensions 32 bits."""
+    counts of its GEMM and input transform (in f32, the type with fewer
+    channels a block) fit grid.x (2^31 - 1), the dimensions 32 bits."""
     b, ci, h, w = x_shape
-    tiles = (h // 2) * (w // 2)
-    return (b * math.ceil(tiles / _TILES) < _INT32 and math.ceil(co / _CO_BLOCK) <= 65535
-            and math.ceil(b * tiles / _TC_TILES) * 16 * math.ceil(co / _TC_CO) < _INT32
-            and math.ceil(b * tiles / 32) * math.ceil((ci + -ci % 16) / 32) < _INT32
-            and max(ci, h * w, co) < _INT32)
+    tiles = b * (h // 2) * (w // 2)
+    return (math.ceil(tiles / _TC_TILES) * 16 * math.ceil(co / _TC_CO) < _INT32
+            and math.ceil(tiles / _IN_TILES) * math.ceil((ci + -ci % 16) / _IN_F32_CHANNELS)
+            < _INT32 and max(ci, h * w, co) < _INT32)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -186,43 +179,38 @@ def winograd_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"winograd_conv3x3: no kernel for device {x.device}")
     if w.device != x.device:
         raise ValueError("winograd_conv3x3: w must be on x's device")
-    u = weight_tc(w) if wino_tc_body(x.dtype) else kernel_weight(w, x.dtype)
-    return launch(x.contiguous(), u, w.shape[0])
+    return launch(x.contiguous(), weight_tc(w, x.dtype), w.shape[0])
 
 
 def launch(x: torch.Tensor, u: torch.Tensor, co: int) -> torch.Tensor:
     """The kernel alone: launch winograd_conv3x3 on a contiguous CUDA x
     (B, Ci, H, W) with U from `kernel_weight(w, x.dtype)` (or `weight_tc`)
-    into a new (B, Co, H, W) output; the C entry point picks the body by
-    `wino_tc_body`, and winograd_conv3x3.tc_launches counts the tensor-core
-    ones it reports."""
+    into a new (B, Co, H, W) output; winograd_conv3x3.tc_launches counts the
+    tensor-core launches the C entry point reports."""
     b, ci, h, ww = x.shape
     y = torch.empty((b, co, h, ww), device=x.device, dtype=x.dtype)
-    tc = wino_tc_body(x.dtype)
-    v = part = None
-    splits = 1
-    if tc:  # the tensor-core body's scratch: V (16, tiles, Cs), the splits' partial sums
-        tiles = b * (h // 2) * (ww // 2)
-        v = torch.empty((16, tiles, ci + -ci % 16), device=x.device, dtype=x.dtype)
-        splits = wino_splits(tiles, co, torch.cuda.get_device_properties(
-            x.device).multi_processor_count)
-        if splits > 1:
-            part = torch.empty((splits, b, co, h, ww), device=x.device, dtype=torch.float32)
+    # the scratch: V (16, tiles, Cs), and the splits' partial sums
+    tiles = b * (h // 2) * (ww // 2)
+    v = torch.empty((16, tiles, ci + -ci % 16), device=x.device, dtype=x.dtype)
+    splits = wino_splits(tiles, co, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    part = None
+    if splits > 1:
+        part = torch.empty((splits, b, co, h, ww), device=x.device, dtype=torch.float32)
     lib = _build.load()
     code = lib.tt_wino_conv3x3(
-        x.data_ptr(), u.data_ptr(), y.data_ptr(), v.data_ptr() if tc else None,
+        x.data_ptr(), u.data_ptr(), y.data_ptr(), v.data_ptr(),
         part.data_ptr() if splits > 1 else None, splits, b, ci, h, ww, co, _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     ran = reported_tc(lib, code, "winograd_conv3x3")
     winograd_conv3x3.launches += 1
     winograd_conv3x3.shapes.add((tuple(x.shape), (co, ci, 3, 3)))
-    count_tc(winograd_conv3x3, tc, ran)
+    count_tc(winograd_conv3x3, wino_tc_body(x.dtype), ran)
     return y
 
 
 winograd_conv3x3.tc_launches = 0
-winograd_conv3x3.core_source = _SRC  # the CUDA-core body: f32
 
 
 class _WinogradConv(torch.autograd.Function):

@@ -136,31 +136,36 @@ def _misaligned(shape, dtype=torch.bfloat16):
 
 
 def test_bias_launch_checks_alignment_and_counts_tc(monkeypatch):
-    """attn_fwd_bias's launch path with a recording kernel library: in bf16
-    at D = 64 a misaligned q or bias raises before any launch; an aligned
-    call counts the reported tensor-core launch and passes the bias rows and
-    heads; f32 and another head dim launch the CUDA-core body with no
-    alignment demand and no tc count; reset_counters zeroes tc_launches."""
+    """attn_fwd_bias's launch path with a recording kernel library: at D = 64
+    a misaligned q or bias raises before any launch, in bf16 and in f32 (the
+    3xTF32 body); an aligned call counts the reported tensor-core launch and
+    passes the bias rows and heads; another head dim, in either type,
+    launches the CUDA-core body with no alignment demand and no tc count;
+    reset_counters zeroes tc_launches."""
     args = []
-    calls = fake_kernel_library(monkeypatch, [ops.TC_LAUNCHED, 0, 0], args)
+    calls = fake_kernel_library(monkeypatch, [ops.TC_LAUNCHED] * 2 + [0] * 2, args)
     ops.reset_counters()
     fn = tfa.attn_fwd_bias
-    good = torch.zeros(4, 128, 64, dtype=torch.bfloat16)
     bias = torch.zeros(2, 1, 128)
-    with pytest.raises(ValueError, match="16-byte"):
-        tfa._launch_fwd(fn, _misaligned((4, 128, 64)), good, good, 0.125, bias, 2)
-    with pytest.raises(ValueError, match="16-byte"):
-        tfa._launch_fwd(fn, good, good, good, 0.125, _misaligned((2, 1, 128), torch.float32), 2)
+    for dt in (torch.bfloat16, torch.float32):
+        good = torch.zeros(4, 128, 64, dtype=dt)
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa._launch_fwd(fn, _misaligned((4, 128, 64), dt), good, good, 0.125, bias, 2)
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa._launch_fwd(fn, good, good, good, 0.125, _misaligned((2, 1, 128), torch.float32),
+                            2)
     assert calls == [] and fn.tc_launches == 0
-    tfa._launch_fwd(fn, good, good, good, 0.125, bias, 2)
-    assert fn.launches == 1 and fn.tc_launches == 1
+    for dt in (torch.bfloat16, torch.float32):
+        good = torch.zeros(4, 128, 64, dtype=dt)
+        tfa._launch_fwd(fn, good, good, good, 0.125, bias, 2)
+    assert fn.launches == 2 and fn.tc_launches == 2
     # q, k, v, bias, o pointers, then BH, Sq, Skv, D, heads, bias rows, qscale, dtype, stream
-    assert args[0][5:11] == (4, 128, 128, 64, 2, 1)
-    f32 = _misaligned((4, 128, 64), torch.float32)
-    narrow = _misaligned((4, 128, 32))
-    tfa._launch_fwd(fn, f32, f32, f32, 0.125, _misaligned((2, 1, 128), torch.float32), 2)
-    tfa._launch_fwd(fn, narrow, narrow, narrow, 0.125, bias, 2)
-    assert fn.launches == 3 and fn.tc_launches == 1 and calls == ["tt_attn_fwd_bias"] * 3
+    assert args[0][5:11] == (4, 128, 128, 64, 2, 1) and [a[12] for a in args] == [1, 0]
+    for dt in (torch.bfloat16, torch.float32):
+        narrow = _misaligned((4, 128, 32), dt)
+        tfa._launch_fwd(fn, narrow, narrow, narrow, 0.125, _misaligned((2, 1, 128), torch.float32),
+                        2)
+    assert fn.launches == 4 and fn.tc_launches == 2 and calls == ["tt_attn_fwd_bias"] * 4
     ops.reset_counters()
     assert fn.launches == 0 and fn.tc_launches == 0
 
@@ -171,8 +176,8 @@ def test_bias_tc_launches_count_the_entry_points_report(monkeypatch):
     fake_kernel_library(monkeypatch, [0, ops.TC_LAUNCHED, 700, ops.TC_LAUNCHED])
     ops.reset_counters()
     fn = tfa.attn_fwd_bias
-    tc = torch.zeros(2, 128, 64, dtype=torch.bfloat16)
-    core = torch.zeros(2, 128, 64)
+    tc = torch.zeros(2, 128, 64)
+    core = torch.zeros(2, 128, 32)
     bias = torch.zeros(1, 1, 128)
     with pytest.raises(RuntimeError, match="CUDA-core body against"):
         tfa._launch_fwd(fn, tc, tc, tc, 0.125, bias, 2)

@@ -1,7 +1,7 @@
 """The backward tensor-core body (csrc/attention_bwd_tc.cu) on the CPU.
 
 The CUDA body itself runs only on the card (`chip_smoke.py` holds it against
-the plain versions there). Here: the rule that picks it (`bwd_tc_body`), the
+the plain versions there). Here: the rule that picks it (`tc_body`), the
 wrappers' alignment check and counters for it, and `bwd_walk`, a plain-torch
 emulation of its arithmetic: the products under the body's splits (f32:
 3xTF32 with round-to-nearest-away splits for all five products, the logits
@@ -51,19 +51,19 @@ def _unet_head_dims(cfg):
 @pytest.mark.parametrize("d", tfa.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bwd_tc_body_rule(dtype, d):
-    """f32 and bf16 at head dim 64 take the tensor-core body; every other
-    head dim the CUDA-core one."""
-    assert tfa.bwd_tc_body(dtype, d) == (d == 64)
+    """The backward kernels take the forward's rule, `tc_body`: f32 and bf16
+    at head dim 64 take the tensor-core body; every other head dim the
+    CUDA-core one."""
+    assert tfa.tc_body(dtype, d) == (d == 64)
 
 
 def test_bwd_tc_body_takes_every_full_width_unet_attention():
-    """Every attention of the full-width UNet has head dim 64: its backward
-    takes the tensor-core body in the trainer's f32 and in bf16, and so does
-    the f32 forward the trainer runs (the static form)."""
+    """Every attention of the full-width UNet has head dim 64: its backward,
+    like its forward, takes the tensor-core body in the trainer's f32 and in
+    bf16."""
     dims = _unet_head_dims(configs.TANGO_UNET)
     assert dims == {64}
-    assert all(tfa.bwd_tc_body(dt, d) for d in dims for dt in (torch.float32, torch.bfloat16))
-    assert all(tfa.tc_body(torch.float32, d, "static") for d in dims)
+    assert all(tfa.tc_body(dt, d) for d in dims for dt in (torch.float32, torch.bfloat16))
 
 
 def _misaligned(shape, dtype=torch.float32):

@@ -1,7 +1,7 @@
 """The f32 tensor-core attention bodies on the CPU: the forward of
-csrc/attention_tc.cu (`attn_fwd` and `attn_fwd_v2` in f32 at head dim 64)
-and the gradient products of csrc/attention_bwd_tc.cu, both on 3xTF32
-products.
+csrc/attention_tc.cu (`attn_fwd`, `attn_fwd_v2` and `attn_fwd_bias` in f32
+at head dim 64) and the gradient products of csrc/attention_bwd_tc.cu, both
+on 3xTF32 products.
 
 The CUDA bodies run only on the card (`chip_smoke.py` holds them against the
 plain versions and float64 there). Here: `fwd_walk`, a plain-torch emulation
@@ -11,7 +11,11 @@ the running max, f32 denominators), held to JAX's f32 forward limits (atol
 2e-5, rtol 1e-4, tests/test_flash_attention.py) against
 `flash_attention(interpret=True)` and, in its online form,
 `flash_attention_v2(interpret=True)` at unit amplitude, JAX's extreme-logit
-case, and against float64 with q and k at amplitude 3; two tests
+case, and against float64 with q and k at amplitude 3; in its biased form
+(bias * log2 e added to the 3xTF32 logits before the running max) against
+`flash_attention(bias=..., interpret=True)` with one bias row and a row a
+query at ragged Sq and Skv, with a fully masked batch row, and against
+float64 at amplitude 3 at the long prompt's shapes; two tests
 that pin why both products take 3xTF32 (one-product TF32 misses the limits
 at unit amplitude, split-bf16 P V at amplitude 3); and the backward's
 3xTF32 gradient products (tests/test_torch_attn_bwd_tc.py's `bwd_walk`)
@@ -37,7 +41,7 @@ FWD_TOL = (2e-5, 1e-4)  # JAX's f32 forward limits
 TILE = 64  # keys a K/V tile of the f32 forward body
 
 
-def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32", online=False):
+def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32", online=False, bias=None, heads=1):
     """The f32 forward body's arithmetic on (BH, S, 64) f32 tensors: qs = q *
     qscale in f32, 64-key tiles (the last one ragged), s = qs . k and acc +=
     p . v under the given product schemes (`product`: "3xtf32", "tf32",
@@ -45,7 +49,12 @@ def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32", online=False):
     exp2(min(s - 20, 96)), a zero row where the denominator underflows.
     Online form (`attn_fwd_v2`): the running max m' = max(m, max s) from m =
     -1e30, acc and the denominators rescaled by exp2(m - m') before the
-    tile's P V, p = exp2(s - m'), o = acc / denominator."""
+    tile's P V, p = exp2(s - m'), o = acc / denominator. Biased form
+    (`attn_fwd_bias`, with `bias` (B, 1 | Sq, Skv) f32, head bh adding batch
+    row bh // heads): s += bias * log2 e, then the online form."""
+    online = online or bias is not None
+    if bias is not None:
+        bias = bias.repeat_interleave(heads, 0) * torch.tensor(np.float32(tfa.LOG2_E))
     qs = q * tfa._qscale(scale)
     bh, sq, d = q.shape
     den = torch.zeros(bh, sq, 1)
@@ -53,6 +62,8 @@ def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32", online=False):
     m = torch.full((bh, sq, 1), -1e30)
     for k0 in range(0, k.shape[1], TILE):
         s = product(qs, k[:, k0:k0 + TILE].transpose(-1, -2), logit)
+        if bias is not None:
+            s = s + bias[..., k0:k0 + TILE]
         if online:
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             alpha = torch.exp2(m - m_new)
@@ -67,9 +78,12 @@ def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32", online=False):
     return acc / torch.where(den == 0.0, torch.ones_like(den), den)
 
 
-def _float64_fwd(q, k, v, scale):
+def _float64_fwd(q, k, v, scale, bias=None, heads=1):
     q, k, v = (t.double() for t in (q, k, v))
-    return torch.softmax(q @ k.transpose(-1, -2) * scale, -1) @ v
+    logits = q @ k.transpose(-1, -2) * scale
+    if bias is not None:
+        logits = logits + bias.double().repeat_interleave(heads, 0)
+    return torch.softmax(logits, -1) @ v
 
 
 def _fwd_ratio(tensors, logit="3xtf32", pv="3xtf32", online=False):
@@ -183,3 +197,75 @@ def test_3xtf32_gradients_match_f32_gradients_at_amplitude_3(seed):
     tf32x3 = _worst_ratio("3xtf32", "3xtf32", tensors)
     assert tf32x3 <= 1.1 * _worst_ratio("3xtf32", "f32", tensors)
     assert tf32x3 < 0.5
+
+
+# ----------------------------------------------------- the biased form (f32)
+
+def _padding_bias(b, rows, skv, keep, seed, noise=True):
+    """A bias (B, rows, Skv) f32: the reference's padding mask (0 for the
+    first keep[i] keys of batch row i, -10000 after), plus unit noise where
+    `noise`, so that the max moves from tile to tile."""
+    bias = np.where(np.arange(skv)[None, None, :] < np.asarray(keep)[:, None, None], 0.0,
+                    -10000.0)
+    bias = np.broadcast_to(bias, (b, rows, skv))
+    if noise:
+        bias = bias + np.random.RandomState(seed).randn(b, rows, skv)
+    return np.ascontiguousarray(bias, np.float32)
+
+
+def _pallas_bias(arrays, bias):
+    q, k, v = arrays[:3]
+    return np.asarray(jfa.flash_attention(q, k, v, bias=jnp.asarray(bias)[:, None], scale=0.125,
+                                          interpret=True), np.float32)
+
+
+BIAS_CASES = {
+    "one_row": (2, 2, 256, 256, 1, (200, 150)),
+    "ragged": (2, 2, 200, 333, 1, (300, 20)),
+    "ragged_sq_rows": (2, 1, 200, 333, 200, (333, 90)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BIAS_CASES))
+def test_bias_walk_matches_pallas(case):
+    """The biased 3xTF32 walk (`attn_fwd_bias`'s f32 body) within JAX's f32
+    limits of `_attn_kernel_bias` in interpret mode at unit amplitude: one
+    bias row and a row a query, ragged Sq and Skv (333 keys: a last tile of
+    13)."""
+    b, h, sq, skv, rows, keep = BIAS_CASES[case]
+    arrays, tensors = _inputs(b, h, sq, skv, 1.0, 45)
+    bias = _padding_bias(b, rows, skv, keep, 46)
+    ref = _pallas_bias(arrays, bias)
+    out = fwd_walk(*tensors[:3], 0.125, bias=torch.from_numpy(bias), heads=h)
+    np.testing.assert_allclose(out.numpy().reshape(ref.shape), ref, atol=FWD_TOL[0],
+                               rtol=FWD_TOL[1])
+
+
+def test_bias_walk_with_a_fully_masked_batch_row():
+    """A batch row whose keys are all masked (bias -10000 on every key)
+    stays finite, as JAX's: its base-2 logits sit near -14427, where an f32
+    keeps 2^-10 of absolute precision, so p carries up to ~7e-4 of relative
+    rounding in both; atol 1e-3 on that row (chip_smoke.py's), JAX's f32
+    limits on the other."""
+    arrays, tensors = _inputs(2, 2, 256, 256, 1.0, 47)
+    bias = _padding_bias(2, 1, 256, (100, 0), 48, noise=False)
+    ref = _pallas_bias(arrays, bias)
+    out = fwd_walk(*tensors[:3], 0.125, bias=torch.from_numpy(bias), heads=2)
+    out = out.numpy().reshape(ref.shape)
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out[0], ref[0], atol=FWD_TOL[0], rtol=FWD_TOL[1])
+    np.testing.assert_allclose(out[1], ref[1], atol=1e-3, rtol=0.0)
+
+
+@pytest.mark.parametrize("seed", [27, 41])
+def test_bias_walk_within_f32_limits_at_amplitude_3(seed):
+    """With q and k at amplitude 3 the biased walk stays within JAX's f32
+    limits against float64 at the long prompt's shape at the UNet's first
+    level, cut to 4 heads of 1024 queries (256 keys, one padding-mask row a
+    batch row, 40 and 7 open keys), as close as the plain f32 version."""
+    _, (q, k, v, _) = _inputs(2, 2, 1024, 256, 3.0, seed)
+    bias = torch.from_numpy(_padding_bias(2, 1, 256, (40, 7), seed, noise=False))
+    exact = _float64_fwd(q, k, v, 0.125, bias, 2).numpy()
+    walk = _ratio(fwd_walk(q, k, v, 0.125, bias=bias, heads=2).numpy(), exact, FWD_TOL)
+    plain = _ratio(tfa.attn_fwd_bias_plain(q, k, v, bias, 2, 0.125).numpy(), exact, FWD_TOL)
+    assert walk < 1.0 and walk < 1.5 * plain, (walk, plain)

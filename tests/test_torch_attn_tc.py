@@ -38,28 +38,21 @@ def _unet_head_dims(cfg):
 @pytest.mark.parametrize("d", tfa.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_tc_body_rule(dtype, d):
-    """Head dim 64 takes a tensor-core body in bf16 in every form and in f32
-    (held to JAX's f32 limits by 3xTF32) in the static and online forms, not
-    the biased one; every other head dim the CUDA-core one; an unknown form
-    raises."""
-    for mode in ("static", "online", "bias"):
-        assert tfa.tc_body(dtype, d, mode) == (
-            d == 64 and (dtype == torch.bfloat16 or mode != "bias"))
-    with pytest.raises(ValueError, match="mode"):
-        tfa.tc_body(dtype, d, "v2")
+    """Head dim 64 takes a tensor-core body in bf16 and in f32 (held to JAX's
+    f32 limits by 3xTF32), in every form; every other head dim the CUDA-core
+    one; a type the kernels do not take has no tensor-core body."""
+    assert tfa.tc_body(dtype, d) == (d == 64)
+    assert not tfa.tc_body(torch.float16, d)
 
 
 def test_tc_body_takes_every_full_width_unet_attention():
     """Every attention of the full-width UNet (heads 5, 10, 20 over 320, 640,
-    1280 channels) has head dim 64: in bf16 all of them take a tensor-core
-    body in every form, in f32 in the static form (the trainer's) and the
-    online form (clips over 10.24 s), not the biased one."""
+    1280 channels) has head dim 64: all of them take a tensor-core body, in
+    bf16 and in f32 (the trainer's static form, clips over 10.24 s in the
+    online form, long prompts in the biased form)."""
     dims = _unet_head_dims(configs.TANGO_UNET)
     assert dims == {64}
-    assert all(tfa.tc_body(torch.bfloat16, d, m) for d in dims
-               for m in ("static", "online", "bias"))
-    assert all(tfa.tc_body(torch.float32, d, m) for d in dims for m in ("static", "online"))
-    assert not any(tfa.tc_body(torch.float32, d, "bias") for d in dims)
+    assert all(tfa.tc_body(dt, d) for d in dims for dt in (torch.bfloat16, torch.float32))
 
 
 def _misaligned(shape, dtype=torch.bfloat16):
@@ -83,9 +76,11 @@ def test_launch_checks_alignment_and_counts_tc(fn, monkeypatch):
     """The wrappers' launch path (with the C library replaced by a recorder
     that reports the body a C entry point would launch): a misaligned D = 64
     view raises before any launch in bf16 and in f32 (the 3xTF32 bodies of
-    both forms); an aligned one launches and counts the reported
-    tensor-core launch; another head dim launches the CUDA-core body with no
-    alignment demand and no tc count; reset_counters zeroes tc_launches."""
+    every form; attn_fwd_bias's own test is in
+    tests/test_torch_attn_bias_tc.py); an aligned one launches and counts
+    the reported tensor-core launch; another head dim launches the CUDA-core
+    body with no alignment demand and no tc count; reset_counters zeroes
+    tc_launches."""
     tc_types = [torch.bfloat16, torch.float32]
     core = [_misaligned((2, 128, 32)), _misaligned((2, 128, 32), torch.float32)]
     calls = fake_kernel_library(monkeypatch, [ops.TC_LAUNCHED] * len(tc_types) + [0] * len(core))

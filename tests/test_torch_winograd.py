@@ -136,5 +136,7 @@ def test_wrapper_checks_and_cpu_route():
         twin.winograd_conv3x3(x.half(), w)
     with pytest.raises(RuntimeError, match="no kernel"):
         twin.winograd_conv3x3(x.to("meta"), w.to("meta"))
-    assert not twin.kernel_shape_ok((1, 4, 2, 2), 32 * 65536)
+    # the GEMM's (tile block, split, channel block) grid past 2^31 - 1 blocks
+    assert not twin.kernel_shape_ok((65536, 4, 128, 128), 4096)
+    assert twin.kernel_shape_ok((65536, 4, 128, 128), 4032)
     assert twin.kernel_shape_ok((2, 2560, 32, 2), 1280)
