@@ -24,7 +24,10 @@ Phases, one short JSON line each:
            by one uncounted 1-step generate first. On every serving path
            (these and int8, int8_conv) each attn_fwd / attn_fwd_v2 /
            attn_fwd_bias launch is bf16 at head dim 64 and must have taken
-           the tensor-core body (tc_launches == launches);
+           the tensor-core body (tc_launches == launches); on every counted
+           path (these, int8, int8_conv and train) each gn_silu_fwd launch
+           must have taken its thread-block-cluster body (cluster_launches
+           == launches);
   int8     the int8 W8A8 serving mode: a full-width Tango.from_components(
            quant="all") built from the bf16 model's state dicts (the same
            weights, quantized once on the card), one uncounted 1-step
@@ -63,8 +66,9 @@ Phases, one short JSON line each:
            seven kernels of training, forward and backward, must have
            launched; every f32 attn_fwd (3xTF32), attn_bwd_dq and attn_bwd_dkv
            launch (head dim 64) must have taken its tensor-core body
-           (tc_launches == launches), and every gn_silu_bwd launch its
-           thread-block-cluster body (cluster_launches == launches). Every
+           (tc_launches == launches), and every gn_silu_fwd and gn_silu_bwd
+           launch its thread-block-cluster body (cluster_launches ==
+           launches). Every
            loss must be finite, and
            the parameters must change after the 2nd and 4th micro-step only;
   kernels  every kernel against its plain PyTorch version at every shape
@@ -99,16 +103,21 @@ Phases, one short JSON line each:
            there the plain versions' own f32 error reaches ~0.65 of that
            limit; phase `bwd_amplitude` logs all three distances' shares
            and the max-abs and max-rel differences), and against a
-           misaligned view, which must raise. gn_silu_bwd at every training
-           shape in both types, each call held to the body
+           misaligned view, which must raise. gn_silu_fwd at every launched
+           shape and gn_silu_bwd at every training shape, in both types,
+           each call held to the body `gn_fwd_cluster_size` /
            `gn_bwd_cluster_size` names (all of them the cluster body;
-           --detail rows carry each launch's cluster size and CTAs), and its
-           streaming body at GN_BWD_STREAMING, checked only. Then
+           --detail rows carry each launch's cluster size and CTAs), and
+           their streaming bodies at GN_FWD_STREAMING / GN_BWD_STREAMING,
+           checked only; gn_silu_fwd's host time per call at HOST_US_SHAPE
+           (1000 back-to-back calls, `host_us_per_call`). Then
            one shape past each of the wrappers' old launch limits (LIMIT_*),
-           checked, not timed; its gn_silu_bwd also held to the rule.
+           checked, not timed; its gn_silu_fwd and gn_silu_bwd also held to
+           their rules.
            Kernel, plain and library device times per call (bf16 inputs, and
-           f32 as well for the backward kernels; 10 calls captured in a CUDA
-           graph, median of 10 replays between CUDA events), summed over the
+           f32 as well for the GroupNorm kernels and the backward kernels;
+           10 calls captured in a CUDA graph, median of 10 replays between
+           CUDA events), summed over the
            kernel's shapes (--detail: per shape, with TFLOP/s for the
            attention kernels and each shape's share of its bound). The
            library yardsticks: F.group_norm(+F.silu),
@@ -195,6 +204,9 @@ LONG_PROMPT_TOKENS = 256
 LIMIT_ROWS_SHAPE = (70, 960, 256, 16)
 LIMIT_GN_SHAPE = (256, 128, 1024, 64)
 LIMIT_HEADS = 70000
+# gn_silu_fwd's host cost per call: a small bf16 map (the UNet's last level
+# at CFG batch 2), where the card is quicker than the host
+HOST_US_SHAPE = (2, 1280, 8, 8)
 # ragged shapes and one tile for the tensor-core attention body, checked
 # only: ((BH, Sq, D), (BH, Skv, D)) for attn_fwd and attn_fwd_v2
 TC_SHAPES = {
@@ -226,6 +238,13 @@ PATH_KERNELS = {
               "attn_bwd_dkv", "gn_silu_bwd"),
     "int8": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd", "w8a8_matmul"),
 }
+# gn_silu_fwd's streaming body, which every path's shape leaves for the
+# cluster body, checked only: a misaligned view (offset one element) of a
+# serving shape, a bf16 map whose HW is no whole number of packets, and a
+# group too large for 16 CTAs' shared memory (4 MiB of f32); (shape, dtype,
+# offset)
+GN_FWD_STREAMING = (((2, 320, 256, 16), torch.bfloat16, 1), ((2, 64, 5, 5), torch.bfloat16, 0),
+                    ((1, 32, 1024, 1024), torch.float32, 0))
 # gn_silu_bwd's streaming body, which every training shape leaves for the
 # cluster body, checked only: a group too large for 8 CTAs' shared memory
 # (2 MiB of f32 x and g), a misaligned view (offset one element) of a
@@ -283,6 +302,18 @@ def cuda_ms(fn, reps: int = 10, per_graph: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / per_graph)
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host µs per call of `fn`: the wall clock over `calls` back-to-back calls
+    after a warm one, to the last call's end on the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def device_ms(fn, calls: int) -> dict:
@@ -373,10 +404,11 @@ class KernelCase:
 
     def add_time_f32(self, ms, plain_ms, lib_ms, bound, by, shape, flops=None, **extra):
         if self.f32 is None:
-            self.f32 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                         ("bound_ms", bound)):
+            self.f32 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0}
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound)):
             self.f32[key] += val
+        if lib_ms is not None:
+            self.f32["library_ms"] = (self.f32["library_ms"] or 0.0) + lib_ms
         self.detail.append(dict(shape=shape, dtype="f32", ms=ms, plain_ms=plain_ms,
                                 library_ms=lib_ms, bound_ms=bound, bound_by=by,
                                 **_rates(ms, bound, flops), **extra))
@@ -456,6 +488,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
     from tango_tpu_torch.ops.gn_silu import (
         gn_apply_plain,
         gn_bwd_cluster_size,
+        gn_fwd_cluster_size,
         gn_silu_bwd_plain,
         gn_silu_fwd_plain,
         gn_stats_plain,
@@ -476,28 +509,48 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
     attn_tol = {"f32": (2e-5, 1e-4), "bf16": (4e-3, 1e-2)}
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
 
+    fwd = K["gn_silu_fwd"]
     for shape, groups, act in sorted(shapes["gn_silu_fwd"], key=str):
-        c = shape[1]
+        c, n = shape[1], math.prod(shape)
         g, b = randn(c, scale=0.2, loc=1.0), randn(c, scale=0.1)
         for tag, dt in dtypes.items():
             x = randn(*shape, dtype=dt, scale=2.0, loc=0.5)
-            out = K["gn_silu_fwd"](x, g, b, groups, 1e-5, act)
+            r = gn_fwd_cluster_size(dt, shape[0], c, n // (shape[0] * c), groups)
+            out = took(cases["gn_silu_fwd"], fwd, r > 0, lambda: fwd(x, g, b, groups, 1e-5, act),
+                       f"gn_silu_fwd {shape} {tag}", body="cluster")
             ref = gn_silu_fwd_plain(x, g, b, groups, 1e-5, act)
             cases["gn_silu_fwd"].add_err(tag, assert_close(out, ref, *tol[tag],
                                                            f"gn_silu_fwd {shape} {tag}"))
-        n = math.prod(shape)
-        gl, bl = g.to(x.dtype), b.to(x.dtype)
+            gl, bl = g.to(dt), b.to(dt)
 
-        def lib():
-            y = F.group_norm(x, groups, gl, bl, 1e-5)
-            return F.silu(y) if act == "silu" else y
+            def lib():
+                y = F.group_norm(x, groups, gl, bl, 1e-5)
+                return F.silu(y) if act == "silu" else y
 
-        cases["gn_silu_fwd"].add_time(
-            cuda_ms(lambda: K["gn_silu_fwd"](x, g, b, groups, 1e-5, act)),
-            cuda_ms(lambda: gn_silu_fwd_plain(x, g, b, groups, 1e-5, act)),
-            cuda_ms(lib), *bound_ms(4 * n + 8 * c, 8 * n, F32_FLOPS), [shape, groups, act])
+            add = cases["gn_silu_fwd"].add_time if tag == "bf16" else \
+                cases["gn_silu_fwd"].add_time_f32
+            add(cuda_ms(lambda: fwd(x, g, b, groups, 1e-5, act)),
+                cuda_ms(lambda: gn_silu_fwd_plain(x, g, b, groups, 1e-5, act)),
+                cuda_ms(lib), *bound_ms(2 * x.element_size() * n + 8 * c, 8 * n, F32_FLOPS),
+                [shape, groups, act], cluster_size=r, ctas=shape[0] * groups * r)
+    x = randn(*HOST_US_SHAPE, dtype=torch.bfloat16)
+    g, b = randn(HOST_US_SHAPE[1]), randn(HOST_US_SHAPE[1])
+    cases["gn_silu_fwd"].notes["host_us_per_call"] = statistics.median(
+        host_us(lambda: fwd(x, g, b, 32, 1e-5, "silu")) for _ in range(5))
+    for shape, dt, offset in GN_FWD_STREAMING:
+        c, n = shape[1], math.prod(shape)
+        g, b = randn(c, scale=0.2, loc=1.0), randn(c, scale=0.1)
+        x = randn(n + offset, dtype=dt, scale=2.0, loc=0.5)[offset:].view(shape)
+        tag = "f32" if dt == torch.float32 else "bf16"
+        what = f"gn_silu_fwd {shape} {tag}, offset {offset}, streaming body"
+        out = took(cases["gn_silu_fwd"], fwd, False, lambda: fwd(x, g, b, 32, 1e-5, "silu"),
+                   what, body="cluster")
+        cases["gn_silu_fwd"].add_err(tag, assert_close(
+            out, gn_silu_fwd_plain(x, g, b, 32, 1e-5, "silu"), *tol[tag], what))
+        del x, out
 
     for shape, groups, chunks in sorted(shapes["gn_stats"], key=str):
+        n = math.prod(shape)
         for tag, dt in dtypes.items():
             x = randn(*shape, dtype=dt, scale=2.0, loc=0.5)
             out = K["gn_stats"](x, groups, chunks)
@@ -505,27 +558,27 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
             # partial sums of up to ~10^5 terms: relative tolerance only
             cases["gn_stats"].add_err(tag, assert_close(out, ref, 0.0, 1e-4,
                                                         f"gn_stats {shape} {tag}"))
-        n = math.prod(shape)
-        cases["gn_stats"].add_time(
-            cuda_ms(lambda: K["gn_stats"](x, groups, chunks)),
-            cuda_ms(lambda: gn_stats_plain(x, groups, chunks)), None,
-            *bound_ms(2 * n + 8 * shape[0] * groups * chunks, 3 * n, F32_FLOPS),
-            [shape, groups, chunks])
+            add = cases["gn_stats"].add_time if tag == "bf16" else cases["gn_stats"].add_time_f32
+            add(cuda_ms(lambda: K["gn_stats"](x, groups, chunks)),
+                cuda_ms(lambda: gn_stats_plain(x, groups, chunks)), None,
+                *bound_ms(x.element_size() * n + 8 * shape[0] * groups * chunks, 3 * n,
+                          F32_FLOPS), [shape, groups, chunks])
 
     for shape, act in sorted(shapes["gn_apply"], key=str):
         bsz, c = shape[0], shape[1]
         a, bb = randn(bsz, c, scale=0.3, loc=1.0), randn(bsz, c, scale=0.1)
+        n = math.prod(shape)
         for tag, dt in dtypes.items():
             x = randn(*shape, dtype=dt, scale=2.0)
             out = K["gn_apply"](x, a, bb, act)
             ref = gn_apply_plain(x, a, bb, act)
             cases["gn_apply"].add_err(tag, assert_close(out, ref, *tol[tag],
                                                         f"gn_apply {shape} {tag}"))
-        n = math.prod(shape)
-        cases["gn_apply"].add_time(
-            cuda_ms(lambda: K["gn_apply"](x, a, bb, act)),
-            cuda_ms(lambda: gn_apply_plain(x, a, bb, act)), None,
-            *bound_ms(4 * n + 16 * bsz * c, 6 * n, F32_FLOPS), [shape, act])
+            add = cases["gn_apply"].add_time if tag == "bf16" else cases["gn_apply"].add_time_f32
+            add(cuda_ms(lambda: K["gn_apply"](x, a, bb, act)),
+                cuda_ms(lambda: gn_apply_plain(x, a, bb, act)), None,
+                *bound_ms(2 * x.element_size() * n + 16 * bsz * c, 6 * n, F32_FLOPS),
+                [shape, act])
 
     def attention_fwd(name, plain):
         """attn_fwd or attn_fwd_v2 at every launched shape, in f32 and bf16,
@@ -651,10 +704,11 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
 
     # JAX's extreme-logit case for v2 (row maxes near natural +100, past the
     # static-shift window): the kernel stays exact; and a batch row whose keys
-    # are all masked for the bias kernel: finite. Its base-2 logits sit near
-    # -14427, where an f32 keeps 2^-10 of absolute precision, so p carries up
-    # to ~7e-4 of relative rounding in the kernel and in its plain version
-    # alike: atol 1e-3 on that row (the other row at the usual limits).
+    # are all masked for the bias kernel: finite. The plain version's base-2
+    # logits sit near -14427, where an f32 keeps 2^-10 of absolute precision,
+    # so its p carries up to ~7e-4 of relative rounding (the f32 kernel takes
+    # the row's largest bias off first): atol 1e-3 on that row (the other row
+    # at the usual limits).
     for tag, dt in dtypes.items():
         u = randn(64)
         u = u / u.norm()
@@ -678,9 +732,9 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
         ref = attn_fwd_bias_plain(q, k, v, bias, 4, 0.125)
         cases["attn_fwd_bias"].add_err(tag, assert_close(
             out[:4], ref[:4], *attn_tol[tag], f"attn_fwd_bias masked row {tag}"))
-        assert_close(out[4:], ref[4:], 1e-3 if tag == "f32" else attn_tol[tag][0],
-                     0.0 if tag == "f32" else attn_tol[tag][1],
-                     f"attn_fwd_bias all-masked row {tag}")
+        cases["attn_fwd_bias"].notes[f"all_masked_row_err_{tag}"] = assert_close(
+            out[4:], ref[4:], 1e-3 if tag == "f32" else attn_tol[tag][0],
+            0.0 if tag == "f32" else attn_tol[tag][1], f"attn_fwd_bias all-masked row {tag}")
 
     # ---- the backward kernels, at the shapes of the training path
     # f32 at the JAX backward tests' limits (tests/test_flash_attention.py:156,
@@ -1083,6 +1137,7 @@ def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
     from tango_tpu_torch.ops.gn_silu import (
         gn_apply_plain,
         gn_bwd_cluster_size,
+        gn_fwd_cluster_size,
         gn_silu_bwd_plain,
         gn_silu_fwd_plain,
         gn_stats_plain,
@@ -1125,10 +1180,14 @@ def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
         lambda i: gn_apply_plain(x[i:i + 16], a[i:i + 16], b[i:i + 16], "silu"), nb,
         *tol["bf16"], f"gn_apply {LIMIT_GN_SHAPE}"))
     xs = x.view(4 * nb, c, h // 4, w)
+    r = gn_fwd_cluster_size(bf16, *xs.shape[:2], math.prod(xs.shape[2:]), 32)
+    y = took(cases["gn_silu_fwd"], K["gn_silu_fwd"], r > 0,
+             lambda: K["gn_silu_fwd"](xs, gam, bet, 32, 1e-5, "silu"),
+             f"gn_silu_fwd {tuple(xs.shape)}", body="cluster")
     cases["gn_silu_fwd"].add_err("bf16", sliced(
-        K["gn_silu_fwd"](xs, gam, bet, 32, 1e-5, "silu"),
-        lambda i: gn_silu_fwd_plain(xs[i:i + 16], gam, bet, 32, 1e-5, "silu"), 4 * nb,
+        y, lambda i: gn_silu_fwd_plain(xs[i:i + 16], gam, bet, 32, 1e-5, "silu"), 4 * nb,
         *tol["bf16"], f"gn_silu_fwd {tuple(xs.shape)}"))
+    del y
     r = gn_bwd_cluster_size(bf16, *xs.shape[:2], math.prod(xs.shape[2:]), 32)
     dx, dgam, dbet = took(cases["gn_silu_bwd"], K["gn_silu_bwd"], r > 0,
                           lambda: K["gn_silu_bwd"](xs, xs, gam, bet, 32, 1e-5, "silu"),
@@ -1166,15 +1225,28 @@ def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
               f"{bh} heads f32")
 
 
-def tc_fields(fn, tc_by_path, cluster: int) -> dict:
+def cluster_counts(ops) -> dict:
+    """Cluster launches of each kernel that has a thread-block-cluster body."""
+    return {n: fn.cluster_launches for n, fn in ops.all_kernels().items()
+            if hasattr(fn, "cluster_launches")}
+
+
+def off_cluster(cluster: dict, launches: dict) -> list:
+    """A problem for each kernel of `cluster` (its cluster launches) that a
+    counted path launched off its cluster body: every path's shape takes it."""
+    return [f"{launches[n] - c} of {launches[n]} {n} launches off the cluster body"
+            for n, c in cluster.items() if c != launches[n]]
+
+
+def tc_fields(fn, tc_by_path, cluster_by_path) -> dict:
     """The kernels line's extra fields of the kernels with a tensor-core body
     (`source`): its launches on the counted paths, and the source of the
     CUDA-core body that runs what it does not take (attention: other head
     dims; w8a8_matmul: K % 16 != 0; winograd_conv3x3 has none); of
-    gn_silu_bwd, its launches on the cluster body (the training path's,
-    `cluster`)."""
+    gn_silu_fwd and gn_silu_bwd, their launches on the cluster body over the
+    counted paths."""
     if hasattr(fn, "cluster_launches"):
-        return {"cluster_launches": cluster}
+        return {"cluster_launches": sum(c.get(fn.__name__, 0) for c in cluster_by_path.values())}
     if not hasattr(fn, "tc_launches"):
         return {}
     fields = {"tc_launches": sum(tc.get(fn.__name__, 0) for tc in tc_by_path.values())}
@@ -1251,12 +1323,12 @@ def write_wavs(root: str, n: int, seconds: float, seed: int) -> str:
     return manifest
 
 
-def train_phase(C, ops) -> tuple[dict, dict, dict, int]:
+def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
     """One full-width f32 SFTTrainer.fit on the card: 4 micro-steps at batch
     2 with accumulation 2 (2 updates), one validation batch, the best
     checkpoint saved, loaded back and deleted. Returns the launches, shapes,
-    tensor-core launches and gn_silu_bwd's cluster launches of the counted
-    run; raises on any failed check."""
+    tensor-core launches and cluster launches of the counted run; raises on
+    any failed check."""
     import shutil
 
     from tango_tpu_torch.models.diffusion import AudioDiffusion
@@ -1334,7 +1406,7 @@ def train_phase(C, ops) -> tuple[dict, dict, dict, int]:
     launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
     shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
     tc = {n: fn.tc_launches for n, fn in ops.all_kernels().items() if hasattr(fn, "tc_launches")}
-    cluster = ops.BACKWARD_KERNELS["gn_silu_bwd"].cluster_launches
+    cluster = cluster_counts(ops)
     trainer.train_step, sft.save_native = step, save
 
     problems = []
@@ -1364,12 +1436,10 @@ def train_phase(C, ops) -> tuple[dict, dict, dict, int]:
     if off:
         problems.append(f"f32 D = 64 launches off the tensor-core body "
                         f"(launches, tensor-core): {off}")
-    # and every GroupNorm backward on the cluster body
-    if cluster != launches["gn_silu_bwd"]:
-        problems.append(f"{launches['gn_silu_bwd'] - cluster} of {launches['gn_silu_bwd']} "
-                        "gn_silu_bwd launches off the cluster body")
+    # and every single-pass GroupNorm and GroupNorm backward on its cluster body
+    problems += off_cluster(cluster, launches)
     log("train", fit_s=round(fit_s, 3), micro_steps=len(micro), tc_launches=tc,
-        cluster_launches={"gn_silu_bwd": cluster},
+        cluster_launches=cluster,
         ms_per_micro_step=[round(1e3 * m[0], 3) for m in micro],
         losses=[m[1] for m in micro], val_loss=[r["val_loss"] for r in records],
         peak_memory_bytes=peak, checkpoint_save_s=[round(v, 3) for v in saves],
@@ -1426,6 +1496,7 @@ def main(argv) -> int:
     # ---- the serving paths, each counted on its own
     checks = {}
     tc_launches = {}  # path -> tensor-core launches of each kernel that has such a body
+    cluster_launches = {}  # path -> cluster launches of each kernel that has such a body
     sample_times = {}  # CFG batch of the UNet -> [seconds, steps]
     first_latents = {}  # path -> the latents of its first decode
 
@@ -1471,10 +1542,12 @@ def main(argv) -> int:
         shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
         tc = {n: fn.tc_launches for n, fn in ops.all_kernels().items()
               if hasattr(fn, "tc_launches")}
+        cluster = cluster_counts(ops)
         problems = []
         if path in TC_PATHS and any(tc[n] != launches[n] for n in tc):
             problems.append(f"launches off the tensor-core body: launches "
                             f"{ {n: launches[n] for n in tc} }, tensor-core {tc}")
+        problems += off_cluster(cluster, launches)
         for w in outs:
             if w.dtype.name != "int16" or w.shape != (expect_len,):
                 problems.append(f"waveform {w.dtype} {w.shape}, expected int16 ({expect_len},)")
@@ -1488,12 +1561,14 @@ def main(argv) -> int:
         log(phase or path, **{f"{k}_s": round(v, 3) for k, v in seconds.items()},
             ms_per_unet_step={f"cfg_batch_{b}": round(1e3 * t / n, 3)
                               for b, (t, n) in sorted(sample_times.items())},
-            launches=launches, tc_launches=tc, shapes={n: len(v) for n, v in shapes.items()},
+            launches=launches, tc_launches=tc, cluster_launches=cluster,
+            shapes={n: len(v) for n, v in shapes.items()},
             wav_len=expect_len, peak=[int(abs(w.astype("int32")).max()) for w in outs],
             **(extra(launches) if extra else {}), problems=problems)
         if problems:
             raise AssertionError("; ".join(problems))
         tc_launches[path] = tc
+        cluster_launches[path] = cluster
         return launches, shapes
 
     def timed(fn):
@@ -1634,7 +1709,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # ---- the training path, counted
-    train_launches, train_shapes, tc_launches["train"], train_cluster = train_phase(C, ops)
+    (train_launches, train_shapes, tc_launches["train"],
+     cluster_launches["train"]) = train_phase(C, ops)
     by_path["train"] = (train_launches, train_shapes)
     launches = {n: sum(p[0][n] for p in by_path.values()) for n in ops.all_kernels()}
     for n, v in by_path["train"][1].items():
@@ -1656,7 +1732,8 @@ def main(argv) -> int:
          "launches_by_path": {p: v[0][n] for p, v in by_path.items()},
          "max_abs_err": max(c.err.values()), "ms": c.ms, "plain_ms": c.plain_ms,
          "bound_ms": c.bound, "bound_by": c.bound_by, "library_ms": c.library_ms,
-         **tc_fields(kernels[n], {p: tc_launches.get(p, {}) for p in by_path}, train_cluster)}
+         **tc_fields(kernels[n], {p: tc_launches.get(p, {}) for p in by_path},
+                     {p: cluster_launches.get(p, {}) for p in by_path})}
         for n, c in cases.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

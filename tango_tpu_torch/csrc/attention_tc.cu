@@ -68,7 +68,12 @@
 //     overlaps the other's products.
 // The f32 body (all three forms; the online and biased ones take s + e, the
 // cross terms added, as the logit before the running max, the biased one
-// with bias * log2(e) as the logit accumulator's initial value, and rescale
+// with (bias - c) * log2(e) as the logit accumulator's initial value, c the
+// row's largest bias, which softmax does not see: the products then add
+// onto a value near 0 wherever a row has a key worth weighting, and not onto
+// -14427 in a row whose keys are all masked, where each addition would keep
+// 2^-10 of absolute precision (~1e-3 on such a row's output, ten times the
+// plain version's error, measured); and rescale
 // acc before its P V products are issued, while e, the P V cross terms,
 // starts afresh each tile) holds JAX's f32 limits (atol 2e-5, rtol 1e-4):
 // one-product TF32 misses them at unit amplitude, and 3xTF32 logits with
@@ -391,6 +396,21 @@ attn_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     b0 = bb + (bias.rows == 1 ? 0 : (int64_t)min(r, Sq - 1) * Skv);
     b1 = bb + (bias.rows == 1 ? 0 : (int64_t)min(r + 8, Sq - 1) * Skv);
   }
+  // the largest bias of each of the two rows (the 4 threads of a quad share
+  // them; one bias row serves both where the batch row has one), taken off
+  // the bias below
+  float c0 = -CUDART_INF_F, c1 = -CUDART_INF_F;
+  if constexpr (MODE == kBias) {
+    for (int col = t4; col < Skv; col += 4) c0 = fmaxf(c0, __ldg(b0 + col));
+    if (bias.rows > 1)
+      for (int col = t4; col < Skv; col += 4) c1 = fmaxf(c1, __ldg(b1 + col));
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      c0 = fmaxf(c0, __shfl_xor_sync(0xffffffffu, c0, o));
+      c1 = fmaxf(c1, __shfl_xor_sync(0xffffffffu, c1, o));
+    }
+    if (bias.rows == 1) c1 = c0;
+  }
 
   // the next tile's raw chunks, rows fastest: a warp holds 32 keys of one chunk
   uint4 rk[kPer], rv[kPer];
@@ -436,13 +456,14 @@ attn_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = j * NC, lim = Skv - k0;  // the tile's first key, its keys that exist
     float s[NC / 2], e[32];  // NC / 2 == 32: S, then P; the cross terms of S, then of P V
     if constexpr (MODE == kBias) {
-      // bias * log2(e) is the logit accumulator's initial value: its loads
-      // are in flight while Q K^T is issued, and no loaded value waits in a
-      // register of its own beside S and its cross terms
+      // (bias - c) * log2(e) is the logit accumulator's initial value: its
+      // loads are in flight while Q K^T is issued, and no loaded value waits
+      // in a register of its own beside S and its cross terms
 #pragma unroll
       for (int i = 0; i < NC / 2; ++i) {
         const int col = 8 * (i >> 2) + 2 * t4 + (i & 1);
-        s[i] = col < lim ? __ldg(((i & 2) ? b1 : b0) + k0 + col) * kLog2e : 0.0f;
+        s[i] = col < lim ? (__ldg(((i & 2) ? b1 : b0) + k0 + col) - ((i & 2) ? c1 : c0)) * kLog2e
+                         : 0.0f;
       }
       fence_regs(s);
     }

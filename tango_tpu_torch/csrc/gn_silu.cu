@@ -12,12 +12,45 @@
 // below the ~295 flops per byte the card needs to be compute bound, so the
 // least time is one read of x and one write of y at 3.35 TB/s.
 //
-// gn_fwd: one block per (batch, group) sums x and x^2 in f32 (per-thread
+// gn_fwd, the cluster body (gn_fwd_cluster_kernel): R CTAs per (batch,
+// group) in one thread-block cluster, R a power of two up to 16
+// (gn_fwd_cluster_size). The Pallas kernel had one program per sample, and a
+// block per group (the streaming body below) leaves 32-128 blocks for 132
+// SMs at the paths' batches, each with one 16-byte load a thread in flight
+// and a second pass over the group. Here each CTA issues the copies of its
+// whole 1/R slice of the group's x into shared memory at once (cp.async,
+// 16-byte packets; warp 0 fetches the slice's gamma_c, beta_c meanwhile),
+// sums x and x^2 of it in f32, and pushes the pair into every peer's inbox
+// (st.async onto the peer's mbarrier, see below); warp 0 adds the R pairs in
+// rank order (the same bits in every CTA), turns gamma_c, beta_c into the
+// affine a_c, b_c, and the CTA writes y = x*a_c + b_c (+SiLU) from its copy:
+// device memory sees one read of x and one write of y, the bytes bound. R
+// is the least power of two whose slice fits 72 KB and whose grid has at
+// least 264 CTAs (two an SM) or whose slices would fall below 16 KB at 2R;
+// else the largest R where the slice fits 226 KB (one CTA an SM); else the
+// streaming body. At R = 1 the CTA skips the exchange. CTAs of 256
+// threads. It needs HW a whole number of packets and 16-byte aligned x and
+// y; the entry point reports it by returning kClusterLaunched.
+//
+// What the chip measured (scripts/gn_fwd_variants.py on the H100, the 50
+// shapes of the paths; PERF.md): a launch takes about its bytes
+// bound plus a fixed 3-4 us (a kernel in a CUDA graph, the load latency,
+// the exchange), so the design cuts the fixed part and the apply pass's
+// instructions. SiLU on the fast intrinsics (silu_fast): the IEEE
+// exponential and division, ~20 instructions an element, had nothing to
+// hide behind in the apply pass. R stays 1 where slices would fall below
+// 16 KB: the 64- and 256-token maps' groups are faster whole in one CTA
+// than cut for more CTAs (a rule without that floor was slower; 8 and 32 KB
+// measured within a few percent). gamma and beta are fetched during the
+// copies. The pairs are pushed, not pulled after a cluster barrier (a draft
+// that pulled was slower at every shape with R > 1), and a CTA exits
+// without a second barrier. 264 CTAs beat 132.
+//
+// gn_fwd, the streaming body (gn_fwd_kernel), for what the cluster body
+// refuses: one block per (batch, group) sums x and x^2 in f32 (per-thread
 // partials, warp shuffles, then shared memory), then applies the per-channel
-// affine y = x*a + b (+SiLU) in the same launch. The second read of the group
-// hits L2 (a group is at most a few hundred KB). The Pallas kernel had one
-// program per sample: on 132 SMs that would be 2 blocks, so the grid here goes
-// over groups (B*G blocks).
+// affine y = x*a + b (+SiLU) in the same launch; the second read of the group
+// hits L2.
 //
 // gn_stats / gn_apply: the two-stage form for large maps. gn_stats writes
 // per-(batch, group, chunk) partial sums; the caller combines them into
@@ -407,6 +440,10 @@ constexpr int kMaxCluster = 16;                 // non-portable above 8
 constexpr int kMinCtas = 132;                   // the H100's SMs
 constexpr int64_t kSliceTarget = 72 * 1024;     // three CTAs an SM
 constexpr int64_t kSliceMax = 226 * 1024;       // one CTA an SM, beside the static 256 bytes
+// the forward's: CTAs a grid should reach, and the least slice worth a CTA
+// of a cluster (design notes at the top)
+constexpr int kFwdMinCtas = 264;
+constexpr int64_t kFwdMinSlice = 16 * 1024;
 
 // Elements of a CTA's slice of an n-element group cut R ways: a whole number
 // of 16-byte packets.
@@ -441,6 +478,33 @@ int gn_bwd_cluster_size(int esize, int B, int C, int HW, int G) {
 // caller sums nothing), else one (gn_bwd_cluster_samples in ops/gn_silu.py).
 int gn_bwd_cluster_samples(int B, int R) { return (int64_t)B * R <= kMaxCluster ? B : 1; }
 
+// Dynamic shared memory of a forward CTA: the slice of x, the exchange's
+// inbox (a pair of f32 for each of up to 16 ranks) and mbarrier, and the
+// affine (a_c, b_c) of each channel (2 * C/G f32).
+int64_t fwd_cluster_smem(int esize, int64_t n, int cg, int R) {
+  return slice_len(esize, n, R) * esize + 8 * kMaxCluster + 8 + 8 * (int64_t)cg;
+}
+
+// The cluster size the forward takes for (B, C, HW, G) in elements of esize
+// bytes, 0 for the streaming body: the least R whose slice fits kSliceTarget
+// and whose grid has at least kFwdMinCtas CTAs or whose slices would fall
+// below kFwdMinSlice at 2R; else the largest R (16, or less where 16 would
+// pass INT_MAX CTAs) where the slice fits kSliceMax; else 0.
+// gn_fwd_cluster_size in ops/gn_silu.py is its twin.
+int gn_fwd_cluster_size(int esize, int B, int C, int HW, int G) {
+  if (HW % (16 / esize)) return 0;
+  const int cg = C / G;
+  const int64_t n = (int64_t)cg * HW, groups = (int64_t)B * G;
+  for (int R = 1; R <= kMaxCluster && groups * R <= INT_MAX; R *= 2) {
+    const bool last = R == kMaxCluster || 2 * groups * R > INT_MAX;
+    if (fwd_cluster_smem(esize, n, cg, R) <= (last ? kSliceMax : kSliceTarget) &&
+        (last || groups * R >= kFwdMinCtas ||
+         slice_len(esize, n, 2 * R) * esize < kFwdMinSlice))
+      return R;
+  }
+  return 0;
+}
+
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -465,6 +529,177 @@ __device__ __forceinline__ float ld_peer(const float* p, uint32_t rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(m) : "r"(a), "r"(rank));
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(m) : "memory");
   return v;
+}
+
+// The forward's exchange: each CTA pushes its pair into every peer's inbox
+// with st.async, which completes bytes on the peer's mbarrier, instead of
+// pulling the peers' pairs after a cluster barrier. A CTA then waits only
+// for the pairs to land (one one-way trip, not a barrier and a round trip),
+// and since no peer touches its shared memory once they have landed, it
+// exits without a second barrier.
+
+// The shared::cluster address of p (a shared-memory address of this CTA) in
+// the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t m;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(m)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))), "r"(rank));
+  return m;
+}
+
+// barrier.cluster.arrive without release: orders nothing but the mbarrier
+// initialisation, which fence.mbarrier_init releases
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// One thread: the mbarrier at bar with one arrival, made now, and `bytes` of
+// st.async to come (phase 0 completes when they have landed).
+__device__ __forceinline__ void mbar_init_expect(uint64_t* bar, uint32_t bytes) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(a) : "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(a), "r"(bytes)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// (a, b) into the float2 at p of CTA `rank`, completing 8 bytes on its
+// mbarrier at bar.
+__device__ __forceinline__ void push_peer(const float2* p, const uint64_t* bar, uint32_t rank,
+                                          float a, float b) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          peer_addr(p, rank)),
+      "f"(a), "f"(b), "r"(peer_addr(bar, rank))
+      : "memory");
+}
+
+// Wait for phase `parity` of the mbarrier at bar, acquiring at cluster scope
+// what the peers' st.async wrote.
+__device__ __forceinline__ void mbar_wait(const uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar))),
+      "r"(parity)
+      : "memory");
+}
+
+// SiLU with the fast intrinsics: within a few ulps of silu() in f32 (the
+// exponential and the division as one multi-function-unit operation each);
+// in bf16, x/2 * (1 + tanh(x/2)) on the one-operation tanh, whose error
+// (about 2^-11 relative) lies far below a bf16 step. The IEEE exponential
+// and division cost some twenty instructions an element, which the apply
+// pass of a slice held in shared memory cannot hide behind its stores.
+template <typename T>
+__device__ __forceinline__ float silu_fast(float y) {
+  if constexpr (sizeof(T) == 2) {
+    const float h = 0.5f * y;
+    float t;
+    asm("tanh.approx.f32 %0, %1;\n" : "=f"(t) : "f"(h));
+    return fmaf(h, t, h);
+  } else {
+    return __fdividef(y, 1.0f + __expf(-y));
+  }
+}
+
+// grid (B*G*R) in clusters of R: cluster q holds group q % G of sample q / G,
+// rank r its slice r (elements [r*L, (r+1)*L), clipped to the group). At R =
+// 1 the CTA holds the whole group and skips the exchange. NT threads a CTA.
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT)
+gn_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                      const float* __restrict__ beta, T* __restrict__ y, int C, int HW, int G,
+                      int R, int L, float eps, int act) {
+  constexpr int N = Pack<T>::N;
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  float2* inbox = reinterpret_cast<float2*>(xs + L);  // rank r's sum x, sum x^2 at [r]
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(inbox + kMaxCluster);  // their arrival
+  float2* ab = reinterpret_cast<float2*>(mbar + 1);  // (a_c, b_c) of the slice's channels
+  const int q = blockIdx.x / R, gi = q % G, rank = blockIdx.x % R;  // rank == cluster_rank()
+  const int cg = C / G, n = cg * HW;  // at most 16 slices of at most 226 KB here
+  const int lo = min(rank * L, n), hi = min(lo + L, n), len = hi - lo;
+  const int64_t base = (int64_t)q * n + lo;  // (b*C + gi*cg)*HW + lo
+  const int tid = threadIdx.x;
+  if (R > 1) {  // the barrier, then the arrive that lets the peers write to it
+    if (tid == 0) mbar_init_expect(mbar, 8 * R);
+    cluster_arrive_relaxed();
+  }
+
+  // the whole slice in flight at once. A thread reads back only the packets
+  // it copied itself (the same stride below), so its own wait suffices.
+  for (int i = tid * N; i < len; i += NT * N)
+    cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(xs + i)), x + base + i, 16);
+  cp_async_commit();
+  // meanwhile warp 0 fetches gamma_c, beta_c of the slice's channels, so that
+  // no load waits between the statistics and the apply pass
+  const int c0 = lo / HW, nch = len > 0 ? (hi - 1) / HW - c0 + 1 : 0;
+  if (tid < 32)
+    for (int c = tid; c < nch; c += 32)
+      ab[c] = make_float2(gamma[gi * cg + c0 + c], beta[gi * cg + c0 + c]);
+  cp_async_wait<0>();
+  float s = 0.0f, ss = 0.0f;
+  partial_sums<T, true>(xs, len, s, ss);
+  block_sum2<NT>(s, ss);
+  // thread r sends the slice's pair to rank r, once every peer has started
+  // (and initialised its barrier)
+  if (R > 1) {
+    cluster_wait();
+    if (tid < R) push_peer(inbox + rank, mbar, tid, s, ss);
+  }
+
+  // warp 0: the group's sums (once the R pairs have landed, every lane adds
+  // them in rank order: the same bits in every CTA), then the affine of the
+  // slice's channels
+  if (tid < 32) {
+    if (R > 1) {
+      mbar_wait(mbar, 0);
+      const float2 mine = tid < R ? inbox[tid] : make_float2(0.0f, 0.0f);
+      s = ss = 0.0f;
+      for (int r = 0; r < R; ++r) {
+        s += __shfl_sync(0xffffffffu, mine.x, r);
+        ss += __shfl_sync(0xffffffffu, mine.y, r);
+      }
+    }
+    const float nf = (float)n;
+    const float mean = s / nf;
+    const float var = ss / nf - mean * mean;
+    const float inv = 1.0f / sqrtf(var + eps);
+    for (int c = tid; c < nch; c += 32) {
+      const float a = inv * ab[c].x;
+      ab[c] = make_float2(a, ab[c].y - mean * a);
+    }
+  }
+  __syncthreads();
+
+  // y = act(x*a_c + b_c) from the shared copy. A packet never straddles two
+  // channels (lo and HW are whole packets); a thread steps its channel and
+  // offset in the channel by NT*N elements, with no division in the loop.
+  constexpr int step = NT * N;
+  const int dc = step / HW, doff = step % HW;
+  int c = (lo + tid * N) / HW - c0, off = (lo + tid * N) % HW;
+  float v[N];
+  for (int i = tid * N; i < len; i += step) {
+    const float2 p = ab[c];
+    load_pack(xs + i, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      v[j] = v[j] * p.x + p.y;
+      if (act) v[j] = silu_fast<T>(v[j]);
+    }
+    store_pack(y + base + i, v);
+    c += dc;
+    off += doff;
+    if (off >= HW) {
+      off -= HW;
+      ++c;
+    }
+  }
 }
 
 // grid (B*G*R) in clusters of S*R, S samples of one group: cluster q holds
@@ -576,52 +811,64 @@ gn_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
   cluster_wait();  // no peer reads this CTA's shared memory any more: it may exit
 }
 
-template <typename T, int NT>
-cudaError_t launch_bwd_cluster_nt(const void* x, const void* g, const float* gamma,
-                                  const float* beta, void* dx, float* dparam, int B, int C,
-                                  int HW, int G, int R, float eps, int act, cudaStream_t st) {
-  auto kernel = gn_bwd_cluster_kernel<T, NT>;
-  const int64_t n = (int64_t)(C / G) * HW;
-  const int L = (int)slice_len(sizeof(T), n, R), S = gn_bwd_cluster_samples(B, R);
-  const int smem = (int)cluster_smem(sizeof(T), n, C / G, R);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kSliceMax);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return e;
+// Launches `kernel`, a cluster body, on `ctas` CTAs of NT threads in
+// clusters of `cluster`, with `smem` bytes of dynamic shared memory. Its
+// attributes (the most dynamic shared memory, non-portable cluster sizes)
+// are set at its first launch. All CTAs of a cluster must be resident on one
+// GPC at once: the occupancy query is asked once for each (cluster size,
+// shared memory) of the kernel, and its refusal is returned.
+template <auto kernel, typename... Args>
+cudaError_t launch_cluster(int64_t ctas, int NT, int cluster, int smem, cudaStream_t st,
+                           Args... args) {
+  static const cudaError_t attributes = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSliceMax);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  if (attributes != cudaSuccess) return attributes;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = S * R;
+  attr.val.clusterDim.x = cluster;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((int64_t)B * G * R));
+  cfg.gridDim = dim3((unsigned)ctas);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  // all CTAs of a cluster must be resident on one GPC at once: ask once for
-  // each (cluster size, shared memory) of this instantiation, and return the
-  // refusal
   static int seen[64][2];
   static int n_seen = 0;
   bool known = false;
-  for (int i = 0; i < n_seen; ++i) known |= seen[i][0] == S * R && seen[i][1] == smem;
+  for (int i = 0; i < n_seen; ++i) known |= seen[i][0] == cluster && seen[i][1] == smem;
   if (!known) {
     int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (e != cudaSuccess) return e;
     if (clusters < 1) return cudaErrorLaunchOutOfResources;
     if (n_seen < 64) {
-      seen[n_seen][0] = S * R;
+      seen[n_seen][0] = cluster;
       seen[n_seen][1] = smem;
       ++n_seen;
     }
   }
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(g), gamma,
-                         beta, static_cast<T*>(dx), dparam, C, HW, G, R, S, L, eps, act);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename T, int NT>
+cudaError_t launch_bwd_cluster_nt(const void* x, const void* g, const float* gamma,
+                                  const float* beta, void* dx, float* dparam, int B, int C,
+                                  int HW, int G, int R, float eps, int act, cudaStream_t st) {
+  const int64_t n = (int64_t)(C / G) * HW;
+  const int L = (int)slice_len(sizeof(T), n, R), S = gn_bwd_cluster_samples(B, R);
+  return launch_cluster<gn_bwd_cluster_kernel<T, NT>>(
+      (int64_t)B * G * R, NT, S * R, (int)cluster_smem(sizeof(T), n, C / G, R), st,
+      static_cast<const T*>(x), static_cast<const T*>(g), gamma, beta, static_cast<T*>(dx),
+      dparam, C, HW, G, R, S, L, eps, act);
 }
 
 template <typename T>
@@ -634,6 +881,17 @@ cudaError_t launch_bwd_cluster(const void* x, const void* g, const float* gamma,
                                                       G, R, eps, act, st);
   return launch_bwd_cluster_nt<T, kClusterThreads>(x, g, gamma, beta, dx, dparam, B, C, HW, G, R,
                                                    eps, act, st);
+}
+
+template <typename T>
+cudaError_t launch_fwd_cluster(const void* x, const float* gamma, const float* beta, void* y,
+                               int B, int C, int HW, int G, int R, float eps, int act,
+                               cudaStream_t st) {
+  const int64_t n = (int64_t)(C / G) * HW;
+  return launch_cluster<gn_fwd_cluster_kernel<T, kClusterThreads>>(
+      (int64_t)B * G * R, kClusterThreads, R, (int)fwd_cluster_smem(sizeof(T), n, C / G, R), st,
+      static_cast<const T*>(x), gamma, beta, static_cast<T*>(y), C, HW, G, R,
+      (int)slice_len(sizeof(T), n, R), eps, act);
 }
 
 template <typename T>
@@ -704,17 +962,24 @@ cudaError_t launch_bwd(const void* x, const void* g, const float* gamma, const f
 
 extern "C" {
 
+// The cluster body where gn_fwd_cluster_size gives a cluster and x, y are
+// 16-byte aligned (reported as kClusterLaunched), else the streaming body.
 int tt_gn_silu_fwd(const void* x, const void* gamma, const void* beta, void* y, int B, int C,
                    int HW, int G, float eps, int act, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ga = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
+  if (dtype != tt::kF32 && dtype != tt::kBF16) return (int)cudaErrorInvalidValue;
+  const int R = tt::gn_fwd_cluster_size(dtype == tt::kF32 ? 4 : 2, B, C, HW, G);
+  if (R && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0)
+    return tt::cluster_result(
+        dtype == tt::kF32
+            ? tt::launch_fwd_cluster<float>(x, ga, be, y, B, C, HW, G, R, eps, act, st)
+            : tt::launch_fwd_cluster<__nv_bfloat16>(x, ga, be, y, B, C, HW, G, R, eps, act, st));
   if (dtype == tt::kF32)
     tt::launch_fwd<float>(x, ga, be, y, B, C, HW, G, eps, act, st);
-  else if (dtype == tt::kBF16)
-    tt::launch_fwd<__nv_bfloat16>(x, ga, be, y, B, C, HW, G, eps, act, st);
   else
-    return (int)cudaErrorInvalidValue;
+    tt::launch_fwd<__nv_bfloat16>(x, ga, be, y, B, C, HW, G, eps, act, st);
   return (int)cudaGetLastError();
 }
 

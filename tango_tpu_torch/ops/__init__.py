@@ -8,8 +8,8 @@ launches in `wrapper.launches` (a plain integer). The wrappers with a
 tensor-core body (`attn_fwd`, `attn_fwd_v2`, `attn_fwd_bias`, `attn_bwd_dq`,
 `attn_bwd_dkv`, `w8a8_matmul`, `winograd_conv3x3`) also count the launches that took it in
 `wrapper.tc_launches`, from what the C entry point reports (`reported_tc`,
-`count_tc`); `gn_silu_bwd` counts its thread-block-cluster launches in
-`wrapper.cluster_launches` the same way.
+`count_tc`); `gn_silu_fwd` and `gn_silu_bwd` count their thread-block-cluster
+launches in `wrapper.cluster_launches` the same way (`count_cluster`).
 """
 
 from tango_tpu_torch.ops import _build
@@ -76,3 +76,14 @@ def count_tc(fn, rule: bool, ran: bool) -> None:
         raise RuntimeError(f"{fn.__name__}: the entry point launched the "
                            f"{'tensor' if ran else 'CUDA'}-core body against the wrapper's rule")
     fn.tc_launches += ran
+
+
+def count_cluster(fn, rule: bool, ran: bool) -> None:
+    """Count in fn.cluster_launches a launch the C entry point reported as a
+    thread-block-cluster one (ran, its return was CLUSTER_LAUNCHED); raise
+    where that report disagrees with the rule the wrapper prepared the
+    launch by."""
+    if ran != rule:
+        raise RuntimeError(f"{fn.__name__}: the entry point launched the "
+                           f"{'cluster' if ran else 'streaming'} body against the wrapper's rule")
+    fn.cluster_launches += ran

@@ -2,7 +2,12 @@
 
 Four kernels from `csrc/gn_silu.cu`:
   * `gn_silu_fwd` — single pass, replaces `_gn_kernel`
-    (tango_tpu/ops/gn_silu_pallas.py:27);
+    (tango_tpu/ops/gn_silu_pallas.py:27). Where `gn_fwd_cluster_size` gives
+    a cluster size R (every path's shape), one thread-block cluster of R
+    CTAs a group reads the group once into shared memory and writes y once;
+    `gn_silu_fwd.cluster_launches` counts the launches the C entry point
+    reports as such. Other groups (too large for 16 CTAs' shared memory, of
+    odd packets, or unaligned) take the streaming body;
   * `gn_stats` + `gn_apply` — two stage, replace `_gn_stats_kernel` (:234) and
     `_gn_apply_kernel` (:257), with the per-channel combine in torch between
     them, as it was XLA between the two Pallas calls;
@@ -27,11 +32,12 @@ beside it for a CPU tensor; any other device raises.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from tango_tpu_torch.ops import CLUSTER_LAUNCHED, _build, kernel_wrapper
+from tango_tpu_torch.ops import CLUSTER_LAUNCHED, _build, count_cluster, kernel_wrapper
 
 _SRC = "tango_tpu_torch/csrc/gn_silu.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,6 +92,56 @@ def _silu(y: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------------- single pass
 
+# the cluster bodies' sizing (csrc/gn_silu.cu): CTAs a backward grid should
+# reach (the H100's SMs) and a forward grid (two an SM), the forward's least
+# slice worth a CTA of a cluster, the largest cluster, and the shared memory
+# of a CTA's slice that lets three CTAs share an SM and that one CTA may hold
+_CLUSTER_MIN_CTAS = 132
+_FWD_MIN_CTAS = 264
+_FWD_MIN_SLICE = 16 * 1024
+_CLUSTER_MAX = 16
+_SLICE_TARGET = 72 * 1024
+_SLICE_MAX = 226 * 1024
+
+
+def cluster_slice_len(esize: int, n: int, r: int) -> int:
+    """Elements of a CTA's slice of an n-element group cut r ways: a whole
+    number of 16-byte packets (`slice_len` in csrc/gn_silu.cu)."""
+    pack = 16 // esize
+    return (-(-n // r) + pack - 1) // pack * pack
+
+
+def _fwd_smem(esize: int, n: int, cg: int, r: int) -> int:
+    return cluster_slice_len(esize, n, r) * esize + 8 * _CLUSTER_MAX + 8 + 8 * cg
+
+
+@functools.lru_cache(maxsize=None)
+def gn_fwd_cluster_size(dtype: torch.dtype, b: int, c: int, hw: int, num_groups: int) -> int:
+    """The cluster size R gn_silu_fwd's cluster body takes for x (B, C, HW) in
+    `dtype`, 0 for the streaming body: the least power of two up to 16 whose
+    CTA slice (1/R of a group's x, plus 8 bytes a channel and 136 of the
+    exchange) fits 72 KB, and whose grid has at least 264 CTAs or whose
+    slices would fall below 16 KB at 2R; else the largest R (16, or less
+    where 16 would pass 2^31 - 1 CTAs) where its slice fits 226 KB; else 0.
+    HW must be a whole number of 16-byte packets. The C entry point applies
+    the same rule (`gn_fwd_cluster_size` in csrc/gn_silu.cu), together with
+    16-byte aligned x and y. Cached: the wrapper asks at every launch."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    if hw % (16 // esize):
+        return 0
+    cg = c // num_groups
+    n, groups = cg * hw, b * num_groups
+    r = 1
+    while r <= _CLUSTER_MAX and groups * r < _INT32:
+        last = r == _CLUSTER_MAX or 2 * groups * r >= _INT32
+        if _fwd_smem(esize, n, cg, r) <= (_SLICE_MAX if last else _SLICE_TARGET) and (
+                last or groups * r >= _FWD_MIN_CTAS
+                or cluster_slice_len(esize, n, 2 * r) * esize < _FWD_MIN_SLICE):
+            return r
+        r *= 2
+    return 0
+
+
 def gn_silu_fwd_plain(x, gamma, beta, num_groups: int, eps: float, act: str | None):
     """Plain version of gn_silu_fwd: same statistics, same affine, in f32."""
     b, c = x.shape[0], x.shape[1]
@@ -106,25 +162,35 @@ def gn_silu_fwd_plain(x, gamma, beta, num_groups: int, eps: float, act: str | No
 
 @kernel_wrapper(_SRC, "tango_tpu/ops/gn_silu_pallas.py:27")
 def gn_silu_fwd(x, gamma, beta, num_groups: int, eps: float = 1e-6, act: str | None = None):
-    """Single-pass GroupNorm(+SiLU) of x (B, C, *spatial): one block per group."""
+    """Single-pass GroupNorm(+SiLU) of x (B, C, *spatial): one thread-block
+    cluster per group (`gn_fwd_cluster_size`), else one block per group."""
     if act not in (None, "silu"):
         raise ValueError(f"unknown fused act {act}")
     b, c, hw = _check(x, num_groups, "gn_silu_fwd")
     if not _route(x, "gn_silu_fwd"):
         return gn_silu_fwd_plain(x, gamma, beta, num_groups, eps, act)
+    # the C entry point takes the cluster body where gn_fwd_cluster_size
+    # gives R > 0 and x, y are 16-byte aligned; count_cluster holds its
+    # report to that
     lib = _build.load()
     g32 = _param_f32(gamma, c, x.device)
     b32 = _param_f32(beta, c, x.device)
     y = torch.empty_like(x)
+    xp, yp = x.data_ptr(), y.data_ptr()
+    cluster = gn_fwd_cluster_size(x.dtype, b, c, hw, num_groups) > 0 and not (xp | yp) % 16
     code = lib.tt_gn_silu_fwd(
-        x.data_ptr(), g32.data_ptr(), b32.data_ptr(), y.data_ptr(), b, c, hw, num_groups,
-        float(eps), int(act == "silu"), _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        xp, g32.data_ptr(), b32.data_ptr(), yp, b, c, hw, num_groups, float(eps),
+        int(act == "silu"), _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(lib, code, "gn_silu_fwd")
+    ran = code == CLUSTER_LAUNCHED
+    _build.check(lib, 0 if ran else code, "gn_silu_fwd")
+    count_cluster(gn_silu_fwd, cluster, ran)
     gn_silu_fwd.launches += 1
     gn_silu_fwd.shapes.add((tuple(x.shape), num_groups, act))
     return y
+
+
+gn_silu_fwd.cluster_launches = 0
 
 
 # ------------------------------------------------------------------- two stage
@@ -230,22 +296,6 @@ def gn_bwd_supported(x: torch.Tensor, num_groups: int) -> bool:
             and kernel_shape_ok(x, num_groups))
 
 
-# the cluster body's sizing (csrc/gn_silu.cu): CTAs a grid should reach (the
-# H100's SMs), the largest cluster, and the shared memory of a CTA's slice
-# that lets three CTAs share an SM and that one CTA may hold
-_CLUSTER_MIN_CTAS = 132
-_CLUSTER_MAX = 16
-_SLICE_TARGET = 72 * 1024
-_SLICE_MAX = 226 * 1024
-
-
-def cluster_slice_len(esize: int, n: int, r: int) -> int:
-    """Elements of a CTA's slice of an n-element group cut r ways: a whole
-    number of 16-byte packets (`slice_len` in csrc/gn_silu.cu)."""
-    pack = 16 // esize
-    return (-(-n // r) + pack - 1) // pack * pack
-
-
 def _cluster_smem(esize: int, n: int, cg: int, r: int) -> int:
     return 2 * cluster_slice_len(esize, n, r) * esize + 8 * cg + 8
 
@@ -348,11 +398,8 @@ def _launch_bwd(x, g, gamma, beta, num_groups: int, eps: float, act: str | None)
     )
     ran = code == CLUSTER_LAUNCHED
     _build.check(lib, 0 if ran else code, "gn_silu_bwd")
-    if ran != cluster:
-        raise RuntimeError("gn_silu_bwd: the entry point launched the "
-                           f"{'cluster' if ran else 'streaming'} body against the wrapper's rule")
+    count_cluster(gn_silu_bwd, cluster, ran)
     gn_silu_bwd.launches += 1
-    gn_silu_bwd.cluster_launches += ran
     gn_silu_bwd.shapes.add((tuple(x.shape), num_groups, act))
     rows = b // gn_bwd_cluster_samples(b, r) if ran else b
     dsum = dparam[0] if rows == 1 else dparam.sum(0)

@@ -51,10 +51,12 @@ def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32", online=False, bias=Non
     -1e30, acc and the denominators rescaled by exp2(m - m') before the
     tile's P V, p = exp2(s - m'), o = acc / denominator. Biased form
     (`attn_fwd_bias`, with `bias` (B, 1 | Sq, Skv) f32, head bh adding batch
-    row bh // heads): s += bias * log2 e, then the online form."""
+    row bh // heads): s += (bias - c) * log2 e, c the row's largest bias,
+    then the online form."""
     online = online or bias is not None
     if bias is not None:
-        bias = bias.repeat_interleave(heads, 0) * torch.tensor(np.float32(tfa.LOG2_E))
+        bias = bias.repeat_interleave(heads, 0)
+        bias = (bias - bias.amax(-1, keepdim=True)) * torch.tensor(np.float32(tfa.LOG2_E))
     qs = q * tfa._qscale(scale)
     bh, sq, d = q.shape
     den = torch.zeros(bh, sq, 1)
@@ -243,10 +245,11 @@ def test_bias_walk_matches_pallas(case):
 
 def test_bias_walk_with_a_fully_masked_batch_row():
     """A batch row whose keys are all masked (bias -10000 on every key)
-    stays finite, as JAX's: its base-2 logits sit near -14427, where an f32
-    keeps 2^-10 of absolute precision, so p carries up to ~7e-4 of relative
-    rounding in both; atol 1e-3 on that row (chip_smoke.py's), JAX's f32
-    limits on the other."""
+    stays finite, as JAX's: JAX's base-2 logits sit near -14427, where an
+    f32 keeps 2^-10 of absolute precision, so its p carries up to ~7e-4 of
+    relative rounding (the walk's, shifted by the row's largest bias, none);
+    atol 1e-3 on that row (chip_smoke.py's), JAX's f32 limits on the
+    other."""
     arrays, tensors = _inputs(2, 2, 256, 256, 1.0, 47)
     bias = _padding_bias(2, 1, 256, (100, 0), 48, noise=False)
     ref = _pallas_bias(arrays, bias)
