@@ -22,12 +22,33 @@ Phases, one short JSON line each:
            long_prompt: generate with max_text_length = 256, whose masked
            cross-attention takes attn_fwd_bias. Each new path is warmed up
            by one uncounted 1-step generate first. On every serving path
-           (these and int8, int8_conv) each attn_fwd / attn_fwd_v2 /
+           (these, snapshot, int8, int8_conv) each attn_fwd / attn_fwd_v2 /
            attn_fwd_bias launch is bf16 at head dim 64 and must have taken
            the tensor-core body (tc_launches == launches); on every counted
-           path (these, int8, int8_conv and train) each gn_silu_fwd launch
-           must have taken its thread-block-cluster body (cluster_launches
-           == launches);
+           path (these, snapshot, int8, int8_conv and train) each gn_silu_fwd
+           launch must have taken its thread-block-cluster body
+           (cluster_launches == launches);
+  snapshot, snapshot_cli
+           between slice and long_clip: the slice pipeline's weights written
+           as a full-width reference-format snapshot under build/ (the main
+           bin through the port's save_main_bin, f32 under the reference's
+           names; the VAE decoder and the vocoder, weight-normed, under
+           AudioLDM's; main, vae (with a ddconfig block), unet and stft
+           configs), its bytes and write seconds; Tango(dir) on the card in
+           bf16 with the default tokenizer (which must warn) and
+           cast_params=True, its cold start in seconds; every UNet, T5 and
+           VAE parameter bit-equal to the slice pipeline's and every vocoder
+           parameter within one bf16 step (the weight-norm fold; the count
+           that differ logged); then path `snapshot`, counted:
+           generate("a dog barks", steps=10, seed=0) with the serving path's
+           kernels (PATH_KERNELS, the tensor-core and cluster bodies), its
+           final latents equal to the slice's first at the same seed (max
+           abs difference 0), the waveform's largest int16 difference
+           logged; then, uncounted, `python -m tango_tpu_torch.inference`'s
+           main on the snapshot (3 prompts, 2 steps, batch 2), which must
+           write three non-silent 163872-sample int16 WAVs and one
+           summary.jsonl record; the directory deleted, the pipeline freed,
+           the phase's seconds and the smoke's total_s so far logged;
   int8     the int8 W8A8 serving mode: a full-width Tango.from_components(
            quant="all") built from the bf16 model's state dicts (the same
            weights, quantized once on the card), one uncounted 1-step
@@ -152,8 +173,8 @@ Phases, one short JSON line each:
 The last three lines are the card's `nvidia-smi` name and power limit, the
 `kernels` JSON, and the result line. Any failure exits non-zero before the
 result line; so does a card-less machine. The script writes nothing but
-build/ (the kernel library, and the training data and checkpoints, which it
-deletes) and stops itself after 720 s.
+build/ (the kernel library, and the snapshot, the training data and
+checkpoints, which it deletes) and stops itself after 720 s.
 """
 
 from __future__ import annotations
@@ -164,10 +185,12 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -228,7 +251,7 @@ FWD_TC_AMPLITUDE_SEEDS = (31, 32)
 BIAS_TC_SHAPES = [((6, 200, 64), (6, 333, 64), (2, 1, 333)),
                   ((6, 200, 64), (6, 333, 64), (2, 200, 333))]
 # the serving paths: every attention kernel launch there is bf16 at D = 64
-TC_PATHS = ("serve", "long_clip", "long_prompt", "int8", "int8_conv")
+TC_PATHS = ("serve", "snapshot", "long_clip", "long_prompt", "int8", "int8_conv")
 # the kernels each counted path must launch
 PATH_KERNELS = {
     "serve": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd"),
@@ -238,6 +261,11 @@ PATH_KERNELS = {
               "attn_bwd_dkv", "gn_silu_bwd"),
     "int8": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd", "w8a8_matmul"),
 }
+# a generate from a loaded snapshot runs the serving path's kernels
+PATH_KERNELS["snapshot"] = PATH_KERNELS["serve"]
+# the snapshot phase's batch-generation CLI run over BATCH_PROMPTS: steps, batch size
+CLI_STEPS = 2
+CLI_BATCH = 2
 # gn_silu_fwd's streaming body, which every path's shape leaves for the
 # cluster body, checked only: a misaligned view (offset one element) of a
 # serving shape, a bf16 map whose HW is no whole number of packets, and a
@@ -1297,6 +1325,142 @@ def int8_order_phase(C, quantized) -> None:
     torch.cuda.empty_cache()
 
 
+def reference_vae_state_dict(vae_sd: dict, vocoder_sd: dict) -> dict:
+    """The port's serving VAE (decode side) and HiFi-GAN state dicts under
+    AudioLDM's names, f32 on the host, the vocoder under `vocoder.` and
+    weight-normed as released (`weight_g` = ||w|| over every dimension but
+    0, `weight_v` = w), so that loading folds it. Builds the smoke's test
+    snapshot, nothing else."""
+    rules = ((r"\b(down|up)_(\d+)_(block|attn)_(\d+)\.", r"\1.\2.\3.\4."),
+             (r"\b(down|up)_(\d+)_(downsample|upsample)\.", r"\1.\2.\3."),
+             (r"\bmid_(block_1|block_2|attn_1)\.", r"mid.\1."),
+             (r"^ups_(\d+)\.", r"ups.\1."),
+             (r"^resblocks_(\d+)\.convs([12])_(\d+)\.", r"resblocks.\1.convs\2.\3."))
+
+    def rename(k):
+        for rx, rep in rules:
+            k = re.sub(rx, rep, k)
+        return k
+
+    out = {rename(k): v.detach().to("cpu", torch.float32) for k, v in vae_sd.items()}
+    for k, v in vocoder_sd.items():
+        w, k = v.detach().to("cpu", torch.float32), "vocoder." + rename(k)
+        if k.endswith(".weight"):
+            out[k + "_g"] = w.norm(dim=tuple(range(1, w.dim())), keepdim=True)
+            out[k + "_v"] = w
+        else:
+            out[k] = w
+    return out
+
+
+def write_snapshot(root: str, C, tango) -> dict:
+    """A full-width reference-format snapshot of pipeline `tango`'s weights
+    in `root`: the main bin through the port's `save_main_bin`, the VAE bin
+    through `reference_vae_state_dict`, and the four JSON configs (the VAE's
+    geometry nested in `ddconfig`, as released). Returns bytes and seconds."""
+    from tango_tpu_torch.utils.export import save_main_bin
+
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    save_main_bin(os.path.join(root, "pytorch_model_main.bin"), tango.model.unet.state_dict(),
+                  tango.t5.state_dict())
+    torch.save(reference_vae_state_dict(tango.vae.state_dict(), tango.vocoder.state_dict()),
+               os.path.join(root, "pytorch_model_vae.bin"))
+    vae = C.TANGO_VAE.to_dict()
+    unet = {k: v for k, v in C.TANGO_UNET.to_dict().items() if not k.startswith("quant_")}
+    configs = {
+        "main_config.json": {"text_encoder_name": "google/flan-t5-large",
+                             "scheduler_name": "stabilityai/stable-diffusion-2-1",
+                             "unet_model_config_path": "unet_config.json"},
+        "vae_config.json": {"embed_dim": vae.pop("embed_dim"),
+                            "scale_factor": vae.pop("scale_factor"), "ddconfig": vae},
+        "unet_config.json": {"_class_name": "UNet2DConditionModel", "act_fn": "silu", **unet},
+        "stft_config.json": C.TANGO_STFT.to_dict(),
+    }
+    for name, cfg in configs.items():
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(cfg, f, indent=2)
+    seconds = time.perf_counter() - t0
+    sizes = {n: os.path.getsize(os.path.join(root, n)) for n in sorted(os.listdir(root))}
+    return {"write_s": round(seconds, 3), "bytes": sum(sizes.values()),
+            "bin_bytes": {n: b for n, b in sizes.items() if n.endswith(".bin")}}
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 step at each element of x (8 significand bits)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp(min=2.0**-126)))
+    return torch.exp2(e - 7)
+
+
+def compare_loaded(tango, loaded) -> dict:
+    """The loaded pipeline's parameters against the pipeline it was written
+    from: the UNet, T5 and VAE bit-equal (bf16 -> f32 -> bf16 is exact), the
+    vocoder within one bf16 step (the weight-norm fold). Raises otherwise."""
+    out, problems = {}, []
+    for name in ("unet", "t5", "vae", "vocoder"):
+        a = (tango.model.unet if name == "unet" else getattr(tango, name)).state_dict()
+        b = (loaded.model.unet if name == "unet" else getattr(loaded, name)).state_dict()
+        if set(a) != set(b):
+            problems.append(f"{name}: keys differ")
+            continue
+        differ = sum(int((a[k] != b[k]).sum()) for k in a)
+        worst = max(((a[k].float() - b[k].float()).abs() / bf16_ulp(a[k])).max().item()
+                    for k in a)
+        out[name] = {"tensors": len(a), "elements": sum(v.numel() for v in a.values()),
+                     "differ": differ, "max_ulps": worst}
+        if name != "vocoder" and differ:
+            problems.append(f"{name}: {differ} elements differ")
+        if worst > 1.0:
+            problems.append(f"{name}: {worst} bf16 steps off")
+    if problems:
+        raise AssertionError(f"loaded snapshot: {'; '.join(problems)} ({out})")
+    return out
+
+
+def cli_phase(root: str, snapshot: str, wav_len: int) -> dict:
+    """`tango_tpu_torch.inference.main` on the snapshot, in `root` (its
+    summary.jsonl goes to the working directory): 3 prompts, 2 steps, batch
+    2; three non-silent int16 WAVs of wav_len samples and one record."""
+    import wave
+
+    import numpy as np
+
+    from tango_tpu_torch import inference
+
+    os.makedirs(root, exist_ok=True)
+    manifest = os.path.join(root, "prompts.json")
+    with open(manifest, "w") as f:
+        f.write("".join(json.dumps({"location": f"x{i}.wav", "captions": c}) + "\n"
+                        for i, c in enumerate(BATCH_PROMPTS)))
+    out_dir = os.path.join(root, "out")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        t0 = time.perf_counter()
+        inference.main(["--model", snapshot, "--test_file", manifest, "--output_dir", out_dir,
+                        "--num_steps", str(CLI_STEPS), "--batch_size", str(CLI_BATCH)])
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    problems, peaks = [], []
+    for i in range(len(BATCH_PROMPTS)):
+        with wave.open(os.path.join(out_dir, f"output_{i}.wav")) as w:
+            if (w.getsampwidth(), w.getnchannels(), w.getframerate()) != (2, 1, 16000):
+                problems.append(f"output_{i}.wav is not 16 kHz mono int16")
+            pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        peaks.append(int(np.abs(pcm.astype(np.int32)).max()) if pcm.size else 0)
+        if pcm.size != wav_len or peaks[-1] == 0:
+            problems.append(f"output_{i}.wav: {pcm.size} samples, peak {peaks[-1]}")
+    with open(os.path.join(root, "summary.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    if len(records) != 1 or records[0]["num_prompts"] != len(BATCH_PROMPTS):
+        problems.append(f"summary.jsonl: {records}")
+    if problems:
+        raise AssertionError("inference CLI: " + "; ".join(problems))
+    return {"cli_s": round(seconds, 3), "cli_x_realtime": records[0]["x_realtime"],
+            "cli_peaks": peaks}
+
+
 def write_wavs(root: str, n: int, seconds: float, seed: int) -> str:
     """`n` seeded synthetic 16 kHz WAVs (a few partials and noise) and their
     JSON-lines manifest under `root`; returns the manifest's path."""
@@ -1329,8 +1493,6 @@ def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
     checkpoint saved, loaded back and deleted. Returns the launches, shapes,
     tensor-core launches and cluster launches of the counted run; raises on
     any failed check."""
-    import shutil
-
     from tango_tpu_torch.models.diffusion import AudioDiffusion
     from tango_tpu_torch.models.t5 import T5Encoder
     from tango_tpu_torch.models.vae import AutoencoderKL
@@ -1499,6 +1661,7 @@ def main(argv) -> int:
     cluster_launches = {}  # path -> cluster launches of each kernel that has such a body
     sample_times = {}  # CFG batch of the UNet -> [seconds, steps]
     first_latents = {}  # path -> the latents of its first decode
+    first_wavs = {}  # path -> its first waveform
 
     def instrument(t):
         """Check every decode of pipeline t and time every sampling loop;
@@ -1538,6 +1701,7 @@ def main(argv) -> int:
         ops.reset_counters()
         outs, seconds = drive()
         torch.cuda.synchronize()
+        first_wavs[path] = outs[0]
         launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
         shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
         tc = {n: fn.tc_launches for n, fn in ops.all_kernels().items()
@@ -1599,6 +1763,48 @@ def main(argv) -> int:
     long_t = factor * max(round(LONG_CLIP_S * 25.6 / factor), 1)  # as Tango.generate
     remove = instrument(tango)
     by_path = {"serve": counted("serve", serve, wav_len(frames), phase="slice")}
+    remove()
+
+    # ---- a full-width reference-format snapshot of the same weights, written,
+    # loaded by Tango(dir) (bf16, default tokenizer, cast_params=True), counted
+    # as path `snapshot`, and run through the batch-generation CLI
+    t_phase = time.perf_counter()
+    snap_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_snapshot")
+    shutil.rmtree(snap_root, ignore_errors=True)
+    snap_dir = os.path.join(snap_root, "snapshot")
+    written = write_snapshot(snap_dir, C, tango)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ts = Tango(snap_dir, device=DEVICE)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    params = compare_loaded(tango, ts)
+    tokenizer_warned = any("WordHashTokenizer" in str(w.message) for w in caught)
+
+    def snapshot_fields(launches):
+        lat = (first_latents["snapshot"] - first_latents["serve"]).abs().max().item()
+        wav = abs(first_wavs["serve"].astype("int32") - first_wavs["snapshot"].astype("int32"))
+        return dict(**written, cold_start_s=round(cold_s, 3), dtype=str(ts.dtype),
+                    tokenizer_warned=tokenizer_warned, params=params,
+                    latents_max_abs_diff_vs_slice=lat, wav_max_int16_diff_vs_slice=int(wav.max()))
+
+    remove = instrument(ts)
+    by_path["snapshot"] = counted("snapshot", single(ts), wav_len(frames), extra=snapshot_fields)
+    remove()
+    lat_diff = (first_latents["snapshot"] - first_latents["serve"]).abs().max().item()
+    if lat_diff != 0 or not tokenizer_warned:
+        raise AssertionError(f"snapshot path: latents {lat_diff} from the slice's at the same "
+                             f"seed (must be 0); tokenizer warning {tokenizer_warned}")
+    del ts, remove  # the instruments' closures hold the pipeline
+    torch.cuda.empty_cache()
+    cli = cli_phase(os.path.join(snap_root, "cli"), snap_dir, wav_len(frames))
+    shutil.rmtree(snap_root)
+    torch.cuda.empty_cache()
+    log("snapshot_cli", **cli, phase_s=round(time.perf_counter() - t_phase, 3),
+        total_s=round(time.perf_counter() - t_start, 3))
+
+    remove = instrument(tango)
     # one uncounted step at each new shape first: cuDNN's and cuBLAS's first use
     tango.generate("warm up", steps=1, duration=LONG_CLIP_S, seed=1)
     by_path["long_clip"] = counted("long_clip", single(tango, duration=LONG_CLIP_S),

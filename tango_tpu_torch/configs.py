@@ -3,8 +3,10 @@
 A copy of the fields of tango_tpu/configs.py and tango_tpu/models/t5.py that
 the ported text-to-audio path reads, with the same names and defaults, so
 that `from_dict(jax_config.to_dict())` rebuilds a JAX config here (unknown
-keys are ignored). Fields only an unported part reads are left out:
-Mustango's conditioning streams, DDIM.
+keys are ignored), and so does a reference snapshot's JSON. Fields only an
+unported part reads are left out: Mustango's conditioning streams, DDIM.
+A JSON that asks for geometry the port's modules lack raises instead of
+building another model.
 """
 
 from __future__ import annotations
@@ -30,6 +32,16 @@ class _FromDict:
 
 def _tup(x) -> tuple:
     return tuple(x) if isinstance(x, (list, tuple)) else (x,)
+
+
+_UNET_DEFAULT_ONLY = {
+    "act_fn": "silu",
+    "only_cross_attention": False,
+    "dual_cross_attention": False,
+    "num_class_embeds": None,
+    "resnet_time_scale_shift": "default",
+    "mid_block_scale_factor": 1.0,
+}
 
 
 @dataclass(frozen=True)
@@ -80,6 +92,15 @@ class UNetConfig(_FromDict):
     def quant_conv(self) -> bool:
         return self.quant_int8 and self.quant_scope in ("all", "conv")
 
+    @classmethod
+    def from_dict(cls, d: dict):
+        # diffusers knobs no shipped Tango config moves off its default and
+        # the UNet does not implement (tango_tpu/configs.py UNetConfig)
+        bad = {k: d[k] for k, dflt in _UNET_DEFAULT_ONLY.items() if k in d and d[k] != dflt}
+        if bad:
+            raise NotImplementedError(f"UNetConfig fields not supported off-default: {bad}")
+        return super().from_dict(d)
+
     def __post_init__(self):
         object.__setattr__(self, "down_block_types", _tup(self.down_block_types))
         object.__setattr__(self, "up_block_types", _tup(self.up_block_types))
@@ -95,7 +116,8 @@ class UNetConfig(_FromDict):
 
 @dataclass(frozen=True)
 class VAEConfig(_FromDict):
-    """AudioLDM AutoencoderKL config."""
+    """AudioLDM AutoencoderKL config: `first_stage_config.params` with its
+    `ddconfig` block flattened, as a reference `vae_config.json` nests it."""
 
     embed_dim: int = 8
     scale_factor: float = 1.0
@@ -108,6 +130,17 @@ class VAEConfig(_FromDict):
     ch_mult: Tuple[int, ...] = (1, 2, 4)
     num_res_blocks: int = 2
     attn_resolutions: Tuple[int, ...] = ()
+
+    @classmethod
+    def from_dict(cls, d: dict):
+        d = dict(d)
+        d.update(d.pop("ddconfig", None) or {})
+        if d.get("downsample_time_stride4_levels"):
+            # AudioLDM's stride-4 time downsampling; the port's VAE has none
+            raise NotImplementedError(
+                "downsample_time_stride4_levels (AudioLDM's VAE) is not ported yet: "
+                "ROADMAP queue A #8")
+        return super().from_dict(d)
 
     def __post_init__(self):
         object.__setattr__(self, "ch_mult", _tup(self.ch_mult))
@@ -168,6 +201,21 @@ class SchedulerConfig(_FromDict):
 
 
 @dataclass(frozen=True)
+class DiffusionConfig(_FromDict):
+    """A snapshot's `main_config.json` (tango_tpu/configs.py DiffusionConfig)."""
+
+    text_encoder_name: str = "google/flan-t5-large"
+    scheduler_name: str = "stabilityai/stable-diffusion-2-1"
+    unet_model_name: Optional[str] = None
+    unet_model_config_path: Optional[str] = None
+    snr_gamma: Optional[float] = None
+    freeze_text_encoder: bool = True
+    uncondition: bool = False
+    latent_t_size: int = 256
+    latent_f_size: int = 16
+
+
+@dataclass(frozen=True)
 class T5Config(_FromDict):
     """T5 encoder config; defaults are FLAN-T5-Large."""
 
@@ -221,7 +269,10 @@ class TrainConfig(_FromDict):
 
 
 TANGO_UNET = UNetConfig()
+# Tango-XL: the same UNet under FLAN-T5-XL's 2048-wide text states
+TANGO_UNET_XL = dataclasses.replace(TANGO_UNET, cross_attention_dim=2048)
 TANGO_VAE = VAEConfig()
+TANGO_STFT = StftConfig()
 TANGO_HIFIGAN = HiFiGANConfig()
 SD21_SCHEDULER = SchedulerConfig()
 FLAN_T5_LARGE = T5Config()

@@ -3,9 +3,15 @@
 RMS layer norm (f32), unscaled attention with one relative-position bias
 table shared by every layer, gated-GELU (tanh) feed-forward. Logits and
 softmax are f32 whatever the compute dtype.
+
+`t5_config_from_state_dict` and `convert_t5_encoder` read an HF
+T5EncoderModel state dict (a snapshot's `text_encoder.*`): the geometry from
+the tensors' shapes, the weights under the port's names.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -141,3 +147,46 @@ class T5Encoder(nn.Module):
         for i in range(c.num_layers):
             x = getattr(self, f"block_{i}")(x, position_bias, mask_bias)
         return self.final_layer_norm(x)
+
+
+def t5_config_from_state_dict(sd: Mapping[str, torch.Tensor]) -> T5Config:
+    """The encoder's geometry from an HF T5 state dict's shapes, so
+    FLAN-T5-Large, FLAN-T5-XL (Tango-XL) and test-sized encoders load with
+    no hub lookup. `relative_attention_max_distance` is not in the shapes;
+    every released T5 uses 128, the default."""
+    vocab, d_model = sd["shared.weight"].shape
+    n_layers = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("encoder.block."))
+    attn = "encoder.block.0.layer.0.SelfAttention."
+    buckets, heads = sd[attn + "relative_attention_bias.weight"].shape
+    inner = sd[attn + "q.weight"].shape[0]
+    gated = "encoder.block.0.layer.1.DenseReluDense.wi_0.weight" in sd
+    wi = "encoder.block.0.layer.1.DenseReluDense." + ("wi_0" if gated else "wi")
+    return T5Config(vocab_size=int(vocab), d_model=int(d_model), d_kv=int(inner // heads),
+                    d_ff=int(sd[wi + ".weight"].shape[0]), num_layers=n_layers,
+                    num_heads=int(heads), relative_attention_num_buckets=int(buckets),
+                    feed_forward_proj="gated-gelu" if gated else "relu")
+
+
+def convert_t5_encoder(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """HF T5EncoderModel state dict -> the port's T5Encoder's. The
+    `encoder.embed_tokens` alias of `shared` and any decoder keys are left
+    out."""
+    out = {
+        "token_embedding.weight": sd["shared.weight"],
+        "relative_attention_bias.weight":
+            sd["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"],
+        "final_layer_norm.weight": sd["encoder.final_layer_norm.weight"],
+    }
+    i = 0
+    while f"encoder.block.{i}.layer.0.SelfAttention.q.weight" in sd:
+        pre, blk = f"encoder.block.{i}.layer.", f"block_{i}."
+        out[blk + "ln_attn.weight"] = sd[pre + "0.layer_norm.weight"]
+        out[blk + "ln_ff.weight"] = sd[pre + "1.layer_norm.weight"]
+        for name in "qkvo":
+            out[blk + f"attn.{name}.weight"] = sd[pre + f"0.SelfAttention.{name}.weight"]
+        for name in ("wi", "wi_0", "wi_1", "wo"):
+            key = pre + f"1.DenseReluDense.{name}.weight"
+            if key in sd:
+                out[blk + f"ff.{name}.weight"] = sd[key]
+        i += 1
+    return out

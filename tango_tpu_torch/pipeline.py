@@ -1,7 +1,10 @@
 """Tango, the text-to-audio pipeline: port of tango_tpu/pipeline.py.
 
-`Tango.from_components(...).generate(prompt)` returns an int16 16 kHz
-waveform; `generate_for_batch` chunks a prompt list. The path: tokenize, T5
+`Tango(snapshot_dir).generate(prompt)` returns an int16 16 kHz waveform;
+`generate_for_batch` chunks a prompt list. `Tango(path)` loads a
+reference-format snapshot directory (utils/checkpoint.py) and downloads
+nothing; `Tango.from_components(...)` builds from configs and state dicts,
+or seeded random weights. Both go through one build. The path: tokenize, T5
 encode the prompts and "" (padded to `max_text_length`), the CFG DDPM loop
 over the UNet, the VAE decode to a mel, HiFi-GAN, int16.
 
@@ -23,13 +26,19 @@ scope's Linear layers then run the `w8a8_matmul` kernel, its Conv2d layers
 the int8 convolution (ops/quant.py). The T5 encoder, the VAE and HiFi-GAN
 stay in the compute dtype.
 
-Not ported yet: snapshot loading (`Tango(path)`), the device mesh, the DDIM
+The tokenizer: the caller's, or `WordHashTokenizer` (FLAN-T5's
+SentencePiece tokenizer needs `transformers`, which the port does not use;
+`Tango(path)` warns when it falls back to the word hash).
+
+Not ported yet: the device mesh (`mesh=`, ROADMAP queue A #10), the DDIM
 scheduler.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -43,6 +52,7 @@ from tango_tpu_torch.models.unet import UNet2DConditionModel
 from tango_tpu_torch.models.vae import AutoencoderKL
 from tango_tpu_torch.ops.quant import SCOPES, QConv2d, QLinear, quantize_unet_
 from tango_tpu_torch.tokenizer import WordHashTokenizer
+from tango_tpu_torch.utils.checkpoint import load_native, load_tango_snapshot
 from tango_tpu_torch.utils.init import init_random_
 
 
@@ -65,10 +75,13 @@ class Tango:
 
     def __init__(self, name_or_path: Optional[str] = None, tokenizer=None, device=None,
                  dtype: Optional[torch.dtype] = None, max_text_length: int = 128,
-                 rng_seed: int = 0, cast_params: bool = True, quant: Optional[str] = None):
-        if name_or_path is not None:
-            raise NotImplementedError(
-                "snapshot loading is not ported yet; build with Tango.from_components")
+                 rng_seed: int = 0, cast_params: bool = True, quant: Optional[str] = None,
+                 unet_ckpt: Optional[str] = None):
+        """Load the reference-format snapshot directory `name_or_path` (or,
+        with None, an empty pipeline for `from_components`). `unet_ckpt`, a
+        directory that `utils.checkpoint.save_native` wrote (as
+        `SFTTrainer.fit` does), replaces the snapshot's UNet weights: a
+        natively trained UNet over the snapshot's VAE, T5 and vocoder."""
         if quant not in (None, False, *SCOPES):
             # a typo must not serve an unquantized pipeline
             raise ValueError(f"quant must be one of None/'conv'/'dense'/'all', got {quant!r}")
@@ -80,6 +93,35 @@ class Tango:
         self.tokenizer = tokenizer
         self._rng = np.random.default_rng(rng_seed)
         self.model = self.vae = self.t5 = self.vocoder = None
+        self.stft_config, self.main_config = C.TANGO_STFT, None
+        if name_or_path is None:
+            if unet_ckpt is not None:
+                raise ValueError("unet_ckpt replaces a snapshot's UNet: give the snapshot too")
+            return
+        if not os.path.isdir(name_or_path):
+            raise FileNotFoundError(
+                f"{name_or_path!r} is not a directory. The port downloads nothing: pass a local "
+                "reference-format snapshot directory (main_config.json, vae_config.json, "
+                "pytorch_model_main.bin, pytorch_model_vae.bin)")
+        loaded = load_tango_snapshot(name_or_path)
+        if unet_ckpt is not None:
+            loaded["unet_params"], _ = load_native(unet_ckpt)
+        t5_config = loaded["t5_config"] or C.FLAN_T5_LARGE
+        if self.tokenizer is None:
+            warnings.warn(
+                "no tokenizer given: prompts go through WordHashTokenizer, not FLAN-T5's "
+                "SentencePiece tokenizer, so they are not tokenized as the released model was "
+                "trained; pass tokenizer= to use the real one", UserWarning, stacklevel=2)
+            self.tokenizer = WordHashTokenizer(t5_config.vocab_size)
+        self._build(
+            unet_config=loaded["unet_config"], vae_config=loaded["vae_config"],
+            unet_params=loaded["unet_params"], vae_params=loaded["vae_params"],
+            # a component missing from the snapshot is not built: no random weights
+            t5_config=t5_config if loaded["t5_params"] is not None else None,
+            t5_params=loaded["t5_params"],
+            hifigan_config=loaded["hifigan_config"], hifigan_params=loaded["hifigan_params"],
+            scheduler_config=loaded["scheduler_config"])
+        self.stft_config, self.main_config = loaded["stft_config"], loaded["main_config"]
 
     @classmethod
     def from_components(
@@ -105,11 +147,12 @@ class Tango:
         init_seed: int = 0,
     ) -> "Tango":
         """Build from configs and state dicts of this package's modules
-        (`utils.convert.from_jax_params` makes them from JAX trees). A
-        component whose params are None gets seeded random weights drawn on
-        the device from `init_seed`. T5 and HiFi-GAN are built when their
-        config is given; the tokenizer defaults to WordHashTokenizer. With
-        `quant`, `unet_params` is still the float UNet's: it is quantized here.
+        (`utils.convert` makes them from reference state dicts and from JAX
+        trees). A component whose params are None gets seeded random weights
+        drawn on the device from `init_seed`. T5 and HiFi-GAN are built when
+        their config is given; the tokenizer defaults to WordHashTokenizer.
+        With `quant`, `unet_params` is still the float UNet's: it is
+        quantized here.
 
         `cast_params` (JAX's flag, False here as in JAX's `from_components`)
         decides the int8 quantize order only: False builds (or draws) the
@@ -123,6 +166,19 @@ class Tango:
                    max_text_length=max_text_length, cast_params=cast_params, quant=quant)
         if self.tokenizer is None and t5_config is not None:
             self.tokenizer = WordHashTokenizer(t5_config.vocab_size)
+        self._build(unet_config=unet_config, vae_config=vae_config, unet_params=unet_params,
+                    vae_params=vae_params, t5_config=t5_config, t5_params=t5_params,
+                    hifigan_config=hifigan_config, hifigan_params=hifigan_params,
+                    scheduler_config=scheduler_config, latent_t_size=latent_t_size,
+                    latent_f_size=latent_f_size, init_seed=init_seed)
+        return self
+
+    def _build(self, *, unet_config, vae_config, unet_params, vae_params, t5_config, t5_params,
+               hifigan_config, hifigan_params, scheduler_config, latent_t_size: int = 256,
+               latent_f_size: int = 16, init_seed: int = 0) -> None:
+        """The modules on the device in the compute dtype, from state dicts
+        or, where one is None, seeded random weights; the UNet quantized in
+        `cast_params`' order."""
 
         def build(k: int, make, params, dtype=self.dtype):
             with torch.device("meta"):
@@ -150,7 +206,6 @@ class Tango:
             self.t5 = build(2, lambda: T5Encoder(t5_config), t5_params)
         if hifigan_config is not None:
             self.vocoder = build(3, lambda: HiFiGANGenerator(hifigan_config), hifigan_params)
-        return self
 
     # ------------------------------------------------------------- text side
     @torch.inference_mode()

@@ -265,7 +265,9 @@ def test_samples_and_duration(port):
 
 
 def test_not_ported_options_raise():
-    with pytest.raises(NotImplementedError):
+    # snapshot loading is ported (tests/test_torch_snapshot.py); a hub name
+    # is not a directory, and the port downloads nothing
+    with pytest.raises(FileNotFoundError, match="downloads nothing"):
         Tango("declare-lab/tango", device="cpu")
     # int8 serving is ported (tests/test_torch_quant.py); an unknown scope raises
     assert Tango(device="cpu", quant="conv").quant == "conv"
