@@ -47,8 +47,34 @@ Phases, one short JSON line each:
            logged; then, uncounted, `python -m tango_tpu_torch.inference`'s
            main on the snapshot (3 prompts, 2 steps, batch 2), which must
            write three non-silent 163872-sample int16 WAVs and one
-           summary.jsonl record; the directory deleted, the pipeline freed,
-           the phase's seconds and the smoke's total_s so far logged;
+           summary.jsonl record; the pipeline freed, the phase's seconds
+           and the smoke's total_s so far logged. The snapshot's VAE bin
+           also holds a seeded random encoder and quant_conv (released
+           snapshots ship them; serving skips them, the trainers need them);
+  serve_http, train_cli, dpo
+           the entry points on the same snapshot, each counted on its own
+           (the counters zeroed just before it and read just after; every
+           attention launch on its tensor-core body, every gn_silu_fwd and
+           gn_silu_bwd on its cluster body), the directory deleted after:
+           serve_http: serve.BatchingPredictor(max_batch=4) set up on the
+           snapshot (bf16; the load and the two warm-ups timed) behind
+           serve_http on 127.0.0.1 at port 0; GET /healthz; 4 concurrent
+           unseeded POST /generate at STEPS steps, which must ride one
+           predict_batch and one generate_for_batch of batch 4; one seeded
+           request, whose WAV must equal generate at that seed sample for
+           sample; two bad bodies, 400; every response a non-silent 16 kHz
+           mono int16 WAV of the clip's length; the latencies logged.
+           train_cli: train/cli.py's main on 8 synthetic WAVs
+           (--tango_snapshot and --hf_model the snapshot, batch 2,
+           accumulation 2, 2 updates, one epoch, best): the args and one
+           epoch record with finite losses, `best` with the UNet's keys and
+           not the snapshot's weights, the micro-steps' ms and the peak
+           memory logged. dpo: train/dpo_cli.py's main on a 4-row preference
+           manifest (batch 2, accumulation 1, 2 epochs, 1 of them SFT-first,
+           a 2-row validation file): one sft and one dpo record with finite
+           losses and implicit_acc in [0, 1], `last` and `best`, the
+           reference UNet bit-equal to the snapshot's after the run, the ms
+           a DPO and an SFT micro-step and the peak memory logged;
   int8     the int8 W8A8 serving mode: a full-width Tango.from_components(
            quant="all") built from the bf16 model's state dicts (the same
            weights, quantized once on the card), one uncounted 1-step
@@ -251,7 +277,7 @@ FWD_TC_AMPLITUDE_SEEDS = (31, 32)
 BIAS_TC_SHAPES = [((6, 200, 64), (6, 333, 64), (2, 1, 333)),
                   ((6, 200, 64), (6, 333, 64), (2, 200, 333))]
 # the serving paths: every attention kernel launch there is bf16 at D = 64
-TC_PATHS = ("serve", "snapshot", "long_clip", "long_prompt", "int8", "int8_conv")
+TC_PATHS = ("serve", "snapshot", "serve_http", "long_clip", "long_prompt", "int8", "int8_conv")
 # the kernels each counted path must launch
 PATH_KERNELS = {
     "serve": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd"),
@@ -266,6 +292,16 @@ PATH_KERNELS["snapshot"] = PATH_KERNELS["serve"]
 # the snapshot phase's batch-generation CLI run over BATCH_PROMPTS: steps, batch size
 CLI_STEPS = 2
 CLI_BATCH = 2
+# phase serve_http: BatchingPredictor's batch, the concurrent unseeded
+# requests (one batch of them), the seed of the request served alone
+SERVE_BATCH = 4
+SERVE_PROMPTS = ["a dog barks", "rain on a tin roof", "an engine idles", "birds sing"]
+SERVE_SEED = 7
+# the training CLIs run the training path's kernels: train/cli.py (SFT) and
+# train/dpo_cli.py (DPO: the policy and the frozen reference UNet)
+PATH_KERNELS["serve_http"] = PATH_KERNELS["serve"]
+PATH_KERNELS["train_cli"] = PATH_KERNELS["train"]
+PATH_KERNELS["dpo"] = PATH_KERNELS["train"]
 # gn_silu_fwd's streaming body, which every path's shape leaves for the
 # cluster body, checked only: a misaligned view (offset one element) of a
 # serving shape, a bf16 map whose HW is no whole number of packets, and a
@@ -1353,10 +1389,24 @@ def reference_vae_state_dict(vae_sd: dict, vocoder_sd: dict) -> dict:
     return out
 
 
-def write_snapshot(root: str, C, tango) -> dict:
+def random_encoder(C, seed: int) -> dict:
+    """Seeded random weights of TANGO_VAE's encoder and quant_conv (the
+    serving pipeline has none), for the snapshot's VAE bin."""
+    from tango_tpu_torch.models.vae import AutoencoderKL
+    from tango_tpu_torch.utils.init import init_random_
+
+    with torch.device("meta"):
+        vae = AutoencoderKL(C.TANGO_VAE, with_encoder=True)
+    vae = init_random_(vae.to_empty(device=DEVICE), torch.Generator(device=DEVICE).manual_seed(seed))
+    return {k: v for k, v in vae.state_dict().items() if k.startswith(("encoder.", "quant_conv."))}
+
+
+def write_snapshot(root: str, C, tango, encoder: dict) -> dict:
     """A full-width reference-format snapshot of pipeline `tango`'s weights
     in `root`: the main bin through the port's `save_main_bin`, the VAE bin
-    through `reference_vae_state_dict`, and the four JSON configs (the VAE's
+    (the decoder, the `encoder` state dict's encoder and quant_conv, as
+    released snapshots ship them, and the vocoder) through
+    `reference_vae_state_dict`, and the four JSON configs (the VAE's
     geometry nested in `ddconfig`, as released). Returns bytes and seconds."""
     from tango_tpu_torch.utils.export import save_main_bin
 
@@ -1364,7 +1414,8 @@ def write_snapshot(root: str, C, tango) -> dict:
     t0 = time.perf_counter()
     save_main_bin(os.path.join(root, "pytorch_model_main.bin"), tango.model.unet.state_dict(),
                   tango.t5.state_dict())
-    torch.save(reference_vae_state_dict(tango.vae.state_dict(), tango.vocoder.state_dict()),
+    torch.save(reference_vae_state_dict({**tango.vae.state_dict(), **encoder},
+                                        tango.vocoder.state_dict()),
                os.path.join(root, "pytorch_model_vae.bin"))
     vae = C.TANGO_VAE.to_dict()
     unet = {k: v for k, v in C.TANGO_UNET.to_dict().items() if not k.startswith("quant_")}
@@ -1487,6 +1538,353 @@ def write_wavs(root: str, n: int, seconds: float, seed: int) -> str:
     return manifest
 
 
+def read_counters(ops) -> tuple[dict, dict, dict, dict]:
+    """Every kernel's launches and launched shapes, and the tensor-core and
+    cluster launches of the kernels with such bodies."""
+    kernels = ops.all_kernels()
+    return ({n: fn.launches for n, fn in kernels.items()},
+            {n: set(fn.shapes) for n, fn in kernels.items()},
+            {n: fn.tc_launches for n, fn in kernels.items() if hasattr(fn, "tc_launches")},
+            cluster_counts(ops))
+
+
+def body_problems(path: str, launches: dict, tc: dict, cluster: dict) -> list:
+    """A training path's launch problems: a kernel of PATH_KERNELS[path] that
+    never launched; a D = 64 attention launch (all of them, forward and
+    backward, f32) off its tensor-core body; a GroupNorm off its cluster body."""
+    problems = []
+    idle = [n for n in PATH_KERNELS[path] if launches[n] == 0]
+    if idle:
+        problems.append(f"kernels never launched on the {path} path: {idle}")
+    off = {n: (launches[n], tc[n]) for n in tc if tc[n] != launches[n]}
+    if off:
+        problems.append(f"launches off the tensor-core body (launches, tensor-core): {off}")
+    return problems + off_cluster(cluster, launches)
+
+
+def wav_samples(body: bytes):
+    """A WAV response's int16 samples; raises unless it is 16 kHz mono int16."""
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(body)) as w:
+        fmt = (w.getsampwidth(), w.getnchannels(), w.getframerate())
+        if fmt != (2, 1, 16000):
+            raise AssertionError(f"response WAV (width, channels, rate) {fmt}: expected "
+                                 "16 kHz mono int16")
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def http(port: int, path: str, body: bytes | None = None, timeout: float = 300.0):
+    """One request to the server on 127.0.0.1 -> (status, content type, body,
+    seconds); a POST when `body` is given."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            out = (r.status, r.headers["Content-Type"], r.read())
+    except urllib.error.HTTPError as e:
+        out = (e.code, e.headers["Content-Type"], e.read())
+    return (*out, time.perf_counter() - t0)
+
+
+def serve_http_phase(snap_dir: str, counted, instrument, expect_len: int):
+    """`serve.BatchingPredictor(max_batch=4)` set up on the snapshot (bf16 on
+    the card; the load and the two warm-ups timed), `serve_http` on
+    127.0.0.1 at port 0 in a thread. Counted as path `serve_http`: GET
+    /healthz, 4 concurrent unseeded POST /generate at STEPS steps, which must
+    ride one predict_batch and one generate_for_batch of batch 4, one seeded
+    request, and two bad bodies (400). Then, uncounted, the seeded response
+    must equal `generate` at that seed sample for sample. Returns counted's
+    (launches, shapes)."""
+    import threading
+
+    import numpy as np
+
+    from tango_tpu_torch import pipeline
+    from tango_tpu_torch.serve import BatchingPredictor, serve_http
+
+    timings, made, real = {}, [], pipeline.Tango
+
+    def timed_tango(*a, **kw):
+        """Tango(...), its construction and first generate / generate_for_batch
+        (setup's warm-ups) timed."""
+        t0 = time.perf_counter()
+        t = real(*a, **kw)
+        torch.cuda.synchronize()
+        timings["load_s"] = round(time.perf_counter() - t0, 3)
+        for name in ("generate", "generate_for_batch"):
+            def timed(*args, _fn=getattr(t, name), _name=name, **kwargs):
+                s0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                timings[f"warmup_{_name}_s"] = round(time.perf_counter() - s0, 3)
+                return out
+            setattr(t, name, timed)
+        made.append(t)
+        return t
+
+    predictor = BatchingPredictor(max_batch=SERVE_BATCH)
+    pipeline.Tango = timed_tango
+    try:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the default tokenizer's, checked in `snapshot`
+            predictor.setup(snap_dir, device=DEVICE)
+        timings["setup_s"] = round(time.perf_counter() - t0, 3)
+    finally:
+        pipeline.Tango = real
+    tango = predictor.tango
+    del tango.generate, tango.generate_for_batch  # the class's methods again
+    batches, chunks = [], []
+    predict_batch, generate_for_batch = predictor.predict_batch, tango.generate_for_batch
+
+    def spy_predict_batch(prompts, **kw):
+        batches.append(len(prompts))
+        return predict_batch(prompts, **kw)
+
+    def spy_generate_for_batch(prompts, **kw):
+        chunks.append((len(prompts), kw.get("batch_size")))
+        return generate_for_batch(prompts, **kw)
+
+    predictor.predict_batch, tango.generate_for_batch = spy_predict_batch, spy_generate_for_batch
+    server = serve_http(predictor, 0, "127.0.0.1")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    remove = instrument(tango)
+    latencies, seeded, bad = {}, {}, {}
+
+    def drive():
+        status = http(port, "/healthz")
+        if status[:3] != (200, "text/plain", b"ok"):
+            raise AssertionError(f"GET /healthz: {status[:3]}")
+        results = {}
+
+        def post(i, prompt):
+            results[i] = http(port, "/generate",
+                              json.dumps({"prompt": prompt, "steps": STEPS}).encode())
+
+        threads = [threading.Thread(target=post, args=(i, p)) for i, p in enumerate(SERVE_PROMPTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads) or len(results) != len(SERVE_PROMPTS):
+            raise AssertionError(f"{len(results)} of {len(SERVE_PROMPTS)} requests answered")
+        st, ctype, body, sec = http(port, "/generate", json.dumps(
+            {"prompt": PROMPT, "steps": STEPS, "seed": SERVE_SEED}).encode())
+        seeded.update(status=st, ctype=ctype, body=body)
+        for name, b in (("empty", b"{}"), ("not_json", b"not json")):
+            bad[name] = http(port, "/generate", b)[0]
+        outs = []
+        for i, (st_i, ctype_i, body_i, sec_i) in sorted(results.items()):
+            if (st_i, ctype_i) != (200, "audio/wav"):
+                raise AssertionError(f"request {i}: {st_i} {ctype_i} {body_i[:200]!r}")
+            latencies[f"request_{i}"] = round(sec_i, 3)
+            outs.append(wav_samples(body_i))
+        if (st, ctype) != (200, "audio/wav"):
+            raise AssertionError(f"seeded request: {st} {ctype} {body[:200]!r}")
+        latencies["seeded"] = round(sec, 3)
+        outs.append(wav_samples(body))
+        return outs, {"batched_requests": wall, "seeded_request": sec}
+
+    def fields(launches):
+        return dict(**timings, request_latency_s=latencies, predict_batch_sizes=batches,
+                    generate_for_batch_calls=chunks, bad_body_status=bad)
+
+    try:
+        counted_out = counted("serve_http", drive, expect_len, extra=fields)
+        problems = []
+        if batches != [SERVE_BATCH] or chunks != [(SERVE_BATCH, SERVE_BATCH)]:
+            problems.append(f"the {len(SERVE_PROMPTS)} requests rode predict_batch {batches} "
+                            f"and generate_for_batch {chunks}: expected one batch of "
+                            f"{SERVE_BATCH}")
+        if bad != {"empty": 400, "not_json": 400}:
+            problems.append(f"bad bodies answered {bad}, expected 400")
+        want = tango.generate(PROMPT, steps=STEPS, seed=SERVE_SEED)
+        got = wav_samples(seeded["body"])
+        differ = int((got != want).sum()) if got.shape == want.shape else -1
+        log("serve_http_seeded", samples=int(want.size), differ=differ,
+            max_int16_diff=int(abs(got.astype("int32") - want.astype("int32")).max())
+            if differ >= 0 else None)
+        if differ:
+            problems.append(f"the seeded response differs from generate at seed {SERVE_SEED} "
+                            f"in {differ} samples (-1: in length)")
+        if problems:
+            raise AssertionError("serve_http: " + "; ".join(problems))
+    finally:
+        remove()
+        server.shutdown()
+        server.server_close()
+        predictor.close()
+    del predictor, tango, made, remove
+    torch.cuda.empty_cache()
+    return counted_out
+
+
+def timed_methods(cls, names, times: dict):
+    """Wrap methods `names` of `cls` to append each call's seconds (the card
+    synchronized around it) to times[name]; returns the undo function."""
+    saved = {n: getattr(cls, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append(round(1e3 * (time.perf_counter() - s0), 3))
+            return out
+        return timed
+
+    for n, fn in saved.items():
+        setattr(cls, n, wrap(n, fn))
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+    return undo
+
+
+def train_cli_phase(snap_dir: str, root: str, start: dict, ops) -> tuple:
+    """`python -m tango_tpu_torch.train.cli`'s main on the snapshot (the VAE
+    with its encoder from --tango_snapshot, the UNet and T5 from --hf_model)
+    and 8 synthetic WAVs: batch 2, accumulation 2, 2 updates, one epoch,
+    validation on the first 2 clips, `best` kept. Counters zeroed just
+    before main and read after. `start`: the snapshot's UNet weights.
+    Returns (launches, shapes, tc, cluster)."""
+    import numpy as np
+
+    from tango_tpu_torch.train import cli, sft
+    from tango_tpu_torch.utils.checkpoint import load_native
+
+    manifest = os.path.join(root, "data", "train.json")
+    val = os.path.join(root, "data", "val.json")
+    out = os.path.join(root, "train_cli")
+    times = {}
+    undo = timed_methods(sft.SFTTrainer, ("train_step",), times)
+    ops.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the default tokenizer's
+            state = cli.main(["--train_file", manifest, "--validation_file", val,
+                              "--tango_snapshot", snap_dir, "--hf_model", snap_dir,
+                              "--per_device_train_batch_size", str(TRAIN_BATCH),
+                              "--gradient_accumulation_steps", "2", "--max_train_steps", "2",
+                              "--num_train_epochs", "1", "--checkpointing_steps", "best",
+                              "--output_dir", out, "--device", DEVICE])
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches, shapes, tc, cluster = read_counters(ops)
+    problems = body_problems("train_cli", launches, tc, cluster)
+    with open(os.path.join(out, "summary.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    if (len(records) != 2 or set(records[0]) != {"args"}
+            or not all(math.isfinite(records[1][k]) for k in ("train_loss", "val_loss"))):
+        problems.append(f"summary.jsonl: {records}")
+    if (state.step, state.opt_state.updates) != (4, 2):
+        problems.append(f"{state.step} micro-steps, {state.opt_state.updates} updates: "
+                        "expected 4, 2")
+    best, _ = load_native(os.path.join(out, "best"))
+    if set(best) != set(start):
+        problems.append("the best checkpoint's keys are not the UNet's")
+    elif all(torch.equal(best[k], start[k]) for k in start):
+        problems.append("the best checkpoint equals the snapshot's UNet: no training happened")
+    finite = all(bool(torch.isfinite(v).all()) for v in best.values())
+    if not finite:
+        problems.append("non-finite weights in the best checkpoint")
+    log("train_cli", seconds=round(seconds, 3), peak_memory_bytes=peak,
+        ms_per_micro_step=times.get("train_step"), records=records[1:], launches=launches,
+        tc_launches=tc, cluster_launches=cluster,
+        shapes={n: len(v) for n, v in shapes.items()}, problems=problems)
+    del state, best
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("train_cli: " + "; ".join(problems))
+    return launches, shapes, tc, cluster
+
+
+def dpo_phase(snap_dir: str, root: str, start: dict, ops) -> tuple:
+    """`python -m tango_tpu_torch.train.dpo_cli`'s main on the snapshot: a
+    4-row preference manifest (chosen clips 0-3, rejected 4-7), batch 2,
+    accumulation 1, 2 epochs of which 1 SFT-first, a 2-row validation file.
+    Counters zeroed just before main and read after. Checks one `sft` and one
+    `dpo` record, `last` and `best`, the reference UNet bit-equal to `start`
+    (the snapshot's UNet) after the run, and every launch on its body.
+    Returns (launches, shapes, tc, cluster)."""
+    from tango_tpu_torch.train import dpo, dpo_cli
+
+    rows = [{"captions": TRAIN_CAPTIONS[i], "chosen": os.path.join(root, "data", f"clip{i}.wav"),
+             "rejected": os.path.join(root, "data", f"clip{i + 4}.wav")} for i in range(4)]
+    prefs, val = os.path.join(root, "data", "prefs.json"), os.path.join(root, "data", "prefs_val.json")
+    for path, part in ((prefs, rows), (val, rows[:2])):
+        with open(path, "w") as f:
+            f.write("".join(json.dumps(r) + "\n" for r in part))
+    out = os.path.join(root, "dpo")
+    times = {}
+    undo = timed_methods(dpo.DPOTrainer, ("dpo_step", "sft_step"), times)
+    ops.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the default tokenizer's
+            state, ref = dpo_cli.main(["--train_file", prefs, "--validation_file", val,
+                                       "--tango_snapshot", snap_dir,
+                                       "--per_device_train_batch_size", "2",
+                                       "--gradient_accumulation_steps", "1",
+                                       "--num_train_epochs", "2", "--sft_first_epochs", "1",
+                                       "--output_dir", out, "--device", DEVICE])
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches, shapes, tc, cluster = read_counters(ops)
+    problems = body_problems("dpo", launches, tc, cluster)
+    with open(os.path.join(out, "summary.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    if [r["phase"] for r in records] != ["sft", "dpo"] or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["val_loss"]) for r in records):
+        problems.append(f"summary.jsonl: {records}")
+    elif not 0.0 <= records[1]["implicit_acc"] <= 1.0:
+        problems.append(f"implicit_acc {records[1]['implicit_acc']}")
+    missing = [n for n in ("last", "best") if not os.path.exists(os.path.join(out, n, "params"))]
+    if missing:
+        problems.append(f"checkpoints missing: {missing}")
+    ref_sd = ref.state_dict()
+    ref_differ = sum(int((ref_sd[k].cpu() != start[k]).sum()) for k in start)
+    if set(ref_sd) != set(start) or ref_differ:
+        problems.append(f"the reference UNet moved: {ref_differ} elements differ from the "
+                        "snapshot's")
+    if any(p.grad is not None for p in ref.parameters()):
+        problems.append("the reference UNet has gradients")
+    log("dpo", seconds=round(seconds, 3), peak_memory_bytes=peak,
+        ms_per_dpo_micro_step=times.get("dpo_step"), ms_per_sft_micro_step=times.get("sft_step"),
+        records=records, reference_elements_differ=ref_differ, updates=state.opt_state.updates,
+        launches=launches, tc_launches=tc, cluster_launches=cluster,
+        shapes={n: len(v) for n, v in shapes.items()}, problems=problems)
+    del state, ref, ref_sd
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("dpo: " + "; ".join(problems))
+    return launches, shapes, tc, cluster
+
+
 def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
     """One full-width f32 SFTTrainer.fit on the card: 4 micro-steps at batch
     2 with accumulation 2 (2 updates), one validation batch, the best
@@ -1565,10 +1963,7 @@ def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
-    shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
-    tc = {n: fn.tc_launches for n, fn in ops.all_kernels().items() if hasattr(fn, "tc_launches")}
-    cluster = cluster_counts(ops)
+    launches, shapes, tc, cluster = read_counters(ops)
     trainer.train_step, sft.save_native = step, save
 
     problems = []
@@ -1589,17 +1984,10 @@ def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
         problems.append("the best checkpoint does not load back bit-equal")
     del best
     shutil.rmtree(root)
-    idle = [n for n in PATH_KERNELS["train"] if launches[n] == 0]
-    if idle:
-        problems.append(f"kernels never launched on the training path: {idle}")
     # every attention of training is f32 at head dim 64: the forward's on the
-    # 3xTF32 body, the backward's on theirs
-    off = {n: (launches[n], tc[n]) for n in tc if tc[n] != launches[n]}
-    if off:
-        problems.append(f"f32 D = 64 launches off the tensor-core body "
-                        f"(launches, tensor-core): {off}")
-    # and every single-pass GroupNorm and GroupNorm backward on its cluster body
-    problems += off_cluster(cluster, launches)
+    # 3xTF32 body, the backward's on theirs; every single-pass GroupNorm and
+    # GroupNorm backward on its cluster body
+    problems += body_problems("train", launches, tc, cluster)
     log("train", fit_s=round(fit_s, 3), micro_steps=len(micro), tc_launches=tc,
         cluster_launches=cluster,
         ms_per_micro_step=[round(1e3 * m[0], 3) for m in micro],
@@ -1702,11 +2090,7 @@ def main(argv) -> int:
         outs, seconds = drive()
         torch.cuda.synchronize()
         first_wavs[path] = outs[0]
-        launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
-        shapes = {n: set(fn.shapes) for n, fn in ops.all_kernels().items()}
-        tc = {n: fn.tc_launches for n, fn in ops.all_kernels().items()
-              if hasattr(fn, "tc_launches")}
-        cluster = cluster_counts(ops)
+        launches, shapes, tc, cluster = read_counters(ops)
         problems = []
         if path in TC_PATHS and any(tc[n] != launches[n] for n in tc):
             problems.append(f"launches off the tensor-core body: launches "
@@ -1772,7 +2156,7 @@ def main(argv) -> int:
     snap_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_snapshot")
     shutil.rmtree(snap_root, ignore_errors=True)
     snap_dir = os.path.join(snap_root, "snapshot")
-    written = write_snapshot(snap_dir, C, tango)
+    written = write_snapshot(snap_dir, C, tango, random_encoder(C, seed=3))
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1799,9 +2183,28 @@ def main(argv) -> int:
     del ts, remove  # the instruments' closures hold the pipeline
     torch.cuda.empty_cache()
     cli = cli_phase(os.path.join(snap_root, "cli"), snap_dir, wav_len(frames))
-    shutil.rmtree(snap_root)
     torch.cuda.empty_cache()
     log("snapshot_cli", **cli, phase_s=round(time.perf_counter() - t_phase, 3),
+        total_s=round(time.perf_counter() - t_start, 3))
+
+    # ---- the entry points on the same snapshot, each counted: the HTTP
+    # server, the SFT training CLI, the DPO training CLI
+    t_phase = time.perf_counter()
+    by_path["serve_http"] = serve_http_phase(snap_dir, counted, instrument, wav_len(frames))
+    start = {k: v.detach().to("cpu", torch.float32) for k, v in tango.model.unet.state_dict().items()}
+    manifest = write_wavs(os.path.join(snap_root, "data"), TRAIN_WAVS, 10.24, seed=0)
+    with open(manifest) as f:
+        rows = f.readlines()
+    with open(os.path.join(snap_root, "data", "val.json"), "w") as f:
+        f.writelines(rows[:TRAIN_BATCH])
+    for path, phase in (("train_cli", train_cli_phase), ("dpo", dpo_phase)):
+        (path_launches, path_shapes, tc_launches[path],
+         cluster_launches[path]) = phase(snap_dir, snap_root, start, ops)
+        by_path[path] = (path_launches, path_shapes)
+    del start
+    shutil.rmtree(snap_root)
+    torch.cuda.empty_cache()
+    log("entry_points", phase_s=round(time.perf_counter() - t_phase, 3),
         total_s=round(time.perf_counter() - t_start, 3))
 
     remove = instrument(tango)

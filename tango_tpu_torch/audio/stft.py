@@ -5,7 +5,8 @@ periodic Hann window, the magnitude of the real FFT, a Slaney-normalised
 Slaney-scale mel filterbank, and log compression clamped at 1e-5. Frames
 are a strided view of the padded signal and go through `torch.fft.rfft`.
 It runs on the host (the CPU) inside the data loader's thread, as the JAX
-package runs it there; the inverse STFT and Griffin-Lim are not ported.
+package runs it there. `istft` and `griffin_lim` invert it (the reference's
+audio_processing.py), in torch ops on whatever device their inputs are on.
 """
 
 from __future__ import annotations
@@ -64,12 +65,16 @@ def hann_window_periodic(win_length: int) -> np.ndarray:
 
 # ---------------------------------------------------------------- core STFT
 
-def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor) -> torch.Tensor:
-    """|STFT| with the reference conventions: (B, T) -> (B, n_frames, 1 + n_fft//2)."""
+def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """Reflect-pad by n_fft//2 and frame: (B, T) -> (B, n_frames, n_fft), a view."""
     pad = n_fft // 2
     y = F.pad(y.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
-    frames = y.unfold(-1, n_fft, hop)                       # (B, n_frames, n_fft)
-    return torch.fft.rfft(frames * window, dim=-1).abs()
+    return y.unfold(-1, n_fft, hop)
+
+
+def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor) -> torch.Tensor:
+    """|STFT| with the reference conventions: (B, T) -> (B, n_frames, 1 + n_fft//2)."""
+    return torch.fft.rfft(frame_signal(y, n_fft, hop) * window, dim=-1).abs()
 
 
 def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5) -> torch.Tensor:
@@ -132,3 +137,54 @@ def wav_batch_to_fbank(mel: MelSpectrogram, waveforms, target_length: int = 1024
     y = torch.nan_to_num(torch.clamp(torch.as_tensor(waveforms, dtype=torch.float32), -1.0, 1.0))
     fbank, log_mag = mel.mel_spectrogram(y)
     return pad_spec(fbank, target_length), pad_spec(log_mag, target_length)
+
+
+# ------------------------------------------------------------- inverse / GL
+
+def stft_complex(y: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor):
+    """(B, T) -> (magnitude, phase), each (B, n_frames, 1 + n_fft//2), as the
+    reference STFT.transform (stft.py:52-84) computes them."""
+    spec = torch.fft.rfft(frame_signal(y, n_fft, hop) * window, dim=-1)
+    return spec.abs(), spec.angle()
+
+
+def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int, hop: int,
+          window: torch.Tensor) -> torch.Tensor:
+    """Inverse STFT with window-sumsquare normalisation, as the reference's
+    conv-transpose inverse (stft.py:86-128): the overlap-add of window *
+    irfft(spec), divided by the squared window's envelope where that exceeds
+    f32's smallest normal, with the n_fft//2 reflect-pad margins trimmed.
+    magnitude and phase are time-major, (B, n_frames, 1 + n_fft//2)."""
+    b, n_frames, _ = magnitude.shape
+    spec = torch.polar(magnitude.float(), phase.float())
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window       # (B, n_frames, n_fft)
+    out_len = n_fft + hop * (n_frames - 1)
+    idx = (torch.arange(n_frames, device=frames.device)[:, None] * hop
+           + torch.arange(n_fft, device=frames.device)[None, :]).reshape(-1)
+    sig = frames.new_zeros((b, out_len)).index_add_(1, idx, frames.reshape(b, -1))
+    wss = window.new_zeros(out_len).index_add_(0, idx, (window**2).repeat(n_frames))
+    tiny = torch.finfo(torch.float32).tiny
+    sig = torch.where(wss > tiny, sig / torch.where(wss > tiny, wss, 1.0), sig)
+    pad = n_fft // 2
+    return sig[:, pad:-pad]
+
+
+def griffin_lim(magnitude: torch.Tensor, n_fft: int = 1024, hop: int = 160, n_iters: int = 30,
+                generator: torch.Generator | None = None,
+                init_phase: torch.Tensor | None = None) -> torch.Tensor:
+    """Phase reconstruction (the reference's audio_processing.py:66-82) from
+    linear magnitudes (B, n_frames, 1 + n_fft//2): a uniform initial phase in
+    [-pi, pi) (from `generator`, or `init_phase` when given), then n_iters
+    rounds of istft and re-analysis, as JAX's."""
+    magnitude = torch.as_tensor(magnitude, dtype=torch.float32)
+    window = torch.from_numpy(hann_window_periodic(n_fft)).to(magnitude.device)
+    if init_phase is None:
+        init_phase = torch.rand(magnitude.shape, generator=generator,
+                                device=magnitude.device) * (2 * np.pi) - np.pi
+    signal = istft(magnitude, torch.as_tensor(init_phase, dtype=torch.float32), n_fft, hop,
+                   window)
+    for _ in range(n_iters):
+        _, phase = stft_complex(signal, n_fft, hop, window)
+        n = min(phase.shape[1], magnitude.shape[1])
+        signal = istft(magnitude[:, :n], phase[:, :n], n_fft, hop, window)
+    return signal

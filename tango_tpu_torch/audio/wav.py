@@ -4,7 +4,7 @@ The reference read path: read, take the first channel, resample to 16 kHz
 (polyphase FIR, `scipy.signal.resample_poly`), normalise (zero mean, peak
 0.5), pad or trim to the segment, renormalise to peak 0.5. Reading is
 `scipy.io.wavfile`. The JAX package's other decoders (FLAC, MPEG audio, Ogg
-Vorbis and Opus, AIFF) are not ported yet (ROADMAP queue A #10): a file of
+Vorbis and Opus, AIFF) are not ported yet (ROADMAP queue A #11): a file of
 one of those formats raises NotImplementedError, by its magic bytes, so a
 manifest of them fails loudly instead of training on the loader's constant
 stand-in for an unreadable file.
@@ -91,7 +91,7 @@ def check_decodable(path: str) -> str:
     if fmt in UNPORTED_FORMATS:
         raise NotImplementedError(
             f"{path}: {fmt} decoding is not ported to tango_tpu_torch yet (ROADMAP queue A "
-            "#10, ingestion); transcode to WAV")
+            "#11, ingestion); transcode to WAV")
     return fmt
 
 

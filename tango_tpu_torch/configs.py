@@ -268,6 +268,27 @@ class TrainConfig(_FromDict):
     save_every: int = 5
 
 
+@dataclass(frozen=True)
+class DPOConfig(_FromDict):
+    """Tango 2's DPO recipe (tango_tpu/configs.py DPOConfig; the reference's
+    README.md:155-166, tango2/tango2-train.py:35-224). `weight_decay` is the
+    reference's effective AdamW decay, its --adam_weight_decay; post-SFT
+    epoch states are saved every `save_every` epochs."""
+
+    learning_rate: float = 9.6e-7
+    beta_dpo: float = 2000.0
+    num_train_epochs: int = 5
+    per_device_train_batch_size: int = 4
+    gradient_accumulation_steps: int = 4
+    sft_first_epochs: int = 1
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_epsilon: float = 1e-8
+    weight_decay: float = 1e-2
+    save_every: int = 5
+    max_train_steps: Optional[int] = None
+
+
 TANGO_UNET = UNetConfig()
 # Tango-XL: the same UNet under FLAN-T5-XL's 2048-wide text states
 TANGO_UNET_XL = dataclasses.replace(TANGO_UNET, cross_attention_dim=2048)

@@ -73,15 +73,17 @@ def _cast_float_(module: torch.nn.Module, dtype: torch.dtype) -> None:
 class Tango:
     """Text -> 16 kHz audio (reference tango.py:9-64)."""
 
-    def __init__(self, name_or_path: Optional[str] = None, tokenizer=None, device=None,
+    def __init__(self, name_or_path: Optional[str] = None, tokenizer=None,
                  dtype: Optional[torch.dtype] = None, max_text_length: int = 128,
                  rng_seed: int = 0, cast_params: bool = True, quant: Optional[str] = None,
-                 unet_ckpt: Optional[str] = None):
+                 unet_ckpt: Optional[str] = None, device=None):
         """Load the reference-format snapshot directory `name_or_path` (or,
         with None, an empty pipeline for `from_components`). `unet_ckpt`, a
         directory that `utils.checkpoint.save_native` wrote (as
         `SFTTrainer.fit` does), replaces the snapshot's UNet weights: a
-        natively trained UNet over the snapshot's VAE, T5 and vocoder."""
+        natively trained UNet over the snapshot's VAE, T5 and vocoder.
+        The parameters are JAX's, in its order, without its `mesh`; `device`,
+        the port's own, comes last."""
         if quant not in (None, False, *SCOPES):
             # a typo must not serve an unquantized pipeline
             raise ValueError(f"quant must be one of None/'conv'/'dense'/'all', got {quant!r}")
@@ -135,15 +137,16 @@ class Tango:
         t5_params=None,
         hifigan_config: Optional[C.HiFiGANConfig] = None,
         hifigan_params=None,
+        stft_config: Optional[C.StftConfig] = None,
         scheduler_config: Optional[C.SchedulerConfig] = None,
         tokenizer=None,
-        device=None,
         dtype: Optional[torch.dtype] = None,
         latent_t_size: int = 256,
         latent_f_size: int = 16,
-        max_text_length: int = 128,
         cast_params: bool = False,
         quant: Optional[str] = None,
+        device=None,
+        max_text_length: int = 128,
         init_seed: int = 0,
     ) -> "Tango":
         """Build from configs and state dicts of this package's modules
@@ -152,7 +155,11 @@ class Tango:
         drawn on the device from `init_seed`. T5 and HiFi-GAN are built when
         their config is given; the tokenizer defaults to WordHashTokenizer.
         With `quant`, `unet_params` is still the float UNet's: it is
-        quantized here.
+        quantized here. `stft_config` (default TANGO_STFT) is kept as
+        `self.stft_config`, as `Tango(path)` keeps the snapshot's. The
+        parameters are JAX's, in its order, without its `mesh`; the port's
+        own (`device`, `max_text_length`, `init_seed`) come last, and the
+        params default to None (random weights) where JAX requires them.
 
         `cast_params` (JAX's flag, False here as in JAX's `from_components`)
         decides the int8 quantize order only: False builds (or draws) the
@@ -171,6 +178,7 @@ class Tango:
                     hifigan_config=hifigan_config, hifigan_params=hifigan_params,
                     scheduler_config=scheduler_config, latent_t_size=latent_t_size,
                     latent_f_size=latent_f_size, init_seed=init_seed)
+        self.stft_config = stft_config or C.TANGO_STFT
         return self
 
     def _build(self, *, unet_config, vae_config, unet_params, vae_params, t5_config, t5_params,
@@ -223,11 +231,14 @@ class Tango:
 
     # ------------------------------------------------------------ public API
     def generate(self, prompt: str, steps: int = 100, guidance: float = 3.0, samples: int = 1,
-                 seed: Optional[int] = None, duration: Optional[float] = None):
+                 disable_progress: bool = True, seed: Optional[int] = None,
+                 duration: Optional[float] = None):
         """Single prompt -> int16 waveform (T_wav,); with samples > 1 all
         `samples` waveforms (B, T_wav), a deliberate deviation from the
         reference kept from JAX. `duration` in seconds sets the latent length
-        (25.6 frames a second, rounded to the UNet's downsampling factor)."""
+        (25.6 frames a second, rounded to the UNet's downsampling factor).
+        `disable_progress` is accepted, as JAX's is, and changes nothing: the
+        port shows no progress bar."""
         latent_t = None
         if duration is not None:
             factor = 2 ** (len(self.model.unet_config.block_out_channels) - 1)
@@ -238,8 +249,10 @@ class Tango:
 
     def generate_for_batch(self, prompts: Sequence[str], steps: int = 100,
                            guidance: float = 3.0, samples: int = 1, batch_size: int = 8,
+                           disable_progress: bool = True,
                            seed: Optional[int] = None) -> List[np.ndarray]:
         """Prompt list -> list of int16 waveforms (reference tango.py:51-64).
+        `disable_progress` is accepted and changes nothing, as in `generate`.
 
         A short tail chunk is padded up to batch_size, by cycling its prompts,
         whenever a full chunk exists; the padded rows are dropped."""

@@ -12,7 +12,7 @@ the loss at t = N/2; `fit` keeps the best checkpoint.
 Where JAX is pure, the port updates in place: `train_step` changes the
 UNet's parameters and the optimizer's moments and returns the same state.
 The device mesh and multi-process training are not ported yet (ROADMAP
-queue A #9).
+queue A #10).
 """
 
 from __future__ import annotations

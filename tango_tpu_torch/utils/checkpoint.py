@@ -69,13 +69,15 @@ def load_main_weights(path: str) -> Dict[str, Any]:
     }
 
 
-def load_tango_snapshot(path: str) -> Dict[str, Any]:
+def load_tango_snapshot(path: str, with_encoder: bool = False) -> Dict[str, Any]:
     """A reference-format Tango snapshot directory -> {vae_config,
     stft_config, main_config, scheduler_config, unet_config, vae_params,
     unet_params, t5_params (or None), t5_config (or None), hifigan_params
     (or None), hifigan_config (or None)}: configs of this package and state
-    dicts of f32 CPU tensors for its modules, the VAE's of its decode side
-    (the serving `AutoencoderKL`)."""
+    dicts of f32 CPU tensors for its modules. The VAE's are its decode side
+    (the serving `AutoencoderKL`), and with `with_encoder` also its encoder
+    and `quant_conv`, for `AutoencoderKL(vae_config, with_encoder=True)`: the
+    trainers encode fbanks into latents."""
     main_raw = _read_json(os.path.join(path, "main_config.json"))
     stft_path = os.path.join(path, "stft_config.json")
     main_config = C.DiffusionConfig.from_dict(main_raw)
@@ -99,7 +101,7 @@ def load_tango_snapshot(path: str) -> Dict[str, Any]:
         hifigan_config = dataclasses.replace(
             C.TANGO_HIFIGAN, upsample_initial_channel=int(w.shape[0]), num_mels=int(w.shape[1]))
         hifigan_params = conv.convert_hifigan(voc_sd)
-    vae_params = conv.convert_vae(vae_sd)
+    vae_params = conv.convert_vae(vae_sd, with_encoder=with_encoder)
     del vae_sd, voc_sd
 
     unet_sd, text_sd, _ = split_main_state_dict(

@@ -62,7 +62,7 @@ def test_sniff_format_matches_jax(name, tmp_path):
     else:
         assert "unsupported" in got or got.startswith("unknown format")
     if got in twav.UNPORTED_FORMATS:
-        with pytest.raises(NotImplementedError, match="queue A #10"):
+        with pytest.raises(NotImplementedError, match="queue A #11"):
             twav.check_decodable(str(path))
     else:
         assert twav.check_decodable(str(path)) == got

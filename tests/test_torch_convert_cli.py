@@ -1,0 +1,127 @@
+"""The port's conversion CLI (tango_tpu_torch/convert_cli.py), after
+tests/test_export.py: `export-main` and `export-snapshot` of the snapshot's
+own UNet give back the reference main bin bit for bit and key for key; a
+trained UNet checkpoint goes in place of it; the exported snapshot reloads
+through `Tango(path)`; `tango` writes the native directory with JAX's
+manifest; the kinds that are not ported raise, naming their queue item."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tango_tpu.utils.checkpoint import load_tango_snapshot as j_load_tango_snapshot
+from tango_tpu_torch import convert_cli
+from tango_tpu_torch.pipeline import Tango
+from tango_tpu_torch.tokenizer import WordHashTokenizer
+from tango_tpu_torch.utils.checkpoint import load_native, load_tango_snapshot, save_native
+from tango_tpu_torch.utils.convert import load_torch_bin
+from tango_tpu_torch.utils.export import export_unet
+
+from tests.conftest import GOLDEN
+
+torch.set_num_threads(1)
+
+SNAP = GOLDEN / "snapshot_tiny"
+
+
+def _assert_same(orig: dict, exported: dict):
+    assert set(exported) == set(orig), (sorted(set(orig) - set(exported))[:5],
+                                        sorted(set(exported) - set(orig))[:5])
+    for k in orig:
+        assert torch.equal(exported[k], orig[k]), k
+
+
+def test_export_main_roundtrip(tmp_path):
+    out = tmp_path / "main.bin"
+    convert_cli.main(["export-main", str(SNAP), "-", str(out)])
+    _assert_same(load_torch_bin(str(SNAP / "pytorch_model_main.bin")), load_torch_bin(str(out)))
+
+
+def test_export_main_of_a_trained_unet(tmp_path):
+    unet = load_tango_snapshot(str(SNAP))["unet_params"]
+    trained = {k: v * 1.5 + 0.25 for k, v in unet.items()}
+    save_native(str(tmp_path / "best"), trained, {"epoch": 0})
+    out = tmp_path / "main.bin"
+    convert_cli.main(["export-main", str(SNAP), str(tmp_path / "best"), str(out)])
+    got = load_torch_bin(str(out))
+    want = load_torch_bin(str(SNAP / "pytorch_model_main.bin"))
+    assert set(got) == set(want)
+    for k, v in export_unet(trained).items():
+        assert torch.equal(got["unet." + k], v), k
+    for k in want:
+        if k.startswith("text_encoder."):
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_export_snapshot_reloads(tmp_path):
+    out = tmp_path / "snap_out"
+    convert_cli.main(["export-snapshot", str(SNAP), "-", str(out)])
+    assert sorted(os.listdir(out)) == sorted(os.listdir(SNAP))
+    for name in os.listdir(SNAP):
+        if name != "pytorch_model_main.bin":
+            assert (out / name).read_bytes() == (SNAP / name).read_bytes(), name
+    _assert_same(load_torch_bin(str(SNAP / "pytorch_model_main.bin")),
+                 load_torch_bin(str(out / "pytorch_model_main.bin")))
+    kw = dict(tokenizer=WordHashTokenizer(128), device="cpu")
+    a, b = Tango(str(out), **kw), Tango(str(SNAP), **kw)
+    for t in (a, b):
+        t.model.latent_t_size = 8
+    wa = a.generate("a dog barks", steps=2, seed=0)
+    assert wa.dtype == np.int16 and np.abs(wa.astype(np.int32)).max() > 0
+    np.testing.assert_array_equal(wa, b.generate("a dog barks", steps=2, seed=0))
+
+
+def test_export_snapshot_keeps_the_scheduler(tmp_path):
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in os.listdir(SNAP):
+        (src / name).write_bytes((SNAP / name).read_bytes())
+    (src / "scheduler").mkdir()
+    (src / "scheduler" / "scheduler_config.json").write_text(
+        json.dumps({"num_train_timesteps": 1000, "beta_schedule": "scaled_linear",
+                    "prediction_type": "epsilon"}))
+    out = tmp_path / "out"
+    convert_cli.main(["export-snapshot", str(src), "-", str(out)])
+    assert (out / "scheduler" / "scheduler_config.json").exists()
+    assert load_tango_snapshot(str(out))["scheduler_config"].prediction_type == "epsilon"
+
+
+def test_tango_kind_writes_native(tmp_path):
+    convert_cli.main(["tango", str(SNAP), str(tmp_path / "native")])
+    state, manifest = load_native(str(tmp_path / "native"))
+    loaded = load_tango_snapshot(str(SNAP), with_encoder=True)
+    for part, key in (("unet", "unet_params"), ("vae", "vae_params"), ("t5", "t5_params"),
+                      ("hifigan", "hifigan_params")):
+        sd = {k[len(part) + 1:]: v for k, v in state.items() if k.startswith(part + ".")}
+        _assert_same(loaded[key], sd)
+    assert any(k.startswith("vae.encoder.") for k in state)
+    # JAX's manifest: its kind and config keys, and the same configs' values
+    jloaded = j_load_tango_snapshot(str(SNAP))
+    assert set(manifest) == {"kind", "unet_config", "vae_config", "stft_config", "main_config"}
+    assert manifest["kind"] == "tango"
+    for name in ("stft_config", "main_config"):
+        assert manifest[name] == json.loads(json.dumps(jloaded[name].to_dict())), name
+    for name in ("unet_config", "vae_config"):
+        want = json.loads(json.dumps(jloaded[name].to_dict()))
+        shared = set(want) & set(manifest[name])
+        assert shared and {k: manifest[name][k] for k in shared} == {k: want[k] for k in shared}
+
+
+@pytest.mark.parametrize("kind,item", [("audioldm", "#8"), ("mustango", "#7"),
+                                       ("export-mustango", "#7")])
+def test_not_ported_kinds_raise(kind, item, tmp_path):
+    with pytest.raises(SystemExit, match=f"queue A {item}"):
+        convert_cli.main([kind, str(SNAP), str(tmp_path / "x"), str(tmp_path / "y")])
+    assert not (tmp_path / "x").exists()
+
+
+def test_bad_arguments_raise(tmp_path):
+    with pytest.raises(SystemExit, match="unknown kind"):
+        convert_cli.main(["nope", str(SNAP), str(tmp_path / "x")])
+    with pytest.raises(FileNotFoundError, match="downloads nothing"):
+        convert_cli.main(["tango", "declare-lab/tango", str(tmp_path / "x")])
+    with pytest.raises(SystemExit):
+        convert_cli.main(["tango"])

@@ -1,0 +1,96 @@
+"""The port's Tango API against JAX's: `Tango.__init__`, `from_components`,
+`generate` and `generate_for_batch` take JAX's parameters, by name, order,
+kind and default, so a call written for one package means the same in the
+other. Left out of the comparison: the port's own additions (`device`,
+`init_seed`, and `max_text_length` where JAX's `from_components` lacks it)
+and JAX's `mesh` (the device mesh, ROADMAP queue A #10). `from_components`'
+`unet_params` and `vae_params` default to None in the port, where JAX
+requires them: None draws seeded random weights on the device."""
+
+import inspect
+
+import pytest
+
+from tango_tpu.pipeline import Tango as JTango
+from tango_tpu_torch.pipeline import Tango
+
+from tests.test_torch_pipeline import UNET_KW, VAE_KW
+
+PORT_ONLY = {"device", "init_seed"}
+JAX_ONLY = {"mesh"}
+# the port's defaults where JAX has none, and why
+PORT_DEFAULTS = {("from_components", "unet_params"): None,
+                 ("from_components", "vae_params"): None}
+
+
+def _params(fn, method, side):
+    params = list(inspect.signature(fn).parameters.values())
+    if params and params[0].name in ("self", "cls"):
+        params = params[1:]
+    drop = PORT_ONLY if side == "port" else JAX_ONLY
+    out = []
+    for p in params:
+        if p.name in drop:
+            continue
+        if side == "port" and (method, p.name) in PORT_DEFAULTS:
+            p = p.replace(default=inspect.Parameter.empty)
+        out.append(p)
+    return out
+
+
+def _methods():
+    return [("__init__", JTango.__init__, Tango.__init__),
+            ("from_components", JTango.from_components.__func__,
+             Tango.from_components.__func__),
+            ("generate", JTango.generate, Tango.generate),
+            ("generate_for_batch", JTango.generate_for_batch, Tango.generate_for_batch)]
+
+
+@pytest.mark.parametrize("method,jfn,pfn", _methods(), ids=[m[0] for m in _methods()])
+def test_signature_matches_jax(method, jfn, pfn):
+    want = _params(jfn, method, "jax")
+    got = _params(pfn, method, "port")
+    if method == "from_components":
+        # JAX builds with the default text length; the port lets a caller set it
+        got = [p for p in got if p.name != "max_text_length"]
+    assert [p.name for p in got] == [p.name for p in want]
+    for g, w in zip(got, want):
+        assert g.kind == w.kind, g.name
+        assert g.default == w.default, (g.name, g.default, w.default)
+    for (m, name), default in PORT_DEFAULTS.items():
+        if m == method:
+            assert inspect.signature(pfn).parameters[name].default is default
+
+
+@pytest.mark.parametrize("method,args", [
+    ("generate", ("a dog barks", 100, 3.0, 1, True)),
+    ("generate", ("a dog barks", 50, 2.0, 2, False, 7)),
+    ("generate_for_batch", (["a", "b"], 100, 3.0, 1, 4, True, 5)),
+])
+def test_positional_calls_bind_alike(method, args):
+    """A positional call binds every argument to the same parameter in both
+    packages: `generate(p, 100, 3.0, 1, True)` sets disable_progress, not seed."""
+    jb = inspect.signature(getattr(JTango, method)).bind(None, *args).arguments
+    pb = inspect.signature(getattr(Tango, method)).bind(None, *args).arguments
+    assert list(pb) == list(jb)
+    assert pb == jb
+    assert pb.get("seed") in (None, 5, 7) and pb.get("disable_progress") in (True, False)
+
+
+def test_init_positional_dtype_and_from_components_stft():
+    """`Tango(None, tok, dtype)` sets the dtype in both, and `from_components`
+    keeps `stft_config`."""
+    import torch
+
+    from tango_tpu_torch import configs as TC
+
+    t = Tango(None, None, torch.float64, device="cpu")
+    assert t.dtype == torch.float64 and t.device.type == "cpu"
+    stft = TC.StftConfig(hop_length=80)
+    unet, vae = TC.UNetConfig(**UNET_KW), TC.VAEConfig(**VAE_KW)
+    built = Tango.from_components(unet_config=unet, vae_config=vae, stft_config=stft,
+                                  device="cpu")
+    assert built.stft_config == stft
+    assert Tango.from_components(unet_config=unet, vae_config=vae,
+                                 device="cpu").stft_config == TC.TANGO_STFT
+    assert inspect.signature(Tango.generate).parameters["disable_progress"].default is True

@@ -311,9 +311,9 @@ def test_unported_format_raises_not_implemented(tmp_path):
     garbage = tmp_path / "b.wav"
     garbage.write_bytes(b"not audio at all" * 4)
     examples = [Example(str(flac), "x"), Example(str(flac), "y")]
-    with pytest.raises(NotImplementedError, match="queue A #10"):
+    with pytest.raises(NotImplementedError, match="queue A #11"):
         validate_manifest(examples)
-    with pytest.raises(NotImplementedError, match="queue A #10"):
+    with pytest.raises(NotImplementedError, match="queue A #11"):
         list(FeaturizedLoader(examples, batch_size=2, target_length=16))
     assert isinstance(_decode_one((str(flac), 160)), NotImplementedError)
     with pytest.raises(ValueError, match="preflight"):
