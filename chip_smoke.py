@@ -75,6 +75,27 @@ Phases, one short JSON line each:
            losses and implicit_acc in [0, 1], `last` and `best`, the
            reference UNet bit-equal to the snapshot's after the run, the ms
            a DPO and an SFT micro-step and the peak memory logged;
+  tango2_eval
+           on the same snapshot, counted as one path: seeded random
+           full-width scorers written in their released formats (a
+           LAION-CLAP .pt of RoBERTa-base, HTSAT-tiny and both projections,
+           the audio side under `module.`; Cnn14 as {"model": sd}; VGGish),
+           each converting back bit-equal, and 4 reference WAVs;
+           inference_tango2.main with --clap_ckpt, --reference_dir,
+           --cnn14_ckpt and --vggish_ckpt (4 prompts, STEPS steps, batch 4,
+           the RoBERTa-id fallback tokenizer, which must warn), then
+           inference.main with --num_samples 2 --clap_ckpt (batch 2). The
+           record must have JAX's keys (TANGO2_RECORD_KEYS, METRIC_KEYS), a
+           finite CLAP score in [-1, 1] and finite metrics but IS (NaN below
+           10 clips, as in JAX); every tower's weights on the card; each
+           re-ranked WAV its group's argmax of the CLAP similarity recomputed
+           here; every attention launch on its tensor-core body and every
+           gn_silu_fwd on its cluster body. Then, uncounted, the full-width
+           text and audio embeddings, HTSAT's latent map, Cnn14's `2048` and
+           `logits` and VGGish's embeddings on the card against the same
+           modules on the CPU in f32 (CARD_CPU_LIMITS). The seconds of each CLI, the loads,
+           the checkpoints' bytes, the peak memory, the metrics and the
+           errors logged;
   int8     the int8 W8A8 serving mode: a full-width Tango.from_components(
            quant="all") built from the bf16 model's state dicts (the same
            weights, quantized once on the card), one uncounted 1-step
@@ -302,6 +323,29 @@ SERVE_SEED = 7
 PATH_KERNELS["serve_http"] = PATH_KERNELS["serve"]
 PATH_KERNELS["train_cli"] = PATH_KERNELS["train"]
 PATH_KERNELS["dpo"] = PATH_KERNELS["train"]
+# phase tango2_eval: Tango 2's CLI over 4 prompts at batch 4 (CFG batch 8),
+# the batch CLI's re-ranking of 2 samples a prompt at batch 2; both generate
+# through the serving path's kernels
+TANGO2_PROMPTS = SERVE_PROMPTS
+TANGO2_BATCH = 4
+RERANK_SAMPLES = 2
+RERANK_BATCH = 2
+PATH_KERNELS["tango2_eval"] = PATH_KERNELS["serve"]
+# the keys of JAX's Tango 2 record (tango_tpu/inference_tango2.py main, with
+# --clap_ckpt and --reference_dir) and of EvaluationHelper's result
+TANGO2_RECORD_KEYS = {"model", "num_prompts", "num_steps", "gen_time_s", "x_realtime",
+                      "output_dir", "clap_score", "metrics"}
+METRIC_KEYS = {"frechet_distance", "frechet_audio_distance", "kl_sigmoid", "kl_softmax", "lsd",
+               "psnr", "ssim", "ssim_stft", "is_mean", "is_std", "kid_mean", "kid_std"}
+# the scorers on the card against the CPU, both f32. f32 matmuls run without
+# TF32 (set below), so the text tower differs at f32 rounding: 1e-4 on its
+# unit vectors. f32 convolutions run in TF32 (cuDNN's default), one step
+# 2^-10 of an operand: HTSAT has one (the patch embedding) before its f32
+# transformer, 5 steps on the unit vectors and of its latent map's largest
+# magnitude, 5e-3; Cnn14's 12 and VGGish's 6 chained convolutions, 20 steps
+# of the output's largest magnitude, 2e-2
+CARD_CPU_LIMITS = {"clap_text": 1e-4, "clap_audio": 5e-3, "htsat": 5e-3, "cnn14": 2e-2,
+                   "vggish": 2e-2}
 # gn_silu_fwd's streaming body, which every path's shape leaves for the
 # cluster body, checked only: a misaligned view (offset one element) of a
 # serving shape, a bf16 map whose HW is no whole number of packets, and a
@@ -1885,6 +1929,282 @@ def dpo_phase(snap_dir: str, root: str, start: dict, ops) -> tuple:
     return launches, shapes, tc, cluster
 
 
+# ---- phase tango2_eval: Tango 2's inference CLI with the CLAP score and the
+# objective evaluation, and the batch CLI's CLAP re-ranking
+
+def renamed(sd: dict, rules, prefix: str = "") -> dict:
+    """`sd` on the host in f32 under released names: each key through the
+    first of `rules` (regex, replacement) that matches, then `prefix`."""
+    out = {}
+    for k, v in sd.items():
+        for rx, rep in rules:
+            k, n = re.subn(rx, rep, k)
+            if n:
+                break
+        out[prefix + k] = v.detach().to("cpu", torch.float32)
+    return out
+
+
+# the port's names -> LAION-CLAP's (text_branch: HF RobertaModel), Cnn14's
+# and torchvggish's: the converters' rules run backwards
+CLAP_TEXT_NAMES = (
+    (r"^(word|position|token_type)_embeddings\.", r"text_branch.embeddings.\1_embeddings."),
+    (r"^embeddings_ln\.", "text_branch.embeddings.LayerNorm."),
+    (r"^layer_(\d+)\.attention\.(query|key|value)\.",
+     r"text_branch.encoder.layer.\1.attention.self.\2."),
+    (r"^layer_(\d+)\.attention\.output_dense\.",
+     r"text_branch.encoder.layer.\1.attention.output.dense."),
+    (r"^layer_(\d+)\.attention_ln\.", r"text_branch.encoder.layer.\1.attention.output.LayerNorm."),
+    (r"^layer_(\d+)\.intermediate\.", r"text_branch.encoder.layer.\1.intermediate.dense."),
+    (r"^layer_(\d+)\.output\.", r"text_branch.encoder.layer.\1.output.dense."),
+    (r"^layer_(\d+)\.output_ln\.", r"text_branch.encoder.layer.\1.output.LayerNorm."),
+    (r"^pooler\.", "text_branch.pooler.dense."),
+    (r"^proj_(\d)\.", r"text_projection.\1."))
+CLAP_AUDIO_NAMES = (
+    (r"^htsat\.bn0\.(mean|var)$", r"audio_branch.bn0.running_\1"),
+    (r"^htsat\.patch_(proj|norm)\.", r"audio_branch.patch_embed.\1."),
+    (r"^htsat\.layer_(\d+)_block_(\d+)\.mlp_fc(\d)\.",
+     r"audio_branch.layers.\1.blocks.\2.mlp.fc\3."),
+    (r"^htsat\.layer_(\d+)_block_(\d+)\.", r"audio_branch.layers.\1.blocks.\2."),
+    (r"^htsat\.layer_(\d+)_downsample\.", r"audio_branch.layers.\1.downsample."),
+    (r"^htsat\.", "audio_branch."),
+    (r"^proj_(\d)\.", r"audio_projection.\1."))
+CNN14_NAMES = ((r"\.(mean|var)$", r".running_\1"),)
+VGGISH_NAMES = (tuple((rf"^conv{i}\.", f"features.{t}.")
+                     for i, t in enumerate((0, 3, 6, 8, 11, 13)))
+                + tuple((rf"^fc{i}\.", f"embeddings.{t}.") for i, t in enumerate((0, 2, 4))))
+
+
+def write_scorer_checkpoints(root: str) -> dict:
+    """Seeded random full-width scorers written in their released formats
+    under `root`: a LAION-CLAP `.pt` ({"state_dict": ...}: RoBERTa-base,
+    HTSAT-tiny and both projections, the audio side under `module.`), Cnn14
+    (527 classes) as {"model": sd}, and torchvggish's state dict. Each
+    converts back bit-equal to the weights it was written from (checked).
+    Returns the paths and the seconds and bytes written."""
+    from tango_tpu_torch.eval.panns import Cnn14, convert_cnn14
+    from tango_tpu_torch.eval.vggish import VGGish, convert_vggish
+    from tango_tpu_torch.models.clap import ROBERTA_BASE, ClapTextEncoder, convert_clap_text
+    from tango_tpu_torch.models.htsat import HTSAT_TINY, ClapAudioEncoder, convert_clap_audio
+    from tango_tpu_torch.utils.init import init_random_
+
+    def made(make, seed):
+        with torch.device("meta"):
+            m = make()
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        return init_random_(m.to_empty(device=DEVICE), gen).state_dict()
+
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    text = made(lambda: ClapTextEncoder(ROBERTA_BASE), 11)
+    audio = made(lambda: ClapAudioEncoder(HTSAT_TINY), 12)
+    c14, vgg = made(Cnn14, 13), made(VGGish, 14)
+    clap = {**renamed(text, CLAP_TEXT_NAMES), **renamed(audio, CLAP_AUDIO_NAMES, "module.")}
+    cnn14, vggish = renamed(c14, CNN14_NAMES), renamed(vgg, VGGISH_NAMES)
+    unprefixed = {k[len("module."):] if k.startswith("module.") else k: v for k, v in clap.items()}
+    problems = [what for what, ours, back in (
+        ("clap text", text, convert_clap_text(unprefixed)),
+        ("clap audio", audio, convert_clap_audio(unprefixed, HTSAT_TINY)),
+        ("cnn14", c14, convert_cnn14(cnn14)), ("vggish", vgg, convert_vggish(vggish)))
+        if set(ours) != set(back) or any(not torch.equal(ours[k].cpu(), back[k]) for k in ours)]
+    del text, audio, c14, vgg, unprefixed
+    if problems:
+        raise AssertionError(f"released-format checkpoints do not convert back: {problems}")
+    paths = {n: os.path.join(root, f) for n, f in (("clap", "clap.pt"), ("cnn14", "cnn14.pth"),
+                                                   ("vggish", "vggish.pth"))}
+    torch.save({"state_dict": clap}, paths["clap"])
+    torch.save({"model": cnn14}, paths["cnn14"])
+    torch.save(vggish, paths["vggish"])
+    return {"paths": paths, "write_s": round(time.perf_counter() - t0, 3),
+            "bytes": {n: os.path.getsize(p) for n, p in paths.items()}}
+
+
+def write_references(root: str, n: int, seconds: float, seed: int) -> str:
+    """`n` seeded ground-truth WAVs named as the CLI's outputs (output_{i}.wav,
+    the evaluation's pairing) in `root`."""
+    manifest = write_wavs(root, n, seconds, seed)
+    for i in range(n):
+        os.replace(os.path.join(root, f"clip{i}.wav"), os.path.join(root, f"output_{i}.wav"))
+    os.remove(manifest)
+    return root
+
+
+def read_int16(path: str):
+    import wave
+
+    import numpy as np
+
+    with wave.open(path) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def card_vs_cpu(what: str, card, cpu, limit: float, scale: float = 1.0) -> dict:
+    """Largest |card - cpu| over `scale` (1, or the CPU output's largest
+    magnitude) against `limit`."""
+    import numpy as np
+
+    err = float(np.abs(np.asarray(card, np.float64) - np.asarray(cpu, np.float64)).max()) / scale
+    return {"what": what, "err": err, "limit": limit, "ok": bool(err <= limit)}
+
+
+def tango2_eval_phase(snap_dir: str, root: str, ops) -> tuple:
+    """Phase `tango2_eval` on the snapshot, counted as one path (the counters
+    zeroed just before the two CLI runs and read just after): seeded random
+    full-width scorers written in their released formats and 4 reference
+    WAVs; `inference_tango2.main` with --clap_ckpt, --reference_dir,
+    --cnn14_ckpt and --vggish_ckpt (TANGO2_PROMPTS, STEPS steps, batch 4, the
+    RoBERTa-id fallback tokenizer); `inference.main` with --num_samples 2
+    and --clap_ckpt (batch 2). Checks JAX's record keys, a finite CLAP score
+    in [-1, 1], finite metrics (IS NaN: its 10 splits need 10 clips, as in
+    JAX), every tower's weights on the card, each re-ranked WAV its group's
+    argmax of the similarity recomputed here, the generation's launches on
+    their bodies; then, uncounted, the full-width towers (and HTSAT's latent
+    map) on the card against the same modules on the CPU in f32
+    (CARD_CPU_LIMITS). Returns (launches,
+    shapes, tc, cluster)."""
+    import numpy as np
+
+    from tango_tpu_torch import inference, inference_tango2, pipeline
+    from tango_tpu_torch.audio.wav import resample_poly
+    from tango_tpu_torch.eval import evaluator
+    from tango_tpu_torch.models.htsat import clap_logmel
+
+    t_phase = time.perf_counter()
+    ckpts = write_scorer_checkpoints(os.path.join(root, "scorers"))
+    paths = ckpts["paths"]
+    refs = write_references(os.path.join(root, "refs"), len(TANGO2_PROMPTS), 10.24, seed=5)
+    manifest = os.path.join(root, "tango2.json")
+    with open(manifest, "w") as f:
+        f.write("".join(json.dumps({"location": f"x{i}.wav", "captions": c}) + "\n"
+                        for i, c in enumerate(TANGO2_PROMPTS)))
+    towers, loads, groups = [], {}, []
+    real_load, real_init = inference_tango2.load_clap, evaluator.EvaluationHelper.__init__
+    real_gen = pipeline.Tango.generate_for_batch
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        clap = real_load(*a, **kw)
+        torch.cuda.synchronize()
+        loads.setdefault("load_clap_s", []).append(round(time.perf_counter() - t0, 3))
+        towers.extend([("clap_text", clap.text.model), ("clap_audio", clap.audio_model)])
+        return clap
+
+    def timed_init(self, *a, **kw):
+        t0 = time.perf_counter()
+        real_init(self, *a, **kw)
+        torch.cuda.synchronize()
+        loads.setdefault("evaluation_helper_s", []).append(round(time.perf_counter() - t0, 3))
+        towers.extend([("cnn14", self.cnn14), ("vggish", self.vggish)])
+
+    def kept_gen(self, *a, **kw):
+        groups.append(real_gen(self, *a, **kw))
+        return groups[-1]
+
+    out2, out1 = os.path.join(root, "tango2_out"), os.path.join(root, "rerank_out")
+    common = ["--model", snap_dir, "--test_file", manifest, "--num_steps", str(STEPS),
+              "--clap_ckpt", paths["clap"], "--device", DEVICE]
+    inference_tango2.load_clap, evaluator.EvaluationHelper.__init__ = timed_load, timed_init
+    pipeline.Tango.generate_for_batch = kept_gen
+    cwd = os.getcwd()
+    os.chdir(root)
+    seconds = {}
+    ops.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            record = inference_tango2.main(common + [
+                "--output_dir", out2, "--batch_size", str(TANGO2_BATCH), "--reference_dir", refs,
+                "--cnn14_ckpt", paths["cnn14"], "--vggish_ckpt", paths["vggish"]])
+            torch.cuda.synchronize()
+            seconds["tango2_cli_s"] = round(time.perf_counter() - t0, 3)
+            t0 = time.perf_counter()
+            inference.main(common + ["--output_dir", out1, "--batch_size", str(RERANK_BATCH),
+                                     "--num_samples", str(RERANK_SAMPLES)])
+            torch.cuda.synchronize()
+            seconds["rerank_cli_s"] = round(time.perf_counter() - t0, 3)
+    finally:
+        inference_tango2.load_clap, evaluator.EvaluationHelper.__init__ = real_load, real_init
+        pipeline.Tango.generate_for_batch = real_gen
+        os.chdir(cwd)
+    peak = torch.cuda.max_memory_allocated()
+    launches, shapes, tc, cluster = read_counters(ops)
+    problems = body_problems("tango2_eval", launches, tc, cluster)
+    fallback_warned = any("RoBERTa" in str(w.message) for w in caught)
+
+    # the record, against JAX's keys
+    metrics = record.get("metrics", {})
+    if set(record) != TANGO2_RECORD_KEYS or set(metrics) != METRIC_KEYS:
+        problems.append(f"record keys {sorted(record)}, metrics {sorted(metrics)}")
+    elif not (math.isfinite(record["clap_score"]) and -1.0 <= record["clap_score"] <= 1.0):
+        problems.append(f"clap_score {record['clap_score']}")
+    nonfinite = sorted(k for k, v in metrics.items() if not math.isfinite(v))
+    if nonfinite != ["is_mean", "is_std"]:
+        problems.append(f"non-finite metrics {nonfinite} (only IS is NaN with 4 clips)")
+    off_card = [n for n, m in towers if m is None or any(
+        t.device.type != "cuda" for t in (*m.parameters(), *m.buffers()))]
+    if len(towers) != 6 or off_card:
+        problems.append(f"towers {[n for n, _ in towers]}, not on the card: {off_card}")
+    if not fallback_warned:
+        problems.append("the default CLAP tokenizer did not warn")
+
+    # the re-ranking, recomputed: each output_{i}.wav is its group's argmax
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        clap = real_load(paths["clap"], device=DEVICE)
+        clap_cpu = real_load(paths["clap"], device="cpu")
+    rerank = []
+    for i, (prompt, group) in enumerate(zip(TANGO2_PROMPTS, groups[-1])):
+        sims = clap.similarity(np.stack([g.astype(np.float32) / 32768.0 for g in group]), prompt)
+        pick = int(np.argmax(sims))
+        rerank.append({"sims": [round(float(s), 6) for s in sims], "pick": pick})
+        if not np.array_equal(read_int16(os.path.join(out1, f"output_{i}.wav")), group[pick]):
+            problems.append(f"rerank output_{i}.wav is not its group's CLAP argmax {pick}")
+
+    # the full-width towers on the card against the same modules on the CPU
+    waves = np.stack([w.astype(np.float32) / 32768.0 for w in groups[0]])
+    clap.audio_batch = clap_cpu.audio_batch = len(waves)
+    files = [os.path.join(out2, f"output_{i}.wav") for i in range(len(TANGO2_PROMPTS))]
+    card, cpu = (evaluator.EvaluationHelper(16000, device=d, cnn14_ckpt=paths["cnn14"],
+                                            vggish_ckpt=paths["vggish"]) for d in (DEVICE, "cpu"))
+    card.batch_size = cpu.batch_size = len(files)
+    f_card, f_cpu = card.cnn14_features(files), cpu.cnn14_features(files)
+    v_card, v_cpu = card.vggish_embeddings(files), cpu.vggish_embeddings(files)
+    errors = [
+        card_vs_cpu("clap_text", clap.text_embed(TANGO2_PROMPTS),
+                    clap_cpu.text_embed(TANGO2_PROMPTS), CARD_CPU_LIMITS["clap_text"]),
+        card_vs_cpu("clap_audio", clap.audio_embed(waves), clap_cpu.audio_embed(waves),
+                    CARD_CPU_LIMITS["clap_audio"])]
+    # HTSAT's trunk alone, on one log-mel: the latent map before pooling and
+    # projection, where its TF32 patch convolution shows
+    cfg = clap.audio_cfg
+    mel = clap_logmel(torch.from_numpy(np.stack(
+        [resample_poly(w, 16000, cfg.sample_rate)[:cfg.clip_samples] for w in waves])), cfg)
+    with torch.inference_mode():
+        lat_card = clap.audio_model.htsat(mel.to(DEVICE))["latent_map"].cpu().numpy()
+        lat_cpu = clap_cpu.audio_model.htsat(mel)["latent_map"].numpy()
+    errors.append(card_vs_cpu("htsat_latent_map", lat_card, lat_cpu, CARD_CPU_LIMITS["htsat"],
+                              float(np.abs(lat_cpu).max())))
+    for key in ("2048", "logits"):
+        errors.append(card_vs_cpu(f"cnn14_{key}", f_card[key], f_cpu[key],
+                                  CARD_CPU_LIMITS["cnn14"], float(np.abs(f_cpu[key]).max())))
+    errors.append(card_vs_cpu("vggish", v_card, v_cpu, CARD_CPU_LIMITS["vggish"],
+                              float(np.abs(v_cpu).max())))
+    problems += [f"{e['what']}: card vs CPU {e['err']:.3g} over its limit {e['limit']}"
+                 for e in errors if not e["ok"]]
+    log("tango2_eval", phase_s=round(time.perf_counter() - t_phase, 3), **seconds,
+        checkpoints_write_s=ckpts["write_s"], checkpoint_bytes=ckpts["bytes"], **loads,
+        peak_memory_bytes=peak, clap_score=record.get("clap_score"), metrics=metrics,
+        rerank=rerank, card_vs_cpu=errors, fallback_tokenizer_warned=fallback_warned,
+        launches=launches, tc_launches=tc, cluster_launches=cluster,
+        shapes={n: len(v) for n, v in shapes.items()}, problems=problems)
+    del clap, clap_cpu, card, cpu, towers, groups
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("tango2_eval: " + "; ".join(problems))
+    return launches, shapes, tc, cluster
+
 def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
     """One full-width f32 SFTTrainer.fit on the card: 4 micro-steps at batch
     2 with accumulation 2 (2 updates), one validation batch, the best
@@ -2202,6 +2522,9 @@ def main(argv) -> int:
          cluster_launches[path]) = phase(snap_dir, snap_root, start, ops)
         by_path[path] = (path_launches, path_shapes)
     del start
+    (path_launches, path_shapes, tc_launches["tango2_eval"],
+     cluster_launches["tango2_eval"]) = tango2_eval_phase(snap_dir, snap_root, ops)
+    by_path["tango2_eval"] = (path_launches, path_shapes)
     shutil.rmtree(snap_root)
     torch.cuda.empty_cache()
     log("entry_points", phase_s=round(time.perf_counter() - t_phase, 3),

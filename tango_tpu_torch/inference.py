@@ -1,16 +1,22 @@
-"""Batch generation from a manifest, port of tango_tpu/inference.py.
+"""Batch generation and objective evaluation from a manifest, port of
+tango_tpu/inference.py.
 
     python -m tango_tpu_torch.inference --model <snapshot_dir> \
         --test_file data/test_audiocaps_subset.json \
-        --num_steps 200 --guidance 3 --batch_size 8 [--num_samples 1] [--device cpu]
+        --num_steps 200 --guidance 3 --batch_size 8 [--num_samples 1] \
+        [--clap_ckpt <laion-clap .pt>] [--reference_dir refs/ --cnn14_ckpt ... \
+        --vggish_ckpt ...] [--device cpu]
 
-Writes `output_{i}.wav` for manifest line i (the first sample of each prompt
-with --num_samples > 1) under --output_dir, and appends one record (prompts,
-steps, generation seconds, `x_realtime`: seconds of audio a wall second) to
+Writes `output_{i}.wav` for manifest line i under --output_dir. With
+--num_samples > 1 that is the prompt's first sample, or with --clap_ckpt the
+sample CLAP scores highest against the prompt (the reference's
+inference.py:105-121). With --reference_dir, EvaluationHelper scores the
+outputs against the ground-truth WAVs (Cnn14's metrics with --cnn14_ckpt,
+FAD with --vggish_ckpt). Appends one record (prompts, steps, generation
+seconds, `x_realtime`: seconds of audio a wall second, the metrics) to
 `summary.jsonl` in the working directory. Runs on the card unless --device
-names another. The objective evaluation (--reference_dir, --cnn14_ckpt,
---vggish_ckpt) and the CLAP re-ranking (--clap_ckpt) are not ported yet
-and raise.
+names another. CLAP's tokenizer is the caller's (`main(argv,
+clap_tokenizer=)`), or a word hash with RoBERTa's ids, with a warning.
 """
 
 from __future__ import annotations
@@ -20,14 +26,6 @@ import json
 import os
 import time
 
-# flag -> the ROADMAP queue A item that ports what it needs
-NOT_PORTED = {
-    "reference_dir": "the objective evaluation, ROADMAP queue A #9",
-    "cnn14_ckpt": "the objective evaluation, ROADMAP queue A #9",
-    "vggish_ckpt": "the objective evaluation, ROADMAP queue A #9",
-    "clap_ckpt": "CLAP re-ranking, ROADMAP queue A #6",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="tango_tpu_torch batch generation")
@@ -36,7 +34,7 @@ def parse_args(argv=None):
     p.add_argument("--text_key", type=str, default="captions")
     p.add_argument("--reference_dir", "--test_references", dest="reference_dir",
                    type=str, default=None,
-                   help="ground-truth wav dir for the evaluation (not ported yet)")
+                   help="ground-truth wav dir (the reference --test_references)")
     p.add_argument("--unet_ckpt", type=str, default=None,
                    help="natively trained UNet checkpoint directory (SFTTrainer.fit's "
                         "best / epoch_N) run over --model's VAE, T5 and vocoder")
@@ -47,9 +45,13 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--num_test_instances", type=int, default=-1)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--cnn14_ckpt", type=str, default=None, help="(not ported yet)")
-    p.add_argument("--vggish_ckpt", type=str, default=None, help="(not ported yet)")
-    p.add_argument("--clap_ckpt", type=str, default=None, help="(not ported yet)")
+    p.add_argument("--cnn14_ckpt", type=str, default=None,
+                   help="Cnn14 16k checkpoint for the evaluation's FD/KL/IS/KID")
+    p.add_argument("--vggish_ckpt", type=str, default=None,
+                   help="VGGish checkpoint for the evaluation's FAD")
+    p.add_argument("--clap_ckpt", type=str, default=None,
+                   help="LAION-CLAP checkpoint: re-rank multi-sample outputs by CLAP "
+                        "similarity (reference inference.py:105-121)")
     p.add_argument("--with_tracking", action="store_true",
                    help="log the record to wandb if it is importable, else to stdout")
     p.add_argument("--device", type=str, default=None,
@@ -82,11 +84,9 @@ def load_prompts(args) -> list:
     return prompts
 
 
-def main(argv=None):
+def main(argv=None, clap_tokenizer=None):
     args = parse_args(argv)
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} needs {what}, which the port does not have yet")
+    import numpy as np
 
     from tango_tpu_torch.audio.wav import write_wav
     from tango_tpu_torch.pipeline import Tango
@@ -103,9 +103,19 @@ def main(argv=None):
                                      samples=args.num_samples, batch_size=args.batch_size,
                                      seed=args.seed)
     gen_time = time.time() - t0
+    if args.num_samples > 1 and args.clap_ckpt:
+        # each prompt's candidate CLAP scores highest (inference.py:105-121)
+        from tango_tpu_torch.inference_tango2 import load_clap
+
+        clap = load_clap(args.clap_ckpt, clap_tokenizer, args.device)
+        waves = [group[int(np.argmax(clap.similarity(
+                     np.stack([g.astype(np.float32) / 32768.0 for g in group]), prompt)))]
+                 for prompt, group in zip(prompts, waves)]
+        del clap
+    elif args.num_samples > 1:
+        waves = [group[0] for group in waves]
     for i, w in enumerate(waves):
-        write_wav(os.path.join(out_dir, f"output_{i}.wav"), w[0] if args.num_samples > 1 else w,
-                  16000)
+        write_wav(os.path.join(out_dir, f"output_{i}.wav"), w, 16000)
 
     # gen_time covers num_samples generations a prompt: count them all
     audio_sec = len(prompts) * max(args.num_samples, 1) * 10.24
@@ -119,10 +129,20 @@ def main(argv=None):
         "x_realtime": round(audio_sec / gen_time, 3),
         "output_dir": out_dir,
     }
+    if args.reference_dir:
+        from tango_tpu_torch.eval.evaluator import EvaluationHelper
+
+        record["metrics"] = EvaluationHelper(
+            16000, device=args.device, cnn14_ckpt=args.cnn14_ckpt,
+            vggish_ckpt=args.vggish_ckpt).main(out_dir, args.reference_dir)
     tracker = init_tracker(args.with_tracking)
     if tracker is not None:
-        tracker.log({"Steps": args.num_steps, "Guidance Scale": args.guidance,
-                     "Test Instances": len(prompts), "x_realtime": record["x_realtime"]})
+        # the reference logs the metric dict and the run's metadata
+        # (inference.py:155-160)
+        wb = dict(record.get("metrics") or {})
+        wb.update({"Steps": args.num_steps, "Guidance Scale": args.guidance,
+                   "Test Instances": len(prompts), "x_realtime": record["x_realtime"]})
+        tracker.log(wb)
         tracker.finish()
     with open("summary.jsonl", "a") as f:
         f.write(json.dumps(record) + "\n")

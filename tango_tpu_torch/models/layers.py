@@ -27,3 +27,13 @@ def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+def frozen(make, params, device) -> nn.Module:
+    """Build module `make()` on `device` in f32 from state dict `params`
+    (strict), for inference: eval mode, no gradients."""
+    with torch.device("meta"):
+        m = make()
+    m = m.to_empty(device=device).to(torch.float32)
+    m.load_state_dict(params)
+    return m.eval().requires_grad_(False)

@@ -116,17 +116,6 @@ def local_dir(path: str, flag: str) -> str:
     return path
 
 
-def frozen(make, params, device):
-    """Build module `make()` on `device` in f32 from state dict `params`, frozen."""
-    import torch
-
-    with torch.device("meta"):
-        m = make()
-    m = m.to_empty(device=device).to(torch.float32)
-    m.load_state_dict(params)
-    return m.eval().requires_grad_(False)
-
-
 def default_tokenizer(tokenizer, vocab_size: int):
     """The caller's tokenizer, or WordHashTokenizer with a warning."""
     if tokenizer is not None:
@@ -172,6 +161,7 @@ def main(argv=None, tokenizer=None):
     from tango_tpu_torch import configs as C
     from tango_tpu_torch.audio.stft import MelSpectrogram
     from tango_tpu_torch.models.diffusion import AudioDiffusion
+    from tango_tpu_torch.models.layers import frozen
     from tango_tpu_torch.models.t5 import T5Encoder
     from tango_tpu_torch.models.vae import AutoencoderKL
     from tango_tpu_torch.train.data import FeaturizedLoader, load_manifest, validate_manifest

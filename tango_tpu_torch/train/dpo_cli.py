@@ -74,7 +74,6 @@ def main(argv=None, tokenizer=None):
     from tango_tpu_torch.train.cli import (
         check_single_process,
         default_tokenizer,
-        frozen,
         local_dir,
         make_log_fn,
     )
@@ -88,6 +87,7 @@ def main(argv=None, tokenizer=None):
     from tango_tpu_torch.audio.stft import MelSpectrogram, wav_batch_to_fbank
     from tango_tpu_torch.audio.wav import read_wav_file
     from tango_tpu_torch.models.dpo import DPOAudioDiffusion, make_reference
+    from tango_tpu_torch.models.layers import frozen
     from tango_tpu_torch.models.t5 import T5Encoder
     from tango_tpu_torch.models.vae import AutoencoderKL
     from tango_tpu_torch.train.data import Example, validate_manifest

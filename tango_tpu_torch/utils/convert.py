@@ -17,10 +17,11 @@ The tensors are the caller's where no key is fused or folded: a 4.8 GB main
 `.bin` stays one f32 copy on the host while it converts.
 
 `from_jax_params` takes a Flax parameter tree of numpy arrays (what
-`jax.device_get` returns) for the UNet, the T5 encoder, the VAE or HiFi-GAN
-and returns a state dict for the matching module of this package. The port's
-modules carry the Flax module names, so a path maps onto a key; what changes
-is the leaf name and the layout:
+`jax.device_get` returns) for the UNet, the T5 encoder, the VAE, HiFi-GAN,
+the CLAP towers or the evaluation's Cnn14 and VGGish and returns a state
+dict for the matching module of this package. The port's modules carry
+the Flax module names, so a path maps onto a key; what changes is the leaf
+name and the layout:
 
   Dense kernel (I, O)              -> Linear weight (O, I)
   Conv kernel (kh, kw, I, O)       -> Conv2d weight (O, I, kh, kw)
@@ -33,6 +34,8 @@ is the leaf name and the layout:
   LayerNorm scale                  -> weight
   GroupNorm `<name>_scale/_bias`   -> `<name>.weight/.bias`
   embedding tables                 -> `<name>.weight`
+  BatchNormEval mean / var         -> the buffers `mean` / `var`
+  relative_position_bias_table     -> kept as it is (HTSAT's Swin blocks)
 
 Fused projections stay fused: the port's attention modules hold `to_qkv`
 (self-attention) and `to_kv` (cross-attention) as the JAX modules do.
@@ -48,8 +51,13 @@ import torch
 
 StateDict = Dict[str, torch.Tensor]
 
-# top-level parameters that are embedding tables (no `kernel` leaf)
-_EMBEDDINGS = ("token_embedding", "relative_attention_bias")
+# top-level parameters that are embedding tables (no `kernel` leaf): T5's and
+# RoBERTa's (the CLAP text tower)
+_EMBEDDINGS = ("token_embedding", "relative_attention_bias", "word_embeddings",
+               "position_embeddings", "token_type_embeddings")
+# leaves whose name and layout are the port's own: BatchNormEval's running
+# statistics, the Swin blocks' bias tables
+_KEPT = ("mean", "var", "relative_position_bias_table")
 
 
 def _flatten(tree: Mapping, prefix=()) -> Iterable[tuple[tuple[str, ...], np.ndarray]]:
@@ -66,6 +74,8 @@ def _convert_leaf(path: tuple[str, ...], w: np.ndarray) -> tuple[str, np.ndarray
         return f"{leaf}.weight", w
     if leaf == "kernel_scale":
         return ".".join(mods + ["weight_scale"]), w
+    if leaf in _KEPT:
+        return ".".join(mods + [leaf]), w
     if leaf in ("kernel", "kernel_q"):
         if w.ndim == 4:
             w = np.transpose(w, (3, 2, 0, 1))
@@ -86,6 +96,11 @@ def _convert_leaf(path: tuple[str, ...], w: np.ndarray) -> tuple[str, np.ndarray
         if leaf.endswith(suffix):
             return ".".join(mods + [leaf[: -len(suffix)], name]), w
     raise ValueError(f"unhandled parameter {'/'.join(path)}")
+
+
+def f32_tensor(v) -> torch.Tensor:
+    """A numpy array or tensor -> a new contiguous f32 CPU tensor."""
+    return torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
 
 
 def from_jax_params(params: Mapping, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:

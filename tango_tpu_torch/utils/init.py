@@ -3,7 +3,9 @@
 There are no released weights in the repository, so a full-width run uses
 random ones: kernels normal with variance 1/fan_in (Flax's `lecun_normal`
 has that variance), biases zero, norm scales one, embedding tables standard
-normal. Weights are drawn in place on the module's device from an explicit
+normal; BatchNormEval's running statistics mean 0, variance 1, and the Swin
+blocks' relative-position bias tables normal with std 0.02 (the JAX
+modules' initializers). Weights are drawn in place on the module's device from an explicit
 `torch.Generator`.
 """
 
@@ -14,6 +16,8 @@ import math
 import torch
 from torch import nn
 
+from tango_tpu_torch.eval.panns import BatchNormEval
+from tango_tpu_torch.models.htsat import WindowAttention
 from tango_tpu_torch.models.layers import GroupNorm
 from tango_tpu_torch.models.t5 import T5LayerNorm
 
@@ -30,10 +34,16 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=generator)
             continue
-        elif isinstance(m, (nn.LayerNorm, GroupNorm, T5LayerNorm)):
+        elif isinstance(m, (nn.LayerNorm, GroupNorm, T5LayerNorm, BatchNormEval)):
             m.weight.fill_(1.0)
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
+            if isinstance(m, BatchNormEval):
+                m.mean.zero_()
+                m.var.fill_(1.0)
+            continue
+        elif isinstance(m, WindowAttention):  # its qkv and proj come as Linears
+            m.relative_position_bias_table.normal_(0.0, 0.02, generator=generator)
             continue
         else:
             continue

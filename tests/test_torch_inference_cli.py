@@ -8,6 +8,7 @@ import json
 import os
 import sys
 import types
+import warnings
 
 import numpy as np
 import pytest
@@ -15,9 +16,11 @@ import torch
 
 import tango_tpu_torch.pipeline as pipeline_mod
 from tango_tpu_torch import inference
-from tango_tpu_torch.audio.wav import read_wav
+from tango_tpu_torch.audio.wav import read_wav, write_wav
+from tango_tpu_torch.eval import evaluator
 from tango_tpu_torch.tokenizer import WordHashTokenizer
 
+from tests._torch_helpers import tiny_clap_geometry, write_tiny_clap
 from tests.conftest import GOLDEN
 
 torch.set_num_threads(1)
@@ -135,11 +138,45 @@ def test_cli_with_tracking(tmp_path, built, monkeypatch):
 
 @pytest.mark.parametrize("flag,queue", [("--reference_dir", "#9"), ("--cnn14_ckpt", "#9"),
                                         ("--vggish_ckpt", "#9"), ("--clap_ckpt", "#6")])
-def test_cli_eval_flags_raise(tmp_path, built, flag, queue):
-    test_file = manifest(tmp_path, ["a dog barks"])
-    with pytest.raises(SystemExit, match=f"queue A {queue}"):
-        run(tmp_path, test_file, flag, str(tmp_path))
-    assert not built  # before any model is built
+def test_cli_eval_flags_raise(tmp_path, built, flag, queue, monkeypatch):
+    """Each evaluation / CLAP flag, once refused (ROADMAP queue A `queue`),
+    now runs: --reference_dir scores the outputs (the paired metrics; no
+    extractor checkpoint, so Cnn14's and VGGish's metrics are NaN), the
+    checkpoint flags reach EvaluationHelper with it, and --clap_ckpt re-ranks
+    --num_samples 2 by CLAP (a tiny checkpoint from the goldens)."""
+    test_file = manifest(tmp_path, ["a dog barks", "rain falls"])
+    ref = tmp_path / "refs"
+    ref.mkdir()
+    for i in range(2):
+        write_wav(str(ref / f"output_{i}.wav"),
+                  0.3 * np.sin(np.arange(9000, dtype=np.float32) * (0.05 + 0.01 * i)))
+    helpers = []
+
+    class Spy(evaluator.EvaluationHelper):
+        def __init__(self, *a, **kw):
+            helpers.append(kw)
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(evaluator, "EvaluationHelper", Spy)
+    if flag == "--clap_ckpt":
+        tiny_clap_geometry(monkeypatch)
+        write_tiny_clap(str(tmp_path / "clap.pt"))
+        extra = [flag, str(tmp_path / "clap.pt"), "--num_samples", "2"]
+    elif flag == "--reference_dir":
+        extra = [flag, str(ref)]
+    else:
+        extra = ["--reference_dir", str(ref), flag, str(tmp_path / "absent.pth")]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the default CLAP tokenizer's
+        out_dir, rec = run(tmp_path, test_file, *extra)
+    assert built and all(os.path.exists(os.path.join(out_dir, f"output_{i}.wav"))
+                         for i in range(2))
+    if flag == "--clap_ckpt":
+        assert "metrics" not in rec and not helpers
+        return
+    (kw,) = helpers
+    assert kw["device"] == "cpu" and kw.get(flag[2:]) in (None, extra[-1])
+    assert rec["metrics"]["psnr"] > 0 and np.isnan(rec["metrics"]["frechet_distance"])
 
 
 def test_cli_default_device_without_cuda_raises(tmp_path, monkeypatch):

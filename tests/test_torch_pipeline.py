@@ -297,15 +297,19 @@ def test_tokenizer_pads_truncates_and_appends_eos():
 
 
 def test_import_hygiene():
-    """Importing the port and chip_smoke loads no JAX, no JAX package and no
-    transformers / huggingface_hub."""
+    """Importing the port (every module, the evaluation and CLAP's included)
+    and chip_smoke loads no JAX, no JAX package and no transformers /
+    huggingface_hub / sklearn."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import tango_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(tango_tpu_torch.__path__, 'tango_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'tango_tpu', 'transformers', 'huggingface_hub'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'tango_tpu', 'transformers', 'huggingface_hub',\n"
+        "              'sklearn'))\n"
+        "assert 'tango_tpu_torch.eval.evaluator' in sys.modules\n"
+        "assert 'tango_tpu_torch.inference_tango2' in sys.modules\n"
         "print(bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
