@@ -96,6 +96,33 @@ Phases, one short JSON line each:
            modules on the CPU in f32 (CARD_CPU_LIMITS). The seconds of each CLI, the loads,
            the checkpoints' bytes, the peak memory, the metrics and the
            errors logged;
+  mustango_build, mustango, mustango_predictors, mustango_cli
+           after the Tango snapshot is deleted (free disk checked first):
+           the full-width Mustango (TANGO_UNET's geometry with the `*Music`
+           blocks, two extra 1024-wide streams; FLAN-T5-Large, TANGO_VAE,
+           TANGO_HIFIGAN, the music conditioner, DeBERTa-v3-large and an
+           untied FLAN-T5-large seq2seq) from seeded random weights,
+           written in the released layout under build/ (configs/, vae/,
+           ldm/ through save_ldm_bin, beats/, chords/; ~12.3 GB), its bytes
+           and seconds; Mustango(dir) in bf16 (the predictors f32), its
+           cold start, every weight equal to the written one (the vocoder
+           within one bf16 step), the three tokenizer fallbacks warned; one
+           UNet evaluation of each pipeline, whose attn_fwd launches must
+           be 3x Tango's; then path `mustango`, counted: generate of
+           MUSTANGO_PROMPTS[0] with both predictors (DeBERTa's beats, the
+           5-beam search's chords), generate_for_batch of the 4 prompts at
+           batch 4 with explicit features (MUSTANGO_BEATS, MUSTANGO_CHORDS)
+           and generate of the first with them, whose latents the batch's
+           row 0 must match within MUSTANGO_ROW0_REL_L2; every attn_fwd on
+           its tensor-core body, every gn_silu_fwd on its cluster body,
+           163872-sample non-silent int16 waveforms; then, uncounted, the predictors on
+           the card against the same modules on the CPU in f32 (DeBERTa's
+           logits and intervals, T5's first-step log-probabilities within
+           PREDICTOR_LIMITS; the beam tokens equal, or at the first step
+           whose ranking differs the CPU's margin between the two
+           candidates within twice their card-vs-CPU difference, logged);
+           convert_cli export-mustango of the snapshot reloaded bit-equal;
+           serve.main --music at 2 steps once; the directory deleted;
   int8     the int8 W8A8 serving mode: a full-width Tango.from_components(
            quant="all") built from the bf16 model's state dicts (the same
            weights, quantized once on the card), one uncounted 1-step
@@ -298,7 +325,8 @@ FWD_TC_AMPLITUDE_SEEDS = (31, 32)
 BIAS_TC_SHAPES = [((6, 200, 64), (6, 333, 64), (2, 1, 333)),
                   ((6, 200, 64), (6, 333, 64), (2, 200, 333))]
 # the serving paths: every attention kernel launch there is bf16 at D = 64
-TC_PATHS = ("serve", "snapshot", "serve_http", "long_clip", "long_prompt", "int8", "int8_conv")
+TC_PATHS = ("serve", "snapshot", "serve_http", "long_clip", "long_prompt", "int8", "int8_conv",
+            "mustango")
 # the kernels each counted path must launch
 PATH_KERNELS = {
     "serve": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd"),
@@ -331,6 +359,30 @@ TANGO2_BATCH = 4
 RERANK_SAMPLES = 2
 RERANK_BATCH = 2
 PATH_KERNELS["tango2_eval"] = PATH_KERNELS["serve"]
+# phase mustango: the counted path's prompts (the first one also alone, with
+# the predictors and then with the features below), the batch, the explicit
+# features (tests/test_pipeline_music.py's: beats at 0.5, 1.0, 1.5 s counted
+# 1, 2, 3; Gm, Eb, F7); Mustango's UNet runs the serving path's kernels
+MUSTANGO_PROMPTS = ["an upbeat jazz piece with a walking bass line", "a slow sad piano ballad",
+                    "a rock guitar riff over drums", "a techno beat with a deep bass"]
+MUSTANGO_BATCH = 4
+MUSTANGO_BEATS = [[0.5, 1.0, 1.5], [1.0, 2.0, 3.0]]
+MUSTANGO_CHORDS = (["Gm", "Eb", "F7"], [0.46, 1.39, 3.16])
+PATH_KERNELS["mustango"] = PATH_KERNELS["serve"]
+# the batch's row 0 against generate of the same prompt, seed and features:
+# the relative L2 of the final latents. Not bit-equal on the card: cuBLAS
+# tiles a GEMM of 8 rows otherwise than one of 2, so bf16 roundings differ
+# (0.011 on an NVIDIA H100 80GB HBM3 at 700 W); a row with another seed's
+# noise is ~1.4 apart, another row's features ~0.1 and more. JAX's
+# end-to-end bar for int8 against f32 (relative L2 0.05) separates the two
+MUSTANGO_ROW0_REL_L2 = 0.05
+# the predictors on the card against the CPU, both f32 (matmuls without TF32):
+# the largest difference as a share of the CPU output's largest magnitude.
+# f32 rounds at 2^-24 ~ 6e-8 a product; a dot product of K terms summed in
+# another order differs by ~sqrt(K) of that, 4e-6 at K = 4096; DeBERTa chains
+# 24 layers of ~6 products and T5 48 (encoder and decoder), the errors adding
+# at worst: 24 * 6 * 4e-6 ~ 6e-4 and twice that
+PREDICTOR_LIMITS = {"deberta": 1e-3, "t5_first_step": 2e-3}
 # the keys of JAX's Tango 2 record (tango_tpu/inference_tango2.py main, with
 # --clap_ckpt and --reference_dir) and of EvaluationHelper's result
 TANGO2_RECORD_KEYS = {"model", "num_prompts", "num_steps", "gen_time_s", "x_realtime",
@@ -1445,6 +1497,14 @@ def random_encoder(C, seed: int) -> dict:
     return {k: v for k, v in vae.state_dict().items() if k.startswith(("encoder.", "quant_conv."))}
 
 
+def released_vae_config(C) -> dict:
+    """TANGO_VAE as a released vae_config.json has it: the geometry nested in
+    `ddconfig`."""
+    vae = C.TANGO_VAE.to_dict()
+    return {"embed_dim": vae.pop("embed_dim"), "scale_factor": vae.pop("scale_factor"),
+            "ddconfig": vae}
+
+
 def write_snapshot(root: str, C, tango, encoder: dict) -> dict:
     """A full-width reference-format snapshot of pipeline `tango`'s weights
     in `root`: the main bin through the port's `save_main_bin`, the VAE bin
@@ -1461,14 +1521,12 @@ def write_snapshot(root: str, C, tango, encoder: dict) -> dict:
     torch.save(reference_vae_state_dict({**tango.vae.state_dict(), **encoder},
                                         tango.vocoder.state_dict()),
                os.path.join(root, "pytorch_model_vae.bin"))
-    vae = C.TANGO_VAE.to_dict()
     unet = {k: v for k, v in C.TANGO_UNET.to_dict().items() if not k.startswith("quant_")}
     configs = {
         "main_config.json": {"text_encoder_name": "google/flan-t5-large",
                              "scheduler_name": "stabilityai/stable-diffusion-2-1",
                              "unet_model_config_path": "unet_config.json"},
-        "vae_config.json": {"embed_dim": vae.pop("embed_dim"),
-                            "scale_factor": vae.pop("scale_factor"), "ddconfig": vae},
+        "vae_config.json": released_vae_config(C),
         "unet_config.json": {"_class_name": "UNet2DConditionModel", "act_fn": "silu", **unet},
         "stft_config.json": C.TANGO_STFT.to_dict(),
     }
@@ -1491,25 +1549,9 @@ def compare_loaded(tango, loaded) -> dict:
     """The loaded pipeline's parameters against the pipeline it was written
     from: the UNet, T5 and VAE bit-equal (bf16 -> f32 -> bf16 is exact), the
     vocoder within one bf16 step (the weight-norm fold). Raises otherwise."""
-    out, problems = {}, []
-    for name in ("unet", "t5", "vae", "vocoder"):
-        a = (tango.model.unet if name == "unet" else getattr(tango, name)).state_dict()
-        b = (loaded.model.unet if name == "unet" else getattr(loaded, name)).state_dict()
-        if set(a) != set(b):
-            problems.append(f"{name}: keys differ")
-            continue
-        differ = sum(int((a[k] != b[k]).sum()) for k in a)
-        worst = max(((a[k].float() - b[k].float()).abs() / bf16_ulp(a[k])).max().item()
-                    for k in a)
-        out[name] = {"tensors": len(a), "elements": sum(v.numel() for v in a.values()),
-                     "differ": differ, "max_ulps": worst}
-        if name != "vocoder" and differ:
-            problems.append(f"{name}: {differ} elements differ")
-        if worst > 1.0:
-            problems.append(f"{name}: {worst} bf16 steps off")
-    if problems:
-        raise AssertionError(f"loaded snapshot: {'; '.join(problems)} ({out})")
-    return out
+    return compare_modules([(name, *(t.model.unet if name == "unet" else getattr(t, name)
+                                     for t in (tango, loaded)), name != "vocoder")
+                            for name in ("unet", "t5", "vae", "vocoder")])
 
 
 def cli_phase(root: str, snapshot: str, wav_len: int) -> dict:
@@ -2205,6 +2247,424 @@ def tango2_eval_phase(snap_dir: str, root: str, ops) -> tuple:
         raise AssertionError("tango2_eval: " + "; ".join(problems))
     return launches, shapes, tc, cluster
 
+def music_unet_json(C) -> dict:
+    """TANGO_UNET's geometry as Mustango's music_diffusion_model_config.json
+    names it: the cross-attention blocks `*Music` (two extra streams, beats
+    and chords, as wide as the text's)."""
+    def music(block):
+        return block + "Music" if block.startswith(("CrossAttn", "UNetMid")) else block
+
+    unet = {k: v for k, v in C.TANGO_UNET.to_dict().items()
+            if not k.startswith(("quant_", "extra_cond_"))}
+    unet["down_block_types"] = [music(b) for b in unet["down_block_types"]]
+    unet["up_block_types"] = [music(b) for b in unet["up_block_types"]]
+    unet["mid_block_type"] = music(unet["mid_block_type"])
+    return {"_class_name": "UNet2DConditionModelMusic", "act_fn": "silu", **unet}
+
+
+def write_mustango_snapshot(root: str, C, m, beats_model, chords_model) -> dict:
+    """Mustango `m`'s weights and the two predictors' in the released layout
+    under `root`, through the port's exporters: configs/ (the VAE's geometry
+    nested in `ddconfig`), vae/ (the decoder and the weight-normed vocoder),
+    ldm/ (`save_ldm_bin`: the music UNet, the T5 encoder, the conditioner),
+    beats/ (`export_deberta_beats`) and chords/ (`export_t5_seq2seq`).
+    Returns bytes and seconds."""
+    from tango_tpu_torch.utils.export import (export_deberta_beats, export_t5_seq2seq,
+                                              save_ldm_bin)
+
+    t0 = time.perf_counter()
+    for sub in ("configs", "vae", "ldm", "beats", "chords"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    configs = {
+        "main_config.json": {"text_encoder_name": "google/flan-t5-large",
+                             "scheduler_name": "stabilityai/stable-diffusion-2-1",
+                             "unet_model_config_path":
+                                 "configs/music_diffusion_model_config.json"},
+        "vae_config.json": released_vae_config(C),
+        "music_diffusion_model_config.json": music_unet_json(C),
+        "stft_config.json": C.TANGO_STFT.to_dict(),
+    }
+    for name, cfg in configs.items():
+        with open(os.path.join(root, "configs", name), "w") as f:
+            json.dump(cfg, f, indent=2)
+    torch.save(reference_vae_state_dict(m.vae.state_dict(), m.vocoder.state_dict()),
+               os.path.join(root, "vae", "pytorch_model_vae.bin"))
+    save_ldm_bin(os.path.join(root, "ldm", "pytorch_model_ldm.bin"), m.model.unet.state_dict(),
+                 m.t5.state_dict(), m.model.conditioner.state_dict())
+    torch.save(export_deberta_beats(beats_model.state_dict()),
+               os.path.join(root, "beats", "microsoft-deberta-v3-large.pt"))
+    torch.save(export_t5_seq2seq(chords_model.state_dict()),
+               os.path.join(root, "chords", "flan-t5-large.bin"))
+    seconds = time.perf_counter() - t0
+    sizes = {os.path.join(sub, n): os.path.getsize(os.path.join(root, sub, n))
+             for sub in sorted(os.listdir(root))
+             for n in sorted(os.listdir(os.path.join(root, sub)))}
+    return {"write_s": round(seconds, 3), "bytes": sum(sizes.values()),
+            "bin_bytes": {n: b for n, b in sizes.items() if not n.endswith(".json")}}
+
+
+def compare_modules(pairs) -> dict:
+    """(name, written module, loaded module, exact) -> per module the tensors,
+    elements, elements that differ and the largest difference in bf16 steps
+    (of the written value). An exact module must load bit-equal; the others
+    (the vocoder: the weight-norm fold) within one bf16 step. Raises."""
+    out, problems = {}, []
+    for name, a_mod, b_mod, exact in pairs:
+        a, b = a_mod.state_dict(), b_mod.state_dict()
+        if set(a) != set(b):
+            problems.append(f"{name}: keys differ")
+            continue
+        differ = sum(int((a[k] != b[k]).sum()) for k in a)
+        worst = max(((a[k].float() - b[k].float()).abs() / bf16_ulp(a[k])).max().item()
+                    for k in a)
+        out[name] = {"tensors": len(a), "elements": sum(v.numel() for v in a.values()),
+                     "differ": differ, "max_ulps": worst}
+        if exact and differ:
+            problems.append(f"{name}: {differ} elements differ")
+        if worst > 1.0:
+            problems.append(f"{name}: {worst} bf16 steps off")
+    if problems:
+        raise AssertionError(f"loaded snapshot: {'; '.join(problems)} ({out})")
+    return out
+
+
+def first_divergence(card_lps, cpu_lps, num_beams: int, min_length: int, eos: int):
+    """Replays T5Seq2Seq.generate's candidate ranking on the card's and the
+    CPU's per-step log-probabilities in lockstep. None when every step ranks
+    the same top 2*num_beams candidates; else (step, the CPU's margin between
+    its candidate and the card's at the first rank that differs, scored by
+    the CPU, and the largest card-vs-CPU difference of those candidates'
+    scores at that step)."""
+    import numpy as np
+
+    sa = np.full(num_beams, -1e9)
+    sa[0] = 0.0
+    sb = sa.copy()
+    for s, (a, b) in enumerate(zip(card_lps, cpu_lps)):
+        a, b = a.copy(), b.copy()
+        if s + 1 < min_length:
+            a[:, eos] = b[:, eos] = -np.inf
+        fa, fb = (sa[:, None] + a).reshape(-1), (sb[:, None] + b).reshape(-1)
+        ta = np.argsort(-fa, kind="stable")[: 2 * num_beams]
+        tb = np.argsort(-fb, kind="stable")[: 2 * num_beams]
+        if not np.array_equal(ta, tb):
+            r = int(np.nonzero(ta != tb)[0][0])
+            idx = np.union1d(ta, tb)
+            return s, float(fb[tb[r]] - fb[ta[r]]), float(np.abs(fa[idx] - fb[idx]).max())
+        keep = [int(i) for i in ta if i % a.shape[1] != eos][:num_beams]
+        if len(keep) < num_beams:
+            break
+        sa, sb = fa[keep], fb[keep]
+    return None
+
+
+def predictors_card_vs_cpu(pred, beats_io: list, chords_io: list, card_lps: list) -> dict:
+    """The predictors of the `mustango` path on the card against the same
+    modules on the CPU, both f32 (matmuls without TF32): DeBERTa's logits
+    and intervals on the path's tokens, the T5 decoder's first-step
+    log-probabilities, and the beam search's tokens (`first_divergence`
+    explains a difference by a near-tie or fails). Raises past
+    PREDICTOR_LIMITS."""
+    import numpy as np
+
+    from tango_tpu_torch.models.deberta import DebertaV2ForBeats
+    from tango_tpu_torch.models.t5 import T5Seq2Seq
+
+    def on_cpu(make, module):
+        with torch.device("meta"):
+            m = make()
+        m = m.to_empty(device="cpu")
+        m.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+        return m.eval().requires_grad_(False)
+
+    t0 = time.perf_counter()
+    out = {}
+    bm = on_cpu(lambda: DebertaV2ForBeats(pred.beats_model.cfg), pred.beats_model)
+    (ids, mask), (logits, values) = beats_io[0]
+    with torch.inference_mode():
+        c_logits, c_values = bm(ids.cpu(), mask.cpu())
+    n = int(mask[0].sum())
+    for name, card, cpu in (("deberta_logits", logits, c_logits),
+                            ("deberta_values", values, c_values)):
+        card, cpu = card[0, :n].float().cpu().numpy(), cpu[0, :n].float().numpy()
+        out[name] = card_vs_cpu(name, card, cpu, PREDICTOR_LIMITS["deberta"],
+                                float(np.abs(cpu).max()))
+    del bm
+    cm = on_cpu(lambda: T5Seq2Seq(pred.chords_model.cfg), pred.chords_model)
+    (c_ids, c_mask, kw), card_tokens = chords_io[0]
+    cpu_lps, step = [], cm.step
+
+    def recording_step(*a, **k):
+        lp = step(*a, **k)
+        cpu_lps.append(lp.double().numpy())
+        return lp
+
+    cm.step = recording_step
+    cpu_tokens = cm.generate(c_ids.cpu(), c_mask.cpu(), **kw)
+    out["t5_first_step"] = card_vs_cpu("t5_first_step", card_lps[0], cpu_lps[0],
+                                       PREDICTOR_LIMITS["t5_first_step"],
+                                       float(np.abs(cpu_lps[0]).max()))
+    problems = [f"{k}: {v['err']} of the largest magnitude, over {v['limit']}"
+                for k, v in out.items() if not v["ok"]]
+    same = np.array_equal(card_tokens, cpu_tokens)
+    beams = {"tokens_equal": bool(same), "card_len": len(card_tokens),
+             "cpu_len": len(cpu_tokens), "steps": len(card_lps)}
+    if not same:
+        div = first_divergence(card_lps, cpu_lps, kw["num_beams"], kw["min_length"], 1)
+        beams["divergence"] = div
+        if div is None or not div[1] <= 2 * div[2]:
+            problems.append(f"beam tokens differ, not at a near-tie: {div}")
+    out["beams"] = beams
+    out["seconds"] = round(time.perf_counter() - t0, 3)
+    log("mustango_predictors", **out, problems=problems)
+    if problems:
+        raise AssertionError("mustango predictors: " + "; ".join(problems))
+    return out
+
+
+def mustango_phase(C, ops, tango, counted, instrument, expect_len: int, root: str) -> tuple:
+    """Phase `mustango`: the full-width Mustango (TANGO_UNET's geometry with
+    the `*Music` blocks, FLAN-T5-Large, TANGO_VAE, TANGO_HIFIGAN, a 1024-wide
+    music conditioner, DeBERTa-v3-large and an untied FLAN-T5-large seq2seq)
+    from seeded random weights, written in the released layout under `root`,
+    loaded by Mustango(dir) in bf16 (weights equal to the written ones, the
+    three tokenizer fallbacks warned), then counted as path `mustango`:
+    generate(MUSTANGO_PROMPT) with both predictors, generate_for_batch of
+    MUSTANGO_PROMPTS with explicit features, and generate of the first
+    prompt with the same features, whose latents the batch's row 0 must
+    match. Checks the launch bodies, 3x Tango's attn_fwd an evaluation, the
+    predictors card vs CPU; then, uncounted, export-mustango reloaded
+    bit-equal and serve.main --music once. Deletes `root`. Returns counted's
+    (launches, shapes)."""
+    import dataclasses
+    import wave
+
+    import numpy as np
+
+    from tango_tpu_torch import convert_cli, serve
+    from tango_tpu_torch.models.deberta import DebertaV2ForBeats
+    from tango_tpu_torch.models.t5 import T5Attention, T5Seq2Seq
+    from tango_tpu_torch.pipeline_music import Mustango
+    from tango_tpu_torch.utils.convert import load_torch_bin
+    from tango_tpu_torch.utils.init import init_random_
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    snap = os.path.join(root, "snapshot")
+    music_cfg = C.UNetConfig.from_dict(music_unet_json(C))
+    m = Mustango.from_components(unet_config=music_cfg, vae_config=C.TANGO_VAE,
+                                 t5_config=C.FLAN_T5_LARGE, hifigan_config=C.TANGO_HIFIGAN,
+                                 device=DEVICE, init_seed=7)
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+
+    def random_f32(make):
+        with torch.device("meta"):
+            mod = make()
+        return init_random_(mod.to_empty(device=DEVICE), gen).eval().requires_grad_(False)
+
+    beats_model = random_f32(lambda: DebertaV2ForBeats(C.DEBERTA_V3_LARGE))
+    chords_cfg = dataclasses.replace(C.FLAN_T5_LARGE, tie_word_embeddings=False)
+    chords_model = random_f32(lambda: T5Seq2Seq(chords_cfg))
+    # T5 folds attention's 1 / sqrt(d_kv) into q's initial scale (HF's
+    # T5PreTrainedModel._init_weights: q (d_model * d_kv)^-0.5, the rest as
+    # init_random_); at 1 / fan_in the logits are ~8 wide, the softmax nearly
+    # one-hot, and f32 rounding grows through the layers
+    with torch.no_grad():
+        for mod in chords_model.modules():
+            if isinstance(mod, T5Attention):
+                mod.q.weight.mul_(chords_cfg.d_kv**-0.5)
+    torch.cuda.synchronize()
+    counts = {name: sum(p.numel() for p in mod.parameters()) for name, mod in (
+        ("unet", m.model.unet), ("t5", m.t5), ("conditioner", m.model.conditioner),
+        ("vae", m.vae), ("vocoder", m.vocoder), ("deberta", beats_model),
+        ("t5_seq2seq", chords_model))}
+    # f32 on disk: the snapshot, and export-mustango's copy of all but vae/
+    need = 4 * (2 * sum(counts.values()) - counts["vae"] - counts["vocoder"]) + 2e9
+    free = shutil.disk_usage(os.path.dirname(root)).free
+    if free < need:
+        raise AssertionError(f"mustango: {free} bytes free under {os.path.dirname(root)}, "
+                             f"the snapshot and its export need about {int(need)}")
+    written = write_mustango_snapshot(snap, C, m, beats_model, chords_model)
+    log("mustango_build", seconds=round(time.perf_counter() - t_phase, 3), params=counts,
+        disk_free_bytes=free, disk_needed_bytes=int(need), **written)
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ms = Mustango(snap, device=DEVICE)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    fallbacks = sorted(str(w.message).split(":")[0] for w in caught
+                       if "word-hash tokenizer" in str(w.message))
+    if len(fallbacks) != 3 or ms.predictor is None:
+        raise AssertionError(f"mustango: fallback warnings {fallbacks} (3 expected), "
+                             f"predictor {ms.predictor}")
+    params = compare_modules([
+        ("unet", m.model.unet, ms.model.unet, True), ("t5", m.t5, ms.t5, True),
+        ("conditioner", m.model.conditioner, ms.model.conditioner, True),
+        ("vae", m.vae, ms.vae, True), ("vocoder", m.vocoder, ms.vocoder, False),
+        ("deberta", beats_model, ms.predictor.beats_model, True),
+        ("t5_seq2seq", chords_model, ms.predictor.chords_model, True)])
+    del m, beats_model, chords_model
+    torch.cuda.empty_cache()
+
+    # one UNet evaluation of each pipeline: attn_fwd launches
+    unet = ms.model.unet
+    lat = torch.randn(2, ms.model.latent_t_size, ms.model.latent_f_size, unet.cfg.in_channels,
+                      device=DEVICE)
+    ctx = [torch.randn(2, n, unet.cfg.cross_attention_dim, device=DEVICE, dtype=ms.dtype)
+           for n in (ms.max_text_length, ms.model.beat_len, ms.model.chord_len)]
+    masks = [torch.ones(c.shape[:2], dtype=torch.long, device=DEVICE) for c in ctx]
+    steps = torch.tensor([999, 999], device=DEVICE)
+    per_eval = {}
+    for name, net, c, mask in (("tango", tango.model.unet, ctx[0], masks[0]),
+                               ("mustango", unet, ctx, masks)):
+        ops.reset_counters()
+        with torch.inference_mode():
+            net(lat, steps, c, mask)
+        torch.cuda.synchronize()
+        per_eval[name] = {n: fn.launches for n, fn in ops.KERNELS.items() if fn.launches}
+
+    # the counted path; the predictors' inputs, outputs and log-probabilities,
+    # the features and every decoded latent recorded
+    pred = ms.predictor
+    beats_io, chords_io, card_lps, latents, rec = [], [], [], [], {}
+    hook = pred.beats_model.register_forward_hook(
+        lambda mod, args, out: beats_io.append((args, out)))
+    real_generate, real_step, real_pred = (pred.chords_model.generate, pred.chords_model.step,
+                                           pred.generate)
+
+    def recording_generate(ids, mask, **kw):
+        toks = real_generate(ids, mask, **kw)
+        chords_io.append(((ids, mask, kw), toks))
+        return toks
+
+    def recording_step(*a, **k):
+        lp = real_step(*a, **k)
+        card_lps.append(lp.double().cpu().numpy())
+        return lp
+
+    def recording_pred(prompt):
+        s0 = time.perf_counter()
+        rec["features"] = pred_out = real_pred(prompt)
+        torch.cuda.synchronize()
+        rec["predictors_s"] = time.perf_counter() - s0
+        return pred_out
+
+    pred.chords_model.generate, pred.chords_model.step = recording_generate, recording_step
+    pred.generate = recording_pred
+    remove = instrument(ms)
+    checked_decode = ms.decode
+
+    def recording_decode(lat_):
+        latents.append(lat_.float().clone())
+        return checked_decode(lat_)
+
+    ms.decode = recording_decode
+    beats, chords, times = [MUSTANGO_BEATS], MUSTANGO_CHORDS[0], MUSTANGO_CHORDS[1]
+    n = len(MUSTANGO_PROMPTS)
+    calls = (
+        ("generate", lambda: [ms.generate(MUSTANGO_PROMPTS[0], steps=STEPS, seed=0)]),
+        ("generate_for_batch", lambda: ms.generate_for_batch(
+            MUSTANGO_PROMPTS, steps=STEPS, batch_size=MUSTANGO_BATCH, seed=0, beats=[beats] * n,
+            chords=[chords] * n, chords_times=[times] * n)),
+        ("generate_features", lambda: [ms.generate(
+            MUSTANGO_PROMPTS[0], steps=STEPS, seed=0, beats=beats, chords=chords,
+            chords_times=times)]))
+
+    def drive():
+        outs, seconds = [], {}
+        for name, call in calls:
+            s0 = time.perf_counter()
+            outs += call()
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - s0
+        if len(outs) != n + 2:
+            raise AssertionError(f"{len(outs) - 2} waveforms for {n} prompts")
+        batch0, single = latents[1][0], latents[2][0]
+        rec["row0"] = {"latents_max_abs_diff": (batch0 - single).abs().max().item(),
+                       "latents_rel_l2": ((batch0 - single).norm() / single.norm()).item(),
+                       "wav_max_int16_diff": int(np.abs(outs[1].astype(np.int32)
+                                                        - outs[-1].astype(np.int32)).max())}
+        return outs, seconds
+
+    def extra(launches):
+        pb = rec["features"][0]
+        return dict(cold_start_s=round(cold_s, 3), dtype=str(ms.dtype), params=params,
+                    fallback_tokenizers=fallbacks, per_eval=per_eval,
+                    attn_fwd_per_eval=launches["attn_fwd"] / (len(calls) * STEPS),
+                    predictors_s=round(rec["predictors_s"], 3),
+                    beam_steps=len(card_lps),
+                    predicted_beats=len(pb[0][0]) if pb and pb[0] else 0,
+                    predicted_chords=rec["features"][1], row0=rec["row0"])
+
+    launches, shapes = counted("mustango", drive, expect_len, extra=extra)
+    ms.decode = checked_decode
+    remove()
+    hook.remove()
+    pred.chords_model.generate, pred.chords_model.step = real_generate, real_step
+    pred.generate = real_pred
+    problems = []
+    tango_attn, music_attn = (per_eval[k].get("attn_fwd", 0) for k in ("tango", "mustango"))
+    evals = len(calls) * STEPS
+    if music_attn != 3 * tango_attn or launches["attn_fwd"] != music_attn * evals:
+        problems.append(f"attn_fwd: {music_attn} an evaluation against Tango's {tango_attn} "
+                        f"(3x expected), {launches['attn_fwd']} on the path for {evals} "
+                        "evaluations")
+    if not rec["row0"]["latents_rel_l2"] <= MUSTANGO_ROW0_REL_L2:
+        problems.append(f"batch row 0 vs generate: {rec['row0']}, relative L2 over "
+                        f"{MUSTANGO_ROW0_REL_L2}")
+    if problems:
+        raise AssertionError("mustango: " + "; ".join(problems))
+    predictors_card_vs_cpu(pred, beats_io, chords_io, card_lps)
+    del ms, pred, unet, beats_io, chords_io, card_lps, latents, remove, calls
+    torch.cuda.empty_cache()
+
+    # uncounted: export-mustango of the snapshot's own UNet, reloaded
+    # bit-equal, then the serving CLI once on the snapshot
+    t0 = time.perf_counter()
+    out_dir = os.path.join(root, "export")
+    convert_cli.main(["export-mustango", snap, "-", out_dir])
+    export_s = time.perf_counter() - t0
+    a = load_torch_bin(os.path.join(snap, "ldm", "pytorch_model_ldm.bin"))
+    b = load_torch_bin(os.path.join(out_dir, "ldm", "pytorch_model_ldm.bin"))
+    same = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    copied = all(os.path.getsize(os.path.join(snap, sub, n)) ==
+                 os.path.getsize(os.path.join(out_dir, sub, n))
+                 for sub in ("configs", "vae", "beats", "chords")
+                 for n in os.listdir(os.path.join(snap, sub)))
+    n_keys = len(a)
+    del a, b
+    shutil.rmtree(out_dir)
+    wav_path = os.path.join(root, "music.wav")
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the fallback tokenizers', checked above
+        serve.main(["--music", "--model", snap, "--prompt", MUSTANGO_PROMPTS[0], "--steps", "2",
+                    "--seed", "0", "--output", wav_path, "--device", DEVICE])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    with wave.open(wav_path) as w:
+        wav_format = (w.getframerate(), w.getsampwidth(), w.getnchannels())
+    pcm = read_int16(wav_path)
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    problems = []
+    if not (same and copied):
+        problems.append(f"export-mustango: ldm bin bit-equal {same}, copies {copied}")
+    if wav_format != (16000, 2, 1):
+        problems.append(f"serve --music wrote a WAV of (rate, bytes, channels) {wav_format}")
+    if pcm.shape != (expect_len,) or int(np.abs(pcm.astype(np.int32)).max()) == 0:
+        problems.append(f"serve --music wrote {pcm.shape} samples, peak "
+                        f"{int(np.abs(pcm.astype(np.int32)).max()) if pcm.size else 0}")
+    log("mustango_cli", export_s=round(export_s, 3), ldm_keys=n_keys, ldm_bit_equal=same,
+        serve_music_s=round(cli_s, 3), serve_wav_samples=int(pcm.size),
+        phase_s=round(time.perf_counter() - t_phase, 3), problems=problems)
+    if problems:
+        raise AssertionError("mustango: " + "; ".join(problems))
+    return launches, shapes
+
+
 def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
     """One full-width f32 SFTTrainer.fit on the card: 4 micro-steps at batch
     2 with accumulation 2 (2 updates), one validation batch, the best
@@ -2529,6 +2989,19 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     log("entry_points", phase_s=round(time.perf_counter() - t_phase, 3),
         total_s=round(time.perf_counter() - t_start, 3))
+
+    # ---- Mustango, full width, written and loaded in the released layout
+    # (only now: the Tango snapshot is gone from the disk), counted
+    music_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                              "smoke_mustango")
+    by_path["mustango"] = mustango_phase(C, ops, tango, counted, instrument, wav_len(frames),
+                                         music_root)
+    # the shapes only Mustango launched: the kernels phase checks and times
+    # them with the rest
+    log("mustango_done", total_s=round(time.perf_counter() - t_start, 3),
+        new_shapes={n: len(v - set().union(*(p[1][n] for k, p in by_path.items()
+                                              if k != "mustango")))
+                    for n, v in by_path["mustango"][1].items()})
 
     remove = instrument(tango)
     # one uncounted step at each new shape first: cuDNN's and cuBLAS's first use

@@ -1,12 +1,12 @@
 """Configuration dataclasses of the port and the dtype rule.
 
-A copy of the fields of tango_tpu/configs.py and tango_tpu/models/t5.py that
-the ported text-to-audio path reads, with the same names and defaults, so
-that `from_dict(jax_config.to_dict())` rebuilds a JAX config here (unknown
-keys are ignored), and so does a reference snapshot's JSON. Fields only an
-unported part reads are left out: Mustango's conditioning streams, DDIM.
-A JSON that asks for geometry the port's modules lack raises instead of
-building another model.
+A copy of the fields of tango_tpu/configs.py, tango_tpu/models/t5.py and
+tango_tpu/models/deberta.py that the ported paths read, with the same names
+and defaults, so that `from_dict(jax_config.to_dict())` rebuilds a JAX config
+here (unknown keys are ignored), and so does a reference snapshot's JSON.
+Fields only an unported part reads are left out: DDIM's. A JSON that asks
+for geometry the port's modules lack raises instead of building another
+model.
 """
 
 from __future__ import annotations
@@ -78,6 +78,11 @@ class UNetConfig(_FromDict):
     upcast_attention: bool = True
     conv_in_kernel: int = 3
     conv_out_kernel: int = 3
+    # conditioning streams beside the text: 0 for Tango, 2 for Mustango's
+    # beats and chords, each with its own cross-attention transformer after
+    # the text's in every cross-attention layer
+    extra_cond_streams: int = 0
+    extra_cond_dims: Tuple[int, ...] = ()
     # int8 W8A8 serving mode (ops/quant.py): the scope's Linear / Conv2d
     # modules hold int8 weights and f32 scales; "all" | "dense" (attention,
     # feed-forward and projection GEMMs) | "conv" (resnet and resampler convs)
@@ -102,9 +107,28 @@ class UNetConfig(_FromDict):
         return super().from_dict(d)
 
     def __post_init__(self):
-        object.__setattr__(self, "down_block_types", _tup(self.down_block_types))
-        object.__setattr__(self, "up_block_types", _tup(self.up_block_types))
+        down, up = _tup(self.down_block_types), _tup(self.up_block_types)
+        mid = self.mid_block_type
+        # Mustango's JSON names its triple cross-attention blocks with a
+        # "Music" suffix; here they are the same blocks with 2 extra streams
+        # (beats and chords) as wide as the text's
+        if any("Music" in b for b in down + up) or (mid and "Music" in mid):
+            down = tuple(b.replace("Music", "") for b in down)
+            up = tuple(b.replace("Music", "") for b in up)
+            mid = mid.replace("Music", "") if mid else mid
+            if self.extra_cond_streams == 0:
+                object.__setattr__(self, "extra_cond_streams", 2)
+                object.__setattr__(self, "extra_cond_dims",
+                                   (self.cross_attention_dim, self.cross_attention_dim))
+        object.__setattr__(self, "down_block_types", down)
+        object.__setattr__(self, "up_block_types", up)
+        object.__setattr__(self, "mid_block_type", mid)
         object.__setattr__(self, "block_out_channels", _tup(self.block_out_channels))
+        object.__setattr__(self, "extra_cond_dims",
+                           _tup(self.extra_cond_dims) if self.extra_cond_dims else ())
+        if len(self.extra_cond_dims) != self.extra_cond_streams:
+            raise ValueError(f"{self.extra_cond_streams} extra streams with widths "
+                             f"{self.extra_cond_dims}")
         if isinstance(self.attention_head_dim, (list, tuple)):
             object.__setattr__(self, "attention_head_dim", _tup(self.attention_head_dim))
 
@@ -217,7 +241,9 @@ class DiffusionConfig(_FromDict):
 
 @dataclass(frozen=True)
 class T5Config(_FromDict):
-    """T5 encoder config; defaults are FLAN-T5-Large."""
+    """T5 config; defaults are FLAN-T5-Large. `tie_word_embeddings` is the
+    seq2seq head's: tied, the decoder's output scaled by d_model^-0.5 goes
+    through the embedding table; untied (FLAN-T5), through `lm_head`."""
 
     vocab_size: int = 32128
     d_model: int = 1024
@@ -229,6 +255,7 @@ class T5Config(_FromDict):
     relative_attention_max_distance: int = 128
     layer_norm_epsilon: float = 1e-6
     feed_forward_proj: str = "gated-gelu"
+    tie_word_embeddings: bool = False
 
     @property
     def is_gated(self) -> bool:
@@ -237,6 +264,34 @@ class T5Config(_FromDict):
     @property
     def act(self) -> str:
         return self.feed_forward_proj.replace("gated-", "")
+
+
+@dataclass(frozen=True)
+class DebertaConfig(_FromDict):
+    """DeBERTa-v2/v3 encoder config (tango_tpu/models/deberta.py); defaults are
+    DeBERTa-v3-large with Mustango's beat head (4 labels): relative positions
+    in 256 log buckets, position projections shared with the content ones,
+    c2p and p2c terms, a layer-normed relative table, no absolute positions."""
+
+    vocab_size: int = 128100
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    max_position_embeddings: int = 512
+    position_buckets: int = 256
+    layer_norm_eps: float = 1e-7
+    share_att_key: bool = True
+    pos_att_type: Tuple[str, ...] = ("p2c", "c2p")
+    norm_rel_ebd: str = "layer_norm"
+    position_biased_input: bool = False
+    num_labels: int = 4
+
+    def __post_init__(self):
+        object.__setattr__(self, "pos_att_type", _tup(self.pos_att_type))
+        if self.position_biased_input:
+            raise NotImplementedError("position_biased_input (DeBERTa-v2's absolute "
+                                      "positions) is not supported; v3 has none")
 
 
 @dataclass(frozen=True)
@@ -297,6 +352,7 @@ TANGO_STFT = StftConfig()
 TANGO_HIFIGAN = HiFiGANConfig()
 SD21_SCHEDULER = SchedulerConfig()
 FLAN_T5_LARGE = T5Config()
+DEBERTA_V3_LARGE = DebertaConfig()
 
 
 def resolve_device(device=None) -> torch.device:

@@ -3,9 +3,11 @@
 Forward, a reference-format snapshot -> the port's native directory
 (`utils.checkpoint.save_native`: the state dicts of the UNet, the VAE with
 its encoder, the T5 encoder and the vocoder, under `unet.`, `vae.`, `t5.` and
-`hifigan.`, and a manifest of the configs):
+`hifigan.`, Mustango's music conditioner under `conditioner.`, and a
+manifest of the configs):
 
     python -m tango_tpu_torch.convert_cli tango <snapshot_dir> <out_dir>
+    python -m tango_tpu_torch.convert_cli mustango <mustango_snapshot> <out_dir>
 
 Reverse, a UNet trained with the port (a `save_native` directory such as
 `SFTTrainer.fit`'s `best`, or `-` for the snapshot's own) -> the reference's
@@ -13,11 +15,14 @@ layout, bit-exact (tests/test_torch_convert_cli.py):
 
     python -m tango_tpu_torch.convert_cli export-main <snapshot_dir> <unet_ckpt|-> <out.bin>
     python -m tango_tpu_torch.convert_cli export-snapshot <snapshot_dir> <unet_ckpt|-> <out_dir>
+    python -m tango_tpu_torch.convert_cli export-mustango <mustango_snap> <unet_ckpt|-> <out_dir>
 
 `export-snapshot` copies the snapshot's VAE bin, configs and scheduler over
-and writes a fresh main bin. The kinds `audioldm` (ROADMAP queue A #8),
-`mustango` and `export-mustango` (#7) are not ported yet and raise.
-Everything runs on the host; nothing is downloaded.
+and writes a fresh main bin; `export-mustango` copies Mustango's `configs/`,
+`vae/`, `stft/`, `beats/` and `chords/` over and writes a fresh
+`ldm/pytorch_model_ldm.bin` (the music UNet, the T5 encoder and the music
+conditioner). The kind `audioldm` (ROADMAP queue A #8) is not ported yet and
+raises. Everything runs on the host; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -28,17 +33,17 @@ import sys
 
 NOT_PORTED = {
     "audioldm": "AudioLDM's checkpoint (ROADMAP queue A #8)",
-    "mustango": "Mustango's snapshot (ROADMAP queue A #7)",
-    "export-mustango": "Mustango's ldm bin (ROADMAP queue A #7)",
 }
 # what export-snapshot copies from the source snapshot unchanged
 SNAPSHOT_FILES = ("pytorch_model_vae.bin", "pytorch_model_stft.bin", "vae_config.json",
                   "stft_config.json", "main_config.json", "unet_config.json")
+# what export-mustango copies from the source Mustango snapshot unchanged
+MUSTANGO_DIRS = ("configs", "vae", "stft", "beats", "chords")
 
 
 def _unet(loaded, ckpt: str):
-    """The snapshot's UNet state dict, or the native checkpoint's (`ckpt`
-    not "-")."""
+    """The snapshot's UNet state dict (`loaded["unet_params"]`), or the
+    native checkpoint's (`ckpt` not "-")."""
     from tango_tpu_torch.utils.checkpoint import load_native
 
     return loaded["unet_params"] if ckpt == "-" else load_native(ckpt)[0]
@@ -56,7 +61,8 @@ def main(argv=None):
     from tango_tpu_torch.utils import checkpoint as ckpt_io
     from tango_tpu_torch.utils.export import save_main_bin
 
-    if kind in ("tango", "export-main", "export-snapshot") and not os.path.isdir(src):
+    if kind in ("tango", "mustango", "export-main", "export-snapshot",
+                "export-mustango") and not os.path.isdir(src):
         raise FileNotFoundError(f"{src!r} is not a snapshot directory; the port downloads "
                                 "nothing")
     if kind == "tango":
@@ -74,6 +80,35 @@ def main(argv=None):
         }
         ckpt_io.save_native(dst, state, manifest)
         print(f"converted {kind} checkpoint -> {dst}")
+    elif kind == "mustango":
+        from tango_tpu_torch.pipeline_music import load_mustango_snapshot
+
+        loaded = load_mustango_snapshot(src, with_encoder=True)
+        parts = {"unet": loaded["unet_params"], "t5": loaded["t5_params"],
+                 "conditioner": loaded["conditioner_params"], "vae": loaded["vae_params"],
+                 "hifigan": loaded["hifigan_params"]}
+        state = {f"{name}.{k}": v for name, sd in parts.items() if sd is not None
+                 for k, v in sd.items()}
+        manifest = {"kind": "mustango", "unet_config": loaded["unet_config"].to_dict(),
+                    "vae_config": loaded["vae_config"].to_dict()}
+        ckpt_io.save_native(dst, state, manifest)
+        print(f"converted {kind} checkpoint -> {dst}")
+    elif kind == "export-mustango":
+        from tango_tpu_torch.pipeline_music import convert_mustango_ldm
+        from tango_tpu_torch.utils.convert import load_torch_bin
+        from tango_tpu_torch.utils.export import save_ldm_bin
+
+        out_dir = argv[3]
+        parts = convert_mustango_ldm(load_torch_bin(os.path.join(src, "ldm",
+                                                                 "pytorch_model_ldm.bin")))
+        os.makedirs(os.path.join(out_dir, "ldm"), exist_ok=True)
+        for sub in MUSTANGO_DIRS:
+            path = os.path.join(src, sub)
+            if os.path.isdir(path):
+                shutil.copytree(path, os.path.join(out_dir, sub), dirs_exist_ok=True)
+        save_ldm_bin(os.path.join(out_dir, "ldm", "pytorch_model_ldm.bin"), _unet(parts, dst),
+                     parts["t5_params"], parts["conditioner_params"])
+        print(f"exported mustango snapshot -> {out_dir}")
     elif kind == "export-main":
         out_bin = argv[3]
         loaded = ckpt_io.load_tango_snapshot(src)

@@ -3,7 +3,8 @@ CFG sampling.
 
 `loss` is the training objective: uniform timesteps (n // 2 in validation
 mode), q-sample noising, epsilon or v targets, optional min-SNR-gamma
-weights and the 10% unconditional dropout of the text embeddings. The
+weights and the 10% unconditional dropout of the text embeddings (and of
+every extra conditioning stream of the same samples, Mustango's). The
 sampling loop runs in Python over the host-side timestep grid (JAX compiles
 it into one `lax.scan`). Latents are (B, T, F, C) f32; the UNet sees the
 model dtype and its output is upcast to f32 before guidance, the scheduler
@@ -77,6 +78,8 @@ class AudioDiffusion:
         text_mask: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         validation_mode: bool = False,
+        extra_contexts: Sequence[torch.Tensor] = (),
+        extra_masks: Sequence[torch.Tensor] = (),
         *,
         timesteps: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
@@ -86,7 +89,12 @@ class AudioDiffusion:
 
         The timesteps, the noise and the (B,) uncondition drop mask are drawn
         from `generator` in that order unless given (the tests feed both
-        packages the same draws)."""
+        packages the same draws). `extra_contexts` are the UNet's extra
+        streams after the text, each with its mask in `extra_masks`."""
+        # an extra stream without its own mask would take the text's padding
+        assert len(extra_masks) == len(extra_contexts), (
+            f"extra_masks ({len(extra_masks)}) must match extra_contexts "
+            f"({len(extra_contexts)})")
         sched = self.noise_scheduler
         n = sched.config.num_train_timesteps
         bsz, device = latents.shape[0], latents.device
@@ -99,11 +107,13 @@ class AudioDiffusion:
             noise = torch.randn(latents.shape, generator=generator, device=device,
                                 dtype=torch.float32)
         if self.uncondition and not validation_mode:
-            # zero the embeddings of ~10% of the samples; the mask stays
+            # zero the embeddings of ~10% of the samples, the same samples in
+            # every stream; the masks stay
             if drop is None:
                 drop = torch.rand((bsz,), generator=generator, device=device) < 0.1
             drop = torch.as_tensor(drop, dtype=torch.bool, device=device)
             text_embeds = torch.where(drop[:, None, None], 0.0, text_embeds)
+            extra_contexts = [torch.where(drop[:, None, None], 0.0, c) for c in extra_contexts]
 
         latents = latents.float()
         noisy = sched.add_noise(latents, noise, timesteps)
@@ -115,8 +125,9 @@ class AudioDiffusion:
         else:
             raise ValueError(f"Unknown prediction type {p}")
 
-        pred = self.unet(noisy.to(self.unet.conv_in.weight.dtype), timesteps, text_embeds,
-                         text_mask)
+        contexts = [text_embeds, *extra_contexts] if extra_contexts else text_embeds
+        masks = [text_mask, *extra_masks] if extra_masks else text_mask
+        pred = self.unet(noisy.to(self.unet.conv_in.weight.dtype), timesteps, contexts, masks)
         err = (pred.float() - target) ** 2
         if self.snr_gamma is None:
             return err.mean()
@@ -135,15 +146,22 @@ class AudioDiffusion:
         guidance_scale: float = 3.0,
         uncond_embeds: Optional[torch.Tensor] = None,
         uncond_mask: Optional[torch.Tensor] = None,
+        extra_contexts: Sequence[torch.Tensor] = (),
+        extra_masks: Sequence[torch.Tensor] = (),
+        uncond_extra_contexts: Sequence[torch.Tensor] = (),
+        uncond_extra_masks: Sequence[torch.Tensor] = (),
         noise_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         latent_t_size: Optional[int] = None,
     ) -> torch.Tensor:
         """CFG denoising loop -> latents (B, T, F, C) f32.
 
         CFG runs when `uncond_embeds` is given, with the batch ordered
-        [uncond, cond]. `noise_override=(init_latents, step_noises)` replaces
-        the random draws (step_noises is (num_steps, B, T, F, C)), so that a
-        test can feed the JAX sampler and this one the same noise."""
+        [uncond, cond]. The extra streams (Mustango's beats and chords) come
+        with a mask each and, under CFG, an unconditional context each; their
+        unconditional masks default to the conditional ones.
+        `noise_override=(init_latents, step_noises)` replaces the random
+        draws (step_noises is (num_steps, B, T, F, C)), so that a test can
+        feed the JAX sampler and this one the same noise."""
         sched = self.inference_scheduler
         device = cond_embeds.device
         timesteps = sched.timesteps(num_steps)
@@ -163,8 +181,26 @@ class AudioDiffusion:
         if cfg:
             ctx = torch.cat([uncond_embeds, cond_embeds])
             msk = torch.cat([uncond_mask, cond_mask])
+            if extra_contexts:
+                # zip would drop streams on a mismatch
+                assert len(uncond_extra_contexts) == len(extra_contexts), (
+                    "CFG with extra conditioning streams needs one unconditional context "
+                    f"per stream ({len(uncond_extra_contexts)} vs {len(extra_contexts)})")
+            extra = [torch.cat([u, c]) for u, c in zip(uncond_extra_contexts, extra_contexts)]
+            um = uncond_extra_masks or extra_masks
+            if extra_masks:
+                assert len(um) == len(extra_masks), (
+                    "CFG with extra conditioning streams needs one unconditional mask per "
+                    f"stream ({len(um)} vs {len(extra_masks)})")
+            extra_m = [torch.cat([u, m]) for u, m in zip(um, extra_masks)]
         else:
             ctx, msk = cond_embeds, cond_mask
+            extra, extra_m = list(extra_contexts), list(extra_masks)
+        # a bare text mask would otherwise apply to every extra stream
+        assert len(extra_m) == len(extra), (
+            f"extra masks ({len(extra_m)}) must match extra contexts ({len(extra)})")
+        if extra:
+            ctx, msk = [ctx, *extra], [msk, *extra_m]
 
         for i, t in enumerate(timesteps.tolist()):
             lat_in = torch.cat([latents, latents]) if cfg else latents

@@ -1,17 +1,30 @@
-"""T5 encoder, port of T5Encoder in tango_tpu/models/t5.py.
+"""T5, port of tango_tpu/models/t5.py: the encoder (Tango's and Mustango's
+text conditioning) and the seq2seq with beam search (Mustango's chord
+predictor, FLAN-T5-large).
 
 RMS layer norm (f32), unscaled attention with one relative-position bias
-table shared by every layer, gated-GELU (tanh) feed-forward. Logits and
-softmax are f32 whatever the compute dtype.
+table shared by every layer (bidirectional in the encoder, causal in the
+decoder), gated-GELU (tanh) feed-forward. Logits and softmax are f32
+whatever the compute dtype.
+
+`T5Seq2Seq.generate` is HF's beam search (transformers 4.57's
+BeamSearchScorer semantics) over a KV-cached decoder: one single-token step
+per generated token, the cross-attention K/V projected once at batch 1 and
+broadcast to the beams. The bookkeeping runs on the host in numpy, from one
+host copy of each step's f32 log-probabilities, exactly as JAX's host loop
+(tango_tpu/models/t5.py:648-740), which is pinned token for token to HF.
 
 `t5_config_from_state_dict` and `convert_t5_encoder` read an HF
 T5EncoderModel state dict (a snapshot's `text_encoder.*`): the geometry from
-the tensors' shapes, the weights under the port's names.
+the tensors' shapes, the weights under the port's names;
+`convert_t5_decoder` and `convert_t5_seq2seq` read a
+T5ForConditionalGeneration's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import dataclasses
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -67,14 +80,18 @@ class T5Attention(nn.Module):
         self.v = nn.Linear(cfg.d_model, inner, bias=False)
         self.o = nn.Linear(inner, cfg.d_model, bias=False)
 
-    def forward(self, x, position_bias, mask_bias):
+    def forward(self, x, position_bias, mask_bias, kv=None):
+        """Self-attention when kv is None; cross-attention to kv otherwise."""
         b, s, _ = x.shape
+        src = x if kv is None else kv
 
         def heads(t):
-            return t.reshape(b, s, self.heads, self.d_kv).transpose(1, 2)
+            return t.reshape(b, t.shape[1], self.heads, self.d_kv).transpose(1, 2)
 
-        q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) + position_bias
+        q, k, v = heads(self.q(x)), heads(self.k(src)), heads(self.v(src))
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        if position_bias is not None:
+            logits = logits + position_bias
         if mask_bias is not None:
             logits = logits + mask_bias
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
@@ -149,6 +166,252 @@ class T5Encoder(nn.Module):
         return self.final_layer_norm(x)
 
 
+class T5DecoderBlock(nn.Module):
+    def __init__(self, cfg: T5Config):
+        super().__init__()
+        eps = cfg.layer_norm_epsilon
+        self.ln_self = T5LayerNorm(cfg.d_model, eps)
+        self.self_attn = T5Attention(cfg)
+        self.ln_cross = T5LayerNorm(cfg.d_model, eps)
+        self.cross_attn = T5Attention(cfg)
+        self.ln_ff = T5LayerNorm(cfg.d_model, eps)
+        self.ff = T5FeedForward(cfg)
+
+    def forward(self, x, self_bias, enc_hidden, enc_mask_bias):
+        x = x + self.self_attn(self.ln_self(x), self_bias, None)
+        x = x + self.cross_attn(self.ln_cross(x), None, enc_mask_bias, kv=enc_hidden)
+        return x + self.ff(self.ln_ff(x))
+
+
+def _decoder_bias_table(cfg: T5Config, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The decoder's (n, n) causal relative-position buckets and the causal
+    mask's additive bias (-1e9 above the diagonal)."""
+    pos = np.arange(n)
+    buckets = relative_position_bucket(pos[None, :] - pos[:, None],
+                                       cfg.relative_attention_num_buckets,
+                                       cfg.relative_attention_max_distance, bidirectional=False)
+    causal = np.tril(np.ones((n, n), np.float32))
+    return buckets, (1.0 - causal) * -1e9
+
+
+class T5Decoder(nn.Module):
+    """Causal T5 decoder with cross-attention and the LM head: decoder_ids
+    (B, S_d), encoder hidden (B, S_e, d), encoder mask (B, S_e) -> f32 logits
+    (B, S_d, vocab). Untied (FLAN-T5), the head is `lm_head`; tied, the
+    output scaled by d_model^-0.5 goes through the embedding table."""
+
+    def __init__(self, cfg: T5Config):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.relative_attention_bias = nn.Embedding(cfg.relative_attention_num_buckets,
+                                                    cfg.num_heads)
+        for i in range(cfg.num_layers):
+            self.add_module(f"block_{i}", T5DecoderBlock(cfg))
+        self.final_layer_norm = T5LayerNorm(cfg.d_model, cfg.layer_norm_epsilon)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and LM head -> f32 logits."""
+        x = self.final_layer_norm(x).float()
+        if self.cfg.tie_word_embeddings:
+            return (x * self.cfg.d_model**-0.5) @ self.token_embedding.weight.float().T
+        return x @ self.lm_head.weight.float().T
+
+    def forward(self, decoder_ids, enc_hidden, encoder_mask=None):
+        c = self.cfg
+        x = self.token_embedding(decoder_ids)
+        buckets, causal = _decoder_bias_table(c, decoder_ids.shape[1])
+        dev = decoder_ids.device
+        self_bias = self.relative_attention_bias(torch.as_tensor(buckets, device=dev))
+        self_bias = self_bias.permute(2, 0, 1)[None].float() + torch.as_tensor(causal, device=dev)
+        enc_bias = None
+        if encoder_mask is not None:
+            enc_bias = (1.0 - encoder_mask.float())[:, None, None, :] * -1e9
+        for i in range(c.num_layers):
+            x = getattr(self, f"block_{i}")(x, self_bias, enc_hidden, enc_bias)
+        return self.head(x)
+
+
+class T5Seq2Seq(nn.Module):
+    """Encoder + decoder (T5ForConditionalGeneration), one input embedding
+    shared by both, with HF-compatible beam search (`generate`). The Mustango
+    chord predictor calls it with num_beams=5, min_length=8, max_length=128,
+    early_stopping=True."""
+
+    def __init__(self, cfg: T5Config):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = T5Encoder(cfg)
+        self.decoder = T5Decoder(cfg)
+        # one input embedding, HF's `shared`, under both names
+        self.decoder.token_embedding = self.encoder.token_embedding
+
+    def encode(self, input_ids, attention_mask):
+        return self.encoder(input_ids, attention_mask)
+
+    # ------------------------------------------------------ cached decoding
+    def precompute(self, enc_hidden, enc_mask, max_len: int):
+        """-> (cross K (L, B, H, S_e, dkv), cross V, the decoder's self bias
+        (H, max_len, max_len) f32 with the causal mask, the encoder bias
+        (B, 1, 1, S_e))."""
+        c, dec = self.cfg, self.decoder
+        b, se, _ = enc_hidden.shape
+        h = enc_hidden.to(dec.token_embedding.weight.dtype)
+        cks, cvs = [], []
+        for i in range(c.num_layers):
+            p = getattr(dec, f"block_{i}").cross_attn
+            cks.append(p.k(h).reshape(b, se, c.num_heads, c.d_kv).transpose(1, 2))
+            cvs.append(p.v(h).reshape(b, se, c.num_heads, c.d_kv).transpose(1, 2))
+        buckets, causal = _decoder_bias_table(c, max_len)
+        dev = enc_hidden.device
+        bias = dec.relative_attention_bias(torch.as_tensor(buckets, device=dev))
+        bias = bias.permute(2, 0, 1).float() + torch.as_tensor(causal, device=dev)
+        enc_bias = (1.0 - enc_mask.float())[:, None, None, :] * -1e9
+        return torch.stack(cks), torch.stack(cvs), bias, enc_bias
+
+    def step(self, tok, pos: int, kc, vc, ck, cv, self_bias, enc_bias):
+        """One cached decode step: tok (B,) at position pos; kc / vc (L, B, H,
+        max_len, dkv) self-attention caches, written at pos in place; ck / cv
+        the cross K / V; -> log-probabilities (B, vocab) f32."""
+        c, dec = self.cfg, self.decoder
+        x = dec.token_embedding(tok)  # (B, d)
+        b, nh, dkv = x.shape[0], c.num_heads, c.d_kv
+        bias_row = self_bias[None, :, pos:pos + 1, :pos + 1]  # (1, H, 1, pos + 1)
+        for i in range(c.num_layers):
+            blk = getattr(dec, f"block_{i}")
+            a = blk.self_attn
+            h = blk.ln_self(x)
+            q = a.q(h).reshape(b, nh, 1, dkv)
+            kc[i, :, :, pos] = a.k(h).reshape(b, nh, dkv)
+            vc[i, :, :, pos] = a.v(h).reshape(b, nh, dkv)
+            logits = q.float() @ kc[i, :, :, :pos + 1].float().transpose(-1, -2) + bias_row
+            probs = torch.softmax(logits, dim=-1).to(x.dtype)
+            x = x + a.o((probs @ vc[i, :, :, :pos + 1]).reshape(b, nh * dkv))
+
+            a = blk.cross_attn
+            q = a.q(blk.ln_cross(x)).reshape(b, nh, 1, dkv)
+            logits = q.float() @ ck[i].float().transpose(-1, -2) + enc_bias
+            probs = torch.softmax(logits, dim=-1).to(x.dtype)
+            x = x + a.o((probs @ cv[i]).reshape(b, nh * dkv))
+            x = x + blk.ff(blk.ln_ff(x))
+        return torch.log_softmax(dec.head(x), dim=-1)
+
+    def decode_logprobs(self, dec_buf, enc_hidden, enc_mask, idx: int):
+        """Log-probabilities of the token after position idx through the full
+        decoder: the uncached oracle the tests hold `step` to."""
+        logits = self.decoder(dec_buf, enc_hidden, enc_mask)[:, idx]
+        return torch.log_softmax(logits.float(), dim=-1)
+
+    @torch.inference_mode()
+    def generate(self, input_ids, attention_mask, *, num_beams: int = 5, min_length: int = 8,
+                 max_length: int = 128, early_stopping: bool = True,
+                 length_penalty: float = 1.0, eos_token_id: int = 1, pad_token_id: int = 0,
+                 decoder_start_token_id: int = 0,
+                 device_loop: Optional[bool] = None) -> np.ndarray:
+        """Beam search over one prompt -> the best token sequence, the decoder
+        start included (an HF generate output row), int32. Score = sum of
+        log-probabilities / length**length_penalty; with early_stopping the
+        search stops once num_beams hypotheses have finished.
+
+        `device_loop` is JAX's switch between its host loop and one
+        `lax.while_loop` on the device (which saves round trips to a remote
+        TPU); it is kept for the signature, and either value runs the host
+        loop here."""
+        assert input_ids.shape[0] == 1, "beam generate handles one prompt at a time"
+        if max_length <= 1:
+            # HF: the decode loop never runs; generate returns the start token
+            return np.asarray([decoder_start_token_id], np.int32)
+        c = self.cfg
+        dev = self.decoder.token_embedding.weight.device
+        ids = torch.as_tensor(input_ids, dtype=torch.long, device=dev)
+        mask = torch.as_tensor(attention_mask, dtype=torch.long, device=dev)
+        enc_hidden = self.encode(ids, mask)
+        # the cross K / V rows are the same for every beam: project at batch 1
+        ck, cv, self_bias, enc_bias = self.precompute(enc_hidden, mask, max_length)
+        ck = ck.expand(-1, num_beams, -1, -1, -1)
+        cv = cv.expand(-1, num_beams, -1, -1, -1)
+        enc_bias = enc_bias.expand(num_beams, -1, -1, -1)
+        kc = torch.zeros((c.num_layers, num_beams, c.num_heads, max_length, c.d_kv),
+                         dtype=ck.dtype, device=dev)
+        vc = torch.zeros_like(kc)
+        tok_cur = np.full((num_beams,), decoder_start_token_id, np.int64)
+
+        buf = np.full((num_beams, max_length), pad_token_id, np.int32)
+        buf[:, 0] = decoder_start_token_id
+        beam_scores = np.full((num_beams,), -1e9, np.float64)
+        beam_scores[0] = 0.0  # every beam starts the same: keep one live
+        hyps: list = []  # (normalized score, tokens), at most num_beams
+
+        def add_hyp(norm, toks):
+            if len(hyps) < num_beams or norm > min(h[0] for h in hyps):
+                hyps.append((norm, toks))
+                if len(hyps) > num_beams:
+                    # HF deletes the earliest-added worst, by index
+                    del hyps[min(range(len(hyps)), key=lambda i: hyps[i][0])]
+
+        def hyp_done(cur_len_next, best_running):
+            # HF 4.57's early-stop heuristic: the best running beam after
+            # selection over the generated length without the start token
+            if len(hyps) < num_beams:
+                return False
+            if early_stopping:
+                return True
+            best_possible = best_running / ((cur_len_next - 1) ** length_penalty)
+            return min(h[0] for h in hyps) >= best_possible
+
+        cur_len = 1
+        while cur_len < max_length:
+            lp_dev = self.step(torch.as_tensor(tok_cur, device=dev), cur_len - 1, kc, vc, ck, cv,
+                               self_bias, enc_bias)
+            lp = lp_dev.cpu().numpy().astype(np.float64)  # (num_beams, vocab)
+            if cur_len < min_length:  # min_length counts the start token
+                lp[:, eos_token_id] = -np.inf
+            flat = (beam_scores[:, None] + lp).reshape(-1)
+            # ties: the lowest index first, as torch.topk
+            top = np.argsort(-flat, kind="stable")[: 2 * num_beams]
+            # the last step's candidates reach max_length: HF finishes the
+            # top num_beams of them whether or not they end in eos
+            is_final = cur_len + 1 == max_length
+            new_beams = []
+            for rank, fidx in enumerate(top):
+                beam, tok = divmod(int(fidx), lp.shape[1])
+                score = flat[fidx]
+                if tok == eos_token_id or is_final:
+                    if rank >= num_beams:
+                        continue  # HF drops finishes beyond the top num_beams
+                    toks = buf[beam, :cur_len].copy()
+                    if tok != eos_token_id:  # eos is appended at the end
+                        toks = np.append(toks, tok)
+                    # the normalizing length counts the token consumed now
+                    add_hyp(score / (cur_len**length_penalty), toks)
+                else:
+                    new_beams.append((score, beam, tok))
+                if len(new_beams) == num_beams:
+                    break
+            if not new_beams:
+                break
+            new_buf = np.full_like(buf, pad_token_id)
+            for j, (score, beam, tok) in enumerate(new_beams):
+                new_buf[j, : cur_len + 1] = np.concatenate([buf[beam, :cur_len], [tok]])
+                beam_scores[j] = score
+            buf = new_buf
+            order = [b for _, b, _ in new_beams]
+            if order != list(range(num_beams)):
+                idx = torch.as_tensor(order, device=dev)
+                kc, vc = kc[:, idx], vc[:, idx]
+            tok_cur = np.asarray([t for _, _, t in new_beams], np.int64)
+            cur_len += 1
+            if hyp_done(cur_len, float(new_beams[0][0])):
+                break
+
+        out = list(max(hyps, key=lambda h: h[0])[1])
+        if len(out) < max_length:
+            out.append(eos_token_id)
+        return np.asarray(out, np.int32)
+
+
 def t5_config_from_state_dict(sd: Mapping[str, torch.Tensor]) -> T5Config:
     """The encoder's geometry from an HF T5 state dict's shapes, so
     FLAN-T5-Large, FLAN-T5-XL (Tango-XL) and test-sized encoders load with
@@ -190,3 +453,47 @@ def convert_t5_encoder(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor
                 out[blk + f"ff.{name}.weight"] = sd[key]
         i += 1
     return out
+
+
+def convert_t5_decoder(sd: Mapping[str, torch.Tensor],
+                       prefix: str = "decoder.") -> Dict[str, torch.Tensor]:
+    """HF T5 decoder weights (and `lm_head` when the checkpoint has one) ->
+    the port's T5Decoder's."""
+    out = {
+        "token_embedding.weight": sd["shared.weight"],
+        "relative_attention_bias.weight":
+            sd[f"{prefix}block.0.layer.0.SelfAttention.relative_attention_bias.weight"],
+        "final_layer_norm.weight": sd[f"{prefix}final_layer_norm.weight"],
+    }
+    if "lm_head.weight" in sd:
+        out["lm_head.weight"] = sd["lm_head.weight"]
+    i = 0
+    while f"{prefix}block.{i}.layer.0.SelfAttention.q.weight" in sd:
+        pre, blk = f"{prefix}block.{i}.layer.", f"block_{i}."
+        out[blk + "ln_self.weight"] = sd[pre + "0.layer_norm.weight"]
+        out[blk + "ln_cross.weight"] = sd[pre + "1.layer_norm.weight"]
+        out[blk + "ln_ff.weight"] = sd[pre + "2.layer_norm.weight"]
+        for name in "qkvo":
+            out[blk + f"self_attn.{name}.weight"] = sd[pre + f"0.SelfAttention.{name}.weight"]
+            out[blk + f"cross_attn.{name}.weight"] = sd[pre + f"1.EncDecAttention.{name}.weight"]
+        for name in ("wi", "wi_0", "wi_1", "wo"):
+            key = pre + f"2.DenseReluDense.{name}.weight"
+            if key in sd:
+                out[blk + f"ff.{name}.weight"] = sd[key]
+        i += 1
+    return out
+
+
+def convert_t5_seq2seq(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """HF T5ForConditionalGeneration state dict -> the port's T5Seq2Seq's
+    (`encoder.*`, `decoder.*`; `shared` feeds both embeddings)."""
+    out = {f"encoder.{k}": v for k, v in convert_t5_encoder(sd).items()}
+    out.update({f"decoder.{k}": v for k, v in convert_t5_decoder(sd).items()})
+    return out
+
+
+def t5_seq2seq_config_from_state_dict(sd: Mapping[str, torch.Tensor]) -> T5Config:
+    """A T5ForConditionalGeneration's geometry from its shapes: the encoder's
+    (the decoder shares it), untied when the checkpoint has an `lm_head`."""
+    return dataclasses.replace(t5_config_from_state_dict(sd),
+                               tie_word_embeddings="lm_head.weight" not in sd)

@@ -20,7 +20,13 @@ with the strict key check; `quantize_unet_` turns a float UNet into the same.
 `remat=True` recomputes each down, mid and up block in the backward pass
 (`torch.utils.checkpoint`, as `nn.remat` in JAX) whenever gradients are
 being recorded: the forward kernels of a block then run twice per training
-step. The Mustango conditioning streams are not ported yet.
+step.
+
+Mustango's music UNet is this UNet with `cfg.extra_cond_streams = 2`: every
+cross-attention layer runs one Transformer2DModel per stream in sequence,
+text (`attentions_{i}`), then beats (`attentions_{i}_extra1`), then chords
+(`attentions_{i}_extra2`), each attending to its own context under its own
+mask (tango_tpu/models/unet.py:272-295).
 """
 
 from __future__ import annotations
@@ -191,6 +197,25 @@ class Upsample2D(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
 
 
+def _stream_names(prefix: str, cfg: UNetConfig) -> list:
+    return [prefix] + [f"{prefix}_extra{j}" for j in range(1, 1 + cfg.extra_cond_streams)]
+
+
+def _add_streams(owner: nn.Module, prefix: str, ch: int, heads: int, cfg: UNetConfig) -> None:
+    """One Transformer2DModel per conditioning stream, each with the width
+    of its own context."""
+    dims = (cfg.cross_attention_dim, *cfg.extra_cond_dims)
+    for name, dim in zip(_stream_names(prefix, cfg), dims):
+        owner.add_module(name, Transformer2DModel(ch, heads, ch // heads, dim, cfg))
+
+
+def _run_streams(owner: nn.Module, prefix: str, x, contexts, biases):
+    """The stream transformers in sequence: text, then the extra streams."""
+    for name, context, bias in zip(_stream_names(prefix, owner.cfg), contexts, biases):
+        x = getattr(owner, name)(x, context, bias)
+    return x
+
+
 class _Block(nn.Module):
     """One down or up level: resnets, optional transformers, optional resampler.
 
@@ -200,14 +225,14 @@ class _Block(nn.Module):
     def __init__(self, cfg: UNetConfig, in_channels, out_ch: int, temb_ch: int,
                  heads: int | None, resample: str | None):
         super().__init__()
+        self.cfg = cfg
         self.n = len(in_channels)
         self.has_attn = heads is not None
         for i, cin in enumerate(in_channels):
             self.add_module(f"resnets_{i}", ResnetBlock2D(
                 cin, out_ch, temb_ch, cfg.norm_num_groups, cfg.norm_eps))
             if self.has_attn:
-                self.add_module(f"attentions_{i}", Transformer2DModel(
-                    out_ch, heads, out_ch // heads, cfg.cross_attention_dim, cfg))
+                _add_streams(self, f"attentions_{i}", out_ch, heads, cfg)
         if resample == "down":
             self.downsamplers_0 = Downsample2D(out_ch, cfg.downsample_padding)
         elif resample == "up":
@@ -216,7 +241,7 @@ class _Block(nn.Module):
     def layer(self, i, x, temb, context, bias):
         x = getattr(self, f"resnets_{i}")(x, temb)
         if self.has_attn:
-            x = getattr(self, f"attentions_{i}")(x, context, bias)
+            x = _run_streams(self, f"attentions_{i}", x, context, bias)
         return x
 
     def down(self, x, temb, context, bias):
@@ -245,19 +270,23 @@ class UNetMidBlock2DCrossAttn(nn.Module):
 
     def __init__(self, cfg: UNetConfig, ch: int, temb_ch: int, heads: int):
         super().__init__()
+        self.cfg = cfg
         self.resnets_0 = ResnetBlock2D(ch, ch, temb_ch, cfg.norm_num_groups, cfg.norm_eps)
-        self.attentions_0 = Transformer2DModel(ch, heads, ch // heads,
-                                               cfg.cross_attention_dim, cfg)
+        _add_streams(self, "attentions_0", ch, heads, cfg)
         self.resnets_1 = ResnetBlock2D(ch, ch, temb_ch, cfg.norm_num_groups, cfg.norm_eps)
 
     def forward(self, x, temb, context, bias):
-        x = self.attentions_0(self.resnets_0(x, temb), context, bias)
+        x = _run_streams(self, "attentions_0", self.resnets_0(x, temb), context, bias)
         return self.resnets_1(x, temb)
 
 
 class UNet2DConditionModel(nn.Module):
     """The denoiser: sample (B, T, F, C), timesteps (B,) or scalar, text
-    context (B, S, D) with an optional 0/1 key mask (B, S) -> (B, T, F, C)."""
+    context (B, S, D) with an optional 0/1 key mask (B, S) -> (B, T, F, C).
+
+    With extra streams the context is a list, one (B, S_j, D_j) per stream,
+    and the mask a list of the same length, or one mask (or None) for every
+    stream (tango_tpu/models/unet.py:452-467)."""
 
     def __init__(self, cfg: UNetConfig, remat: bool = False):
         super().__init__()
@@ -315,10 +344,16 @@ class UNet2DConditionModel(nn.Module):
     def forward(self, sample, timesteps, encoder_hidden_states, encoder_attention_mask=None):
         cfg = self.cfg
         dtype = self.conv_in.weight.dtype
-        context = encoder_hidden_states.to(dtype)
-        bias = None
-        if encoder_attention_mask is not None:
-            bias = mask_to_bias(encoder_attention_mask)[:, None, :]
+        n_streams = 1 + cfg.extra_cond_streams
+        contexts = (list(encoder_hidden_states)
+                    if isinstance(encoder_hidden_states, (tuple, list))
+                    else [encoder_hidden_states])
+        assert len(contexts) == n_streams, (len(contexts), n_streams)
+        masks = (list(encoder_attention_mask)
+                 if isinstance(encoder_attention_mask, (tuple, list))
+                 else [encoder_attention_mask] * n_streams)
+        context = [c.to(dtype) for c in contexts]
+        bias = [None if m is None else mask_to_bias(m)[:, None, :] for m in masks]
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.dim() == 0:
             timesteps = timesteps[None].expand(sample.shape[0])

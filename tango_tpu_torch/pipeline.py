@@ -61,6 +61,20 @@ def _row_seed(base: int, chunk: int, row: int) -> int:
     return int(state[0]) & (2**63 - 1)
 
 
+def build_module(make, params, device, dtype: torch.dtype, seed: int) -> torch.nn.Module:
+    """Module `make()` on `device` in `dtype`, for inference, from state dict
+    `params` (strict) or, where it is None, seeded random weights
+    (utils.init) drawn on the device from `seed`."""
+    with torch.device("meta"):
+        m = make()
+    m = m.to_empty(device=device).to(dtype=dtype)
+    if params is None:
+        init_random_(m, torch.Generator(device=device).manual_seed(seed))
+    else:
+        m.load_state_dict(params)
+    return m.eval().requires_grad_(False)
+
+
 def _cast_float_(module: torch.nn.Module, dtype: torch.dtype) -> None:
     """Cast a quantized module's float parameters and buffers to dtype in
     place, keeping its int8 layers' f32 `weight_scale`."""
@@ -189,15 +203,7 @@ class Tango:
         `cast_params`' order."""
 
         def build(k: int, make, params, dtype=self.dtype):
-            with torch.device("meta"):
-                m = make()
-            m = m.to_empty(device=self.device).to(dtype=dtype)
-            if params is None:
-                gen = torch.Generator(device=self.device).manual_seed(init_seed * 16 + k)
-                init_random_(m, gen)
-            else:
-                m.load_state_dict(params)
-            return m.eval().requires_grad_(False)
+            return build_module(make, params, self.device, dtype, init_seed * 16 + k)
 
         quant_f32 = self.quant is not None and not self.cast_params
         unet = build(0, lambda: UNet2DConditionModel(unet_config), unet_params,

@@ -6,18 +6,20 @@ weights load once in `setup`, each `predict` generates one clip and writes a
 WAV. `BatchingPredictor` coalesces concurrent `predict` calls that share
 (steps, guidance) within `max_wait_ms` into one `generate_for_batch` call
 padded to `max_batch` (a power of two); a seeded request is served alone, so
-that its output is the single-prompt output at that seed. The CLI:
+that its output is the single-prompt output at that seed. Both take
+`music=True` to serve Mustango (pipeline_music.py) the same way; its
+warm-ups pass empty beats and chords, so the predictors do not run. The CLI:
 
     python -m tango_tpu_torch.serve --model <snapshot_dir> --prompt "a dog barks" \
         --steps 100 --guidance 3 --output out.wav [--samples 2] [--device cpu]
     python -m tango_tpu_torch.serve --model <snapshot_dir> --listen 8000
+    python -m tango_tpu_torch.serve --music --model <mustango_snapshot> --prompt "a jazz tune"
 
 Server mode (`--listen PORT`) puts a BatchingPredictor behind a stdlib
 ThreadingHTTPServer: GET /healthz, POST /generate {"prompt", "steps",
 "guidance", "seed"} -> audio/wav. It runs on the card unless --device names
-another. `--model` is a reference-format snapshot directory: the port
-downloads nothing. Mustango (`--music`) is not ported yet (ROADMAP queue A
-#7) and raises.
+another. `--model` is a reference-format snapshot directory (with `--music`,
+a released-layout Mustango snapshot): the port downloads nothing.
 """
 
 from __future__ import annotations
@@ -28,26 +30,37 @@ import threading
 import time
 from typing import List, Optional, Sequence
 
-MUSIC_NOT_PORTED = "Mustango (--music) is not ported yet: ROADMAP queue A #7"
-
 
 class Predictor:
     """cog-style predictor (predict.py:29-60)."""
 
     def __init__(self):
         self.tango = None
+        self.music = False
 
     def setup(self, model: str = "declare-lab/tango", quant: Optional[str] = None,
               music: bool = False, device=None):
-        """Load the snapshot directory `model` on `device` (the card by
-        default) and warm up with one 100-step generate, so that a warm-up
-        failure is a setup failure and the first request's latency is steady."""
+        """Load the snapshot directory `model` (Tango's, or with `music`
+        Mustango's) on `device` (the card by default) and warm up with one
+        100-step generate, so that a warm-up failure is a setup failure and
+        the first request's latency is steady."""
+        self.music = music
         if music:
-            raise NotImplementedError(MUSIC_NOT_PORTED)
-        from tango_tpu_torch import pipeline
+            from tango_tpu_torch import pipeline_music
 
-        self.tango = pipeline.Tango(model, quant=quant, device=device)
-        self.tango.generate("warmup", steps=100)
+            self.tango = pipeline_music.Mustango(model, quant=quant, device=device)
+        else:
+            from tango_tpu_torch import pipeline
+
+            self.tango = pipeline.Tango(model, quant=quant, device=device)
+        self.tango.generate("warmup", steps=100, **self._warm_features())
+
+    def _warm_features(self) -> dict:
+        """Empty beats and chords for Mustango's warm-ups: the predictors do
+        not run, and the sampler's shapes do not depend on the features."""
+        if not self.music:
+            return {}
+        return {"beats": [[], []], "chords": [], "chords_times": []}
 
     def predict(self, prompt: str, steps: int = 100, guidance: float = 3.0,
                 output_path: str = "output.wav", seed: Optional[int] = None) -> str:
@@ -115,8 +128,9 @@ class BatchingPredictor(Predictor):
               music: bool = False, device=None):
         super().setup(model, quant=quant, music=music, device=device)
         # warm the batch shape too: it is the steady-state server shape
+        warm = {k: [v] * self.max_batch for k, v in self._warm_features().items()}
         self.tango.generate_for_batch(["warmup"] * self.max_batch, steps=100,
-                                      batch_size=self.max_batch)
+                                      batch_size=self.max_batch, **warm)
         self._worker = threading.Thread(target=self._serve_loop, daemon=True)
         self._worker.start()
 
@@ -260,7 +274,7 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--output", type=str, default="output.wav")
     p.add_argument("--music", action="store_true",
-                   help="the Mustango pipeline (not ported yet: ROADMAP queue A #7)")
+                   help="the Mustango pipeline (--model a Mustango snapshot)")
     p.add_argument("--quant", type=str, default=None, choices=("conv", "dense", "all"),
                    help="int8 W8A8 UNet serving mode")
     p.add_argument("--device", type=str, default=None,
@@ -270,12 +284,10 @@ def main(argv=None):
         p.error("--samples must be >= 1")
     if args.listen is None and args.prompt is None:
         p.error("--prompt is required (or --listen PORT for server mode)")
-    if args.music:
-        raise SystemExit(MUSIC_NOT_PORTED)
 
     if args.listen is not None:
         predictor = BatchingPredictor()
-        predictor.setup(args.model, quant=args.quant, device=args.device)
+        predictor.setup(args.model, quant=args.quant, music=args.music, device=args.device)
         server = serve_http(predictor, args.listen)
         print(f"serving on :{args.listen} (POST /generate, GET /healthz)", flush=True)
         try:
@@ -284,15 +296,21 @@ def main(argv=None):
             predictor.close()
         return
 
-    from tango_tpu_torch import pipeline
     from tango_tpu_torch.audio.wav import write_wav
 
     t0 = time.time()
-    model = pipeline.Tango(args.model, quant=args.quant, device=args.device)
-    wavs = model.generate(args.prompt, steps=args.steps, guidance=args.guidance,
-                          samples=args.samples, seed=args.seed)
+    if args.music:
+        wavs = _music_cli(args)
+    else:
+        from tango_tpu_torch import pipeline
+
+        model = pipeline.Tango(args.model, quant=args.quant, device=args.device)
+        wavs = model.generate(args.prompt, steps=args.steps, guidance=args.guidance,
+                              samples=args.samples, seed=args.seed)
+        if args.samples == 1:
+            wavs = [wavs]
     if args.samples == 1:
-        write_wav(args.output, wavs, 16000)
+        write_wav(args.output, wavs[0], 16000)
         print(f"wrote {args.output} in {time.time() - t0:.1f}s")
         return
     # every sample is written: output.wav, output_1.wav, ...
@@ -300,6 +318,27 @@ def main(argv=None):
     for i, w in enumerate(wavs[: args.samples]):
         write_wav(args.output if i == 0 else f"{base}_{i}{ext}", w, 16000)
     print(f"wrote {args.samples} samples at {base}*{ext} in {time.time() - t0:.1f}s")
+
+
+def _music_cli(args) -> list:
+    """The CLI's Mustango generation: the (deterministic) predictors run once
+    for the prompt; several samples ride one batch of 4 with those features,
+    a row's noise from its own generator."""
+    from tango_tpu_torch import pipeline_music
+
+    model = pipeline_music.Mustango(args.model, quant=args.quant, device=args.device)
+    beats = chords = chords_times = None
+    if model.predictor is not None:
+        beats, chords, chords_times = model.predictor.generate(args.prompt)
+    if args.samples == 1:
+        return [model.generate(args.prompt, steps=args.steps, guidance=args.guidance,
+                               beats=beats, chords=chords, chords_times=chords_times,
+                               seed=args.seed)]
+    n = args.samples
+    rows = (None,) * 3 if beats is None else ([beats] * n, [chords] * n, [chords_times] * n)
+    return model.generate_for_batch([args.prompt] * n, steps=args.steps, guidance=args.guidance,
+                                    batch_size=4, beats=rows[0], chords=rows[1],
+                                    chords_times=rows[2], seed=args.seed)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ the port's modules. Both sides are torch layouts, so nothing is transposed;
 what changes:
 
   `down_blocks.0.` / `resnets.1.` / ...   -> `down_blocks_0.` / `resnets_1.`
+  `attentions2.N.` / `attentions3.N.`    -> `attentions_N_extra1.` / `_extra2.`
+                                             (Mustango's beat and chord streams)
   attn1 to_q | to_k | to_v (O, I) each    -> to_qkv, concatenated on O
   attn2 to_k | to_v                       -> to_kv, concatenated on O
   `weight_g` / `weight_v` pairs           -> weight = g * v / ||v|| (dims != 0)
@@ -17,9 +19,10 @@ The tensors are the caller's where no key is fused or folded: a 4.8 GB main
 `.bin` stays one f32 copy on the host while it converts.
 
 `from_jax_params` takes a Flax parameter tree of numpy arrays (what
-`jax.device_get` returns) for the UNet, the T5 encoder, the VAE, HiFi-GAN,
-the CLAP towers or the evaluation's Cnn14 and VGGish and returns a state
-dict for the matching module of this package. The port's modules carry
+`jax.device_get` returns) for the UNet, the T5 encoder or decoder, the VAE,
+HiFi-GAN, the CLAP towers, the evaluation's Cnn14 and VGGish, Mustango's
+MusicConditioner or the DeBERTa beat predictor and returns a state dict for
+the matching module of this package. The port's modules carry
 the Flax module names, so a path maps onto a key; what changes is the leaf
 name and the layout:
 
@@ -33,9 +36,11 @@ name and the layout:
   int8 kernel_scale (O,)           -> weight_scale (f32)
   LayerNorm scale                  -> weight
   GroupNorm `<name>_scale/_bias`   -> `<name>.weight/.bias`
-  embedding tables                 -> `<name>.weight`
+  embedding tables                 -> `<name>.weight` (T5's decoder `lm_head`
+                                      and DeBERTa's `rel_embeddings` too)
   BatchNormEval mean / var         -> the buffers `mean` / `var`
   relative_position_bias_table     -> kept as it is (HTSAT's Swin blocks)
+  fme_translation_bias             -> kept as it is (the MusicConditioner's)
 
 Fused projections stay fused: the port's attention modules hold `to_qkv`
 (self-attention) and `to_kv` (cross-attention) as the JAX modules do.
@@ -51,13 +56,13 @@ import torch
 
 StateDict = Dict[str, torch.Tensor]
 
-# top-level parameters that are embedding tables (no `kernel` leaf): T5's and
-# RoBERTa's (the CLAP text tower)
+# top-level parameters that are tables (no `kernel` leaf): T5's (and its
+# decoder's untied head), RoBERTa's (the CLAP text tower), DeBERTa's
 _EMBEDDINGS = ("token_embedding", "relative_attention_bias", "word_embeddings",
-               "position_embeddings", "token_type_embeddings")
+               "position_embeddings", "token_type_embeddings", "lm_head", "rel_embeddings")
 # leaves whose name and layout are the port's own: BatchNormEval's running
-# statistics, the Swin blocks' bias tables
-_KEPT = ("mean", "var", "relative_position_bias_table")
+# statistics, the Swin blocks' bias tables, the music conditioner's bias
+_KEPT = ("mean", "var", "relative_position_bias_table", "fme_translation_bias")
 
 
 def _flatten(tree: Mapping, prefix=()) -> Iterable[tuple[tuple[str, ...], np.ndarray]]:
@@ -166,19 +171,19 @@ def _leaf(key: str, what: str) -> None:
 _UNET_INDEXED = re.compile(
     r"\b(down_blocks|up_blocks|resnets|transformer_blocks|downsamplers|upsamplers|attentions)"
     r"\.(\d+)\.")
+# Mustango's extra streams: `attentions2` beats, `attentions3` chords
+_UNET_STREAMS = re.compile(r"\battentions([23])\.(\d+)\.")
 
 
 def convert_unet(sd: Mapping[str, torch.Tensor]) -> StateDict:
-    """diffusers UNet2DConditionModel state dict -> the port's UNet's."""
+    """diffusers UNet2DConditionModel state dict (or Mustango's music UNet's)
+    -> the port's UNet's."""
     out = {}
     for key, w in sd.items():
         if key.endswith("num_batches_tracked"):
             continue
-        if re.search(r"\battentions[23]\.", key):
-            raise NotImplementedError(
-                f"Mustango's extra attention streams are not ported yet: ROADMAP queue A #7 "
-                f"(key: {key})")
-        k = _UNET_INDEXED.sub(r"\1_\2.", key)
+        k = _UNET_STREAMS.sub(lambda m: f"attentions_{m[2]}_extra{int(m[1]) - 1}.", key)
+        k = _UNET_INDEXED.sub(r"\1_\2.", k)
         k = (k.replace("to_out.0.", "to_out_0.").replace("ff.net.0.proj.", "ff.net_0_proj.")
              .replace("ff.net.2.", "ff.net_2."))
         blocks = re.findall(r"\btransformer_blocks_(\d+)\.", k)

@@ -9,7 +9,8 @@ import torch
 from tango_tpu_torch.ops import _build
 
 EMBEDDINGS = ("token_embedding", "relative_attention_bias", "word_embeddings",
-              "position_embeddings", "token_type_embeddings", "relative_position_bias_table")
+              "position_embeddings", "token_type_embeddings", "relative_position_bias_table",
+              "rel_embeddings", "lm_head")
 
 
 def random_jax_params(init_fn, seed: int):

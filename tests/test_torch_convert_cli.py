@@ -3,7 +3,9 @@ tests/test_export.py: `export-main` and `export-snapshot` of the snapshot's
 own UNet give back the reference main bin bit for bit and key for key; a
 trained UNet checkpoint goes in place of it; the exported snapshot reloads
 through `Tango(path)`; `tango` writes the native directory with JAX's
-manifest; the kinds that are not ported raise, naming their queue item."""
+manifest; Mustango's `mustango` and `export-mustango` convert and export
+snapshot_tiny_mustango; `audioldm`, not ported, raises, naming its queue
+item."""
 
 import json
 import os
@@ -25,6 +27,7 @@ from tests.conftest import GOLDEN
 torch.set_num_threads(1)
 
 SNAP = GOLDEN / "snapshot_tiny"
+MSNAP = GOLDEN / "snapshot_tiny_mustango"
 
 
 def _assert_same(orig: dict, exported: dict):
@@ -113,9 +116,55 @@ def test_tango_kind_writes_native(tmp_path):
 @pytest.mark.parametrize("kind,item", [("audioldm", "#8"), ("mustango", "#7"),
                                        ("export-mustango", "#7")])
 def test_not_ported_kinds_raise(kind, item, tmp_path):
-    with pytest.raises(SystemExit, match=f"queue A {item}"):
-        convert_cli.main([kind, str(SNAP), str(tmp_path / "x"), str(tmp_path / "y")])
-    assert not (tmp_path / "x").exists()
+    """audioldm (queue A #8) still raises and writes nothing. Mustango's two
+    kinds (queue A #7) are ported: `mustango` writes the native directory,
+    every part equal to the loader's, and `export-mustango` of the
+    snapshot's own UNet gives back the ldm bin bit for bit, with configs/
+    and vae/ copied."""
+    from tango_tpu_torch.pipeline_music import load_mustango_snapshot
+
+    if kind == "audioldm":
+        with pytest.raises(SystemExit, match=f"queue A {item}"):
+            convert_cli.main([kind, str(SNAP), str(tmp_path / "x"), str(tmp_path / "y")])
+        assert not (tmp_path / "x").exists()
+        return
+    if kind == "mustango":
+        convert_cli.main([kind, str(MSNAP), str(tmp_path / "x")])
+        state, manifest = load_native(str(tmp_path / "x"))
+        assert manifest["kind"] == "mustango" and manifest["unet_config"]["extra_cond_streams"] == 2
+        loaded = load_mustango_snapshot(str(MSNAP), with_encoder=True)
+        for part, key in (("unet", "unet_params"), ("t5", "t5_params"),
+                          ("conditioner", "conditioner_params"), ("vae", "vae_params"),
+                          ("hifigan", "hifigan_params")):
+            sd = {k[len(part) + 1:]: v for k, v in state.items() if k.startswith(part + ".")}
+            _assert_same(loaded[key], sd)
+        assert any(k.startswith("unet.") and "_extra2." in k for k in state)
+        return
+    out = tmp_path / "y"
+    convert_cli.main([kind, str(MSNAP), "-", str(out)])
+    _assert_same(load_torch_bin(str(MSNAP / "ldm" / "pytorch_model_ldm.bin")),
+                 load_torch_bin(str(out / "ldm" / "pytorch_model_ldm.bin")))
+    for sub in ("configs", "vae"):
+        for name in os.listdir(MSNAP / sub):
+            assert (out / sub / name).read_bytes() == (MSNAP / sub / name).read_bytes(), name
+
+
+def test_export_mustango_of_a_trained_unet_reloads(tmp_path):
+    """A trained music UNet in place of the snapshot's, exported and loaded
+    back by Mustango(path): its streams and the untouched T5 and conditioner."""
+    from tango_tpu_torch.pipeline_music import Mustango, load_mustango_snapshot
+
+    loaded = load_mustango_snapshot(str(MSNAP))
+    trained = {k: v * 1.5 + 0.25 for k, v in loaded["unet_params"].items()}
+    save_native(str(tmp_path / "best"), trained, {"epoch": 0})
+    out = tmp_path / "out"
+    convert_cli.main(["export-mustango", str(MSNAP), str(tmp_path / "best"), str(out)])
+    m = Mustango(str(out), tokenizer=WordHashTokenizer(64), device="cpu")
+    _assert_same(trained, m.model.unet.state_dict())
+    _assert_same(loaded["conditioner_params"], m.model.conditioner.state_dict())
+    _assert_same(loaded["t5_params"], m.t5.state_dict())
+    with pytest.raises(FileNotFoundError, match="downloads nothing"):
+        convert_cli.main(["mustango", "declare-lab/mustango", str(tmp_path / "z")])
 
 
 def test_bad_arguments_raise(tmp_path):

@@ -297,9 +297,9 @@ def test_tokenizer_pads_truncates_and_appends_eos():
 
 
 def test_import_hygiene():
-    """Importing the port (every module, the evaluation and CLAP's included)
-    and chip_smoke loads no JAX, no JAX package and no transformers /
-    huggingface_hub / sklearn."""
+    """Importing the port (every module, the evaluation, CLAP's, Mustango's
+    and its DeBERTa included) and chip_smoke loads no JAX, no JAX package and
+    no transformers / huggingface_hub / sklearn / sentencepiece."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import tango_tpu_torch, chip_smoke\n"
@@ -307,9 +307,11 @@ def test_import_hygiene():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'tango_tpu', 'transformers', 'huggingface_hub',\n"
-        "              'sklearn'))\n"
+        "              'sklearn', 'sentencepiece'))\n"
         "assert 'tango_tpu_torch.eval.evaluator' in sys.modules\n"
         "assert 'tango_tpu_torch.inference_tango2' in sys.modules\n"
+        "assert 'tango_tpu_torch.pipeline_music' in sys.modules\n"
+        "assert 'tango_tpu_torch.models.deberta' in sys.modules\n"
         "print(bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

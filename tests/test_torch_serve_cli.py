@@ -1,7 +1,7 @@
-"""The port's serving layer (tango_tpu_torch/serve.py): every case of
-tests/test_serve_cli.py that is not about Mustango, on a stub pipeline, and
-the predictors, the HTTP server and the CLI on the reference-format tiny
-snapshot with device="cpu" (latents cut to 8 frames, as in
+"""The port's serving layer (tango_tpu_torch/serve.py): the cases of
+tests/test_serve_cli.py on a stub pipeline (Mustango's on a stub Mustango),
+and the predictors, the HTTP server and the CLI on the reference-format tiny
+snapshots (Tango's and Mustango's) with device="cpu" (latents cut to 8 frames, as in
 tests/test_torch_inference_cli.py). Every wait on a thread or a request has
 its own timeout, so a hung server fails its test instead of the suite."""
 
@@ -18,6 +18,7 @@ import torch
 from scipy.io import wavfile
 
 import tango_tpu_torch.pipeline as pipeline_mod
+import tango_tpu_torch.pipeline_music as music_mod
 from tango_tpu_torch import serve
 from tango_tpu_torch.serve import BatchingPredictor, Predictor, serve_http
 from tango_tpu_torch.tokenizer import WordHashTokenizer
@@ -27,6 +28,7 @@ from tests.conftest import GOLDEN
 torch.set_num_threads(1)
 
 SNAP = str(GOLDEN / "snapshot_tiny")
+MSNAP = str(GOLDEN / "snapshot_tiny_mustango")
 SHORT_T = 8
 WAV_LEN = 2 * SHORT_T * 160 + 32  # the tiny VAE doubles T; HiFi-GAN x160, +32 edge
 WAIT_S = 60
@@ -114,12 +116,131 @@ def test_serve_cli_samples_write_every_file(tmp_path, stub):
     assert stub["t"].calls == [("p", 2, 3.0, 3, None)]
 
 
-def test_music_raises_naming_its_queue_item(tmp_path, stub):
-    with pytest.raises(NotImplementedError, match="queue A #7"):
-        Predictor().setup(model="x", music=True)
-    with pytest.raises(SystemExit, match="queue A #7"):
-        serve.main(["--model", "x", "--prompt", "p", "--music"])
-    assert "t" not in stub
+class _StubMustango(_StubTango):
+    """Mustango-shaped stub: records the features too."""
+
+    def generate(self, prompt, steps=100, guidance=3.0, samples=1, disable_progress=True,
+                 beats=None, chords=None, chords_times=None, seed=None):
+        self.calls.append((prompt, steps, beats, chords, chords_times, seed))
+        return (np.sin(np.linspace(0, 100, 16000)) * 20000).astype(np.int16)
+
+    def generate_for_batch(self, prompts, steps=100, guidance=3.0, batch_size=4, beats=None,
+                           chords=None, chords_times=None, seed=None, disable_progress=True):
+        self.batch_calls.append((list(prompts), steps, batch_size, beats, seed))
+        wav = (np.sin(np.linspace(0, 100, 16000)) * 20000).astype(np.int16)
+        return [wav.copy() for _ in prompts]
+
+
+@pytest.fixture
+def stub_music(monkeypatch):
+    made = {}
+
+    def factory(name, **kw):
+        made["m"] = _StubMustango(name, **kw)
+        made["kw"] = kw
+        return made["m"]
+
+    monkeypatch.setattr(music_mod, "Mustango", factory)
+    return made
+
+
+def test_music_raises_naming_its_queue_item(tmp_path, stub, stub_music):
+    """--music (queue A #7) no longer raises: it serves. BatchingPredictor's
+    setup builds Mustango, warms the single and the batched path with empty
+    features (the predictors do not run), and concurrent requests coalesce
+    into one padded music batch (tests/test_serve_cli.py:158-215)."""
+    p = BatchingPredictor(max_batch=4, max_wait_ms=200)
+    p.setup(model="stub-music", music=True, quant="conv", device="cpu")
+    m = stub_music["m"]
+    assert "t" not in stub and stub_music["kw"] == {"quant": "conv", "device": "cpu"}
+    assert m.calls[0][0] == "warmup" and m.calls[0][2:5] == ([[], []], [], [])
+    warm_prompts, _, warm_bs, warm_beats, _ = m.batch_calls[0]
+    assert warm_prompts == ["warmup"] * 4 and warm_beats == [[[], []]] * 4
+    n_warm = len(m.batch_calls)
+    results = {}
+
+    def call(i):
+        results[i] = p.predict(f"song {i}", steps=3, output_path=str(tmp_path / f"m{i}.wav"))
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(3)]
+    for th in threads:
+        th.start()
+    _join(threads)
+    assert len(results) == 3 and all(os.path.exists(v) for v in results.values())
+    served = m.batch_calls[n_warm:]
+    assert len(served) == 1 and len(served[0][0]) == 4 and served[0][3] is None
+    p.close()
+
+
+def test_music_cli_runs_the_predictor_once(tmp_path, stub_music):
+    """The CLI's --music branch: with a predictor its features are computed
+    once and passed to generate (one sample) or to every row of one batch
+    of 4 (several samples)."""
+    feats = ([[[0.5, 1.0], [1.0, 2.0]]], ["Gm"], [0.4])
+
+    class Pred:
+        def __init__(self):
+            self.prompts = []
+
+        def generate(self, prompt):
+            self.prompts.append(prompt)
+            return feats
+
+    def with_predictor(name, **kw):
+        m = _StubMustango(name, **kw)
+        m.predictor = Pred()
+        stub_music["m"] = m
+        return m
+
+    music_mod.Mustango = with_predictor
+    out = str(tmp_path / "m.wav")
+    serve.main(["--music", "--model", "x", "--prompt", "jazz", "--steps", "2", "--seed", "3",
+                "--output", out, "--device", "cpu"])
+    m = stub_music["m"]
+    assert os.path.exists(out) and m.predictor.prompts == ["jazz"]
+    assert m.calls == [("jazz", 2, *feats, 3)]
+    serve.main(["--music", "--model", "x", "--prompt", "jazz", "--samples", "3", "--steps", "2",
+                "--output", out])
+    m = stub_music["m"]
+    prompts, steps, bs, beats, seed = m.batch_calls[0]
+    assert prompts == ["jazz"] * 3 and bs == 4 and beats == [feats[0]] * 3
+    assert all(os.path.exists(tmp_path / n) for n in ("m.wav", "m_1.wav", "m_2.wav"))
+
+
+def test_music_on_snapshot_tiny_mustango(tmp_path, monkeypatch):
+    """`--music` end to end on the tiny Mustango snapshot on the CPU, latents
+    cut to 8 frames, its (absent) predictor replaced by fixed features: the
+    one-shot CLI writes a 16 kHz int16 WAV, and a seeded Predictor request
+    equals `generate` at that seed with the predictor's features."""
+    real = music_mod.Mustango
+    made = []
+    feats = ([[[0.5, 1.0, 1.5], [1.0, 2.0, 1.0]]], ["Gm", "F7"], [0.4, 2.2])
+
+    def short(name_or_path, **kw):
+        m = real(name_or_path, tokenizer=WordHashTokenizer(64), **kw)
+        m.model.latent_t_size = SHORT_T
+        m.predictor = music_mod.MusicFeaturePredictor(
+            beats_fn=lambda p: (np.array([0.0, 3.0]), np.full(3, 0.5, np.float32)),
+            chords_fn=lambda c: "Gm at 0.4 n F7 at 2.2")
+        made.append(m)
+        return m
+
+    monkeypatch.setattr(music_mod, "Mustango", short)
+    out = str(tmp_path / "music.wav")
+    serve.main(["--music", "--model", MSNAP, "--prompt", "a jazzy tune", "--steps", "2",
+                "--seed", "0", "--output", out, "--device", "cpu"])
+    rate, wav = wavfile.read(out)
+    assert rate == 16000 and wav.dtype == np.int16 and wav.shape == (WAV_LEN,)
+    assert np.abs(wav.astype(np.int32)).max() > 0
+    p = Predictor()
+    p.setup(model=MSNAP, music=True, device="cpu")
+    assert made[-1].device.type == "cpu" and p.music
+    path = p.predict("a jazzy tune", steps=2, output_path=str(tmp_path / "p.wav"), seed=0)
+    assert made[-1].predictor.generate("a jazzy tune") == feats
+    want = made[-1].generate("a jazzy tune", steps=2, seed=0, beats=feats[0], chords=feats[1],
+                             chords_times=feats[2])
+    np.testing.assert_array_equal(wavfile.read(path)[1], want)
+    np.testing.assert_array_equal(wav, want)
 
 
 def test_predictor_lifecycle(tmp_path, stub):

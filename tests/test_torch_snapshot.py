@@ -11,6 +11,7 @@ tolerances of tests/test_torch_pipeline.py: text states and latents atol
 """
 
 import json
+import re
 import shutil
 import warnings
 
@@ -122,9 +123,14 @@ def test_converters_refuse_what_the_port_lacks():
     deeper = {k.replace("transformer_blocks.0.", "transformer_blocks.1."): v for k, v in sd.items()}
     with pytest.raises(ValueError, match="transformer_layers_per_block"):
         conv.convert_unet({**sd, **deeper})
-    music = {k.replace("attentions.", "attentions2."): v for k, v in sd.items()}
-    with pytest.raises(NotImplementedError, match="queue A #7"):
-        conv.convert_unet(music)
+    # Mustango's streams (queue A #7) are ported: attentions2 keys convert
+    # onto the _extra1 stream, the same tensors as the text stream's
+    music = {k.replace(".attentions.", ".attentions2."): v for k, v in sd.items()
+             if ".attentions." in k}
+    plain, got = conv.convert_unet(sd), conv.convert_unet({**sd, **music})
+    extra = {k: v for k, v in got.items() if "_extra1." in k}
+    assert extra and set(got) == set(plain) | set(extra)
+    assert all(torch.equal(v, plain[re.sub(r"_extra1\.", ".", k)]) for k, v in extra.items())
     with pytest.raises(NotImplementedError, match="act_fn"):
         TC.UNetConfig.from_dict({"act_fn": "gelu"})
     assert TC.UNetConfig.from_dict({"act_fn": "silu", "_class_name": "x"}) == TC.UNetConfig()
