@@ -123,6 +123,35 @@ Phases, one short JSON line each:
            candidates within twice their card-vs-CPU difference, logged);
            convert_cli export-mustango of the snapshot reloaded bit-equal;
            serve.main --music at 2 steps once; the directory deleted;
+  audioldm_build, audioldm, audioldm_cli
+           after mustango: the full-width AudioLDM-S (AUDIOLDM_S_UNET, 185M;
+           TANGO_VAE with its encoder; the weight-normed TANGO_HIFIGAN;
+           RoBERTa-base and HTSAT-tiny CLAP with both projections) written
+           from seeded random f32 weights as one monolithic checkpoint in the
+           released layout under build/ (~1.8 GB; every part converting back
+           bit-equal, the vocoder within f32 rounding), its bytes and
+           seconds; build_model(ckpt) in f32 with the port's RoBERTa
+           word-hash tokenizer, so the native CLAP conditions, the load
+           timed, every weight equal to the written one; one UNet
+           evaluation at CFG batch 6, which must launch AUDIOLDM_PER_EVAL
+           (20 attn_fwd at head dim 32, 61 gn_silu_fwd, no two-stage
+           GroupNorm); then path `audioldm`, counted: text_to_audio at 10 s,
+           STEPS DDIM steps, 3 candidates (CFG batch 6), guidance 2.5, whose
+           output must be the candidate of the largest CLAP similarity, the
+           ms a DDIM step logged; style_transfer of a written 10 s WAV at
+           strength 0.5 (the last 3 latent frames dropped: 161952 samples);
+           super_resolution_and_inpainting, whose final latents must equal
+           the source's outside the mask. Every attn_fwd launch on the
+           CUDA-core body (CORE_ATTN_PATHS: tc_launches 0) at head dim 32,
+           20 an evaluation; every gn_silu_fwd on the cluster body. Then,
+           uncounted: one FiLM UNet evaluation at batch 1 and one DDIM step
+           (eta 0) on the card against the same on the CPU, f32, within
+           AUDIOLDM_CARD_CPU_LIMIT of the CPU output's largest magnitude;
+           `python -m tango_tpu_torch.audioldm` once in a subprocess (2
+           steps, 2 candidates), which must write one non-silent 163872-
+           sample WAV; the directory deleted. The kernels phase checks and
+           times the D = 32 attention shapes with the rest (`core_body` in
+           attn_fwd's field: their own totals by type);
   int8     the int8 W8A8 serving mode: a full-width Tango.from_components(
            quant="all") built from the bf16 model's state dicts (the same
            weights, quantized once on the card), one uncounted 1-step
@@ -327,6 +356,11 @@ BIAS_TC_SHAPES = [((6, 200, 64), (6, 333, 64), (2, 1, 333)),
 # the serving paths: every attention kernel launch there is bf16 at D = 64
 TC_PATHS = ("serve", "snapshot", "serve_http", "long_clip", "long_prompt", "int8", "int8_conv",
             "mustango")
+# paths whose attention runs the CUDA-core body (csrc/attention.cu): AudioLDM's
+# FiLM UNet has heads of 32 (num_head_channels), and the tensor-core bodies
+# take head dim 64 alone; every other path's attention launches must take
+# the tensor-core body (tc_problems)
+CORE_ATTN_PATHS = ("audioldm",)
 # the kernels each counted path must launch
 PATH_KERNELS = {
     "serve": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd"),
@@ -376,6 +410,35 @@ PATH_KERNELS["mustango"] = PATH_KERNELS["serve"]
 # noise is ~1.4 apart, another row's features ~0.1 and more. JAX's
 # end-to-end bar for int8 against f32 (relative L2 0.05) separates the two
 MUSTANGO_ROW0_REL_L2 = 0.05
+# phase audioldm: the full-width AudioLDM-S (AUDIOLDM_S_UNET, TANGO_VAE with
+# its encoder, TANGO_HIFIGAN, CLAP of RoBERTa-base and HTSAT-tiny) in f32 from
+# a monolithic checkpoint of seeded random weights; text_to_audio of the
+# prompt at 10 s (256 latent frames), 3 candidates (CFG batch 6), guidance
+# 2.5; style transfer at strength 0.5; inpainting of 10%..15% of the clip;
+# the CLI once at 2 steps, 2 candidates. The FiLM UNet's heads are 32 wide,
+# so its attention runs the CUDA-core body (CORE_ATTN_PATHS)
+AUDIOLDM_PROMPT = "a hammer is hitting a wooden surface"
+AUDIOLDM_SECONDS = 10.0
+AUDIOLDM_CANDIDATES = 3
+AUDIOLDM_GUIDANCE = 2.5
+AUDIOLDM_STRENGTH = 0.5
+AUDIOLDM_SCALE = 0.95
+AUDIOLDM_CLI_STEPS = 2
+AUDIOLDM_CLI_CANDIDATES = 2
+PATH_KERNELS["audioldm"] = ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd")
+# one FiLM UNet evaluation at 256 latent frames: 20 attentions of 1024 and 256
+# tokens on the kernel (the 64-token ones plain, Sq < 256), 61 GroupNorms on
+# gn_silu_fwd (44 in the 22 res blocks, 16 transformer pre-norms, the output
+# norm), none two-stage
+AUDIOLDM_PER_EVAL = {"attn_fwd": 20, "gn_silu_fwd": 61}
+# the FiLM UNet on the card against the CPU, f32, as the largest difference
+# over the CPU output's largest magnitude. cuDNN runs f32 convolutions in
+# TF32 (the default), one rounding of 2^-11 relative of each operand; the
+# UNet's longest chain holds 52 convolutions (input, 22 res blocks' 44, 3
+# down, 3 up, output), whose errors add at worst: 52 * 2^-11 ~ 2.5e-2; in
+# quadrature they give ~3.5e-3 (Cnn14's 12 convolutions read 4.8e-4 on an
+# NVIDIA H100 80GB HBM3 at 700 W)
+AUDIOLDM_CARD_CPU_LIMIT = 2.5e-2
 # the predictors on the card against the CPU, both f32 (matmuls without TF32):
 # the largest difference as a share of the CPU output's largest magnitude.
 # f32 rounds at 2^-24 ~ 6e-8 a product; a dot product of K terms summed in
@@ -759,12 +822,22 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
                                                       what))
                 q4, k4, v4 = (t.reshape(1, bh, -1, d) for t in (q, k, v))
                 add = cases[name].add_time if tag == "bf16" else cases[name].add_time_f32
-                add(cuda_ms(lambda: fn(q, k, v, scale)),
-                    cuda_ms(lambda: plain(q, k, v, scale)),
-                    cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
-                    *attn_bound_ms(q.element_size() * (2 * bh * sq * d + 2 * bh * skv * d),
-                                   flops, tag),
-                    [qshape, kshape], flops=flops)
+                times = (cuda_ms(lambda: fn(q, k, v, scale)),
+                         cuda_ms(lambda: plain(q, k, v, scale)),
+                         cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                        scale=scale)))
+                bound = attn_bound_ms(q.element_size() * (2 * bh * sq * d + 2 * bh * skv * d),
+                                      flops, tag)
+                add(*times, *bound, [qshape, kshape], flops=flops)
+                if not tc_body(dt, d):
+                    # the CUDA-core body's own totals (AudioLDM's head dim 32)
+                    row = cases[name].notes.setdefault("core_body", {}).setdefault(
+                        tag, {"shapes": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                              "bound_ms": 0.0})
+                    row["shapes"] += 1
+                    for key, val in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                                        (*times, bound[0])):
+                        row[key] += val
         for qshape, kshape in TC_SHAPES[name]:
             for tag, dt in dtypes.items():
                 if not tc_body(dt, qshape[2]):
@@ -1634,18 +1707,30 @@ def read_counters(ops) -> tuple[dict, dict, dict, dict]:
             cluster_counts(ops))
 
 
+def tc_problems(path: str, launches: dict, tc: dict) -> list:
+    """Launches off the body `path` must take: on a path of CORE_ATTN_PATHS
+    every attention launch on its CUDA-core body (tensor-core launches 0),
+    elsewhere every launch of a kernel that has a tensor-core body on it."""
+    core = path in CORE_ATTN_PATHS
+    want = {n: 0 if core and n.startswith("attn_") else launches[n] for n in tc}
+    off = {n: (launches[n], tc[n]) for n in tc if tc[n] != want[n]}
+    if not off:
+        return []
+    return [f"launches off the {'CUDA-core' if core else 'tensor-core'} body "
+            f"(launches, tensor-core): {off}"]
+
+
 def body_problems(path: str, launches: dict, tc: dict, cluster: dict) -> list:
-    """A training path's launch problems: a kernel of PATH_KERNELS[path] that
-    never launched; a D = 64 attention launch (all of them, forward and
-    backward, f32) off its tensor-core body; a GroupNorm off its cluster body."""
+    """A counted path's launch problems: a kernel of PATH_KERNELS[path] that
+    never launched; an attention launch off the body the path's head dim
+    takes (`tc_problems`: the tensor-core one at D = 64, every launch of the
+    training paths, forward and backward, f32; the CUDA-core one on
+    AudioLDM's D = 32 path); a GroupNorm off its cluster body."""
     problems = []
     idle = [n for n in PATH_KERNELS[path] if launches[n] == 0]
     if idle:
         problems.append(f"kernels never launched on the {path} path: {idle}")
-    off = {n: (launches[n], tc[n]) for n in tc if tc[n] != launches[n]}
-    if off:
-        problems.append(f"launches off the tensor-core body (launches, tensor-core): {off}")
-    return problems + off_cluster(cluster, launches)
+    return problems + tc_problems(path, launches, tc) + off_cluster(cluster, launches)
 
 
 def wav_samples(body: bytes):
@@ -2665,6 +2750,359 @@ def mustango_phase(C, ops, tango, counted, instrument, expect_len: int, root: st
     return launches, shapes
 
 
+FILM_NAMES = (
+    (r"^input_(\d+)_res\.", r"input_blocks.\1.0."),
+    (r"^input_(\d+)_attn\.", r"input_blocks.\1.1."),
+    (r"^input_(\d+)_down\.conv\.", r"input_blocks.\1.0.op."),
+    (r"^middle_res1\.", "middle_block.0."),
+    (r"^middle_attn\.", "middle_block.1."),
+    (r"^middle_res2\.", "middle_block.2."),
+    (r"^output_(\d+)_res\.", r"output_blocks.\1.0."),
+    (r"^output_(\d+)_attn\.", r"output_blocks.\1.1."),
+    (r"^input_conv\.", "input_blocks.0.0."),
+    (r"^time_embed_(\d)\.", r"time_embed.\1."),
+    (r"^out_norm\.", "out.0."),
+    (r"^out_conv\.", "out.2."),
+)
+# inside a block: the res block's and the transformer's layers
+FILM_LAYER_NAMES = (
+    (r"\.in_norm\.", ".in_layers.0."), (r"\.in_conv\.", ".in_layers.2."),
+    (r"\.emb_proj\.", ".emb_layers.1."), (r"\.out_norm\.", ".out_layers.0."),
+    (r"\.out_conv\.", ".out_layers.3."), (r"\.skip\.", ".skip_connection."),
+    (r"\.(norm[123]|attn[12]|ff)\.", r".transformer_blocks.0.\1."),
+    (r"\.to_out_0\.", ".to_out.0."), (r"\.ff\.net_0_proj\.", ".ff.net.0.proj."),
+    (r"\.ff\.net_2\.", ".ff.net.2."))
+
+
+def reference_film_unet_state_dict(unet) -> dict:
+    """FiLM UNet `unet`'s weights under the reference's openai UNetModel
+    names, f32 on the host: `convert_film_unet` run backwards (each
+    self-attention's to_qkv split into to_q, to_k, to_v; an upsample after
+    an output block's transformer is its layer 2, else 1). Builds the
+    smoke's monolithic checkpoint, nothing else."""
+    out = {}
+    for k, v in unet.state_dict().items():
+        v = v.detach().to("cpu", torch.float32)
+        up = re.match(r"^output_(\d+)_up\.conv\.", k)
+        if up:
+            layer = 2 if hasattr(unet, f"output_{up[1]}_attn") else 1
+            k = f"output_blocks.{up[1]}.{layer}.conv." + k[up.end():]
+        else:
+            for rx, rep in FILM_NAMES:
+                k, n = re.subn(rx, rep, k)
+                if n:
+                    break
+        for rx, rep in FILM_LAYER_NAMES:
+            k = re.sub(rx, rep, k)
+        if k.endswith(".to_qkv.weight"):
+            for name, part in zip("qkv", v.chunk(3)):
+                out[k[: -len("qkv.weight")] + f"{name}.weight"] = part.clone()
+        else:
+            out[k] = v
+    return out
+
+
+def write_audioldm_checkpoint(path: str, C) -> tuple:
+    """A full-width monolithic audioldm-s-full checkpoint of seeded random f32
+    weights at `path`, in the released layout ({"state_dict": ...}): the FiLM
+    UNet (AUDIOLDM_S_UNET) under `model.diffusion_model.`, TANGO_VAE with its
+    encoder and the weight-normed TANGO_HIFIGAN vocoder under
+    `first_stage_model.` (`reference_vae_state_dict`), RoBERTa-base,
+    HTSAT-tiny and both projections under `cond_stage_model.model.`
+    (LAION-CLAP's names), and `scale_factor`. Every part converts back
+    through the port's converters bit-equal, the vocoder within f32 rounding
+    (the weight-norm fold); checked. Returns (the written modules by name,
+    bytes and seconds)."""
+    from tango_tpu_torch.models.audioldm_unet import AUDIOLDM_S_UNET, FilmUNet, \
+        convert_film_unet
+    from tango_tpu_torch.models.clap import ROBERTA_BASE, ClapTextEncoder, convert_clap_text
+    from tango_tpu_torch.models.hifigan import HiFiGANGenerator
+    from tango_tpu_torch.models.htsat import HTSAT_TINY, ClapAudioEncoder, convert_clap_audio
+    from tango_tpu_torch.models.vae import AutoencoderKL
+    from tango_tpu_torch.utils import convert as conv
+    from tango_tpu_torch.utils.init import init_random_
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+
+    def made(make):
+        with torch.device("meta"):
+            m = make()
+        return init_random_(m.to_empty(device=DEVICE), gen).eval().requires_grad_(False)
+
+    mods = {"unet": made(lambda: FilmUNet(AUDIOLDM_S_UNET)),
+            "vae": made(lambda: AutoencoderKL(C.TANGO_VAE, with_encoder=True)),
+            "vocoder": made(lambda: HiFiGANGenerator(C.TANGO_HIFIGAN)),
+            "clap_text": made(lambda: ClapTextEncoder(ROBERTA_BASE)),
+            "clap_audio": made(lambda: ClapAudioEncoder(HTSAT_TINY))}
+    pre = "cond_stage_model.model."
+    unet_ref = reference_film_unet_state_dict(mods["unet"])
+    vae_ref = reference_vae_state_dict(mods["vae"].state_dict(), mods["vocoder"].state_dict())
+    clap_ref = {**renamed(mods["clap_text"].state_dict(), CLAP_TEXT_NAMES),
+                **renamed(mods["clap_audio"].state_dict(), CLAP_AUDIO_NAMES)}
+    sd = {**{"model.diffusion_model." + k: v for k, v in unet_ref.items()},
+          **{"first_stage_model." + k: v for k, v in vae_ref.items()},
+          **{pre + k: v for k, v in clap_ref.items()},
+          "scale_factor": torch.tensor(AUDIOLDM_SCALE)}
+    vocoder_ref = {k[len("vocoder."):]: v for k, v in vae_ref.items()
+                   if k.startswith("vocoder.")}
+    back = {"unet": convert_film_unet(unet_ref, AUDIOLDM_S_UNET),
+            "vae": conv.convert_vae(vae_ref, with_encoder=True),
+            "vocoder": conv.convert_hifigan(vocoder_ref),
+            "clap_text": convert_clap_text(clap_ref),
+            "clap_audio": convert_clap_audio(clap_ref, HTSAT_TINY)}
+    problems = []
+    for name, b in back.items():
+        a = {k: v.cpu() for k, v in mods[name].state_dict().items()}
+        if set(a) != set(b):
+            problems.append(f"{name}: keys differ")
+        elif name == "vocoder":
+            worst = max(((a[k] - b[k]).abs() / a[k].abs().amax().clamp(min=1e-30)).max().item()
+                        for k in a)
+            if worst > 1e-6:
+                problems.append(f"vocoder: {worst} relative off after the weight-norm fold")
+        elif any(not torch.equal(a[k], b[k]) for k in a):
+            problems.append(f"{name}: tensors differ")
+    if problems:
+        raise AssertionError(f"audioldm checkpoint does not convert back: {problems}")
+    del back, unet_ref, vae_ref, clap_ref, vocoder_ref
+    torch.save({"state_dict": sd}, path)
+    del sd
+    counts = {n: sum(p.numel() for p in m.parameters()) for n, m in mods.items()}
+    return mods, {"write_s": round(time.perf_counter() - t0, 3),
+                  "bytes": os.path.getsize(path), "params": counts}
+
+
+def audioldm_phase(C, ops, counted, root: str) -> tuple:
+    """Phase `audioldm`: the full-width AudioLDM-S written as a monolithic
+    checkpoint of seeded random weights under `root` (write_audioldm_checkpoint),
+    loaded by `build_model` in f32 with the port's RoBERTa word-hash tokenizer
+    (the native CLAP, not the stub), every weight held to the written one;
+    one UNet evaluation's launches (AUDIOLDM_PER_EVAL); then path `audioldm`,
+    counted: text_to_audio at AUDIOLDM_SECONDS, STEPS DDIM steps (eta 1.0),
+    AUDIOLDM_CANDIDATES candidates (CFG batch 6), AUDIOLDM_GUIDANCE, whose
+    output must be the candidate of the largest CLAP similarity;
+    style_transfer of a written 10 s WAV at AUDIOLDM_STRENGTH; and
+    super_resolution_and_inpainting, whose final latents must equal the
+    source's outside the mask. Every attention launch on the CUDA-core body
+    (head dim 32), AUDIOLDM_PER_EVAL["attn_fwd"] an evaluation, every
+    GroupNorm on its cluster body. Then, uncounted: one FiLM UNet evaluation
+    and one DDIM step (eta 0) on the card against the CPU in f32
+    (AUDIOLDM_CARD_CPU_LIMIT); `python -m tango_tpu_torch.audioldm` once in
+    a subprocess on the checkpoint. Deletes `root`. Returns counted's
+    (launches, shapes)."""
+    import numpy as np
+
+    from tango_tpu_torch.audio.wav import write_wav
+    from tango_tpu_torch.audioldm import pipeline as pl
+    from tango_tpu_torch.models.audioldm_unet import FilmUNet
+    from tango_tpu_torch.models.layers import frozen
+    from tango_tpu_torch.tokenizer import roberta_word_hash
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ckpt = os.path.join(root, "audioldm-s-full.ckpt")
+    need = 3e9
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise AssertionError(f"audioldm: {free} bytes free under {root}, the checkpoint "
+                             f"needs about {int(need)}")
+    written, info = write_audioldm_checkpoint(ckpt, C)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = pl.build_model(ckpt, tokenizer=roberta_word_hash(), device=DEVICE)
+    # the modules are built at first use: the load includes them
+    unet, _, _ = pipe.unet, pipe.vae, pipe.vocoder
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    from tango_tpu_torch.models.clap import Clap
+
+    if not isinstance(pipe.conditioner, Clap):
+        raise AssertionError(f"audioldm: the conditioner is {type(pipe.conditioner).__name__}, "
+                             "not the native CLAP")
+    params = compare_modules([
+        ("unet", written["unet"], unet, True), ("vae", written["vae"], pipe.vae, True),
+        ("vocoder", written["vocoder"], pipe.vocoder, False),
+        ("clap_text", written["clap_text"], pipe.conditioner.text.model, True),
+        ("clap_audio", written["clap_audio"], pipe.conditioner.audio_model, True)])
+    del written
+    torch.cuda.empty_cache()
+    log("audioldm_build", **info, load_s=round(load_s, 3),
+        scale_factor=pipe.vae_config.scale_factor, params_checked=params, dtype=str(pipe.dtype))
+
+    n_cand = AUDIOLDM_CANDIDATES
+    frames = pl.duration_to_latent_t_size(AUDIOLDM_SECONDS)
+    film = torch.from_numpy(np.repeat(pipe.conditioner.text_embed([AUDIOLDM_PROMPT]),
+                                      2 * n_cand, axis=0)).to(DEVICE)
+    lat = torch.randn(2 * n_cand, frames, pipe.latent_f_size, 8, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(5))
+    steps = torch.full((2 * n_cand,), 901, device=DEVICE)
+    ops.reset_counters()
+    with torch.inference_mode():
+        unet(lat, steps, film)
+    torch.cuda.synchronize()
+    per_eval = {n: fn.launches for n, fn in ops.KERNELS.items() if fn.launches}
+    eval_shapes = sorted(ops.KERNELS["attn_fwd"].shapes, key=str)
+    if any(per_eval.get(n, 0) != v for n, v in AUDIOLDM_PER_EVAL.items()) or \
+            per_eval.get("gn_stats", 0):
+        raise AssertionError(f"audioldm: one UNet evaluation launched {per_eval}, expected "
+                             f"{AUDIOLDM_PER_EVAL} and no two-stage GroupNorm")
+
+    # the source clip of style transfer and inpainting: 10 s of partials
+    src = os.path.join(root, "source.wav")
+    t = np.arange(int(AUDIOLDM_SECONDS * 16000)) / 16000.0
+    write_wav(src, (0.3 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 660 * t)
+                    * (0.5 + 0.5 * np.sin(2 * np.pi * 0.5 * t))).astype(np.float32))
+
+    rec = {"evals": 0, "decoded": [], "z0": [], "sims": [], "sample_s": 0.0, "steps": 0}
+    hook = unet.register_forward_pre_hook(lambda *a: rec.__setitem__("evals", rec["evals"] + 1))
+    decode, encode, sample = pipe.decode, pipe.encode_first_stage, pipe.sample_latents
+    similarity = pipe.conditioner.similarity
+
+    def recording_decode(latents):
+        rec["decoded"].append((latents.float().clone(), decode(latents)))
+        return rec["decoded"][-1][1]
+
+    def recording_encode(*a, **k):
+        rec["z0"].append(encode(*a, **k))
+        return rec["z0"][-1]
+
+    def timed_sample(*a, **k):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        out = sample(*a, **k)
+        torch.cuda.synchronize()
+        rec["sample_s"] += time.perf_counter() - s0
+        rec["steps"] += k["ddim_steps"]
+        return out
+
+    def recording_similarity(wavs, prompt):
+        rec["sims"].append(np.asarray(similarity(wavs, prompt)))
+        return rec["sims"][-1]
+
+    pipe.decode, pipe.encode_first_stage, pipe.sample_latents = (recording_decode,
+                                                                 recording_encode, timed_sample)
+    pipe.conditioner.similarity = recording_similarity
+    checks = {}
+
+    def drive():
+        seconds = {}
+        s0 = time.perf_counter()
+        gen = pl.text_to_audio(pipe, AUDIOLDM_PROMPT, seed=0, ddim_steps=STEPS,
+                               duration=AUDIOLDM_SECONDS, batchsize=1,
+                               guidance_scale=AUDIOLDM_GUIDANCE, n_candidate_gen_per_text=n_cand)
+        torch.cuda.synchronize()
+        seconds["text_to_audio"] = time.perf_counter() - s0
+        checks["gen_shape"] = list(gen.shape)
+        lat, wavs = rec["decoded"][0]
+        best = int(np.argmax(rec["sims"][0]))
+        checks["rerank"] = {"sims": rec["sims"][0].tolist(), "picked": best,
+                            "output_is_picked": bool(np.array_equal(gen[0], wavs[best]))}
+        checks["latents_max_abs"] = lat.abs().max().item()
+        checks["ms_per_ddim_step_cfg_batch_6"] = 1e3 * rec["sample_s"] / rec["steps"]
+        checks["gen_evals"] = rec["evals"]
+        s0 = time.perf_counter()
+        st = pl.style_transfer(pipe, AUDIOLDM_PROMPT, src, AUDIOLDM_STRENGTH, seed=0,
+                               duration=AUDIOLDM_SECONDS, guidance_scale=AUDIOLDM_GUIDANCE,
+                               ddim_steps=STEPS)
+        torch.cuda.synchronize()
+        seconds["style_transfer"] = time.perf_counter() - s0
+        s0 = time.perf_counter()
+        inp = pl.super_resolution_and_inpainting(pipe, AUDIOLDM_PROMPT, src, seed=0,
+                                                 ddim_steps=STEPS, duration=AUDIOLDM_SECONDS,
+                                                 guidance_scale=AUDIOLDM_GUIDANCE)
+        torch.cuda.synchronize()
+        seconds["inpainting"] = time.perf_counter() - s0
+        lat_in, z0 = rec["decoded"][-1][0], rec["z0"][-1]
+        mask = torch.from_numpy(pl.inpainting_mask(z0.shape[1], z0.shape[2], (0.10, 0.15),
+                                                   (1.0, 1.0)) == 0).to(DEVICE).expand_as(z0)
+        checks["inpaint_kept_max_abs_diff"] = (lat_in[mask] - z0[mask]).abs().max().item()
+        checks["inpaint_kept_share"] = mask.float().mean().item()
+        checks["all_latents_finite"] = all(bool(torch.isfinite(x).all())
+                                           for x, _ in rec["decoded"])
+        return [gen[0], st[0], inp[0]], seconds
+
+    wav_len = frames * 4 * 160 + 32
+    lens = [wav_len, (frames - 3) * 4 * 160 + 32, wav_len]
+
+    def extra(launches):
+        return dict(load_s=round(load_s, 3), per_eval=per_eval,
+                    attn_fwd_shapes_per_eval=[list(map(list, s)) for s in eval_shapes],
+                    evals=rec["evals"], attn_fwd_per_eval=launches["attn_fwd"] / rec["evals"],
+                    **checks)
+
+    try:
+        launches, shapes = counted("audioldm", drive, lens, extra=extra)
+    finally:
+        hook.remove()
+        pipe.decode, pipe.encode_first_stage, pipe.sample_latents = decode, encode, sample
+        pipe.conditioner.similarity = similarity
+    problems = []
+    if launches["attn_fwd"] != AUDIOLDM_PER_EVAL["attn_fwd"] * rec["evals"]:
+        problems.append(f"attn_fwd: {launches['attn_fwd']} launches for {rec['evals']} UNet "
+                        f"evaluations, {AUDIOLDM_PER_EVAL['attn_fwd']} an evaluation expected")
+    if any(q[2] != 32 for q, _ in shapes["attn_fwd"]):
+        problems.append(f"attn_fwd shapes not at head dim 32: {sorted(shapes['attn_fwd'])}")
+    if checks["gen_shape"] != [1, wav_len] or not checks["rerank"]["output_is_picked"]:
+        problems.append(f"text_to_audio: shape {checks['gen_shape']}, "
+                        f"re-ranking {checks['rerank']}")
+    if checks["inpaint_kept_max_abs_diff"] != 0.0:
+        problems.append(f"inpainting: latents outside the mask differ from the source's by "
+                        f"{checks['inpaint_kept_max_abs_diff']}")
+    if not checks["all_latents_finite"]:
+        problems.append("non-finite latents")
+    if problems:
+        raise AssertionError("audioldm: " + "; ".join(problems))
+
+    # uncounted: one UNet evaluation (batch 1) and one DDIM step (eta 0) on
+    # the card against the CPU, f32
+    cpu_unet = frozen(lambda: FilmUNet(pipe.unet_config), pipe.unet_params, "cpu")
+    x, f, tt = lat[:1].float().cpu(), film[:1].float().cpu(), torch.tensor([901])
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out_cpu = cpu_unet(x, tt, f)
+        step_cpu, _ = pipe.scheduler.step(out_cpu, 901, x, None, STEPS, eta=0.0)
+        out_card = unet(x.to(DEVICE), tt.to(DEVICE), f.to(DEVICE)).float()
+        step_card, _ = pipe.scheduler.step(out_card, 901, x.to(DEVICE), None, STEPS, eta=0.0)
+    cpu_s = time.perf_counter() - t0
+    cmp = [card_vs_cpu("film_unet", out_card.cpu(), out_cpu, AUDIOLDM_CARD_CPU_LIMIT,
+                       out_cpu.abs().max().item()),
+           card_vs_cpu("ddim_step", step_card.cpu(), step_cpu, AUDIOLDM_CARD_CPU_LIMIT,
+                       step_cpu.abs().max().item())]
+    del cpu_unet, pipe, unet, rec, film, lat
+    torch.cuda.empty_cache()
+
+    # the CLI once, in its own process, on the checkpoint
+    out_dir = os.path.join(root, "cli")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tango_tpu_torch.audioldm", "-t", AUDIOLDM_PROMPT, "--ckpt_path",
+         ckpt, "--ddim_steps", str(AUDIOLDM_CLI_STEPS), "-n", str(AUDIOLDM_CLI_CANDIDATES),
+         "-dur", str(AUDIOLDM_SECONDS), "-s", out_dir, "--device", DEVICE],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=300)
+    cli_s = time.perf_counter() - t0
+    names = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    pcm = read_int16(os.path.join(out_dir, names[0])) if names else np.zeros(0, np.int16)
+    shutil.rmtree(root)
+    safe = "".join(c if c.isalnum() or c in "-_" else "_"
+                   for c in AUDIOLDM_PROMPT.replace(" ", "_"))
+    if proc.returncode != 0:
+        problems.append(f"the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    if names != [f"0_{safe[:60]}_0.wav"] or pcm.shape != (wav_len,) or \
+            int(np.abs(pcm.astype(np.int32)).max()) == 0:
+        problems.append(f"the CLI wrote {names}, {pcm.shape} samples")
+    problems += [f"card vs CPU {c['what']}: {c['err']} over {c['limit']}" for c in cmp
+                 if not c["ok"]]
+    log("audioldm_cli", card_vs_cpu=cmp, card_vs_cpu_s=round(cpu_s, 3), cli_s=round(cli_s, 3),
+        cli_files=names, cli_stub_warned="stub" in proc.stderr,
+        phase_s=round(time.perf_counter() - t_phase, 3), problems=problems)
+    if problems:
+        raise AssertionError("audioldm: " + "; ".join(problems))
+    return launches, shapes
+
+
 def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
     """One full-width f32 SFTTrainer.fit on the card: 4 micro-steps at batch
     2 with accumulation 2 (2 updates), one validation batch, the best
@@ -2872,13 +3310,17 @@ def main(argv) -> int:
         first_wavs[path] = outs[0]
         launches, shapes, tc, cluster = read_counters(ops)
         problems = []
-        if path in TC_PATHS and any(tc[n] != launches[n] for n in tc):
-            problems.append(f"launches off the tensor-core body: launches "
-                            f"{ {n: launches[n] for n in tc} }, tensor-core {tc}")
+        if path in TC_PATHS or path in CORE_ATTN_PATHS:
+            problems += tc_problems(path, launches, tc)
         problems += off_cluster(cluster, launches)
-        for w in outs:
-            if w.dtype.name != "int16" or w.shape != (expect_len,):
-                problems.append(f"waveform {w.dtype} {w.shape}, expected int16 ({expect_len},)")
+        # one length for every waveform, or one a waveform
+        lens = list(expect_len) if isinstance(expect_len, (list, tuple)) else \
+            [expect_len] * len(outs)
+        if len(lens) != len(outs):
+            problems.append(f"{len(outs)} waveforms, {len(lens)} expected")
+        for w, n in zip(outs, lens):
+            if w.dtype.name != "int16" or w.shape != (n,):
+                problems.append(f"waveform {w.dtype} {w.shape}, expected int16 ({n},)")
             if int(abs(w.astype("int32")).max()) == 0:
                 problems.append("a silent waveform")
         if not (checks["latents_finite"] and checks["mel_finite"]):
@@ -3002,6 +3444,12 @@ def main(argv) -> int:
         new_shapes={n: len(v - set().union(*(p[1][n] for k, p in by_path.items()
                                               if k != "mustango")))
                     for n, v in by_path["mustango"][1].items()})
+
+    # ---- AudioLDM, full width, from a monolithic checkpoint, counted
+    by_path["audioldm"] = audioldm_phase(
+        C, ops, counted, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                      "smoke_audioldm"))
+    log("audioldm_done", total_s=round(time.perf_counter() - t_start, 3))
 
     remove = instrument(tango)
     # one uncounted step at each new shape first: cuDNN's and cuBLAS's first use

@@ -4,9 +4,8 @@ A copy of the fields of tango_tpu/configs.py, tango_tpu/models/t5.py and
 tango_tpu/models/deberta.py that the ported paths read, with the same names
 and defaults, so that `from_dict(jax_config.to_dict())` rebuilds a JAX config
 here (unknown keys are ignored), and so does a reference snapshot's JSON.
-Fields only an unported part reads are left out: DDIM's. A JSON that asks
-for geometry the port's modules lack raises instead of building another
-model.
+A JSON that asks for geometry the port's modules lack raises instead of
+building another model.
 """
 
 from __future__ import annotations
@@ -160,10 +159,12 @@ class VAEConfig(_FromDict):
         d = dict(d)
         d.update(d.pop("ddconfig", None) or {})
         if d.get("downsample_time_stride4_levels"):
-            # AudioLDM's stride-4 time downsampling; the port's VAE has none
+            # the stride-4 time downsampling variant: JAX's VAE has none
+            # either (tango_tpu/models/vae.py:103 asserts), and no shipped
+            # AudioLDM or Tango config uses it
             raise NotImplementedError(
-                "downsample_time_stride4_levels (AudioLDM's VAE) is not ported yet: "
-                "ROADMAP queue A #8")
+                "downsample_time_stride4_levels: the stride-4 VAE variant is implemented "
+                "neither here nor in the JAX package")
         return super().from_dict(d)
 
     def __post_init__(self):
@@ -208,7 +209,8 @@ class StftConfig(_FromDict):
 
 @dataclass(frozen=True)
 class SchedulerConfig(_FromDict):
-    """DDPM scheduler config; defaults are the stable-diffusion-2-1 scheduler."""
+    """DDPM and DDIM scheduler config; defaults are the stable-diffusion-2-1
+    scheduler. The last two fields are read by DDIM alone."""
 
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
@@ -222,6 +224,8 @@ class SchedulerConfig(_FromDict):
     thresholding: bool = False
     dynamic_thresholding_ratio: float = 0.995
     sample_max_value: float = 1.0
+    set_alpha_to_one: bool = False
+    steps_offset: int = 1
 
 
 @dataclass(frozen=True)

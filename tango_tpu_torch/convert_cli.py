@@ -8,6 +8,11 @@ manifest of the configs):
 
     python -m tango_tpu_torch.convert_cli tango <snapshot_dir> <out_dir>
     python -m tango_tpu_torch.convert_cli mustango <mustango_snapshot> <out_dir>
+    python -m tango_tpu_torch.convert_cli audioldm <audioldm-s-full.ckpt> <out_dir>
+
+(`audioldm`: the FiLM UNet under `unet.`, the VAE with its encoder under
+`vae.`, the folded vocoder under `hifigan.`, and the manifest
+{"kind": "audioldm", "scale_factor": s}.)
 
 Reverse, a UNet trained with the port (a `save_native` directory such as
 `SFTTrainer.fit`'s `best`, or `-` for the snapshot's own) -> the reference's
@@ -21,8 +26,7 @@ layout, bit-exact (tests/test_torch_convert_cli.py):
 and writes a fresh main bin; `export-mustango` copies Mustango's `configs/`,
 `vae/`, `stft/`, `beats/` and `chords/` over and writes a fresh
 `ldm/pytorch_model_ldm.bin` (the music UNet, the T5 encoder and the music
-conditioner). The kind `audioldm` (ROADMAP queue A #8) is not ported yet and
-raises. Everything runs on the host; nothing is downloaded.
+conditioner). Everything runs on the host; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -31,9 +35,8 @@ import os
 import shutil
 import sys
 
-NOT_PORTED = {
-    "audioldm": "AudioLDM's checkpoint (ROADMAP queue A #8)",
-}
+# every kind of the JAX CLI is ported
+NOT_PORTED: dict = {}
 # what export-snapshot copies from the source snapshot unchanged
 SNAPSHOT_FILES = ("pytorch_model_vae.bin", "pytorch_model_stft.bin", "vae_config.json",
                   "stft_config.json", "main_config.json", "unet_config.json")
@@ -92,6 +95,19 @@ def main(argv=None):
         manifest = {"kind": "mustango", "unet_config": loaded["unet_config"].to_dict(),
                     "vae_config": loaded["vae_config"].to_dict()}
         ckpt_io.save_native(dst, state, manifest)
+        print(f"converted {kind} checkpoint -> {dst}")
+    elif kind == "audioldm":
+        from tango_tpu_torch.models.audioldm_unet import convert_film_unet
+        from tango_tpu_torch.utils.convert import load_torch_bin
+
+        vae_params, hifigan_params, scale = ckpt_io.load_audioldm_ckpt(src)
+        pre = "model.diffusion_model."
+        unet_sd = {k[len(pre):]: v for k, v in load_torch_bin(src).items() if k.startswith(pre)}
+        parts = {"unet": convert_film_unet(unet_sd) if unet_sd else None, "vae": vae_params,
+                 "hifigan": hifigan_params}
+        state = {f"{name}.{k}": v for name, sd in parts.items() if sd is not None
+                 for k, v in sd.items()}
+        ckpt_io.save_native(dst, state, {"kind": "audioldm", "scale_factor": scale})
         print(f"converted {kind} checkpoint -> {dst}")
     elif kind == "export-mustango":
         from tango_tpu_torch.pipeline_music import convert_mustango_ldm

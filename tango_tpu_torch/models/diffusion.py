@@ -20,6 +20,7 @@ import torch
 
 from tango_tpu_torch.configs import SchedulerConfig, UNetConfig, resolve_device
 from tango_tpu_torch.models.unet import UNet2DConditionModel
+from tango_tpu_torch.schedulers.ddim import DDIMScheduler
 from tango_tpu_torch.schedulers.ddpm import DDPMScheduler
 from tango_tpu_torch.utils.init import init_random_
 
@@ -146,6 +147,8 @@ class AudioDiffusion:
         guidance_scale: float = 3.0,
         uncond_embeds: Optional[torch.Tensor] = None,
         uncond_mask: Optional[torch.Tensor] = None,
+        scheduler: str = "ddpm",
+        eta: float = 0.0,
         extra_contexts: Sequence[torch.Tensor] = (),
         extra_masks: Sequence[torch.Tensor] = (),
         uncond_extra_contexts: Sequence[torch.Tensor] = (),
@@ -156,13 +159,15 @@ class AudioDiffusion:
         """CFG denoising loop -> latents (B, T, F, C) f32.
 
         CFG runs when `uncond_embeds` is given, with the batch ordered
-        [uncond, cond]. The extra streams (Mustango's beats and chords) come
+        [uncond, cond]. `scheduler="ddim"` steps a DDIM scheduler built from
+        `scheduler_config` with `eta` (0: deterministic) instead of DDPM. The extra streams (Mustango's beats and chords) come
         with a mask each and, under CFG, an unconditional context each; their
         unconditional masks default to the conditional ones.
         `noise_override=(init_latents, step_noises)` replaces the random
         draws (step_noises is (num_steps, B, T, F, C)), so that a test can
         feed the JAX sampler and this one the same noise."""
-        sched = self.inference_scheduler
+        sched = (DDIMScheduler.create(self.scheduler_config) if scheduler == "ddim"
+                 else self.inference_scheduler)
         device = cond_embeds.device
         timesteps = sched.timesteps(num_steps)
         bsz = cond_embeds.shape[0]
@@ -212,5 +217,8 @@ class AudioDiffusion:
                 pred = pred_uncond + guidance_scale * (pred_text - pred_uncond)
             noise = (step_noises[i] if step_noises is not None
                      else randn_rows(latents.shape, generator, device))
-            latents, _ = sched.step(pred, t, latents, noise, num_steps)
+            if scheduler == "ddim":
+                latents, _ = sched.step(pred, t, latents, noise, num_steps, eta=eta)
+            else:
+                latents, _ = sched.step(pred, t, latents, noise, num_steps)
         return latents

@@ -30,8 +30,7 @@ The tokenizer: the caller's, or `WordHashTokenizer` (FLAN-T5's
 SentencePiece tokenizer needs `transformers`, which the port does not use;
 `Tango(path)` warns when it falls back to the word hash).
 
-Not ported yet: the device mesh (`mesh=`, ROADMAP queue A #10), the DDIM
-scheduler.
+Not ported yet: the device mesh (`mesh=`, ROADMAP queue A #10).
 """
 
 from __future__ import annotations

@@ -5,7 +5,12 @@
 
 The flags are JAX's, with its defaults (the reference's train.py:33-198,
 train.sh's recipe), plus `--device`. The VAE (with its encoder), the T5
-encoder and the STFT come from `--tango_snapshot`; `--hf_model`, a snapshot
+encoder and the STFT come from `--tango_snapshot`; without it, from
+`--audioldm_ckpt`, a monolithic audioldm-*-full `.ckpt`, the VAE (TANGO_VAE
+with the checkpoint's scale_factor, as JAX builds it) alone, with the
+default STFT: that file carries no text encoder, so the T5 encoder must then
+come from `--hf_model`'s main bin, and without one the CLI exits, as it does
+for a snapshot without an encoder. `--hf_model`, a snapshot
 directory, starts the UNet (and the T5, and the UNet config where it ships
 one) from its main bin, as the tango-full-ft recipe does; otherwise the UNet
 starts from seeded random weights. `--resume_from_checkpoint` restores the
@@ -16,13 +21,14 @@ record an epoch) go to `--output_dir`.
 
 Nothing is downloaded: a name that is not a local directory raises. The
 tokenizer is the caller's (`main(argv, tokenizer=)`) or `WordHashTokenizer`,
-with a warning. Not ported: `--audioldm_ckpt` (AudioLDM's VAE, ROADMAP queue
-A #8), `--model_parallel > 1` and multi-process launches (the mesh, #10).
+with a warning. Not ported: `--model_parallel > 1` and multi-process launches
+(the mesh, ROADMAP queue A #10).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -54,7 +60,7 @@ def parse_args(argv=None):
     p.add_argument("--save_every", type=int, default=5,
                    help="with --checkpointing_steps best, also save epoch_N every N epochs")
     p.add_argument("--audioldm_ckpt", type=str, default=None,
-                   help="AudioLDM checkpoint for the VAE (not ported yet: queue A #8)")
+                   help="monolithic AudioLDM checkpoint for the VAE, without --tango_snapshot")
     p.add_argument("--text_encoder_name", type=str, default="google/flan-t5-large")
     p.add_argument("--scheduler_name", type=str, default="stabilityai/stable-diffusion-2-1")
     p.add_argument("--unet_model_config", type=str, default=None)
@@ -152,10 +158,6 @@ def make_log_fn(enabled: bool, project: str, config: dict):
 def main(argv=None, tokenizer=None):
     args = parse_args(argv)
     check_single_process(args.model_parallel)
-    if args.audioldm_ckpt:
-        raise SystemExit("--audioldm_ckpt needs AudioLDM's VAE, which is not ported yet: "
-                         "ROADMAP queue A #8; use --tango_snapshot")
-
     import torch
 
     from tango_tpu_torch import configs as C
@@ -177,15 +179,19 @@ def main(argv=None, tokenizer=None):
     if args.unet_model_config:
         with open(args.unet_model_config) as f:
             unet_config = C.UNetConfig.from_dict(json.load(f))
-    if not args.tango_snapshot:
-        raise SystemExit("need --tango_snapshot for the VAE weights")
-    loaded = ckpt_io.load_tango_snapshot(local_dir(args.tango_snapshot, "--tango_snapshot"),
-                                         with_encoder=True)
-    vae_config, stft_config = loaded["vae_config"], loaded["stft_config"]
-    t5_params, t5_config = loaded["t5_params"], loaded["t5_config"]
-    vae = frozen(lambda: AutoencoderKL(vae_config, with_encoder=True), loaded["vae_params"],
-                 device)
-    del loaded  # the snapshot's UNet is not trained on: --hf_model's is
+    if args.tango_snapshot:
+        loaded = ckpt_io.load_tango_snapshot(local_dir(args.tango_snapshot, "--tango_snapshot"),
+                                             with_encoder=True)
+        vae_config, stft_config = loaded["vae_config"], loaded["stft_config"]
+        t5_params, t5_config = loaded["t5_params"], loaded["t5_config"]
+        vae_params = loaded["vae_params"]
+        del loaded  # the snapshot's UNet is not trained on: --hf_model's is
+    elif args.audioldm_ckpt:
+        vae_params, _, scale = ckpt_io.load_audioldm_ckpt(args.audioldm_ckpt)
+        vae_config = dataclasses.replace(C.TANGO_VAE, scale_factor=scale)
+        stft_config, t5_params, t5_config = C.TANGO_STFT, None, None
+    else:
+        raise SystemExit("need --tango_snapshot (or --audioldm_ckpt) for the VAE weights")
 
     init_unet_params = None
     if args.hf_model:
@@ -204,9 +210,10 @@ def main(argv=None, tokenizer=None):
             f"no text-encoder weights in the given checkpoints, and the port downloads "
             f"nothing (the reference loads {args.text_encoder_name} from the hub): use a "
             "--tango_snapshot or --hf_model whose main bin holds the encoder")
+    vae = frozen(lambda: AutoencoderKL(vae_config, with_encoder=True), vae_params, device)
     t5_config = t5_config or C.FLAN_T5_LARGE
     t5 = frozen(lambda: T5Encoder(t5_config), t5_params, device)
-    del t5_params
+    del t5_params, vae_params
     tokenizer = default_tokenizer(tokenizer, t5_config.vocab_size)
 
     train_cfg = C.TrainConfig(

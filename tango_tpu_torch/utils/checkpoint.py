@@ -6,8 +6,9 @@ snapshot directory holds `main_config.json`, `vae_config.json`, optionally
 UNet under `unet.`, the frozen T5 encoder under `text_encoder.`) and
 `pytorch_model_vae.bin` (the VAE, with the HiFi-GAN vocoder under
 `vocoder.`). They load into configs and state dicts of the port's modules,
-through `utils.convert`. AudioLDM's single `.ckpt` waits for its VAE
-(ROADMAP queue A #8).
+through `utils.convert`. `load_audioldm_ckpt` reads the VAE (with its
+encoder), the vocoder and the scale factor out of AudioLDM's monolithic
+`.ckpt` (the FiLM UNet and CLAP in it load in `audioldm.pipeline`).
 
 Native checkpoints (`save_native`, `load_native`): the JAX package's
 directory layout, `<dir>/params` for the tensors and `<dir>/manifest.json`
@@ -134,6 +135,16 @@ def load_tango_snapshot(path: str, with_encoder: bool = False) -> Dict[str, Any]
         "hifigan_params": hifigan_params,
         "hifigan_config": hifigan_config,
     }
+
+
+def load_audioldm_ckpt(path: str):
+    """A monolithic audioldm-*-full `.ckpt` -> (the VAE's state dict, its
+    encoder and quant_conv included; the folded HiFi-GAN state dict, or None
+    where the file has no vocoder; scale_factor)."""
+    vae_sd, scale = conv.split_audioldm_ckpt(conv.load_torch_bin(path))
+    vocoder = {k[len("vocoder."):]: v for k, v in vae_sd.items() if k.startswith("vocoder.")}
+    return (conv.convert_vae(vae_sd, with_encoder=True),
+            conv.convert_hifigan(vocoder) if vocoder else None, scale)
 
 
 def save_native(path: str, state_dict: Mapping[str, torch.Tensor],

@@ -2,7 +2,8 @@
 
 Reference names (a snapshot's `.bin` files, the goldens' `sd::` keys): port
 of tango_tpu/utils/convert.py. `load_torch_bin` reads a file into f32 CPU
-tensors; `convert_unet` (diffusers), `convert_vae` (AudioLDM) and
+tensors; `split_audioldm_ckpt` takes the VAE and its scale factor out of
+AudioLDM's monolithic checkpoint; `convert_unet` (diffusers), `convert_vae` (AudioLDM) and
 `convert_hifigan` (HiFi-GAN, weight-normed or folded) rename the keys onto
 the port's modules. Both sides are torch layouts, so nothing is transposed;
 what changes:
@@ -43,7 +44,10 @@ name and the layout:
   fme_translation_bias             -> kept as it is (the MusicConditioner's)
 
 Fused projections stay fused: the port's attention modules hold `to_qkv`
-(self-attention) and `to_kv` (cross-attention) as the JAX modules do.
+(self-attention) and `to_kv` (cross-attention) as the JAX modules do. The
+one JAX tree with unfused self-attention projections, the FiLM UNet's
+(`input_{i}_attn/attn1/to_q|to_k|to_v`, and attn2's alike), gets them
+concatenated into `to_qkv`, the port's FilmUNet's.
 """
 
 from __future__ import annotations
@@ -125,6 +129,11 @@ def from_jax_params(params: Mapping, skip: Iterable[str] = ()) -> Dict[str, torc
         key, w = _convert_leaf(path, w)
         dtype = np.int8 if path[-1] == "kernel_q" else np.float32
         out[key] = torch.from_numpy(np.array(w, dtype=dtype, order="C"))
+    for k in [k for k in out if k.endswith(".to_q.weight")]:
+        pre = k[: -len("to_q.weight")]
+        if pre + "to_k.weight" in out and pre + "to_v.weight" in out:
+            out[pre + "to_qkv.weight"] = torch.cat([out.pop(pre + f"to_{n}.weight")
+                                                    for n in "qkv"])
     return out
 
 
@@ -144,6 +153,15 @@ def load_torch_bin(path: str) -> StateDict:
         v = sd.pop(k)
         out[k] = v.detach().float() if torch.is_tensor(v) else torch.tensor(v, dtype=torch.float32)
     return out
+
+
+def split_audioldm_ckpt(sd: Mapping[str, torch.Tensor]):
+    """A monolithic audioldm-*-full state dict -> (its VAE state dict, the
+    `first_stage_model.` keys with the prefix taken off, the vocoder's
+    `vocoder.*` among them; scale_factor as a float)."""
+    scale = float(sd["scale_factor"])
+    pre = "first_stage_model."
+    return {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}, scale
 
 
 def fold_weight_norm(sd: Mapping[str, torch.Tensor]) -> StateDict:

@@ -4,8 +4,9 @@ own UNet give back the reference main bin bit for bit and key for key; a
 trained UNet checkpoint goes in place of it; the exported snapshot reloads
 through `Tango(path)`; `tango` writes the native directory with JAX's
 manifest; Mustango's `mustango` and `export-mustango` convert and export
-snapshot_tiny_mustango; `audioldm`, not ported, raises, naming its queue
-item."""
+snapshot_tiny_mustango; `audioldm` (queue A #8, ported) writes the native
+directory of a tiny monolithic AudioLDM checkpoint, each part equal to JAX's
+loader's; `NOT_PORTED` is empty."""
 
 import json
 import os
@@ -113,20 +114,54 @@ def test_tango_kind_writes_native(tmp_path):
         assert shared and {k: manifest[name][k] for k in shared} == {k: want[k] for k in shared}
 
 
+def _convert_audioldm(tmp_path):
+    import functools
+
+    from tango_tpu.utils.checkpoint import load_audioldm_ckpt as j_load_audioldm_ckpt
+    from tango_tpu_torch.models import audioldm_unet as film
+    from tango_tpu_torch.utils.convert import from_jax_params
+
+    from tests.test_torch_audioldm import GOLDEN_FILM, _tiny_monolithic_ckpt
+
+    src = _tiny_monolithic_ckpt(str(tmp_path / "tiny.ckpt"))
+    cfg = film.FilmUNetConfig(**GOLDEN_FILM)
+    convert = film.convert_film_unet
+    film.convert_film_unet = functools.partial(convert, cfg=cfg)
+    try:
+        convert_cli.main(["audioldm", src, str(tmp_path / "x")])
+    finally:
+        film.convert_film_unet = convert
+    state, manifest = load_native(str(tmp_path / "x"))
+    assert manifest == {"kind": "audioldm", "scale_factor": pytest.approx(0.87)}
+    sd = load_torch_bin(src)
+    pre = "model.diffusion_model."
+    jvae, jhifi, _ = j_load_audioldm_ckpt(src)
+    for part, want in (("unet", convert({k[len(pre):]: v for k, v in sd.items()
+                                         if k.startswith(pre)}, cfg)),
+                       ("vae", from_jax_params(jvae)), ("hifigan", from_jax_params(jhifi))):
+        got = {k[len(part) + 1:]: v for k, v in state.items() if k.startswith(part + ".")}
+        assert set(got) == set(want), part
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-7, msg=k)
+    assert any(k.startswith("vae.encoder.") for k in state)
+
+
 @pytest.mark.parametrize("kind,item", [("audioldm", "#8"), ("mustango", "#7"),
                                        ("export-mustango", "#7")])
 def test_not_ported_kinds_raise(kind, item, tmp_path):
-    """audioldm (queue A #8) still raises and writes nothing. Mustango's two
-    kinds (queue A #7) are ported: `mustango` writes the native directory,
-    every part equal to the loader's, and `export-mustango` of the
-    snapshot's own UNet gives back the ldm bin bit for bit, with configs/
-    and vae/ copied."""
+    """The kinds of queue A #8 and #7, once refused, are ported. `audioldm`
+    writes the native directory of a monolithic checkpoint (the FiLM UNet's
+    converter cut to the tiny goldens' geometry): the UNet as
+    convert_film_unet gives it, the VAE with its encoder and the folded
+    vocoder equal to JAX's `load_audioldm_ckpt` through from_jax_params, and
+    JAX's manifest. `mustango` writes the native directory, every part
+    equal to the loader's, and `export-mustango` of the snapshot's own UNet
+    gives back the ldm bin bit for bit, with configs/ and vae/ copied."""
     from tango_tpu_torch.pipeline_music import load_mustango_snapshot
 
+    assert convert_cli.NOT_PORTED == {}
     if kind == "audioldm":
-        with pytest.raises(SystemExit, match=f"queue A {item}"):
-            convert_cli.main([kind, str(SNAP), str(tmp_path / "x"), str(tmp_path / "y")])
-        assert not (tmp_path / "x").exists()
+        _convert_audioldm(tmp_path)
         return
     if kind == "mustango":
         convert_cli.main([kind, str(MSNAP), str(tmp_path / "x")])

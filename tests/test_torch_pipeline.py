@@ -298,8 +298,9 @@ def test_tokenizer_pads_truncates_and_appends_eos():
 
 def test_import_hygiene():
     """Importing the port (every module, the evaluation, CLAP's, Mustango's
-    and its DeBERTa included) and chip_smoke loads no JAX, no JAX package and
-    no transformers / huggingface_hub / sklearn / sentencepiece."""
+    and its DeBERTa, AudioLDM's pipeline and CLI, the registry and the EMA
+    included) and chip_smoke loads no JAX, no JAX package and no
+    transformers / huggingface_hub / sklearn / sentencepiece."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import tango_tpu_torch, chip_smoke\n"
@@ -312,6 +313,9 @@ def test_import_hygiene():
         "assert 'tango_tpu_torch.inference_tango2' in sys.modules\n"
         "assert 'tango_tpu_torch.pipeline_music' in sys.modules\n"
         "assert 'tango_tpu_torch.models.deberta' in sys.modules\n"
+        "for m in ('audioldm.pipeline', 'audioldm.cli', 'registry', 'utils.ema',\n"
+        "          'models.audioldm_unet', 'schedulers.ddim'):\n"
+        "    assert 'tango_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -5,7 +5,11 @@ other. Left out of the comparison: the port's own additions (`device`,
 `init_seed`, and `max_text_length` where JAX's `from_components` lacks it)
 and JAX's `mesh` (the device mesh, ROADMAP queue A #10). `from_components`'
 `unet_params` and `vae_params` default to None in the port, where JAX
-requires them: None draws seeded random weights on the device."""
+requires them: None draws seeded random weights on the device. Also
+`AudioDiffusion.sample` (JAX's `unet_params` and `rng` aside) and AudioLDM's
+entry points (`AudioLDMPipeline.from_checkpoint`, with the port's `device`
+last, `text_to_audio`, `style_transfer`, `super_resolution_and_inpainting`).
+"""
 
 import inspect
 
@@ -94,3 +98,58 @@ def test_init_positional_dtype_and_from_components_stft():
     assert Tango.from_components(unet_config=unet, vae_config=vae,
                                  device="cpu").stft_config == TC.TANGO_STFT
     assert inspect.signature(Tango.generate).parameters["disable_progress"].default is True
+
+
+# ------------------------------------------------ AudioDiffusion and AudioLDM
+
+def _names_kinds_defaults(fn, drop=()):
+    params = [p for p in inspect.signature(fn).parameters.values()
+              if p.name not in ("self", "cls") and p.name not in drop]
+    return [(p.name, p.kind, p.default) for p in params]
+
+
+def test_sample_signature_matches_jax():
+    """AudioDiffusion.sample takes JAX's parameters in JAX's order
+    (`scheduler` and `eta` after `uncond_mask`); JAX's `unet_params` and
+    `rng` are the port's module and `generator`."""
+    from tango_tpu.models.diffusion import AudioDiffusion as JAudioDiffusion
+    from tango_tpu_torch.models.diffusion import AudioDiffusion
+
+    want = _names_kinds_defaults(JAudioDiffusion.sample, drop=("unet_params", "rng"))
+    got = _names_kinds_defaults(AudioDiffusion.sample, drop=("generator",))
+    assert got == want
+    names = list(inspect.signature(AudioDiffusion.sample).parameters)
+    assert names.index("generator") == 3  # where JAX takes rng
+
+
+@pytest.mark.parametrize("name", ["text_to_audio", "style_transfer",
+                                  "super_resolution_and_inpainting", "build_model",
+                                  "stochastic_encode_timesteps", "duration_to_latent_t_size"])
+def test_audioldm_functions_match_jax(name):
+    from tango_tpu.audioldm import pipeline as jpl
+    from tango_tpu_torch.audioldm import pipeline as pl
+
+    assert _names_kinds_defaults(getattr(pl, name)) == _names_kinds_defaults(getattr(jpl, name))
+
+
+def test_audioldm_from_checkpoint_matches_jax():
+    """JAX's parameters in its order, `device` (the port's own) last; the
+    dtype default is f32 in both."""
+    import jax.numpy as jnp
+    import torch
+
+    from tango_tpu.audioldm.pipeline import AudioLDMPipeline as JPipe
+    from tango_tpu_torch.audioldm.pipeline import AudioLDMPipeline
+
+    want = _names_kinds_defaults(JPipe.from_checkpoint.__func__)
+    got = _names_kinds_defaults(AudioLDMPipeline.from_checkpoint.__func__)
+    assert got[-1][0] == "device" and got[-1][2] is None
+    got = got[:-1]
+    assert [g[:2] for g in got] == [w[:2] for w in want]
+    for (n, _, g), (_, _, w) in zip(got, want):
+        if n == "dtype":
+            assert g is torch.float32 and w is jnp.float32
+        elif n == "unet_config":
+            assert g.to_dict() == w.to_dict()
+        else:
+            assert g == w, n

@@ -2,7 +2,8 @@
 `parse_args` against JAX's on the same argv; a 2-update run on the
 reference-format tiny snapshot and synthetic WAVs (16 fbank frames, so 8
 latent frames); `--hf_model`'s UNet against `load_main_weights`;
-`--resume_from_checkpoint`; each flag that raises; and
+`--resume_from_checkpoint`; `--audioldm_ckpt`'s VAE against JAX's
+`load_audioldm_ckpt` on a full-width checkpoint; each flag that raises; and
 `load_tango_snapshot(with_encoder=True)`'s VAE bit-equal to JAX's
 `load_tango_snapshot` (which keeps the encoder) through `from_jax_params`."""
 
@@ -180,7 +181,9 @@ def test_raising_flags(case, tmp_path, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     extra, err, match = [], SystemExit, "queue A #10"
     if case == "audioldm":
-        extra, match = ["--audioldm_ckpt", "x.ckpt"], "queue A #8"
+        # ported (queue A #8): the checkpoint carries no text encoder, so
+        # without --hf_model there is none, and nothing is downloaded
+        extra, match = ["--audioldm_ckpt", _tiny_audioldm_ckpt(tmp_path)], "downloads nothing"
     elif case == "model_parallel":
         extra = ["--model_parallel", "2"]
     elif case == "coordinator":
@@ -188,6 +191,9 @@ def test_raising_flags(case, tmp_path, monkeypatch):
     elif case == "world_size":
         monkeypatch.setenv("WORLD_SIZE", "2")
     argv = base_argv(tmp_path, *extra)
+    if case == "audioldm":
+        i = argv.index("--tango_snapshot")
+        del argv[i:i + 2]
     if case == "no_t5":
         argv[argv.index("--tango_snapshot") + 1] = _snapshot_without_t5(tmp_path)
         match = "downloads nothing"
@@ -200,6 +206,54 @@ def test_raising_flags(case, tmp_path, monkeypatch):
         match = "--tango_snapshot"
     with pytest.raises(err, match=match):
         cli.main(argv, tokenizer=WordHashTokenizer(128))
+
+
+def _tiny_audioldm_ckpt(tmp_path):
+    from tests.test_torch_audioldm import _tiny_monolithic_ckpt
+
+    return _tiny_monolithic_ckpt(str(tmp_path / "tiny-audioldm.ckpt"))
+
+
+# the port's VAE names -> the reference's (utils/convert.py's rules backwards)
+VAE_NAMES = ((r"\b(down|up)_(\d+)_(block|attn)_(\d+)\.", r"\1.\2.\3.\4."),
+             (r"\b(down|up)_(\d+)_(downsample|upsample)\.", r"\1.\2.\3."),
+             (r"\bmid_(block_1|block_2|attn_1)\.", r"mid.\1."))
+
+
+def test_audioldm_ckpt_vae_matches_jax(tmp_path, monkeypatch):
+    """--audioldm_ckpt (no --tango_snapshot): the VAE is TANGO_VAE with the
+    checkpoint's scale_factor, its weights, encoder included, JAX's
+    `load_audioldm_ckpt`'s through from_jax_params; the T5 encoder comes
+    from --hf_model. The checkpoint holds a seeded full-width VAE (the
+    geometry JAX builds) under `first_stage_model.`."""
+    import re
+
+    from tango_tpu_torch import configs as TC
+
+    g = torch.Generator().manual_seed(0)
+    with torch.device("meta"):
+        shapes = AutoencoderKL(TC.TANGO_VAE, with_encoder=True).state_dict()
+    sd = {}
+    for k, v in shapes.items():
+        for rx, rep in VAE_NAMES:
+            k = re.sub(rx, rep, k)
+        sd["first_stage_model." + k] = torch.randn(v.shape, generator=g)
+    sd["scale_factor"] = torch.tensor(0.5)
+    path = str(tmp_path / "audioldm.ckpt")
+    torch.save({"state_dict": sd}, path)
+    del sd
+    seen = _capture_fit(monkeypatch)
+    argv = base_argv(tmp_path, "--audioldm_ckpt", path, "--hf_model", SNAP)
+    i = argv.index("--tango_snapshot")
+    del argv[i:i + 2]
+    cli.main(argv, tokenizer=WordHashTokenizer(128))
+    vae = seen["trainer"].vae
+    assert vae.cfg.scale_factor == 0.5 and vae.cfg.ch == TC.TANGO_VAE.ch
+    want = from_jax_params(jckpt.load_audioldm_ckpt(path)[0])
+    got = vae.state_dict()
+    assert set(got) == set(want) and "encoder.conv_in.weight" in got
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_snapshot_with_encoder_matches_jax():
