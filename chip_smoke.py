@@ -96,6 +96,31 @@ Phases, one short JSON line each:
            modules on the CPU in f32 (CARD_CPU_LIMITS). The seconds of each CLI, the loads,
            the checkpoints' bytes, the peak memory, the metrics and the
            errors logged;
+  mesh     after tango2_eval, on the same snapshot (MESH_* bounds): the
+           port's device mesh with its ranks as processes that share the one
+           card over gloo (parallel.launch, torchrun's variables, a free
+           port), this process's cache freed first. One-process references
+           first: this pipeline's latents for MESH_PROMPTS at MESH_SEED, the
+           ms of a bf16 UNet step at CFG batch 2 and 8, and a full-width f32
+           SFT (remat, uncondition) at batch 2 for 2 updates on seeded WAVs,
+           its losses and parameters. (a) TP = 2: each rank holds the
+           snapshot's f32 UNet, evaluates it at batch 1 whole, shards it and
+           evaluates again (within MESH_F32_LIMIT of the largest magnitude),
+           then Tango(dir, mesh=make_mesh(data=1, model=2)) in bf16:
+           generate_for_batch of the 4 prompts, 10 steps, CFG, whose latents
+           must be within MESH_TP_REL_L2 of one process's, and the ms a step
+           at CFG batch 2 and 8; (b) DP = 2: SFTTrainer(mesh=) at batch 1 a
+           rank on the same global batches, its losses within
+           MESH_LOSS_RTOL and every parameter within MESH_PARAM_LR_FACTOR lr
+           (both runs' convolutions without TF32)
+           of one process's, the ms an update and the all-reduce's share;
+           (c) dryrun_multichip(4), the 2 x 2 DP x TP step of the dry run's
+           tiny config against its meshless step. Each rank zeroes its
+           counters before its counted work and saves its launches, shapes
+           and bodies; their sums are path `mesh` (PATH_KERNELS["mesh"],
+           every attention launch on its tensor-core body, every GroupNorm on
+           its cluster body); peak memory and launches per rank logged, with
+           the card's name and power limit;
   mustango_build, mustango, mustango_predictors, mustango_cli
            after the Tango snapshot is deleted (free disk checked first):
            the full-width Mustango (TANGO_UNET's geometry with the `*Music`
@@ -283,6 +308,7 @@ checkpoints, which it deletes) and stops itself after 720 s.
 from __future__ import annotations
 
 import collections
+import contextlib
 import faulthandler
 import json
 import math
@@ -299,6 +325,26 @@ import torch
 import torch.nn.functional as F
 
 DEADLINE_S = 720
+# phase mesh: (a) TP = 2 serving of MESH_PROMPTS at MESH_SEED, its latents within
+# MESH_TP_REL_L2 (relative L2) of one process's (the row-parallel partial sums
+# change the order of summation; Mustango's row-0 bound) and an f32 UNet
+# evaluation within MESH_F32_LIMIT of the largest output magnitude (the
+# card-vs-CPU bound of AudioLDM's phase); (b) DP = 2 f32 SFT at MESH_DP_BATCH / 2
+# rows a rank for MESH_DP_UPDATES updates against one process at MESH_DP_BATCH,
+# its convolutions in f32 too (`f32_convolutions`): losses within
+# MESH_LOSS_RTOL, every parameter within MESH_PARAM_LR_FACTOR lr (JAX's Adam
+# amplification bound, tests/test_parallel.py:162-171); each launch of ranks
+# within MESH_LAUNCH_TIMEOUT_S
+MESH_PROMPTS = ["a dog barks", "rain on a tin roof", "an engine idles", "birds sing"]
+MESH_SEED = 11
+MESH_TP_REL_L2 = 0.05
+MESH_F32_LIMIT = 2.5e-2
+MESH_DP_BATCH = 2
+MESH_DP_UPDATES = 2
+MESH_LOSS_RTOL = 1e-3
+MESH_PARAM_LR_FACTOR = 2.5
+MESH_LAUNCH_TIMEOUT_S = 300
+MESH_TARGET_LENGTH = 1024  # fbank frames of (b)'s clips: 10.24 s, 256 latent frames
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS = 989e12         # dense tensor-core bf16
 INT8_OPS = 1979e12          # dense tensor-core int8
@@ -372,6 +418,8 @@ PATH_KERNELS = {
 }
 # a generate from a loaded snapshot runs the serving path's kernels
 PATH_KERNELS["snapshot"] = PATH_KERNELS["serve"]
+# phase mesh's ranks serve (a) and train (b): the training path's kernels
+PATH_KERNELS["mesh"] = PATH_KERNELS["train"]
 # the snapshot phase's batch-generation CLI run over BATCH_PROMPTS: steps, batch size
 CLI_STEPS = 2
 CLI_BATCH = 2
@@ -3103,6 +3151,356 @@ def audioldm_phase(C, ops, counted, root: str) -> tuple:
     return launches, shapes
 
 
+# ------------------------------------------------------------------ the mesh
+
+def mesh_sft_setup(job: dict, device):
+    """The full-width f32 SFT of phase mesh (b), built alike in every process:
+    the remat'd UNet, the seeded VAE with its encoder, and the trainer's
+    configuration (accumulation 1, MESH_DP_UPDATES updates)."""
+    from tango_tpu_torch.models.diffusion import AudioDiffusion
+    from tango_tpu_torch.models.vae import AutoencoderKL
+    from tango_tpu_torch.utils.init import init_random_
+
+    diffusion = AudioDiffusion(job["unet_config"], job["scheduler_config"], snr_gamma=5.0,
+                               uncondition=True, remat=True, device=device)
+    with torch.device("meta"):
+        vae = AutoencoderKL(job["vae_config"], with_encoder=True)
+    vae = init_random_(vae.to_empty(device=device),
+                       torch.Generator(device=device).manual_seed(2)).eval()
+    return diffusion, vae.requires_grad_(False), job["train_config"]
+
+
+@contextlib.contextmanager
+def f32_convolutions():
+    """cuDNN's convolutions without TF32 inside (phase mesh (b)): with TF32,
+    one process at batch 2 and two ranks at batch 1 take differently rounded
+    convolutions, and Adam's first updates turn that 1e-4 on a near-zero
+    gradient into a sign, which is TF32's batch-size noise and not the
+    data-parallel step (scripts/mesh_tf32_probe.py)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def mesh_unet_inputs(unet, latent: tuple, batch: int, text_len: int, dtype, device, seed: int):
+    """Seeded UNet inputs at latent (T, F): (latents, timesteps, context,
+    mask)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    cfg = unet.cfg
+    lat = torch.randn(batch, *latent, cfg.in_channels, generator=g, device=device)
+    ctx = torch.randn(batch, text_len, cfg.cross_attention_dim, generator=g, device=device)
+    t = torch.full((batch,), 500, dtype=torch.long, device=device)
+    return lat, t, ctx.to(dtype), torch.ones(batch, text_len, dtype=torch.long, device=device)
+
+
+def ms_per_step(model, batch: int, text_len: int, device, reps: int = 3) -> float:
+    """Host ms of one evaluation of the pipeline model's UNet at CFG batch
+    `batch`, ended by a synchronize: under TP its collectives run on the host
+    too."""
+    unet = model.unet
+    args = mesh_unet_inputs(unet, (model.latent_t_size, model.latent_f_size), batch, text_len,
+                            unet.conv_in.weight.dtype, device, 5)
+    with torch.inference_mode():
+        unet(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            unet(*args)
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def mesh_rank_tp(job: dict, mesh, ops) -> dict:
+    """Phase mesh (a), one rank of TP = 2: the f32 UNet at batch 1 against the
+    same rank's unsharded UNet, then Tango(snapshot, mesh=) in bf16:
+    generate_for_batch of MESH_PROMPTS and the ms a step at CFG batch 2 and 8."""
+    from tango_tpu_torch.models.unet import UNet2DConditionModel
+    from tango_tpu_torch.parallel import mesh as pmesh
+    from tango_tpu_torch.pipeline import Tango, build_module
+    from tango_tpu_torch.utils.checkpoint import load_main_weights
+
+    dev = mesh.device
+    main = load_main_weights(job["snapshot"])
+    unet = build_module(lambda: UNet2DConditionModel(main["unet_config"]), main["unet_params"],
+                        dev, torch.float32, 0)
+    del main
+    args = mesh_unet_inputs(unet, job["latent"], 1, 128, torch.float32, dev, 3)
+    with torch.inference_mode():
+        ref = unet(*args).float()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the default tokenizer's warning
+        tango = Tango(job["snapshot"], mesh=mesh, device=dev)
+    tango.model.latent_t_size, tango.model.latent_f_size = job["latent"]
+    latents = []
+    decode = tango.decode
+
+    def kept_decode(lat):
+        latents.append(lat.float().cpu())
+        return decode(lat)
+
+    tango.decode = kept_decode
+    tango.generate("warm up", steps=1, seed=1)
+    latents.clear()
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    pmesh.shard_params(unet, mesh)
+    with torch.inference_mode():
+        out = unet(*args).float()
+    f32_err = float((out - ref).abs().max() / ref.abs().max())
+    del unet, out, ref
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = tango.generate_for_batch(MESH_PROMPTS, steps=job["steps"],
+                                    batch_size=len(MESH_PROMPTS), seed=MESH_SEED)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    ms = {f"cfg_batch_{b}": ms_per_step(tango.model, b, tango.max_text_length, dev)
+          for b in (2, 2 * len(MESH_PROMPTS))}
+    heads = sorted({m.local_heads for m in tango.model.unet.modules()
+                    if hasattr(m, "local_heads")})
+    return {"f32_rel_err": f32_err, "latents": torch.cat(latents), "generate_s": gen_s,
+            "ms_per_step": ms, "local_heads": heads,
+            "wavs": [(str(w.dtype), list(w.shape), int(abs(w.astype("int32")).max()))
+                     for w in wavs]}
+
+
+def mesh_rank_dp(job: dict, mesh, ops) -> dict:
+    """Phase mesh (b), one rank of DP = 2: the full-width f32 SFT at batch 1 a
+    rank, MESH_DP_UPDATES updates on the parent's global batches; rank 0
+    holds the updated parameters to the one-process run's."""
+    from tango_tpu_torch.parallel import mesh as pmesh
+    from tango_tpu_torch.train.sft import SFTTrainer
+
+    dev = mesh.device
+    diffusion, vae, cfg = mesh_sft_setup(job, dev)
+    trainer = SFTTrainer(diffusion, vae, cfg, total_steps=MESH_DP_UPDATES, mesh=mesh)
+    state = trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+    reduce_s = []
+    hook = state.opt_state.before_update
+
+    def timed_reduce(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hook(params)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+
+    state.opt_state.before_update = timed_reduce
+    batches = torch.load(os.path.join(job["work"], "dp_batches.pt"))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for batch in batches:
+        local = pmesh.shard_batch({k: v.to(dev) for k, v in batch.items()}, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, local, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    out = {"losses": losses, "ms_per_update": [1e3 * s for s in step_s],
+           "all_reduce_ms": [1e3 * s for s in reduce_s]}
+    if mesh.is_main:
+        ref = torch.load(os.path.join(job["work"], "dp_ref.pt"), map_location="cpu")
+        bound = MESH_PARAM_LR_FACTOR * cfg.learning_rate
+        worst, over = 0.0, 0
+        for k, v in trainer.state_dict(state).items():
+            d = (v.float() - ref[k].to(dev).float()).abs()
+            worst = max(worst, float(d.max()))
+            over += int((d > bound).sum())
+        out.update(param_max_abs_diff=worst, param_max_share_of_bound=worst / bound,
+                   params_over_bound=over)
+    return out
+
+
+def mesh_rank_dp_f32(job: dict, mesh, ops) -> dict:
+    with f32_convolutions():
+        return mesh_rank_dp(job, mesh, ops)
+
+
+MESH_PARTS = {"tp": mesh_rank_tp, "dp": mesh_rank_dp_f32}
+
+
+def mesh_rank_main(part: str, work: str) -> int:
+    """A rank of phase mesh, started by `mesh_phase` with torchrun's
+    variables: its part on the card, then its counters and results saved as
+    <work>/<part>_rank<r>.pt for the parent."""
+    from tango_tpu_torch import ops
+    from tango_tpu_torch.ops import _build
+    from tango_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent
+    job = torch.load(os.path.join(work, "job.pt"), weights_only=False)
+    rank, world, dev = pmesh.init_distributed(None if job["device"] == "cuda" else job["device"])
+    if dev.type == "cuda":
+        _build.load()
+    else:  # a CPU rehearsal of the phase: the plain versions, no card to wait for
+        for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+            setattr(torch.cuda, name, lambda *a, **k: None)
+        torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    mesh = pmesh.make_mesh(data=job["parts"][part]["data"], model=job["parts"][part]["model"],
+                           device=dev)
+    out = MESH_PARTS[part](job, mesh, ops)
+    torch.cuda.synchronize()
+    launches, shapes, tc, cluster = read_counters(ops)
+    out.update(rank=rank, world=world, backend=mesh.backend, launches=launches, shapes=shapes,
+               tc=tc, cluster=cluster, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    torch.save(out, os.path.join(work, f"{part}_rank{rank}.pt"))
+    return 0
+
+
+def mesh_batches(job: dict, tango, work: str) -> list:
+    """MESH_DP_UPDATES global batches of MESH_DP_BATCH rows for phase mesh (b):
+    fbanks of seeded synthetic WAVs, captions through the pipeline's T5."""
+    from tango_tpu_torch.train.data import FeaturizedLoader, load_manifest
+
+    frames = job["target_length"]
+    examples = load_manifest(write_wavs(os.path.join(work, "data"),
+                                        MESH_DP_BATCH * MESH_DP_UPDATES, frames / 100, seed=4))
+    out = []
+    for raw in FeaturizedLoader(examples, MESH_DP_BATCH, target_length=frames, shuffle=False):
+        embeds, mask = tango.encode_text(raw["captions"])
+        out.append({"fbank": torch.as_tensor(raw["fbank"]), "text_embeds": embeds.float().cpu(),
+                    "text_mask": mask.cpu()})
+    return out
+
+
+def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> tuple:
+    """Phase mesh: the port's device mesh on the card, its ranks processes
+    sharing the one card over gloo (parallel.launch with torchrun's
+    variables). (a) TP = 2 serving of the snapshot in bf16 against this
+    process's pipeline at the same seed, and an f32 UNet evaluation at batch 1
+    against the rank's unsharded one; (b) DP = 2 full-width f32 SFT at batch
+    1 a rank against one process at batch 2; (c) dryrun_multichip(4), the
+    2 x 2 step of the dry run's tiny config. The ranks' launches, shapes and
+    bodies are summed into path `mesh`. Returns (launches, shapes,
+    tensor-core launches, cluster launches); raises on any failed check."""
+    from tango_tpu_torch.parallel.dryrun import dryrun_multichip
+    from tango_tpu_torch.parallel.launch import check, launch
+    from tango_tpu_torch.train.sft import SFTTrainer
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "mesh")
+    os.makedirs(work, exist_ok=True)
+    job = {"snapshot": snap_dir, "work": work, "device": DEVICE, "steps": STEPS,
+           "target_length": MESH_TARGET_LENGTH,
+           "latent": (tango.model.latent_t_size, tango.model.latent_f_size),
+           "unet_config": C.TANGO_UNET, "vae_config": C.TANGO_VAE,
+           "scheduler_config": C.SD21_SCHEDULER,
+           "train_config": C.TrainConfig(gradient_accumulation_steps=1,
+                                         max_train_steps=MESH_DP_UPDATES),
+           "parts": {"tp": {"data": 1, "model": 2}, "dp": {"data": 2, "model": 1}}}
+    torch.save(job, os.path.join(work, "job.pt"))
+
+    # one process: (a)'s latents and ms a step, (b)'s losses and parameters
+    one = {}
+    with torch.inference_mode():
+        one["latents"] = tango.sample_latents(MESH_PROMPTS, STEPS, 3.0, 1, MESH_SEED, 0).cpu()
+    wav_len = tango.decode_to_waveform(one["latents"][:1].to(DEVICE)).shape[1]
+    one["ms_per_step"] = {f"cfg_batch_{b}": ms_per_step(tango.model, b, tango.max_text_length,
+                                                        DEVICE)
+                          for b in (2, 2 * len(MESH_PROMPTS))}
+    batches = mesh_batches(job, tango, work)
+    torch.save(batches, os.path.join(work, "dp_batches.pt"))
+    diffusion, vae, cfg = mesh_sft_setup(job, DEVICE)
+    trainer = SFTTrainer(diffusion, vae, cfg, total_steps=MESH_DP_UPDATES)
+    state = trainer.init_state(torch.Generator(device=DEVICE).manual_seed(0))
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    one["losses"], one["ms_per_update"] = [], []
+    with f32_convolutions():
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = trainer.train_step(state, {k: v.to(DEVICE) for k, v in batch.items()},
+                                             gen)
+            torch.cuda.synchronize()
+            one["ms_per_update"].append(1e3 * (time.perf_counter() - t0))
+            one["losses"].append(float(loss))
+    torch.save({k: v.cpu() for k, v in trainer.state_dict(state).items()},
+               os.path.join(work, "dp_ref.pt"))
+    del trainer, state, diffusion, vae
+    torch.cuda.empty_cache()  # free this process's cache before the ranks start
+    ref_s = time.perf_counter() - t_phase
+
+    ranks, part_s = {}, {}
+    for part in ("tp", "dp"):
+        t0 = time.perf_counter()
+        world = job["parts"][part]["data"] * job["parts"][part]["model"]
+        results = launch([sys.executable, os.path.abspath(__file__), "--mesh-rank", part, work],
+                         world, MESH_LAUNCH_TIMEOUT_S)
+        check(results, f"phase mesh ({part})")
+        ranks[part] = [torch.load(os.path.join(work, f"{part}_rank{r}.pt"), weights_only=False)
+                       for r in range(world)]
+        part_s[part] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device=None if DEVICE == "cuda" else DEVICE,
+                           timeout=MESH_LAUNCH_TIMEOUT_S)
+    part_s["dryrun"] = time.perf_counter() - t0
+
+    # summed over the ranks under this process's names (a kernel that a rank
+    # never imported, such as winograd_conv3x3, counts 0 there)
+    every = [r for part in ranks.values() for r in part]
+    names, _, tc_names, cluster_names = read_counters(ops)
+    launches = {n: sum(r["launches"].get(n, 0) for r in every) for n in names}
+    shapes = {n: set().union(*(r["shapes"].get(n, set()) for r in every)) for n in names}
+    tc = {n: sum(r["tc"].get(n, 0) for r in every) for n in tc_names}
+    cluster = {n: sum(r["cluster"].get(n, 0) for r in every) for n in cluster_names}
+    tp0, dp0 = ranks["tp"][0], ranks["dp"][0]
+    rel_l2 = float((tp0["latents"] - one["latents"]).norm() / one["latents"].norm())
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(dp0["losses"], one["losses"])]
+    problems = body_problems("mesh", launches, tc, cluster)
+    if rel_l2 > MESH_TP_REL_L2:
+        problems.append(f"TP = 2 latents {rel_l2} (relative L2) from one process's")
+    if max(r["f32_rel_err"] for r in ranks["tp"]) > MESH_F32_LIMIT:
+        problems.append(f"TP = 2 f32 UNet {[r['f32_rel_err'] for r in ranks['tp']]} from one "
+                        "process's, of its largest magnitude")
+    if any(list(w[:2]) != ["int16", [wav_len]] or not w[2]
+           for r in ranks["tp"] for w in r["wavs"]) or len(tp0["wavs"]) != len(MESH_PROMPTS):
+        problems.append(f"TP = 2 waveforms {tp0['wavs']}")
+    if len(loss_err) != MESH_DP_UPDATES or max(loss_err) > MESH_LOSS_RTOL:
+        problems.append(f"DP = 2 losses {dp0['losses']} against one process's {one['losses']}")
+    if dp0["params_over_bound"]:
+        problems.append(f"DP = 2: {dp0['params_over_bound']} parameters past "
+                        f"{MESH_PARAM_LR_FACTOR} lr from one process's")
+    update_ms = [statistics.mean(r["ms_per_update"]) for r in ranks["dp"]]
+    reduce_ms = [statistics.mean(r["all_reduce_ms"]) for r in ranks["dp"]]
+    log("mesh", card=nvidia_smi(), backend=tp0["backend"],
+        world={"tp": len(ranks["tp"]), "dp": len(ranks["dp"]), "dryrun": 4},
+        local_heads={f"tp_rank{r['rank']}": r["local_heads"] for r in ranks["tp"]},
+        ms_per_unet_step={"tp2": [r["ms_per_step"] for r in ranks["tp"]],
+                          "one_process": one["ms_per_step"]},
+        tp_generate_s=[round(r["generate_s"], 3) for r in ranks["tp"]],
+        tp_latents_rel_l2=rel_l2, tp_f32_rel_err=[r["f32_rel_err"] for r in ranks["tp"]],
+        dp_ms_per_update={"dp2": update_ms, "one_process_batch_2": one["ms_per_update"]},
+        dp_all_reduce_ms=reduce_ms,
+        dp_all_reduce_share=[a / u for a, u in zip(reduce_ms, update_ms)],
+        dp_losses=dp0["losses"], one_process_losses=one["losses"], dp_loss_rel_err=loss_err,
+        dp_param_max_abs_diff=dp0["param_max_abs_diff"],
+        dp_param_max_share_of_bound=dp0["param_max_share_of_bound"],
+        dp_param_bound=MESH_PARAM_LR_FACTOR * job["train_config"].learning_rate,
+        dryrun=dry,
+        peak_memory_bytes={f"{p}_rank{r['rank']}": r["peak_memory_bytes"]
+                           for p, rs in ranks.items() for r in rs},
+        launches_per_rank={f"{p}_rank{r['rank']}": {n: c for n, c in r["launches"].items() if c}
+                           for p, rs in ranks.items() for r in rs},
+        launches=launches, tc_launches=tc, cluster_launches=cluster,
+        shapes={n: len(v) for n, v in shapes.items()},
+        bounds={"tp_rel_l2": MESH_TP_REL_L2, "tp_f32": MESH_F32_LIMIT,
+                "dp_loss_rtol": MESH_LOSS_RTOL, "dp_param_lr": MESH_PARAM_LR_FACTOR},
+        reference_s=round(ref_s, 3), part_s={k: round(v, 3) for k, v in part_s.items()},
+        phase_s=round(time.perf_counter() - t_phase, 3), problems=problems)
+    shutil.rmtree(work)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches, shapes, tc, cluster
+
+
 def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
     """One full-width f32 SFTTrainer.fit on the card: 4 micro-steps at batch
     2 with accumulation 2 (2 updates), one validation batch, the best
@@ -3222,6 +3620,8 @@ def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
 
 
 def main(argv) -> int:
+    if argv[:1] == ["--mesh-rank"]:  # a rank of phase mesh, started by mesh_phase
+        return mesh_rank_main(argv[1], argv[2])
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     detail = "--detail" in argv
     if not torch.cuda.is_available():
@@ -3427,6 +3827,11 @@ def main(argv) -> int:
     (path_launches, path_shapes, tc_launches["tango2_eval"],
      cluster_launches["tango2_eval"]) = tango2_eval_phase(snap_dir, snap_root, ops)
     by_path["tango2_eval"] = (path_launches, path_shapes)
+    torch.cuda.empty_cache()
+    (path_launches, path_shapes, tc_launches["mesh"],
+     cluster_launches["mesh"]) = mesh_phase(C, ops, tango, snap_dir, snap_root)
+    by_path["mesh"] = (path_launches, path_shapes)
+    log("mesh_done", total_s=round(time.perf_counter() - t_start, 3))
     shutil.rmtree(snap_root)
     torch.cuda.empty_cache()
     log("entry_points", phase_s=round(time.perf_counter() - t_phase, 3),

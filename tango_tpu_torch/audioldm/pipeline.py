@@ -29,8 +29,16 @@ conditions instead, as JAX does when no tokenizer is available offline.
 
 Runs on CUDA unless the caller passes `device="cpu"`; the compute dtype is
 f32 unless `dtype` names another, scheduler math f32 always. Random draws
-come from a torch.Generator seeded from `seed`. Not ported: the device mesh
-(`mesh=`, ROADMAP queue A #10).
+come from a torch.Generator seeded from `seed`.
+
+The device mesh (`mesh=`, parallel.mesh): the parameters are replicated
+(the FiLM UNet is small, and JAX's pipeline replicates it too); every UNet
+evaluation and the decode spread their rows over 'data', the batch padded
+to a multiple of it (`pad_batch`) by repeating rows, and the results are
+gathered back. The random draws are made whole on every rank, as without
+a mesh, so a run under a mesh draws the meshless run's numbers. Every rank
+must embed alike: the native CLAP does; the hash stub, salted per process,
+does only with one PYTHONHASHSEED for all ranks.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from tango_tpu_torch.models.diffusion import randn_rows
 from tango_tpu_torch.models.hifigan import HiFiGANGenerator, waveform_to_int16
 from tango_tpu_torch.models.layers import frozen
 from tango_tpu_torch.models.vae import AutoencoderKL, sample_diagonal_gaussian
+from tango_tpu_torch.parallel import mesh as pmesh
 from tango_tpu_torch.schedulers import DDIMScheduler, DDPMScheduler
 
 AUDIOLDM_SCHEDULER = SchedulerConfig(
@@ -169,9 +178,6 @@ class AudioLDMPipeline:
     device: object = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError("the device mesh (mesh=) is not ported yet: "
-                                      "ROADMAP queue A #10")
         self.device = C.resolve_device(self.device)
         self.scheduler = DDIMScheduler.create(self.scheduler_config)
         self.stft = MelSpectrogram(self.stft_config)
@@ -203,8 +209,21 @@ class AudioLDMPipeline:
         return self._module("hifigan", lambda p: HiFiGANGenerator(self.hifigan_config))
 
     def pad_batch(self, n: int) -> int:
-        """The batch a mesh would need; without one (the port has none), n."""
-        return n
+        """n rounded up to the mesh's 'data' multiple; n without a mesh."""
+        return pmesh.pad_rows(n, self.mesh)
+
+    def _rows_split(self, fn, *xs):
+        """fn over the rows of xs (each with the same leading n rows), spread
+        over 'data': the rows padded to `pad_batch(n)` by repeating them, this
+        rank's share computed, the results gathered and cut back to n."""
+        if self.mesh is None or self.mesh.data_group is None:
+            return fn(*xs)
+        n = xs[0].shape[0]
+        n_pad = self.pad_batch(n)
+        index = torch.arange(n_pad, device=xs[0].device) % n
+        rows = pmesh.local_rows(self.mesh, n_pad)
+        out = fn(*(x[index][rows] for x in xs))
+        return pmesh.gather_rows(out, self.mesh, n_pad)[:n]
 
     def generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
@@ -231,9 +250,6 @@ class AudioLDMPipeline:
         from tango_tpu_torch.models.audioldm_unet import convert_film_unet
         from tango_tpu_torch.utils import convert as conv
 
-        if mesh is not None:
-            raise NotImplementedError("the device mesh (mesh=) is not ported yet: "
-                                      "ROADMAP queue A #10")
         sd = conv.load_torch_bin(ckpt_path)
         vae_sd, scale = conv.split_audioldm_ckpt(sd)
         pre = "model.diffusion_model."
@@ -255,6 +271,7 @@ class AudioLDMPipeline:
             vae_params=conv.convert_vae(vae_sd, with_encoder=True),
             hifigan_params=conv.convert_hifigan(vocoder_sd) if vocoder_sd else None,
             conditioner=conditioner or StubClapConditioner(),
+            mesh=mesh,
             device=device,
         )
 
@@ -262,11 +279,16 @@ class AudioLDMPipeline:
     def _guided(self, lat: torch.Tensor, t: int, film: torch.Tensor,
                 guidance_scale: float) -> torch.Tensor:
         """The CFG prediction at timestep t: the UNet on [lat, lat] under
-        film = [uncond, cond], upcast to f32, then u + g (c - u)."""
-        lat_in = torch.cat([lat, lat]).to(self.dtype)
-        t_b = torch.full((lat_in.shape[0],), int(t), dtype=torch.long, device=self.device)
-        pu, pc = self.unet(lat_in, t_b, film).float().chunk(2)
-        return pu + guidance_scale * (pc - pu)
+        film = [uncond, cond], upcast to f32, then u + g (c - u); the rows
+        spread over the mesh's 'data'."""
+
+        def guided(lat, film_u, film_c):
+            lat_in = torch.cat([lat, lat]).to(self.dtype)
+            t_b = torch.full((lat_in.shape[0],), int(t), dtype=torch.long, device=self.device)
+            pu, pc = self.unet(lat_in, t_b, torch.cat([film_u, film_c])).float().chunk(2)
+            return pu + guidance_scale * (pc - pu)
+
+        return self._rows_split(guided, lat, *film.chunk(2))
 
     @torch.inference_mode()
     def sample_latents(self, film_cond, film_uncond, generator: Optional[torch.Generator] = None,
@@ -338,8 +360,10 @@ class AudioLDMPipeline:
             if cfg:
                 eps = self._guided(lat, t, film, guidance_scale)
             else:
-                t_b = torch.full((lat.shape[0],), t, dtype=torch.long, device=self.device)
-                eps = self.unet(lat.to(self.dtype), t_b, film_cond.to(self.dtype)).float()
+                eps = self._rows_split(lambda x, c: self.unet(
+                    x.to(self.dtype), torch.full((x.shape[0],), t, dtype=torch.long,
+                                                 device=self.device), c.to(self.dtype)).float(),
+                    lat, film_cond)
             noise = randn_rows(lat.shape, generator, self.device)
             lat = self.p_sample_step(lat, t, eps, noise, tables, clip_denoised)
         return lat
@@ -372,8 +396,10 @@ class AudioLDMPipeline:
         """latents (B, T, F, C) -> int16 waveforms (B, T_wav)."""
         if self.hifigan_params is None:
             raise RuntimeError("AudioLDMPipeline has no vocoder weights (hifigan_params)")
-        mel = self.vae.decode_first_stage(self._rows(latents))
-        return waveform_to_int16(self.vocoder(mel[..., 0]).float())
+        wav = self._rows_split(
+            lambda z: self.vocoder(self.vae.decode_first_stage(z)[..., 0]).float(),
+            self._rows(latents))
+        return waveform_to_int16(wav)
 
     @torch.inference_mode()
     def encode_first_stage(self, mel, generator: Optional[torch.Generator] = None,

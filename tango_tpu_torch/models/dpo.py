@@ -22,9 +22,11 @@ from torch import nn
 from tango_tpu_torch.models.diffusion import AudioDiffusion
 
 
-def make_reference(unet: nn.Module) -> nn.Module:
-    """A frozen deep copy of `unet`: the reference UNet of DPO."""
-    return copy.deepcopy(unet).eval().requires_grad_(False)
+def make_reference(unet: nn.Module, dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """A frozen deep copy of `unet`, in `dtype` where given: the reference
+    UNet of DPO."""
+    ref = copy.deepcopy(unet).eval().requires_grad_(False)
+    return ref if dtype is None else ref.to(dtype)
 
 
 @dataclasses.dataclass(eq=False)

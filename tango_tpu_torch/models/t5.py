@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tango_tpu_torch.configs import T5Config
+from tango_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model, split_span
 
 
 def relative_position_bucket(relative_position: np.ndarray, num_buckets: int = 32,
@@ -71,6 +72,11 @@ class T5LayerNorm(nn.Module):
 
 
 class T5Attention(nn.Module):
+    """Under tensor parallelism (parallel.mesh.shard_params) a model rank
+    keeps whole heads of q, k, v (their rows) and of o (its columns), and
+    the relative-position bias is sliced to its heads; o's partial sums are
+    all-reduced."""
+
     def __init__(self, cfg: T5Config):
         super().__init__()
         inner = cfg.num_heads * cfg.d_kv
@@ -79,14 +85,31 @@ class T5Attention(nn.Module):
         self.k = nn.Linear(cfg.d_model, inner, bias=False)
         self.v = nn.Linear(cfg.d_model, inner, bias=False)
         self.o = nn.Linear(inner, cfg.d_model, bias=False)
+        self.head_span, self.tp_mesh = (0, cfg.num_heads), None
+
+    def tp_layout(self, parts: int, index: int) -> dict:
+        lo, hi = split_span(self.heads, parts, index)
+        rows = torch.arange(lo * self.d_kv, hi * self.d_kv)
+        return {"q.weight": (0, rows), "k.weight": (0, rows), "v.weight": (0, rows),
+                "o.weight": (1, rows)}
+
+    def enter_tp_(self, mesh, parts: int, index: int) -> None:
+        self.head_span, self.tp_mesh = split_span(self.heads, parts, index), mesh
 
     def forward(self, x, position_bias, mask_bias, kv=None):
         """Self-attention when kv is None; cross-attention to kv otherwise."""
         b, s, _ = x.shape
+        tp = self.tp_mesh
+        if tp is not None:
+            x = copy_to_model(x, tp)
+            kv = None if kv is None else copy_to_model(kv, tp)
+            if position_bias is not None:
+                position_bias = position_bias[:, self.head_span[0]:self.head_span[1]]
         src = x if kv is None else kv
+        n_heads = self.head_span[1] - self.head_span[0]
 
         def heads(t):
-            return t.reshape(b, t.shape[1], self.heads, self.d_kv).transpose(1, 2)
+            return t.reshape(b, t.shape[1], n_heads, self.d_kv).transpose(1, 2)
 
         q, k, v = heads(self.q(x)), heads(self.k(src)), heads(self.v(src))
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -96,10 +119,13 @@ class T5Attention(nn.Module):
             logits = logits + mask_bias
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.matmul(probs, v).transpose(1, 2).reshape(b, s, -1)
-        return self.o(out)
+        return reduce_from_model(self.o(out), tp)
 
 
 class T5FeedForward(nn.Module):
+    """Under tensor parallelism a model rank keeps a span of the d_ff hidden
+    units: the rows of wi (or wi_0 and wi_1) and the columns of wo."""
+
     def __init__(self, cfg: T5Config):
         super().__init__()
         self.gated = cfg.is_gated
@@ -110,8 +136,18 @@ class T5FeedForward(nn.Module):
         else:
             self.wi = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+        self.tp_mesh = None
+
+    def tp_layout(self, parts: int, index: int) -> dict:
+        rows = torch.arange(*split_span(self.wo.in_features, parts, index))
+        ins = ("wi_0", "wi_1") if self.gated else ("wi",)
+        return {**{f"{n}.weight": (0, rows) for n in ins}, "wo.weight": (1, rows)}
+
+    def enter_tp_(self, mesh, parts: int, index: int) -> None:
+        self.tp_mesh = mesh
 
     def forward(self, x):
+        x = copy_to_model(x, self.tp_mesh)
         if self.gated:
             g = self.wi_0(x)
             # HF "gelu" for T5 is gelu_new, the tanh approximation
@@ -119,7 +155,7 @@ class T5FeedForward(nn.Module):
             h = act * self.wi_1(x)
         else:
             h = F.relu(self.wi(x))
-        return self.wo(h)
+        return reduce_from_model(self.wo(h), self.tp_mesh)
 
 
 class T5Block(nn.Module):

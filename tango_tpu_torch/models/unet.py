@@ -43,6 +43,7 @@ from tango_tpu_torch.models.layers import GroupNorm, nchw_to_nhwc, nhwc_to_nchw
 from tango_tpu_torch.ops.attention import multi_head_attention
 from tango_tpu_torch.ops.basic import geglu, silu
 from tango_tpu_torch.ops.quant import quantize_unet_
+from tango_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model, split_span
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -98,13 +99,20 @@ class ResnetBlock2D(nn.Module):
 
 class Attention(nn.Module):
     """Projections + attention core. `fuse="qkv"` (self-attention) computes
-    q, k, v with one matmul; `fuse="kv"` fuses k, v of the context."""
+    q, k, v with one matmul; `fuse="kv"` fuses k, v of the context.
+
+    Under tensor parallelism (parallel.mesh.shard_params) a model rank keeps
+    whole heads, spread as evenly as possible (5 over 2 ranks: 3 and 2; a
+    rank may keep none): the fused weights keep their chunk layout on each
+    rank, [q_local; k_local; v_local], and to_out_0 its rows' columns; its
+    partial sums are all-reduced and its bias added once, after."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int, context_dim: int,
                  upcast: bool, fuse: str):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.upcast, self.fuse = heads, upcast, fuse
+        self.local_heads, self.tp_mesh = heads, None
         if fuse == "qkv":
             self.to_qkv = nn.Linear(query_dim, 3 * inner, bias=False)
         else:
@@ -112,26 +120,85 @@ class Attention(nn.Module):
             self.to_kv = nn.Linear(context_dim, 2 * inner, bias=False)
         self.to_out_0 = nn.Linear(inner, query_dim)
 
+    def tp_layout(self, parts: int, index: int) -> dict:
+        """{weight: (axis, indices)} model rank `index` of `parts` keeps; {}
+        for int8 layers, which stay whole (JAX's int8 leaves match no rule)."""
+        linears = [self.to_out_0, *((self.to_qkv,) if self.fuse == "qkv" else
+                                    (self.to_q, self.to_kv))]
+        if any(type(m) is not nn.Linear for m in linears):
+            return {}
+        dh = self.to_out_0.in_features // self.heads
+        inner = self.heads * dh
+        lo, hi = split_span(self.heads, parts, index)
+        rows = torch.arange(lo * dh, hi * dh)
+        if self.fuse == "qkv":
+            out = {"to_qkv.weight": (0, torch.cat([rows, rows + inner, rows + 2 * inner]))}
+        else:
+            out = {"to_q.weight": (0, rows), "to_kv.weight": (0, torch.cat([rows, rows + inner]))}
+        out["to_out_0.weight"] = (1, rows)
+        return out
+
+    def enter_tp_(self, mesh, parts: int, index: int) -> None:
+        lo, hi = split_span(self.heads, parts, index)
+        self.local_heads, self.tp_mesh = hi - lo, mesh
+
     def forward(self, x, context=None, bias=None):
+        tp = self.tp_mesh
+        if tp is not None:
+            x = copy_to_model(x, tp)
+            context = None if context is None else copy_to_model(context, tp)
         if self.fuse == "qkv":
             q, k, v = self.to_qkv(x).chunk(3, dim=-1)
         else:
             q = self.to_q(x)
             k, v = self.to_kv(x if context is None else context).chunk(2, dim=-1)
-        out = multi_head_attention(q, k, v, heads=self.heads, bias=bias, upcast=self.upcast)
-        return self.to_out_0(out)
+        if self.local_heads:
+            out = multi_head_attention(q, k, v, heads=self.local_heads, bias=bias,
+                                       upcast=self.upcast)
+        else:
+            out = q  # no head on this rank: (B, S, 0), a zero partial sum below
+        if tp is None:
+            return self.to_out_0(out)
+        return reduce_from_model(F.linear(out, self.to_out_0.weight), tp) + self.to_out_0.bias
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward, mult 4."""
+    """GEGLU feed-forward, mult 4. Under tensor parallelism a model rank keeps
+    a span of the 4 * dim hidden units: net_0_proj's rows of both halves,
+    [hidden_local; gate_local], and net_2's columns; net_0_proj's bias stays
+    whole (a 1-D leaf, replicated by the rules) and is indexed at use."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.net_0_proj = nn.Linear(dim, dim * 8)
         self.net_2 = nn.Linear(dim * 4, dim)
+        self.tp_mesh = None
+
+    def _span(self, parts: int, index: int) -> torch.Tensor:
+        return torch.arange(*split_span(self.net_2.in_features, parts, index))
+
+    def tp_layout(self, parts: int, index: int) -> dict:
+        if type(self.net_0_proj) is not nn.Linear or type(self.net_2) is not nn.Linear:
+            return {}
+        rows = self._span(parts, index)
+        return {"net_0_proj.weight": (0, torch.cat([rows, rows + self.net_2.in_features])),
+                "net_2.weight": (1, rows)}
+
+    def enter_tp_(self, mesh, parts: int, index: int) -> None:
+        self.tp_mesh = mesh
+        cols = self.tp_layout(parts, index)["net_0_proj.weight"][1]
+        self.register_buffer("tp_cols", cols.to(self.net_2.weight.device), persistent=False)
 
     def forward(self, x):
-        return self.net_2(geglu(self.net_0_proj(x)))
+        tp = self.tp_mesh
+        if tp is None:
+            return self.net_2(geglu(self.net_0_proj(x)))
+        x = copy_to_model(x, tp)
+        # the whole bias through copy_to_model: each rank's gradient covers
+        # its own columns, and the all-reduce gives every rank all of them
+        b = copy_to_model(self.net_0_proj.bias, tp)[self.tp_cols]
+        h = geglu(F.linear(x, self.net_0_proj.weight, b))
+        return reduce_from_model(F.linear(h, self.net_2.weight), tp) + self.net_2.bias
 
 
 class BasicTransformerBlock(nn.Module):

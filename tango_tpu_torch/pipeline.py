@@ -30,7 +30,14 @@ The tokenizer: the caller's, or `WordHashTokenizer` (FLAN-T5's
 SentencePiece tokenizer needs `transformers`, which the port does not use;
 `Tango(path)` warns when it falls back to the word hash).
 
-Not ported yet: the device mesh (`mesh=`, ROADMAP queue A #10).
+The device mesh (`mesh=`, parallel.mesh, one process a device): the UNet
+is sharded over 'model' by the TP rules and the T5, the VAE and HiFi-GAN
+are replicated. A batch whose rows (prompts x samples) divide 'data' is
+spread over it: each data rank samples its rows with the same per-row
+seeds, so its noise is the meshless run's, decodes them, and the waveforms
+are all-gathered, so every rank returns the full list. `generate_for_batch`
+pads each chunk until its rows divide 'data'; a batch that does not divide
+(`generate` at batch 1) is computed whole on every rank.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from tango_tpu_torch.models.t5 import T5Encoder
 from tango_tpu_torch.models.unet import UNet2DConditionModel
 from tango_tpu_torch.models.vae import AutoencoderKL
 from tango_tpu_torch.ops.quant import SCOPES, QConv2d, QLinear, quantize_unet_
+from tango_tpu_torch.parallel import mesh as pmesh
 from tango_tpu_torch.tokenizer import WordHashTokenizer
 from tango_tpu_torch.utils.checkpoint import load_native, load_tango_snapshot
 from tango_tpu_torch.utils.init import init_random_
@@ -88,20 +96,22 @@ class Tango:
 
     def __init__(self, name_or_path: Optional[str] = None, tokenizer=None,
                  dtype: Optional[torch.dtype] = None, max_text_length: int = 128,
-                 rng_seed: int = 0, cast_params: bool = True, quant: Optional[str] = None,
-                 unet_ckpt: Optional[str] = None, device=None):
+                 rng_seed: int = 0, cast_params: bool = True, mesh=None,
+                 quant: Optional[str] = None, unet_ckpt: Optional[str] = None, device=None):
         """Load the reference-format snapshot directory `name_or_path` (or,
         with None, an empty pipeline for `from_components`). `unet_ckpt`, a
         directory that `utils.checkpoint.save_native` wrote (as
         `SFTTrainer.fit` does), replaces the snapshot's UNet weights: a
         natively trained UNet over the snapshot's VAE, T5 and vocoder.
-        The parameters are JAX's, in its order, without its `mesh`; `device`,
-        the port's own, comes last."""
+        `mesh`, a `parallel.mesh.make_mesh()`, shards the UNet over 'model'
+        and the batches over 'data'. The parameters are JAX's, in its order;
+        `device`, the port's own, comes last."""
         if quant not in (None, False, *SCOPES):
             # a typo must not serve an unquantized pipeline
             raise ValueError(f"quant must be one of None/'conv'/'dense'/'all', got {quant!r}")
         self.quant = quant or None
         self.cast_params = cast_params
+        self.mesh = mesh
         self.device = C.resolve_device(device)
         self.dtype = dtype or C.default_dtype(self.device)
         self.max_text_length = max_text_length
@@ -157,6 +167,7 @@ class Tango:
         latent_t_size: int = 256,
         latent_f_size: int = 16,
         cast_params: bool = False,
+        mesh=None,
         quant: Optional[str] = None,
         device=None,
         max_text_length: int = 128,
@@ -170,9 +181,9 @@ class Tango:
         With `quant`, `unet_params` is still the float UNet's: it is
         quantized here. `stft_config` (default TANGO_STFT) is kept as
         `self.stft_config`, as `Tango(path)` keeps the snapshot's. The
-        parameters are JAX's, in its order, without its `mesh`; the port's
-        own (`device`, `max_text_length`, `init_seed`) come last, and the
-        params default to None (random weights) where JAX requires them.
+        parameters are JAX's, in its order; the port's own (`device`,
+        `max_text_length`, `init_seed`) come last, and the params default to
+        None (random weights) where JAX requires them.
 
         `cast_params` (JAX's flag, False here as in JAX's `from_components`)
         decides the int8 quantize order only: False builds (or draws) the
@@ -183,7 +194,8 @@ class Tango:
         the compute dtype either way, which is where JAX casts its uncast
         weights at use."""
         self = cls(None, tokenizer=tokenizer, device=device, dtype=dtype,
-                   max_text_length=max_text_length, cast_params=cast_params, quant=quant)
+                   max_text_length=max_text_length, cast_params=cast_params, mesh=mesh,
+                   quant=quant)
         if self.tokenizer is None and t5_config is not None:
             self.tokenizer = WordHashTokenizer(t5_config.vocab_size)
         self._build(unet_config=unet_config, vae_config=vae_config, unet_params=unet_params,
@@ -199,7 +211,8 @@ class Tango:
                latent_f_size: int = 16, init_seed: int = 0) -> None:
         """The modules on the device in the compute dtype, from state dicts
         or, where one is None, seeded random weights; the UNet quantized in
-        `cast_params`' order."""
+        `cast_params`' order, then sharded over the mesh's 'model' axis (the
+        rest replicated: every rank builds the same weights)."""
 
         def build(k: int, make, params, dtype=self.dtype):
             return build_module(make, params, self.device, dtype, init_seed * 16 + k)
@@ -212,6 +225,8 @@ class Tango:
             if quant_f32:
                 _cast_float_(unet, self.dtype)
             unet.cfg = dataclasses.replace(unet_config, quant_int8=True, quant_scope=self.quant)
+        if self.mesh is not None:
+            pmesh.shard_params(unet, self.mesh)
         self.model = AudioDiffusion(unet, scheduler_config or C.SD21_SCHEDULER,
                                     latent_t_size=latent_t_size, latent_f_size=latent_f_size)
         self.vae = build(1, lambda: AutoencoderKL(vae_config), vae_params)
@@ -260,14 +275,16 @@ class Tango:
         `disable_progress` is accepted and changes nothing, as in `generate`.
 
         A short tail chunk is padded up to batch_size, by cycling its prompts,
-        whenever a full chunk exists; the padded rows are dropped."""
+        whenever a full chunk exists, and under a mesh until its rows divide
+        'data'; the padded rows are dropped."""
         base = self._base_seed(seed)
+        n_data = 1 if self.mesh is None else self.mesh.shape["data"]
         outputs = []
         for ci, k in enumerate(range(0, len(prompts), batch_size)):
             chunk = list(prompts[k:k + batch_size])
             n_real = len(chunk)
             target = batch_size if len(prompts) > batch_size else n_real
-            while len(chunk) < target:
+            while len(chunk) < target or (len(chunk) * samples) % n_data:
                 chunk.append(chunk[len(chunk) % n_real])
             wavs = self._generate_batch(chunk, steps, guidance, samples, base, ci)
             outputs += list(wavs[: n_real * samples])
@@ -280,14 +297,19 @@ class Tango:
 
     def _generate_batch(self, prompts, steps, guidance, samples, base_seed: int, chunk: int,
                         latent_t: Optional[int] = None) -> np.ndarray:
+        n = len(prompts) * samples
+        rows = pmesh.local_rows(self.mesh, n)
         latents = self.sample_latents(prompts, steps, guidance, samples, base_seed, chunk,
-                                      latent_t)
-        return self.decode_to_waveform(latents)
+                                      latent_t, rows=rows)
+        wavs = self.decode_to_waveform(latents)
+        return pmesh.gather_rows(torch.from_numpy(wavs), self.mesh, n).numpy()
 
     @torch.inference_mode()
     def sample_latents(self, prompts, steps, guidance, samples, base_seed: int, chunk: int = 0,
-                       latent_t: Optional[int] = None) -> torch.Tensor:
-        """Text -> latents (B*samples, T, F, C) f32, row r seeded from (base_seed, chunk, r)."""
+                       latent_t: Optional[int] = None, rows: Optional[slice] = None
+                       ) -> torch.Tensor:
+        """Text -> latents (B*samples, T, F, C) f32, row r seeded from
+        (base_seed, chunk, r); with `rows`, only those rows of the batch."""
         cond, cond_mask = self.encode_text(prompts)
         if samples > 1:
             cond = cond.repeat_interleave(samples, 0)
@@ -298,8 +320,13 @@ class Tango:
             if samples > 1:
                 uncond = uncond.repeat_interleave(samples, 0)
                 uncond_mask = uncond_mask.repeat_interleave(samples, 0)
+        rows = rows or slice(None)
+        index = range(cond.shape[0])[rows]
+        cond, cond_mask = cond[rows], cond_mask[rows]
+        if uncond is not None:
+            uncond, uncond_mask = uncond[rows], uncond_mask[rows]
         gens = [torch.Generator(device=self.device).manual_seed(_row_seed(base_seed, chunk, r))
-                for r in range(cond.shape[0])]
+                for r in index]
         return self.model.sample(cond, cond_mask, gens, num_steps=steps,
                                  guidance_scale=guidance, uncond_embeds=uncond,
                                  uncond_mask=uncond_mask, latent_t_size=latent_t)

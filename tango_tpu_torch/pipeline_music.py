@@ -36,7 +36,12 @@ and the predictor's `beats_tokenizer=` (DeBERTa-v3's) and
 `tokenizer.py` are used, with a warning: the real ones need `transformers`,
 which the port does not use.
 
-Not ported: the device mesh (`mesh=`, ROADMAP queue A #10).
+The device mesh (`mesh=`, parallel.mesh), as `Tango`'s: the UNet is
+sharded over 'model' by the TP rules (its three streams' transformers
+alike), a batch whose rows divide 'data' is spread over it with the same
+per-row seeds and its waveforms all-gathered, `generate_for_batch` pads
+each chunk until its rows divide 'data', and the predictors, the text
+encoder, the conditioner, the VAE and HiFi-GAN run replicated.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from tango_tpu_torch.models.t5 import (T5Encoder, T5Seq2Seq, convert_t5_encoder,
 from tango_tpu_torch.models.unet import UNet2DConditionModel
 from tango_tpu_torch.models.vae import AutoencoderKL
 from tango_tpu_torch.ops.quant import SCOPES, quantize_unet_
+from tango_tpu_torch.parallel import mesh as pmesh
 from tango_tpu_torch.pipeline import _cast_float_, _row_seed, build_module
 from tango_tpu_torch.tokenizer import WordHashTokenizer, deberta_word_hash
 from tango_tpu_torch.utils import convert as conv
@@ -255,14 +261,11 @@ class Mustango:
                  mesh=None, device=None):
         """Load the released-layout snapshot directory `name_or_path` (or,
         with None, an empty pipeline for `from_components`). The parameters
-        are JAX's, in its order; `mesh` raises (not ported); `device`, the
-        port's own, comes last."""
+        are JAX's, in its order; `device`, the port's own, comes last."""
         if quant not in (None, False, *SCOPES):
             raise ValueError(f"quant must be one of None/'conv'/'dense'/'all', got {quant!r}")
-        if mesh is not None:
-            raise NotImplementedError("the device mesh (mesh=) is not ported yet: "
-                                      "ROADMAP queue A #10")
         self.quant = quant or None
+        self.mesh = mesh
         self.device = C.resolve_device(device)
         self.dtype = dtype or C.default_dtype(self.device)
         self.tokenizer = tokenizer
@@ -342,6 +345,8 @@ class Mustango:
             quantize_unet_(unet, self.quant)
             _cast_float_(unet, self.dtype)
             unet.cfg = dataclasses.replace(unet_cfg, quant_int8=True, quant_scope=self.quant)
+        if self.mesh is not None:
+            pmesh.shard_params(unet, self.mesh)
         d_music = d_music or unet_cfg.cross_attention_dim
         cond = build(4, lambda: MusicConditioner(d_model=d_music), conditioner_params)
         self.model = MusicAudioDiffusion(unet, C.SD21_SCHEDULER, latent_t_size=latent_t_size,
@@ -392,7 +397,8 @@ class Mustango:
         Without features the predictors run once for each distinct prompt;
         otherwise beats, chords and chords_times are per-prompt lists. A
         short tail chunk is padded up to batch_size, by cycling its prompts,
-        whenever a full chunk exists; the padded rows are dropped."""
+        whenever a full chunk exists, and under a mesh until its rows divide
+        'data'; the padded rows are dropped."""
         prompts = list(prompts)
         if not prompts:
             return []
@@ -411,13 +417,14 @@ class Mustango:
         assert len(beats) == len(chords) == len(chords_times) == len(prompts), (
             "beats/chords/chords_times must be per-prompt lists")
         base = self._base_seed(seed)
+        n_data = 1 if self.mesh is None else self.mesh.shape["data"]
         outputs: List[np.ndarray] = []
         n = len(prompts)
         for ci, k in enumerate(range(0, n, batch_size)):
             idx = list(range(k, min(k + batch_size, n)))
             n_real = len(idx)
             target = batch_size if n > batch_size else n_real
-            while len(idx) < target:
+            while len(idx) < target or len(idx) % n_data:
                 idx.append(idx[len(idx) % n_real])
             b_struct = [beats[i][0] if beats[i] and beats[i][0] else [[], []] for i in idx]
             wavs = self._generate_batch([prompts[i] for i in idx], b_struct,
@@ -431,21 +438,29 @@ class Mustango:
 
     def _generate_batch(self, prompts, beats, chords, chords_times, steps, guidance,
                         base_seed: int, chunk: int) -> np.ndarray:
+        n = len(prompts)
+        rows = pmesh.local_rows(self.mesh, n)
         latents = self.sample_latents(prompts, beats, chords, chords_times, steps, guidance,
-                                      base_seed, chunk)
-        return self.decode_to_waveform(latents)
+                                      base_seed, chunk, rows=rows)
+        wavs = self.decode_to_waveform(latents)
+        return pmesh.gather_rows(torch.from_numpy(wavs), self.mesh, n).numpy()
 
     @torch.inference_mode()
     def sample_latents(self, prompts, beats, chords, chords_times, steps, guidance,
-                       base_seed: int, chunk: int = 0) -> torch.Tensor:
+                       base_seed: int, chunk: int = 0, rows: Optional[slice] = None
+                       ) -> torch.Tensor:
         """Prompts and per-row features (one [[times], [types]] a row) ->
-        latents (B, T, F, C) f32, row r seeded from (base_seed, chunk, r)."""
-        cond, cond_mask = self.encode_text(prompts, self.max_text_length)
-        uncond, uncond_mask = self.encode_text([""] * len(prompts), self.max_text_length)
+        latents (B, T, F, C) f32, row r seeded from (base_seed, chunk, r);
+        with `rows`, only those rows of the batch."""
+        rows = rows or slice(None)
+        index = range(len(prompts))[rows]
+        cond, cond_mask = self.encode_text(list(prompts)[rows], self.max_text_length)
+        uncond, uncond_mask = self.encode_text([""] * len(index), self.max_text_length)
         m = self.model
-        beat_emb, beat_mask, chord_emb, chord_mask = m.encode_music(beats, chords, chords_times)
+        beat_emb, beat_mask, chord_emb, chord_mask = m.encode_music(
+            list(beats)[rows], list(chords)[rows], list(chords_times)[rows])
         gens = [torch.Generator(device=self.device).manual_seed(_row_seed(base_seed, chunk, r))
-                for r in range(len(prompts))]
+                for r in index]
         return m.music_sample(cond, cond_mask, gens, beat_emb, beat_mask, chord_emb, chord_mask,
                               num_steps=steps, guidance_scale=guidance, uncond_embeds=uncond,
                               uncond_mask=uncond_mask, conditioner=m.conditioner)

@@ -21,8 +21,16 @@ record an epoch) go to `--output_dir`.
 
 Nothing is downloaded: a name that is not a local directory raises. The
 tokenizer is the caller's (`main(argv, tokenizer=)`) or `WordHashTokenizer`,
-with a warning. Not ported: `--model_parallel > 1` and multi-process launches
-(the mesh, ROADMAP queue A #10).
+with a warning.
+
+Several processes: launch one per device with torchrun (`torchrun
+--nproc_per_node N -m tango_tpu_torch.train.cli ...`) or with JAX's
+variables (JAX_COORDINATOR=host:port, JAX_NUM_PROCESSES, JAX_PROCESS_ID on
+each), as JAX's CLI is launched. The ranks form a ('data', 'model') mesh
+with `--model_parallel` ranks a model group (parallel.mesh): the global
+batch is `--per_device_train_batch_size` times the data ranks, each data
+rank decodes only its rows of it (`FeaturizedLoader(local_rows=)`), mixup
+adds half a rank's rows to that rank, and only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -33,9 +41,6 @@ import json
 import os
 import time
 import warnings
-
-MESH_NOT_PORTED = "the device mesh and multi-process training are not ported yet: ROADMAP queue A #10"
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="tango_tpu_torch SFT training")
@@ -94,7 +99,7 @@ def parse_args(argv=None):
     p.add_argument("--target_length", type=int, default=1024)
     p.add_argument("--max_text_length", type=int, default=128)
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="more than 1 is not ported yet (queue A #10)")
+                   help="ranks a model group: the UNet's tensor-parallel width")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--with_tracking", action="store_true",
                    help="log to wandb if it is importable, else to stdout")
@@ -103,15 +108,6 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default=None,
                    help="torch device; the CUDA card unless given (e.g. cpu)")
     return p.parse_args(argv)
-
-
-def check_single_process(model_parallel: int) -> None:
-    """Raise for what needs the device mesh: `--model_parallel > 1`, or a
-    multi-process launch (JAX's JAX_COORDINATOR, torchrun's WORLD_SIZE > 1)."""
-    if model_parallel > 1:
-        raise SystemExit(f"--model_parallel {model_parallel}: {MESH_NOT_PORTED}")
-    if os.environ.get("JAX_COORDINATOR") or int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
-        raise SystemExit(f"multi-process launch: {MESH_NOT_PORTED}")
 
 
 def local_dir(path: str, flag: str) -> str:
@@ -135,10 +131,12 @@ def default_tokenizer(tokenizer, vocab_size: int):
     return WordHashTokenizer(vocab_size)
 
 
-def make_log_fn(enabled: bool, project: str, config: dict):
+def make_log_fn(enabled: bool, project: str, config: dict, is_main: bool = True):
     """A log function printing each record as a JSON line, and logging it to
-    wandb too when `enabled` and wandb is importable."""
+    wandb too when `enabled` and wandb is importable; silent off rank 0."""
     tracker = None
+    if not is_main:
+        return lambda rec: None
     if enabled:
         try:
             import wandb
@@ -157,7 +155,6 @@ def make_log_fn(enabled: bool, project: str, config: dict):
 
 def main(argv=None, tokenizer=None):
     args = parse_args(argv)
-    check_single_process(args.model_parallel)
     import torch
 
     from tango_tpu_torch import configs as C
@@ -166,13 +163,16 @@ def main(argv=None, tokenizer=None):
     from tango_tpu_torch.models.layers import frozen
     from tango_tpu_torch.models.t5 import T5Encoder
     from tango_tpu_torch.models.vae import AutoencoderKL
+    from tango_tpu_torch.parallel import mesh as pmesh
     from tango_tpu_torch.train.data import FeaturizedLoader, load_manifest, validate_manifest
     from tango_tpu_torch.train.sft import SFTTrainer, encode_batches
     from tango_tpu_torch.utils import checkpoint as ckpt_io
 
-    device = C.resolve_device(args.device)
+    _, _, device = pmesh.init_distributed(args.device)
+    mesh = pmesh.make_mesh(data=-1, model=args.model_parallel, device=device)
     out_dir = args.output_dir or os.path.join("saved", str(int(time.time())))
-    os.makedirs(out_dir, exist_ok=True)
+    if mesh.is_main:
+        os.makedirs(out_dir, exist_ok=True)
 
     # --- components
     unet_config = C.TANGO_UNET
@@ -241,13 +241,23 @@ def main(argv=None, tokenizer=None):
     if not args.skip_preflight:
         validate_manifest(train_ex)
         validate_manifest(val_ex)
-    bs, eval_bs = args.per_device_train_batch_size, args.per_device_eval_batch_size
+    # the global batches; each data rank decodes its rows of them (JAX's
+    # cli.py:234-262), and mixup adds half its rows to each rank's share
+    data_size = mesh.shape["data"]
+    bs = args.per_device_train_batch_size * data_size
+    eval_bs = args.per_device_eval_batch_size * data_size
+    train_rows = eval_rows = None
+    if mesh.size > 1:
+        train_rows = pmesh.process_local_batch_slice(mesh, bs)
+        eval_rows = pmesh.process_local_batch_slice(mesh, eval_bs)
+    local_bs = bs if train_rows is None else train_rows.stop - train_rows.start
     stft = MelSpectrogram(stft_config)
     train_loader = FeaturizedLoader(train_ex, bs, args.target_length, stft=stft,
-                                    augment_num=bs // 2 if args.augment else 0, seed=args.seed,
+                                    augment_num=local_bs // 2 if args.augment else 0,
+                                    seed=args.seed, local_rows=train_rows,
                                     decode_workers=args.decode_workers)
     val_loader = FeaturizedLoader(val_ex, eval_bs, args.target_length, stft=stft, shuffle=False,
-                                  decode_workers=args.decode_workers)
+                                  local_rows=eval_rows, decode_workers=args.decode_workers)
     steps_per_epoch = max(len(train_loader) // args.gradient_accumulation_steps, 1)
     total_steps = steps_per_epoch * args.num_train_epochs
     if args.max_train_steps is not None:
@@ -256,7 +266,7 @@ def main(argv=None, tokenizer=None):
     # f32 with remat: full-size training does not fit otherwise
     diffusion = AudioDiffusion(unet_config, snr_gamma=args.snr_gamma,
                                uncondition=args.uncondition, remat=True, device=device)
-    trainer = SFTTrainer(diffusion, vae, train_cfg, total_steps)
+    trainer = SFTTrainer(diffusion, vae, train_cfg, total_steps, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.resume_from_checkpoint:
         params, manifest = ckpt_io.load_native(args.resume_from_checkpoint)
@@ -269,9 +279,10 @@ def main(argv=None, tokenizer=None):
         state = trainer.init_state(generator, params=init_unet_params)
     del init_unet_params
 
-    with open(os.path.join(out_dir, "summary.jsonl"), "a") as f:
-        f.write(json.dumps({"args": vars(args)}) + "\n")
-    log_fn = make_log_fn(args.with_tracking, "tango_tpu", vars(args))
+    if mesh.is_main:
+        with open(os.path.join(out_dir, "summary.jsonl"), "a") as f:
+            f.write(json.dumps({"args": vars(args)}) + "\n")
+    log_fn = make_log_fn(args.with_tracking, "tango_tpu", vars(args), mesh.is_main)
     try:
         return trainer.fit(
             state, encode_batches(train_loader, tokenizer, t5, args.max_text_length),

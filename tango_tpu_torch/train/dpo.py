@@ -1,4 +1,4 @@
-"""DPO trainer (Tango 2), port of tango_tpu/train/dpo.py for one card.
+"""DPO trainer (Tango 2), port of tango_tpu/train/dpo.py.
 
 Preference alignment on chosen / rejected audio pairs (the reference's
 tango2/tango2-train.py:291-670). Against SFT: both fbanks of a pair are
@@ -9,6 +9,13 @@ train the base loss on the chosen audio only (:563-572). AdamW on
 `AccumulatingAdamW`, with a linear decay to 0 over `total_steps` updates and
 no warmup (:148-150, 464-468), the schedule advancing once an update. As in
 `train.sft`, the steps update the UNet and the optimizer in place.
+
+Under a mesh (`mesh=`) as `train.sft`: the trained UNet is sharded over
+'model', each data rank takes its rows with the global batch's draws, the
+gradients are averaged over 'data' before AdamW, the losses and metrics
+are reduced over 'data', and rank 0 writes the gathered full state dict.
+The reference UNet stays whole on every rank (the caller makes it before
+sharding; JAX's CLI keeps it in bf16, replicated).
 """
 
 from __future__ import annotations
@@ -24,14 +31,16 @@ from torch import nn
 from tango_tpu_torch.configs import DPOConfig, TrainConfig
 from tango_tpu_torch.models.dpo import DPOAudioDiffusion
 from tango_tpu_torch.models.vae import AutoencoderKL
-from tango_tpu_torch.train.sft import TrainState, make_optimizer
+from tango_tpu_torch.parallel import mesh as pmesh
+from tango_tpu_torch.train.sft import TrainState, draw_latents, make_optimizer
 from tango_tpu_torch.utils.checkpoint import save_native
 
 
 class DPOTrainer:
     def __init__(self, diffusion: DPOAudioDiffusion, vae: AutoencoderKL, config: DPOConfig,
-                 total_steps: int):
+                 total_steps: int, mesh: Optional[pmesh.Mesh] = None):
         self.diffusion = diffusion
+        self.mesh = mesh
         self.vae = vae.requires_grad_(False)
         self.cfg = config
         self.total_steps = total_steps
@@ -47,18 +56,23 @@ class DPOTrainer:
 
     def init_state(self, unet_params=None) -> TrainState:
         """Fresh optimizer state over the UNet, loaded from `unet_params` (a
-        state dict, the SFT'd starting point) when given. The caller takes
-        the reference copy (`make_reference`) before training."""
+        state dict, the SFT'd starting point) when given, then sharded under
+        a mesh. The caller takes the reference copy (`make_reference`)
+        before training, and before `init_state` shards the UNet."""
         unet = self.diffusion.unet
         if unet_params is not None:
             unet.load_state_dict(unet_params)
+        if self.mesh is not None:
+            pmesh.shard_params(unet, self.mesh)
         unet.requires_grad_(True)
-        return TrainState(unet, make_optimizer(self.opt_cfg, self.total_steps, unet.parameters()))
+        return TrainState(unet, make_optimizer(self.opt_cfg, self.total_steps, unet.parameters(),
+                                               self.mesh))
 
-    @torch.no_grad()
-    def _encode(self, fbank, generator):
-        fbank = torch.as_tensor(fbank, dtype=torch.float32, device=self.device)
-        return self.vae.encode_first_stage(fbank[..., None], generator)
+    def _latents(self, fbanks, generator, validation_mode: bool, names):
+        """`train.sft.draw_latents` on this rank's fbanks."""
+        fbanks = [torch.as_tensor(f, dtype=torch.float32, device=self.device) for f in fbanks]
+        return draw_latents(self.vae, self.diffusion, self.mesh, fbanks, generator,
+                            validation_mode, names)
 
     def _text(self, batch):
         return (torch.as_tensor(batch["text_embeds"], device=self.device),
@@ -72,30 +86,37 @@ class DPOTrainer:
 
     def dpo_step(self, state: TrainState, ref_unet: nn.Module, batch, generator=None):
         """One micro-step on {fbank_w, fbank_l (B, T, M), text_embeds, text_mask}
-        -> (state, loss, metrics), the loss and metrics 0-d tensors on the device."""
-        lat_w = self._encode(batch["fbank_w"], generator)
-        lat_l = self._encode(batch["fbank_l"], generator)
+        -> (state, loss, metrics), the loss and metrics 0-d tensors on the
+        device, over the global batch."""
+        (lat_w, lat_l), d = self._latents([batch["fbank_w"], batch["fbank_l"]], generator, False,
+                                          ("posterior_w", "posterior_l"))
         embeds, mask = self._text(batch)
         loss, metrics = self.diffusion.dpo_loss(lat_w, lat_l, embeds, mask, generator,
-                                                ref_unet=ref_unet)
-        return self._update(state, loss), loss.detach(), metrics
+                                                ref_unet=ref_unet, timesteps=d["timesteps"],
+                                                noise=d["noise"], drop=d.get("drop"))
+        metrics = {k: pmesh.mean_over_data(v, self.mesh) for k, v in metrics.items()}
+        return (self._update(state, loss), pmesh.mean_over_data(loss.detach(), self.mesh),
+                metrics)
 
     def sft_step(self, state: TrainState, batch, generator=None):
         """One SFT-first micro-step on the chosen audio only: the reference sets
         `latents = latent_w` ("Perform SFT on the prompt and preferred audio",
         tango2-train.py:563-567)."""
-        lat = self._encode(batch["fbank_w"], generator)
+        (lat,), d = self._latents([batch["fbank_w"]], generator, False, ("posterior",))
         embeds, mask = self._text(batch)
-        loss = self.diffusion.sft_loss(lat, embeds, mask, generator)
-        return self._update(state, loss), loss.detach()
+        loss = self.diffusion.loss(lat, embeds, mask, generator, timesteps=d["timesteps"],
+                                   noise=d["noise"], drop=d.get("drop"))
+        return self._update(state, loss), pmesh.mean_over_data(loss.detach(), self.mesh)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch, generator=None) -> torch.Tensor:
         """The fixed-t diffusion loss on single audio {fbank, text_embeds,
         text_mask}, as the reference validates (tango2-train.py:600-618)."""
-        lat = self._encode(batch["fbank"], generator)
+        (lat,), d = self._latents([batch["fbank"]], generator, True, ("posterior",))
         embeds, mask = self._text(batch)
-        return self.diffusion.sft_loss(lat, embeds, mask, generator, validation_mode=True)
+        loss = self.diffusion.loss(lat, embeds, mask, generator, validation_mode=True,
+                                   noise=d["noise"])
+        return pmesh.mean_over_data(loss, self.mesh)
 
     def fit(
         self,
@@ -113,7 +134,9 @@ class DPOTrainer:
         the SFT-first phase every `save_every` epochs; `last` always.
         max_train_steps caps the updates. Losses stay on the device: one
         fetch an epoch."""
-        os.makedirs(output_dir, exist_ok=True)
+        is_main = self.mesh is None or self.mesh.is_main
+        if is_main:
+            os.makedirs(output_dir, exist_ok=True)
         num_epochs = self.cfg.num_train_epochs if num_epochs is None else num_epochs
         best_val = float("inf")
         max_updates = self.cfg.max_train_steps
@@ -122,7 +145,10 @@ class DPOTrainer:
         done = False
 
         def save(name, manifest=None):
-            save_native(os.path.join(output_dir, name), state.params.state_dict(), manifest)
+            sd = (state.params.state_dict() if self.mesh is None
+                  else pmesh.full_state_dict(state.params, self.mesh))  # every rank
+            if is_main:
+                save_native(os.path.join(output_dir, name), sd, manifest)
 
         for epoch in range(num_epochs):
             t0 = time.time()
@@ -154,8 +180,9 @@ class DPOTrainer:
                 "time_s": round(time.time() - t0, 2),
             }
             log_fn(rec)
-            with open(os.path.join(output_dir, "summary.jsonl"), "a") as f:
-                f.write(json.dumps(rec) + "\n")
+            if is_main:
+                with open(os.path.join(output_dir, "summary.jsonl"), "a") as f:
+                    f.write(json.dumps(rec) + "\n")
             if val_loss is not None and val_loss < best_val:
                 best_val = val_loss
                 save("best", rec)

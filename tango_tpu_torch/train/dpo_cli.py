@@ -13,8 +13,15 @@ encoder. f32 with remat on the card unless `--device` names another;
 checkpoints (`best` with a validation file, `epoch_N`, `last`) and
 `summary.jsonl` go to `--output_dir`. The tokenizer is the caller's
 (`main(argv, tokenizer=)`) or `WordHashTokenizer`, with a warning; nothing
-is downloaded. `--model_parallel > 1` and multi-process launches need the
-mesh (ROADMAP queue A #10) and raise.
+is downloaded.
+
+Several processes (torchrun, or JAX's JAX_COORDINATOR variables, as
+`train.cli`): the ranks form a ('data', 'model') mesh with
+`--model_parallel` ranks a model group; every rank iterates the same seeded
+batch order of `--per_device_train_batch_size` times the data ranks rows
+and featurizes only its rows (JAX's dpo_cli.py:118-125); the trained UNet
+is sharded over 'model', the reference UNet kept whole on every rank in
+bf16, as JAX's CLI keeps it; only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ def parse_args(argv=None):
     p.add_argument("--max_text_length", type=int, default=128)
     p.add_argument("--output_dir", type=str, default=None)
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="more than 1 is not ported yet (queue A #10)")
+                   help="ranks a model group: the UNet's tensor-parallel width")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--with_tracking", action="store_true",
                    help="log to wandb if it is importable, else to stdout")
@@ -71,14 +78,7 @@ def load_preference_manifest(path: str):
 
 def main(argv=None, tokenizer=None):
     args = parse_args(argv)
-    from tango_tpu_torch.train.cli import (
-        check_single_process,
-        default_tokenizer,
-        local_dir,
-        make_log_fn,
-    )
-
-    check_single_process(args.model_parallel)
+    from tango_tpu_torch.train.cli import default_tokenizer, local_dir, make_log_fn
 
     import numpy as np
     import torch
@@ -90,13 +90,16 @@ def main(argv=None, tokenizer=None):
     from tango_tpu_torch.models.layers import frozen
     from tango_tpu_torch.models.t5 import T5Encoder
     from tango_tpu_torch.models.vae import AutoencoderKL
+    from tango_tpu_torch.parallel import mesh as pmesh
     from tango_tpu_torch.train.data import Example, validate_manifest
     from tango_tpu_torch.train.dpo import DPOTrainer
     from tango_tpu_torch.utils.checkpoint import load_tango_snapshot
 
-    device = C.resolve_device(args.device)
+    _, _, device = pmesh.init_distributed(args.device)
+    mesh = pmesh.make_mesh(data=-1, model=args.model_parallel, device=device)
     out_dir = args.output_dir or os.path.join("saved", f"dpo_{int(time.time())}")
-    os.makedirs(out_dir, exist_ok=True)
+    if mesh.is_main:
+        os.makedirs(out_dir, exist_ok=True)
 
     loaded = load_tango_snapshot(local_dir(args.tango_snapshot, "--tango_snapshot"),
                                  with_encoder=True)
@@ -117,7 +120,9 @@ def main(argv=None, tokenizer=None):
         per_device_train_batch_size=args.per_device_train_batch_size,
         gradient_accumulation_steps=args.gradient_accumulation_steps,
         max_train_steps=args.max_train_steps, save_every=args.save_every)
-    bs = args.per_device_train_batch_size
+    # the global batch, of which each data rank featurizes its rows
+    bs = args.per_device_train_batch_size * mesh.shape["data"]
+    rows_of = (pmesh.process_local_batch_slice(mesh, bs) if mesh.size > 1 else slice(None))
 
     rows = load_preference_manifest(args.train_file)
     if args.num_examples != -1:
@@ -132,9 +137,13 @@ def main(argv=None, tokenizer=None):
     # f32 with remat; the reference UNet is a frozen copy of the starting UNet
     diffusion = DPOAudioDiffusion(loaded["unet_config"], beta_dpo=args.beta_dpo, remat=True,
                                   device=device)
-    trainer = DPOTrainer(diffusion, vae, cfg, total_steps=steps_per_epoch * args.num_train_epochs)
-    state = trainer.init_state(loaded["unet_params"])
-    ref_unet = make_reference(diffusion.unet)
+    trainer = DPOTrainer(diffusion, vae, cfg, total_steps=steps_per_epoch * args.num_train_epochs,
+                         mesh=mesh)
+    # the reference is taken whole, before init_state shards the UNet; under a
+    # mesh it is kept in bf16, as JAX's CLI keeps it (dpo_cli.py:152-159)
+    diffusion.unet.load_state_dict(loaded["unet_params"])
+    ref_unet = make_reference(diffusion.unet, torch.bfloat16 if mesh.size > 1 else None)
+    state = trainer.init_state()
     del loaded
 
     def fbanks(chunk, key):
@@ -157,7 +166,7 @@ def main(argv=None, tokenizer=None):
         random.Random(args.seed + epochs_seen[0]).shuffle(order)
         epochs_seen[0] += 1
         for k in range(0, len(order) - bs + 1, bs):
-            chunk = [rows[i] for i in order[k: k + bs]]
+            chunk = [rows[i] for i in order[k: k + bs]][rows_of]
             yield {"fbank_w": fbanks(chunk, "chosen"), "fbank_l": fbanks(chunk, "rejected"),
                    **text(chunk)}
 
@@ -174,9 +183,10 @@ def main(argv=None, tokenizer=None):
                 chunk = vrows[k: k + bs]
                 if len(chunk) < bs:
                     chunk = (chunk * bs)[:bs]
+                chunk = chunk[rows_of]
                 yield {"fbank": fbanks(chunk, "chosen"), **text(chunk)}
 
-    log_fn = make_log_fn(args.with_tracking, "tango_tpu_dpo", vars(args))
+    log_fn = make_log_fn(args.with_tracking, "tango_tpu_dpo", vars(args), mesh.is_main)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     return trainer.fit(state, ref_unet, batches, generator, out_dir, val_batches=val_batches,
                        log_fn=log_fn), ref_unet

@@ -1,4 +1,4 @@
-"""SFT trainer, port of tango_tpu/train/sft.py for one card.
+"""SFT trainer, port of tango_tpu/train/sft.py.
 
 The step: the frozen VAE encoder turns fbanks into latents drawn from the
 posterior (no gradient), `AudioDiffusion.loss` gives the min-SNR-weighted
@@ -11,8 +11,17 @@ the loss at t = N/2; `fit` keeps the best checkpoint.
 
 Where JAX is pure, the port updates in place: `train_step` changes the
 UNet's parameters and the optimizer's moments and returns the same state.
-The device mesh and multi-process training are not ported yet (ROADMAP
-queue A #10).
+
+Under a mesh (`mesh=`, parallel.mesh) the UNet is sharded over 'model' by
+the TP rules and each data rank trains on its rows of the global batch. The
+random draws (the posterior noise, the timesteps, the noise, the drop mask)
+are made for the whole global batch from the generator, which every rank
+seeds alike, and each rank takes its rows: the step is the single-process
+step at the global batch. The gradients are all-reduced as a mean over
+'data' before AdamW steps (elementwise, no global-norm clipping, so it
+works on shards); every reported loss is the mean over 'data', so every
+rank takes the same branches; only rank 0 writes, and a checkpoint gathers
+the TP shards into the full state dict first.
 """
 
 from __future__ import annotations
@@ -29,7 +38,8 @@ from torch import nn
 
 from tango_tpu_torch.configs import TrainConfig
 from tango_tpu_torch.models.diffusion import AudioDiffusion
-from tango_tpu_torch.models.vae import AutoencoderKL
+from tango_tpu_torch.models.vae import AutoencoderKL, sample_diagonal_gaussian
+from tango_tpu_torch.parallel import mesh as pmesh
 from tango_tpu_torch.utils.checkpoint import save_native
 
 
@@ -65,10 +75,14 @@ class AccumulatingAdamW:
     micro-gradients in `.grad`; on the k-th call they are divided by k (the
     mean, as MultiSteps takes), the learning rate is set from the schedule at
     the update count, AdamW steps, and the gradients are cleared. Micro-steps
-    do not advance the schedule. Returns whether it updated."""
+    do not advance the schedule. Returns whether it updated. `before_update`,
+    where given, runs on the parameters just before an update, their
+    gradients still summed (the data-parallel all-reduce)."""
 
-    def __init__(self, params: Iterable[nn.Parameter], cfg: TrainConfig, total_steps: int):
+    def __init__(self, params: Iterable[nn.Parameter], cfg: TrainConfig, total_steps: int,
+                 before_update: Optional[Callable[[list], None]] = None):
         self.params = [p for p in params if p.requires_grad]
+        self.before_update = before_update
         self.schedule = make_schedule(cfg, total_steps)
         self.k = max(cfg.gradient_accumulation_steps, 1)
         self.opt = torch.optim.AdamW(self.params, lr=self.schedule(0),
@@ -81,6 +95,8 @@ class AccumulatingAdamW:
         self.mini_step += 1
         if self.mini_step < self.k:
             return False
+        if self.before_update is not None:
+            self.before_update(self.params)
         if self.k > 1:
             for p in self.params:
                 if p.grad is not None:
@@ -94,8 +110,52 @@ class AccumulatingAdamW:
         return True
 
 
-def make_optimizer(cfg: TrainConfig, total_steps: int, params) -> AccumulatingAdamW:
-    return AccumulatingAdamW(params, cfg, total_steps)
+def make_optimizer(cfg: TrainConfig, total_steps: int, params, mesh=None) -> AccumulatingAdamW:
+    """AdamW with accumulation; under a mesh the gradients are averaged over
+    'data' once an update, before it."""
+    hook = None
+    if mesh is not None and mesh.data_group is not None:
+        def hook(ps):
+            pmesh.all_reduce_grads(ps, mesh)
+    return AccumulatingAdamW(params, cfg, total_steps, before_update=hook)
+
+
+def _draw(generator, kind, shape, device) -> torch.Tensor:
+    if kind == "normal":
+        return torch.randn(shape, generator=generator, device=device)
+    if kind == "drop":  # the 10% uncondition mask
+        return torch.rand(shape, generator=generator, device=device) < 0.1
+    return torch.randint(0, kind, shape, generator=generator, device=device)
+
+
+def draw_latents(vae: AutoencoderKL, diffusion: AudioDiffusion, mesh, fbanks, generator,
+                 validation_mode: bool, names=("posterior",), draws: Optional[dict] = None):
+    """The frozen VAE's posterior draws of this rank's fbanks, one a name in
+    `names`, and the loss's draws (timesteps unless validating, noise, and
+    the drop mask where `diffusion.uncondition` and not validating), all made
+    for the global batch in the single-process step's order and cut to this
+    rank's rows: a step under a mesh draws the numbers one process draws at
+    the global batch. `draws` replaces any by given global arrays (the tests
+    feed JAX's). Returns (latents, {name: this rank's rows})."""
+    with torch.no_grad():
+        moments = [vae.encode_moments(f[..., None]) for f in fbanks]
+    shape = moments[0][0].shape
+    n = shape[0] * (1 if mesh is None else mesh.shape["data"])
+    rows = slice(0, n) if mesh is None else pmesh.process_local_batch_slice(mesh, n)
+    full = (n, *shape[1:])
+    specs = [(p, "normal", full) for p in names]
+    if not validation_mode:
+        specs.append(("timesteps", diffusion.noise_scheduler.config.num_train_timesteps, (n,)))
+    specs.append(("noise", "normal", full))
+    if diffusion.uncondition and not validation_mode:
+        specs.append(("drop", "drop", (n,)))
+    device = moments[0][0].device
+    d = {name: (torch.as_tensor(draws[name], device=device) if draws and name in draws
+                else _draw(generator, kind, shp, device))[rows]
+         for name, kind, shp in specs}
+    latents = [vae.cfg.scale_factor * sample_diagonal_gaussian(m, lv, noise=d[p].to(m.dtype))
+               for (m, lv), p in zip(moments, names)]
+    return latents, d
 
 
 @dataclasses.dataclass
@@ -128,51 +188,70 @@ class SFTTrainer:
     """The train and eval steps and the epoch loop on the UNet's device."""
 
     def __init__(self, diffusion: AudioDiffusion, vae: AutoencoderKL, train_config: TrainConfig,
-                 total_steps: int):
+                 total_steps: int, mesh: Optional[pmesh.Mesh] = None):
         self.diffusion = diffusion
         self.vae = vae.requires_grad_(False)
         self.cfg = train_config
         self.total_steps = total_steps
+        self.mesh = mesh
         self.device = diffusion.unet.conv_in.weight.device
 
     def init_state(self, generator: Optional[torch.Generator] = None, params=None) -> TrainState:
         """Fresh optimizer state over the UNet's weights: seeded random ones
-        from `generator`, or `params` (a state dict) to train on from given
-        weights."""
+        from `generator`, or `params` (a full state dict) to train on from
+        given weights; then, under a mesh, sharded over 'model'."""
         unet = self.diffusion.unet
         if params is None:
             self.diffusion.init_params(generator)
         else:
             unet.load_state_dict(params)
+        if self.mesh is not None:
+            pmesh.shard_params(unet, self.mesh)
         unet.requires_grad_(True)
-        return TrainState(unet, make_optimizer(self.cfg, self.total_steps, unet.parameters()))
+        return TrainState(unet, make_optimizer(self.cfg, self.total_steps, unet.parameters(),
+                                               self.mesh))
+
+    def state_dict(self, state: TrainState) -> dict:
+        """The UNet's full state dict (the TP shards gathered under a mesh):
+        what a checkpoint holds. Every rank must call it."""
+        if self.mesh is None:
+            return state.params.state_dict()
+        return pmesh.full_state_dict(state.params, self.mesh)
 
     @torch.no_grad()
     def encode_latents(self, fbank: torch.Tensor, generator=None) -> torch.Tensor:
         """fbank (B, T, n_mels) -> scaled latents (B, T/4, n_mels/4, C)."""
         return self.vae.encode_first_stage(fbank[..., None], generator)
 
+    def _loss(self, batch, generator, validation_mode: bool, draws: Optional[dict] = None):
+        """The loss on this rank's rows, with the global batch's draws."""
+        fbank, embeds, mask = self._inputs(batch)
+        (latents,), d = draw_latents(self.vae, self.diffusion, self.mesh, [fbank], generator,
+                                     validation_mode, draws=draws)
+        return self.diffusion.loss(latents, embeds, mask, generator,
+                                   validation_mode=validation_mode, timesteps=d.get("timesteps"),
+                                   noise=d["noise"], drop=d.get("drop"))
+
     def _inputs(self, batch: Dict[str, torch.Tensor]):
         return (torch.as_tensor(batch["fbank"], dtype=torch.float32, device=self.device),
                 torch.as_tensor(batch["text_embeds"], device=self.device),
                 torch.as_tensor(batch["text_mask"], device=self.device))
 
-    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor], generator=None):
-        """One micro-step on {fbank (B,T,M), text_embeds (B,S,D), text_mask (B,S)}
-        -> (state, loss as a 0-d tensor on the device)."""
-        fbank, embeds, mask = self._inputs(batch)
-        latents = self.encode_latents(fbank, generator)
-        loss = self.diffusion.loss(latents, embeds, mask, generator)
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor], generator=None, *,
+                   draws: Optional[dict] = None):
+        """One micro-step on {fbank (B,T,M), text_embeds (B,S,D), text_mask (B,S)},
+        this rank's rows under a mesh -> (state, the global batch's loss as a
+        0-d tensor on the device). `draws` ({posterior, timesteps, noise,
+        drop}, global arrays) replaces the generator's."""
+        loss = self._loss(batch, generator, False, draws)
         loss.backward()
         state.opt_state.step()
         state.step += 1
-        return state, loss.detach()
+        return state, pmesh.mean_over_data(loss.detach(), self.mesh)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch, generator=None) -> torch.Tensor:
-        fbank, embeds, mask = self._inputs(batch)
-        latents = self.encode_latents(fbank, generator)
-        return self.diffusion.loss(latents, embeds, mask, generator, validation_mode=True)
+        return pmesh.mean_over_data(self._loss(batch, generator, True), self.mesh)
 
     def fit(
         self,
@@ -194,7 +273,9 @@ class SFTTrainer:
         if cs not in ("best", "epoch") and not (cs.isdigit() and int(cs) > 0):
             raise ValueError("checkpointing_steps must be 'best', 'epoch' or a positive "
                              f"integer, got {cs!r}")
-        os.makedirs(output_dir, exist_ok=True)
+        is_main = self.mesh is None or self.mesh.is_main
+        if is_main:
+            os.makedirs(output_dir, exist_ok=True)
         save_every = int(cs) if cs.isdigit() else None
         num_epochs = self.cfg.num_train_epochs if num_epochs is None else num_epochs
         summary_path = os.path.join(output_dir, "summary.jsonl")
@@ -204,7 +285,9 @@ class SFTTrainer:
         done = False
 
         def save(name, manifest):
-            save_native(os.path.join(output_dir, name), state.params.state_dict(), manifest)
+            sd = self.state_dict(state)  # a collective under a mesh: every rank
+            if is_main:
+                save_native(os.path.join(output_dir, name), sd, manifest)
 
         for epoch in range(num_epochs):
             t0 = time.time()
@@ -227,8 +310,9 @@ class SFTTrainer:
             record = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
                       "time_s": round(time.time() - t0, 2), "step": state.step}
             log_fn(record)
-            with open(summary_path, "a") as f:
-                f.write(json.dumps(record) + "\n")
+            if is_main:
+                with open(summary_path, "a") as f:
+                    f.write(json.dumps(record) + "\n")
             if val_loss < best_val:
                 best_val = val_loss
                 save("best", {"epoch": epoch, "val_loss": val_loss})

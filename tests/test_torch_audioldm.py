@@ -29,6 +29,7 @@ from tango_tpu_torch import configs as TC
 from tango_tpu_torch.audio.wav import write_wav
 from tango_tpu_torch.audioldm import pipeline as pl
 from tango_tpu_torch.models import audioldm_unet as film
+from tango_tpu_torch.parallel.mesh import make_mesh, shard_latents_seq
 from tango_tpu_torch.utils import ema
 from tango_tpu_torch.utils.convert import from_jax_params
 
@@ -390,11 +391,16 @@ def test_stub_conditioner_matches_jax_in_one_process():
 
 
 def test_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A #10"):
-        pl.AudioLDMPipeline(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A #10"):
-        pl.AudioLDMPipeline.from_checkpoint(str(tmp_path / "none.ckpt"), mesh=object(),
+    """The mesh is ported (tests/test_torch_parallel.py holds AudioLDM at DP=2
+    to its meshless run); what still raises is sequence parallelism, ROADMAP
+    queue A #10b. A one-process mesh pads nothing."""
+    mesh = make_mesh(device="cpu")
+    assert pl.AudioLDMPipeline(mesh=mesh, device="cpu").pad_batch(5) == 5
+    with pytest.raises(FileNotFoundError):
+        pl.AudioLDMPipeline.from_checkpoint(str(tmp_path / "none.ckpt"), mesh=mesh,
                                             device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A #10b"):
+        shard_latents_seq(torch.zeros(2, 8, 4, 4), mesh)
     assert pl.AudioLDMPipeline(device="cpu").pad_batch(5) == 5
 
 

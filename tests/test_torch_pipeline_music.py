@@ -22,6 +22,7 @@ from tango_tpu.models.diffusion import AudioDiffusion as JAudioDiffusion
 from tango_tpu_torch import configs as TC
 from tango_tpu_torch import pipeline_music as pm
 from tango_tpu_torch.models.diffusion import AudioDiffusion
+from tango_tpu_torch.parallel.mesh import make_mesh
 from tango_tpu_torch.tokenizer import WordHashTokenizer, deberta_word_hash
 from tango_tpu_torch.utils.convert import from_jax_params
 
@@ -244,8 +245,10 @@ def test_snapshot_generate_matches_jax(loaded_pair):
 def test_snapshot_errors(tmp_path):
     with pytest.raises(FileNotFoundError, match="downloads nothing"):
         pm.Mustango("declare-lab/mustango", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A #10"):
-        pm.Mustango(None, device="cpu", mesh=object())
+    # the mesh is ported (tests/test_torch_parallel.py runs it on two ranks);
+    # a one-process mesh is taken as it is
+    mesh = make_mesh(device="cpu")
+    assert pm.Mustango(None, device="cpu", mesh=mesh).mesh is mesh
     with pytest.raises(ValueError, match="quant must be"):
         pm.Mustango(None, device="cpu", quant="int8")
     # a predictor checkpoint that is there but does not load raises

@@ -2,8 +2,8 @@
 `generate` and `generate_for_batch` take JAX's parameters, by name, order,
 kind and default, so a call written for one package means the same in the
 other. Left out of the comparison: the port's own additions (`device`,
-`init_seed`, and `max_text_length` where JAX's `from_components` lacks it)
-and JAX's `mesh` (the device mesh, ROADMAP queue A #10). `from_components`'
+`init_seed`, and `max_text_length` where JAX's `from_components` lacks it);
+`mesh` stands where JAX's does. `from_components`'
 `unet_params` and `vae_params` default to None in the port, where JAX
 requires them: None draws seeded random weights on the device. Also
 `AudioDiffusion.sample` (JAX's `unet_params` and `rng` aside) and AudioLDM's
@@ -21,7 +21,7 @@ from tango_tpu_torch.pipeline import Tango
 from tests.test_torch_pipeline import UNET_KW, VAE_KW
 
 PORT_ONLY = {"device", "init_seed"}
-JAX_ONLY = {"mesh"}
+JAX_ONLY = set()
 # the port's defaults where JAX has none, and why
 PORT_DEFAULTS = {("from_components", "unet_params"): None,
                  ("from_components", "vae_params"): None}

@@ -177,19 +177,26 @@ def _snapshot_without_t5(tmp_path):
 @pytest.mark.parametrize("case", ["audioldm", "model_parallel", "coordinator", "world_size",
                                   "no_t5", "hub_name", "no_snapshot"])
 def test_raising_flags(case, tmp_path, monkeypatch):
-    monkeypatch.delenv("JAX_COORDINATOR", raising=False)
-    monkeypatch.delenv("WORLD_SIZE", raising=False)
-    extra, err, match = [], SystemExit, "queue A #10"
+    """The flags and launches that cannot run. The mesh is ported (the two
+    -process launches run in tests/test_torch_multihost.py); in one process
+    `--model_parallel 2` has no second rank, JAX_COORDINATOR needs its
+    process count and id, and torchrun's WORLD_SIZE its MASTER_ADDR."""
+    for var in ("JAX_COORDINATOR", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID", "WORLD_SIZE", "RANK",
+                "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    extra, err, match = [], SystemExit, None
     if case == "audioldm":
         # ported (queue A #8): the checkpoint carries no text encoder, so
         # without --hf_model there is none, and nothing is downloaded
         extra, match = ["--audioldm_ckpt", _tiny_audioldm_ckpt(tmp_path)], "downloads nothing"
     elif case == "model_parallel":
-        extra = ["--model_parallel", "2"]
+        extra, err, match = ["--model_parallel", "2"], ValueError, "does not divide the world of 1"
     elif case == "coordinator":
         monkeypatch.setenv("JAX_COORDINATOR", "localhost:1234")
+        err, match = RuntimeError, "JAX_NUM_PROCESSES"
     elif case == "world_size":
         monkeypatch.setenv("WORLD_SIZE", "2")
+        err, match = ValueError, "MASTER_ADDR"
     argv = base_argv(tmp_path, *extra)
     if case == "audioldm":
         i = argv.index("--tango_snapshot")
