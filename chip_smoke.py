@@ -106,6 +106,7 @@ Phases, one short JSON line each:
            its losses and parameters. (a) TP = 2: each rank holds the
            snapshot's f32 UNet, evaluates it at batch 1 whole, shards it and
            evaluates again (within MESH_F32_LIMIT of the largest magnitude),
+           both with TF32 convolutions and in f32 convolutions,
            then Tango(dir, mesh=make_mesh(data=1, model=2)) in bf16:
            generate_for_batch of the 4 prompts, 10 steps, CFG, whose latents
            must be within MESH_TP_REL_L2 of one process's, and the ms a step
@@ -160,14 +161,18 @@ Phases, one short JSON line each:
            timed, every weight equal to the written one; one UNet
            evaluation at CFG batch 6, which must launch AUDIOLDM_PER_EVAL
            (20 attn_fwd at head dim 32, 61 gn_silu_fwd, no two-stage
-           GroupNorm); then path `audioldm`, counted: text_to_audio at 10 s,
+           GroupNorm); the device time of one evaluation at CFG batch 6
+           (torch.profiler: the kernels' own time) and attn_fwd's share of
+           it, and the same evaluation with every attn_fwd call on the
+           CUDA-core body (tt_attn_fwd_core) beside it, both uncounted;
+           then path `audioldm`, counted: text_to_audio at 10 s,
            STEPS DDIM steps, 3 candidates (CFG batch 6), guidance 2.5, whose
            output must be the candidate of the largest CLAP similarity, the
            ms a DDIM step logged; style_transfer of a written 10 s WAV at
            strength 0.5 (the last 3 latent frames dropped: 161952 samples);
            super_resolution_and_inpainting, whose final latents must equal
            the source's outside the mask. Every attn_fwd launch on the
-           CUDA-core body (CORE_ATTN_PATHS: tc_launches 0) at head dim 32,
+           tensor-core body (head dim 32, the static form, f32 on 3xTF32),
            20 an evaluation; every gn_silu_fwd on the cluster body. Then,
            uncounted: one FiLM UNet evaluation at batch 1 and one DDIM step
            (eta 0) on the card against the same on the CPU, f32, within
@@ -175,8 +180,9 @@ Phases, one short JSON line each:
            `python -m tango_tpu_torch.audioldm` once in a subprocess (2
            steps, 2 candidates), which must write one non-silent 163872-
            sample WAV; the directory deleted. The kernels phase checks and
-           times the D = 32 attention shapes with the rest (`core_body` in
-           attn_fwd's field: their own totals by type);
+           times the D = 32 attention shapes with the rest (`d32` in
+           attn_fwd's field: their own totals by type, the tensor-core body
+           beside the CUDA-core one, tt_attn_fwd_core, at the same shapes);
   int8     the int8 W8A8 serving mode: a full-width Tango.from_components(
            quant="all") built from the bf16 model's state dicts (the same
            weights, quantized once on the card), one uncounted 1-step
@@ -228,14 +234,16 @@ Phases, one short JSON line each:
            window and its underflow row; v2 past the window) and a fully
            masked batch row for the bias kernel (f32 atol 1e-3 on that row).
            At head dim 64 the forward kernels run tensor-core bodies, all
-           three in bf16 and in f32 (3xTF32). Every call is checked at
-           every launched shape and must take the body `tc_body` names; the
+           three in bf16 and in f32 (3xTF32), and attn_fwd at head dim 32
+           too. Every call is checked at every launched shape and must take
+           the body `tc_body` names for its form; the
            tensor-core bodies also at ragged shapes and one 128 x 128 tile
            (TC_SHAPES, in both types) and the biased one at a ragged shape
            with one bias row and with a row a query (BIAS_TC_SHAPES); a
            misaligned view where a tensor-core body runs must raise; both
            types are timed (f32 in the `f32` field), attn_fwd_bias too. f32
-           attn_fwd at the training shapes, f32 attn_fwd_v2 at the long
+           attn_fwd at the training shapes and at AudioLDM's head-dim-32
+           ones, f32 attn_fwd_v2 at the long
            clip's and f32 attn_fwd_bias at the long prompt's (with a padding
            bias that leaves a quarter of the keys open), with q and k at
            amplitude 3, from two seeds, are held against float64 at 2e-5 /
@@ -329,7 +337,8 @@ DEADLINE_S = 720
 # MESH_TP_REL_L2 (relative L2) of one process's (the row-parallel partial sums
 # change the order of summation; Mustango's row-0 bound) and an f32 UNet
 # evaluation within MESH_F32_LIMIT of the largest output magnitude (the
-# card-vs-CPU bound of AudioLDM's phase); (b) DP = 2 f32 SFT at MESH_DP_BATCH / 2
+# card-vs-CPU bound of AudioLDM's phase), with TF32 and with f32 convolutions;
+# (b) DP = 2 f32 SFT at MESH_DP_BATCH / 2
 # rows a rank for MESH_DP_UPDATES updates against one process at MESH_DP_BATCH,
 # its convolutions in f32 too (`f32_convolutions`): losses within
 # MESH_LOSS_RTOL, every parameter within MESH_PARAM_LR_FACTOR lr (JAX's Adam
@@ -346,6 +355,9 @@ MESH_PARAM_LR_FACTOR = 2.5
 MESH_LAUNCH_TIMEOUT_S = 300
 MESH_TARGET_LENGTH = 1024  # fbank frames of (b)'s clips: 10.24 s, 256 latent frames
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+# the softmax's exp2 on the multi-function units: 16 a clock an SM (sm_90),
+# 132 SMs at 1.98 GHz; the floor of attention at head dim 32, one exp2 a logit
+EX2_PER_S = 16 * 132 * 1.98e9
 BF16_FLOPS = 989e12         # dense tensor-core bf16
 INT8_OPS = 1979e12          # dense tensor-core int8
 F32_FLOPS = 67e12           # f32 outside the tensor cores
@@ -380,9 +392,12 @@ LIMIT_HEADS = 70000
 # at CFG batch 2), where the card is quicker than the host
 HOST_US_SHAPE = (2, 1280, 8, 8)
 # ragged shapes and one tile for the tensor-core attention body, checked
-# only: ((BH, Sq, D), (BH, Skv, D)) for attn_fwd and attn_fwd_v2
+# only: ((BH, Sq, D), (BH, Skv, D)) for attn_fwd and attn_fwd_v2; attn_fwd's
+# also at head dim 32 (AudioLDM's): 200 queries, 333 keys (a last tile of 77
+# in bf16, 13 in f32)
 TC_SHAPES = {
-    "attn_fwd": (((3, 200, 64), (3, 333, 64)), ((1, 128, 64), (1, 128, 64))),
+    "attn_fwd": (((3, 200, 64), (3, 333, 64)), ((1, 128, 64), (1, 128, 64)),
+                 ((6, 200, 32), (6, 333, 32))),
     "attn_fwd_v2": (((2, 8320, 64), (2, 8320, 64)), ((1, 128, 64), (1, 128, 64))),
 }
 # the backward's tensor-core body (f32 and bf16 at D = 64), checked only: a
@@ -399,14 +414,15 @@ FWD_TC_AMPLITUDE_SEEDS = (31, 32)
 # ((BH, Sq, D), (BH, Skv, D), (B, 1 | Sq, Skv))
 BIAS_TC_SHAPES = [((6, 200, 64), (6, 333, 64), (2, 1, 333)),
                   ((6, 200, 64), (6, 333, 64), (2, 200, 333))]
-# the serving paths: every attention kernel launch there is bf16 at D = 64
+# the serving paths: every attention kernel launch there is bf16 at D = 64,
+# or (audioldm) f32 attn_fwd at D = 32, and takes the tensor-core body
 TC_PATHS = ("serve", "snapshot", "serve_http", "long_clip", "long_prompt", "int8", "int8_conv",
-            "mustango")
-# paths whose attention runs the CUDA-core body (csrc/attention.cu): AudioLDM's
-# FiLM UNet has heads of 32 (num_head_channels), and the tensor-core bodies
-# take head dim 64 alone; every other path's attention launches must take
-# the tensor-core body (tc_problems)
-CORE_ATTN_PATHS = ("audioldm",)
+            "mustango", "audioldm")
+# paths whose attention runs the CUDA-core body (csrc/attention.cu): none.
+# AudioLDM's FiLM UNet, heads of 32 (num_head_channels), was one until
+# attn_fwd's static form took a tensor-core body at head dim 32; every path's
+# attention launches must take the tensor-core body (tc_problems)
+CORE_ATTN_PATHS = ()
 # the kernels each counted path must launch
 PATH_KERNELS = {
     "serve": ("gn_silu_fwd", "gn_stats", "gn_apply", "attn_fwd"),
@@ -463,8 +479,8 @@ MUSTANGO_ROW0_REL_L2 = 0.05
 # a monolithic checkpoint of seeded random weights; text_to_audio of the
 # prompt at 10 s (256 latent frames), 3 candidates (CFG batch 6), guidance
 # 2.5; style transfer at strength 0.5; inpainting of 10%..15% of the clip;
-# the CLI once at 2 steps, 2 candidates. The FiLM UNet's heads are 32 wide,
-# so its attention runs the CUDA-core body (CORE_ATTN_PATHS)
+# the CLI once at 2 steps, 2 candidates. The FiLM UNet's heads are 32 wide:
+# its attention runs attn_fwd's tensor-core body at head dim 32
 AUDIOLDM_PROMPT = "a hammer is hitting a wooden surface"
 AUDIOLDM_SECONDS = 10.0
 AUDIOLDM_CANDIDATES = 3
@@ -744,6 +760,22 @@ def sdpa_backward(q, k, v, do, scale):
         scale=scale)
 
 
+def attn_fwd_core(q, k, v, scale):
+    """attn_fwd's static form on its CUDA-core body (tt_attn_fwd_core) at any
+    head dim that body takes: at head dim 32 the body the tensor-core one
+    replaced, timed beside it. On no path; no counter moves."""
+    from tango_tpu_torch.ops import _build
+    from tango_tpu_torch.ops.flash_attention import _DTYPES, _dims, _qscale
+
+    o = torch.empty_like(q)
+    lib = _build.load()
+    code = lib.tt_attn_fwd_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                *_dims(q, k), _qscale(scale), _DTYPES[q.dtype],
+                                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, "tt_attn_fwd_core")
+    return o
+
+
 def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
     """Hold every kernel against its plain version at `shapes` (kernel name ->
     the argument shapes the serving and training paths launched it at) and
@@ -853,9 +885,11 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
 
     def attention_fwd(name, plain):
         """attn_fwd or attn_fwd_v2 at every launched shape, in f32 and bf16,
-        each checked, held to the body `tc_body` names (every call at head
-        dim 64 on a tensor-core body, 3xTF32 in f32) and timed; at
-        TC_SHAPES, checked only, in each type that has a tensor-core body."""
+        each checked, held to the body `tc_body` names for its form (every
+        call at head dim 64, and attn_fwd's at 32, on a tensor-core body,
+        3xTF32 in f32) and timed; attn_fwd at head dim 32 also beside its
+        CUDA-core body (`d32` note); at TC_SHAPES, checked only, in each type
+        that has a tensor-core body."""
         fn = K[name]
         for qshape, kshape in sorted(shapes[name], key=str):
             bh, sq, d = qshape
@@ -865,7 +899,8 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
             for tag, dt in dtypes.items():
                 q, k, v = (randn(*s, dtype=dt) for s in (qshape, kshape, kshape))
                 what = f"{name} {qshape} {tag}"
-                out = took(cases[name], fn, tc_body(dt, d), lambda: fn(q, k, v, scale), what)
+                out = took(cases[name], fn, tc_body(dt, d, fn.form), lambda: fn(q, k, v, scale),
+                           what)
                 cases[name].add_err(tag, assert_close(out, plain(q, k, v, scale), *attn_tol[tag],
                                                       what))
                 q4, k4, v4 = (t.reshape(1, bh, -1, d) for t in (q, k, v))
@@ -877,27 +912,36 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
                 bound = attn_bound_ms(q.element_size() * (2 * bh * sq * d + 2 * bh * skv * d),
                                       flops, tag)
                 add(*times, *bound, [qshape, kshape], flops=flops)
-                if not tc_body(dt, d):
-                    # the CUDA-core body's own totals (AudioLDM's head dim 32)
-                    row = cases[name].notes.setdefault("core_body", {}).setdefault(
-                        tag, {"shapes": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                              "bound_ms": 0.0})
+                if d == 32 and name == "attn_fwd":
+                    # AudioLDM's head dim: the tensor-core body's own totals,
+                    # beside the CUDA-core body it replaced at the same
+                    # shapes (checked too) and the exp2 floor (a logit each)
+                    assert_close(attn_fwd_core(q, k, v, scale), plain(q, k, v, scale),
+                                 *attn_tol[tag], f"{what}, CUDA-core body")
+                    row = cases[name].notes.setdefault("d32", {}).setdefault(
+                        tag, {"shapes": 0, "ms": 0.0, "core_ms": 0.0, "plain_ms": 0.0,
+                              "library_ms": 0.0, "bound_ms": 0.0, "exp2_floor_ms": 0.0})
                     row["shapes"] += 1
-                    for key, val in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
-                                        (*times, bound[0])):
+                    core_ms = cuda_ms(lambda: attn_fwd_core(q, k, v, scale))
+                    floor_ms = 1e3 * bh * sq * skv / EX2_PER_S
+                    for key, val in zip(("ms", "plain_ms", "library_ms", "bound_ms", "core_ms",
+                                         "exp2_floor_ms"), (*times, bound[0], core_ms, floor_ms)):
                         row[key] += val
         for qshape, kshape in TC_SHAPES[name]:
+            scale = qshape[2] ** -0.5
             for tag, dt in dtypes.items():
-                if not tc_body(dt, qshape[2]):
+                if not tc_body(dt, qshape[2], fn.form):
                     continue
                 q, k, v = (randn(*s, dtype=dt) for s in (qshape, kshape, kshape))
                 what = f"{name} {qshape} x {kshape[1]} keys {tag}"
-                out = took(cases[name], fn, True, lambda: fn(q, k, v, 0.125), what)
-                cases[name].add_err(tag, assert_close(out, plain(q, k, v, 0.125), *attn_tol[tag],
+                out = took(cases[name], fn, True, lambda: fn(q, k, v, scale), what)
+                cases[name].add_err(tag, assert_close(out, plain(q, k, v, scale), *attn_tol[tag],
                                                       what))
 
     attention_fwd("attn_fwd", attn_fwd_plain)
-    fwd_amplitude_checks(K, cases, "attn_fwd", sorted(train_shapes["attn_fwd"], key=str))
+    # the training shapes (head dim 64) and AudioLDM's (head dim 32)
+    fwd_amplitude_checks(K, cases, "attn_fwd", sorted(train_shapes["attn_fwd"], key=str)
+                         + sorted((s for s in shapes["attn_fwd"] if s[0][2] == 32), key=str))
 
     # the extreme-logit window and the underflow row (tests/test_flash_attention.py)
     for tag, dt in dtypes.items():
@@ -948,7 +992,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
         for tag, dt in dtypes.items():
             q, k, v, bias = bias_case(qshape, kshape, bshape, dt)
             what = f"attn_fwd_bias {qshape} {kshape} {bshape} {tag}"
-            out = took(cases["attn_fwd_bias"], fn, tc_body(dt, d),
+            out = took(cases["attn_fwd_bias"], fn, tc_body(dt, d, "bias"),
                        lambda: fn(q, k, v, bias, heads, scale), what)
             cases["attn_fwd_bias"].add_err(tag, assert_close(
                 out, attn_fwd_bias_plain(q, k, v, bias, heads, scale), *attn_tol[tag], what))
@@ -998,7 +1042,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
         q = (cq * u + 0.01 * randn(128, 64))[None].to(dt)
         k = (ck * u + 0.01 * randn(256, 64))[None].to(dt)
         v = randn(1, 256, 64, dtype=dt)
-        out = took(cases["attn_fwd_v2"], K["attn_fwd_v2"], tc_body(dt, 64),
+        out = took(cases["attn_fwd_v2"], K["attn_fwd_v2"], tc_body(dt, 64, "online"),
                    lambda: K["attn_fwd_v2"](q, k, v, 0.125), f"attn_fwd_v2 extreme logits {tag}")
         ref = attn_fwd_v2_plain(q, k, v, 0.125)
         atol, rtol = (5e-5, 1e-3) if tag == "f32" else attn_tol[tag]
@@ -1008,7 +1052,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
         bias = torch.zeros(2, 1, 256, device=dev)
         bias[0, :, 5:] = -10000.0
         bias[1] = -10000.0
-        out = took(cases["attn_fwd_bias"], fn, tc_body(dt, 64),
+        out = took(cases["attn_fwd_bias"], fn, tc_body(dt, 64, "bias"),
                    lambda: fn(q, k, v, bias, 4, 0.125), f"attn_fwd_bias masked rows {tag}")
         ref = attn_fwd_bias_plain(q, k, v, bias, 4, 0.125)
         cases["attn_fwd_bias"].add_err(tag, assert_close(
@@ -1245,7 +1289,7 @@ def bwd_tc_checks(K, cases, shapes, randn, attn_bwd_tol, stat_tol):
     from tango_tpu_torch.ops.flash_attention import (
         attn_bwd_dkv_plain,
         attn_bwd_dq_plain,
-        tc_body,
+        bwd_tc_body,
     )
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -1257,7 +1301,7 @@ def bwd_tc_checks(K, cases, shapes, randn, attn_bwd_tol, stat_tol):
                   f"{qshape} x {kshape[1]} keys {tag}")
     names = ("dq", "dk", "dv", "lse", "delta")
     launched = [s for s in sorted(shapes["attn_bwd_dq"], key=str)
-                if tc_body(torch.float32, s[0][2])]
+                if bwd_tc_body(torch.float32, s[0][2])]
     for seed in BWD_TC_AMPLITUDE_SEEDS:
         gen = torch.Generator(device=DEVICE).manual_seed(seed)
         for qshape, kshape in launched:
@@ -1771,9 +1815,9 @@ def tc_problems(path: str, launches: dict, tc: dict) -> list:
 def body_problems(path: str, launches: dict, tc: dict, cluster: dict) -> list:
     """A counted path's launch problems: a kernel of PATH_KERNELS[path] that
     never launched; an attention launch off the body the path's head dim
-    takes (`tc_problems`: the tensor-core one at D = 64, every launch of the
-    training paths, forward and backward, f32; the CUDA-core one on
-    AudioLDM's D = 32 path); a GroupNorm off its cluster body."""
+    takes (`tc_problems`: the tensor-core one, every launch of the training
+    paths, forward and backward, f32, at D = 64); a GroupNorm off its
+    cluster body."""
     problems = []
     idle = [n for n in PATH_KERNELS[path] if launches[n] == 0]
     if idle:
@@ -2926,13 +2970,15 @@ def audioldm_phase(C, ops, counted, root: str) -> tuple:
     checkpoint of seeded random weights under `root` (write_audioldm_checkpoint),
     loaded by `build_model` in f32 with the port's RoBERTa word-hash tokenizer
     (the native CLAP, not the stub), every weight held to the written one;
-    one UNet evaluation's launches (AUDIOLDM_PER_EVAL); then path `audioldm`,
+    one UNet evaluation's launches (AUDIOLDM_PER_EVAL) and, uncounted, the
+    device time of one at CFG batch 6 by kernel, with attn_fwd's tensor-core
+    body and with its CUDA-core one (attn_fwd_core); then path `audioldm`,
     counted: text_to_audio at AUDIOLDM_SECONDS, STEPS DDIM steps (eta 1.0),
     AUDIOLDM_CANDIDATES candidates (CFG batch 6), AUDIOLDM_GUIDANCE, whose
     output must be the candidate of the largest CLAP similarity;
     style_transfer of a written 10 s WAV at AUDIOLDM_STRENGTH; and
     super_resolution_and_inpainting, whose final latents must equal the
-    source's outside the mask. Every attention launch on the CUDA-core body
+    source's outside the mask. Every attention launch on the tensor-core body
     (head dim 32), AUDIOLDM_PER_EVAL["attn_fwd"] an evaluation, every
     GroupNorm on its cluster body. Then, uncounted: one FiLM UNet evaluation
     and one DDIM step (eta 0) on the card against the CPU in f32
@@ -2996,6 +3042,23 @@ def audioldm_phase(C, ops, counted, root: str) -> tuple:
             per_eval.get("gn_stats", 0):
         raise AssertionError(f"audioldm: one UNet evaluation launched {per_eval}, expected "
                              f"{AUDIOLDM_PER_EVAL} and no two-stage GroupNorm")
+    # the device time of one evaluation by kernel, and of the same evaluation
+    # with every attn_fwd call on the CUDA-core body (the attention dispatch
+    # reads attn_fwd from its module at each call)
+    import tango_tpu_torch.ops.attention as attn_ops
+
+    with torch.inference_mode():
+        by_kernel = {"tensor_core": device_ms(lambda: unet(lat, steps, film), 3)}
+        attn_ops.attn_fwd = attn_fwd_core
+        try:
+            by_kernel["cuda_core"] = device_ms(lambda: unet(lat, steps, film), 3)
+        finally:
+            attn_ops.attn_fwd = ops.KERNELS["attn_fwd"]
+    eval_ms = {body: {"device_ms": sum(t.values()),
+                      "attn_fwd_ms": sum(v for k, v in t.items() if "attn" in k)}
+               for body, t in by_kernel.items()}
+    for row in eval_ms.values():
+        row["attn_fwd_share"] = row["attn_fwd_ms"] / row["device_ms"]
 
     # the source clip of style transfer and inpainting: 10 s of partials
     src = os.path.join(root, "source.wav")
@@ -3076,6 +3139,7 @@ def audioldm_phase(C, ops, counted, root: str) -> tuple:
 
     def extra(launches):
         return dict(load_s=round(load_s, 3), per_eval=per_eval,
+                    device_ms_per_eval_cfg_batch_6=eval_ms,
                     attn_fwd_shapes_per_eval=[list(map(list, s)) for s in eval_shapes],
                     evals=rec["evals"], attn_fwd_per_eval=launches["attn_fwd"] / rec["evals"],
                     **checks)
@@ -3172,7 +3236,8 @@ def mesh_sft_setup(job: dict, device):
 
 @contextlib.contextmanager
 def f32_convolutions():
-    """cuDNN's convolutions without TF32 inside (phase mesh (b)): with TF32,
+    """cuDNN's convolutions without TF32 inside (phase mesh (b), and (a)'s
+    second f32 reading): with TF32,
     one process at batch 2 and two ranks at batch 1 take differently rounded
     convolutions, and Adam's first updates turn that 1e-4 on a near-zero
     gradient into a sign, which is TF32's batch-size noise and not the
@@ -3215,8 +3280,10 @@ def ms_per_step(model, batch: int, text_len: int, device, reps: int = 3) -> floa
 
 def mesh_rank_tp(job: dict, mesh, ops) -> dict:
     """Phase mesh (a), one rank of TP = 2: the f32 UNet at batch 1 against the
-    same rank's unsharded UNet, then Tango(snapshot, mesh=) in bf16:
-    generate_for_batch of MESH_PROMPTS and the ms a step at CFG batch 2 and 8."""
+    same rank's unsharded UNet, with cuDNN's TF32 convolutions (its default)
+    and in f32 convolutions (`f32_convolutions`), then Tango(snapshot, mesh=)
+    in bf16: generate_for_batch of MESH_PROMPTS and the ms a step at CFG
+    batch 2 and 8."""
     from tango_tpu_torch.models.unet import UNet2DConditionModel
     from tango_tpu_torch.parallel import mesh as pmesh
     from tango_tpu_torch.pipeline import Tango, build_module
@@ -3230,6 +3297,8 @@ def mesh_rank_tp(job: dict, mesh, ops) -> dict:
     args = mesh_unet_inputs(unet, job["latent"], 1, 128, torch.float32, dev, 3)
     with torch.inference_mode():
         ref = unet(*args).float()
+        with f32_convolutions():
+            ref_f32 = unet(*args).float()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the default tokenizer's warning
         tango = Tango(job["snapshot"], mesh=mesh, device=dev)
@@ -3250,8 +3319,11 @@ def mesh_rank_tp(job: dict, mesh, ops) -> dict:
     pmesh.shard_params(unet, mesh)
     with torch.inference_mode():
         out = unet(*args).float()
+        with f32_convolutions():
+            out_f32 = unet(*args).float()
     f32_err = float((out - ref).abs().max() / ref.abs().max())
-    del unet, out, ref
+    f32_conv_err = float((out_f32 - ref_f32).abs().max() / ref_f32.abs().max())
+    del unet, out, ref, out_f32, ref_f32
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     wavs = tango.generate_for_batch(MESH_PROMPTS, steps=job["steps"],
@@ -3262,7 +3334,8 @@ def mesh_rank_tp(job: dict, mesh, ops) -> dict:
           for b in (2, 2 * len(MESH_PROMPTS))}
     heads = sorted({m.local_heads for m in tango.model.unet.modules()
                     if hasattr(m, "local_heads")})
-    return {"f32_rel_err": f32_err, "latents": torch.cat(latents), "generate_s": gen_s,
+    return {"f32_rel_err": f32_err, "f32_conv_rel_err": f32_conv_err,
+            "latents": torch.cat(latents), "generate_s": gen_s,
             "ms_per_step": ms, "local_heads": heads,
             "wavs": [(str(w.dtype), list(w.shape), int(abs(w.astype("int32")).max()))
                      for w in wavs]}
@@ -3457,9 +3530,10 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> tuple:
     problems = body_problems("mesh", launches, tc, cluster)
     if rel_l2 > MESH_TP_REL_L2:
         problems.append(f"TP = 2 latents {rel_l2} (relative L2) from one process's")
-    if max(r["f32_rel_err"] for r in ranks["tp"]) > MESH_F32_LIMIT:
-        problems.append(f"TP = 2 f32 UNet {[r['f32_rel_err'] for r in ranks['tp']]} from one "
-                        "process's, of its largest magnitude")
+    for key in ("f32_rel_err", "f32_conv_rel_err"):
+        if max(r[key] for r in ranks["tp"]) > MESH_F32_LIMIT:
+            problems.append(f"TP = 2 f32 UNet ({key}) {[r[key] for r in ranks['tp']]} from one "
+                            "process's, of its largest magnitude")
     if any(list(w[:2]) != ["int16", [wav_len]] or not w[2]
            for r in ranks["tp"] for w in r["wavs"]) or len(tp0["wavs"]) != len(MESH_PROMPTS):
         problems.append(f"TP = 2 waveforms {tp0['wavs']}")
@@ -3477,6 +3551,7 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> tuple:
                           "one_process": one["ms_per_step"]},
         tp_generate_s=[round(r["generate_s"], 3) for r in ranks["tp"]],
         tp_latents_rel_l2=rel_l2, tp_f32_rel_err=[r["f32_rel_err"] for r in ranks["tp"]],
+        tp_f32_conv_rel_err=[r["f32_conv_rel_err"] for r in ranks["tp"]],
         dp_ms_per_update={"dp2": update_ms, "one_process_batch_2": one["ms_per_update"]},
         dp_all_reduce_ms=reduce_ms,
         dp_all_reduce_share=[a / u for a, u in zip(reduce_ms, update_ms)],

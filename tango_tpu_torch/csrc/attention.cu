@@ -37,12 +37,15 @@
 // with the kOnline carry instead, so the same bf16 remark holds. A row whose
 // keys are all masked (bias -10000) stays finite: the max is subtracted.
 //
-// Which body a call takes: tc_body(dtype, D) (common.cuh) sends head dim 64
-// to the tensor-core bodies of attention_tc.cu (every attention of the
-// full-width UNet), the same arithmetic on wgmma, in all three forms: bf16,
-// and f32 held to JAX's f32 limits by 3xTF32 products; the entry point says
-// so by returning kTcLaunched. This file's body runs the other head dims: 8,
-// 16, 32 and 128.
+// Which body a call takes: tc_body(dtype, D, mode) (common.cuh) sends head
+// dim 64 in all three forms (every attention of the full-width UNet) and
+// head dim 32 in the static form (AudioLDM's FiLM UNet) to the tensor-core
+// bodies of attention_tc.cu, the same arithmetic on wgmma: bf16, and f32
+// held to JAX's f32 limits by 3xTF32 products; the entry point says so by
+// returning kTcLaunched. This file's body runs the other head dims (8, 16,
+// 128) and the online and biased forms at 32, which no path launches; the
+// entry point tt_attn_fwd_core launches it for the static form at any head
+// dim it takes, so that a check can time it beside the tensor-core body.
 //
 // What bounds them on the H100: operations. At the UNet's shapes (S = 8192,
 // 4096, 1024, 256, head dim 64; Skv = 256 for the biased cross-attention)
@@ -67,11 +70,11 @@
 
 namespace tt {
 
-// The tensor-core bodies (attention_tc.cu): mode is an AttnMode; f32 takes
-// kStatic and kOnline.
+// The tensor-core bodies (attention_tc.cu) at head dim D (64, or 32 in the
+// static form); mode is an AttnMode.
 cudaError_t attn_fwd_tc(const void* q, const void* k, const void* v, const float* bias,
-                        int heads, int bias_rows, void* o, int BH, int Sq, int Skv, float qscale,
-                        int mode, bool f32, cudaStream_t st);
+                        int heads, int bias_rows, void* o, int BH, int Sq, int Skv, int D,
+                        float qscale, int mode, bool f32, cudaStream_t st);
 
 namespace {
 
@@ -289,18 +292,25 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, Bia
   }
 }
 
+// This file's CUDA-core body, whatever the rule says.
 template <int MODE>
-int dispatch(const void* q, const void* k, const void* v, void* o, BiasArg bias, int BH, int Sq,
-             int Skv, int D, float qscale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tc_body(dtype, D))
-    return tc_result(attn_fwd_tc(q, k, v, bias.ptr, bias.heads, bias.rows, o, BH, Sq, Skv,
-                                 qscale, MODE, dtype == kF32, st));
+int core(const void* q, const void* k, const void* v, void* o, BiasArg bias, int BH, int Sq,
+         int Skv, int D, float qscale, int dtype, cudaStream_t st) {
   if (dtype == kF32)
     return (int)dispatch_d<float, MODE>(q, k, v, o, bias, BH, Sq, Skv, D, qscale, st);
   if (dtype == kBF16)
     return (int)dispatch_d<__nv_bfloat16, MODE>(q, k, v, o, bias, BH, Sq, Skv, D, qscale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+template <int MODE>
+int dispatch(const void* q, const void* k, const void* v, void* o, BiasArg bias, int BH, int Sq,
+             int Skv, int D, float qscale, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc_body(dtype, D, MODE))
+    return tc_result(attn_fwd_tc(q, k, v, bias.ptr, bias.heads, bias.rows, o, BH, Sq, Skv, D,
+                                 qscale, MODE, dtype == kF32, st));
+  return core<MODE>(q, k, v, o, bias, BH, Sq, Skv, D, qscale, dtype, st);
 }
 
 }  // namespace
@@ -318,6 +328,14 @@ int tt_attn_fwd_v2(const void* q, const void* k, const void* v, void* o, int BH,
                    int Skv, int D, float qscale, int dtype, void* stream) {
   return tt::dispatch<tt::kOnline>(q, k, v, o, tt::BiasArg{nullptr, 1, 1}, BH, Sq, Skv, D,
                                    qscale, dtype, stream);
+}
+
+// The CUDA-core body of the static form at any head dim it takes, never the
+// tensor-core one: not on any path; chip_smoke.py times it beside tt_attn_fwd.
+int tt_attn_fwd_core(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
+                     int Skv, int D, float qscale, int dtype, void* stream) {
+  return tt::core<tt::kStatic>(q, k, v, o, tt::BiasArg{nullptr, 1, 1}, BH, Sq, Skv, D, qscale,
+                               dtype, static_cast<cudaStream_t>(stream));
 }
 
 int tt_attn_fwd_bias(const void* q, const void* k, const void* v, const void* bias, void* o,

@@ -1,6 +1,6 @@
 // Backward of bias-free softmax attention, f32 accumulation: two kernels on
-// the CUDA cores, for the head dims that tc_body does not take (8, 16, 32
-// and 128; no attention of the UNet has them). f32 and bf16 at head dim 64,
+// the CUDA cores, for the head dims that bwd_tc_body does not take (8, 16,
+// 32 and 128; no attention of the UNet has them). f32 and bf16 at head dim 64,
 // every attention of the full-width UNet, run the tensor-core body of
 // attention_bwd_tc.cu from the same entry points.
 //
@@ -408,7 +408,7 @@ int tt_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (tt::tc_body(dtype, D))
+  if (tt::bwd_tc_body(dtype, D))
     return tt::tc_result(tt::attn_bwd_dq_tc(q, k, v, dout, dq, l, dl, BH, Sq, Skv, scale,
                                             dtype == tt::kF32, st));
   if (dtype == tt::kF32)
@@ -425,7 +425,7 @@ int tt_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dou
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (tt::tc_body(dtype, D))
+  if (tt::bwd_tc_body(dtype, D))
     return tt::tc_result(tt::attn_bwd_dkv_tc(q, k, v, dout, l, dl, dk, dv, BH, Sq, Skv, scale,
                                              dtype == tt::kF32, st));
   if (dtype == tt::kF32)

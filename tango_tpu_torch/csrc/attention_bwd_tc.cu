@@ -1,7 +1,7 @@
 // Tensor-core body of the attention backward: attn_bwd_dq and attn_bwd_dkv in
 // f32 and bf16 at head dim 64, on Hopper's warpgroup matrix multiply (wgmma,
 // sm_90a). The C entry points tt_attn_bwd_dq and tt_attn_bwd_dkv
-// (attention_bwd.cu) take it where tc_body(dtype, D) holds: f32 or bf16
+// (attention_bwd.cu) take it where bwd_tc_body(dtype, D) holds: f32 or bf16
 // at D == 64, every attention of the full-width UNet (heads 5, 10, 20 over
 // 320, 640, 1280 channels), in the trainer's f32 as in bf16. Other head dims
 // keep attention_bwd.cu's CUDA-core body.

@@ -21,13 +21,19 @@ enum AttnMode : int { kStatic = 0, kOnline = 1, kBias = 2 };
 constexpr int kTcLaunched = -1;
 inline int tc_result(cudaError_t e) { return e == cudaSuccess ? kTcLaunched : (int)e; }
 
-// tc_body(dtype, D): the rule by which the attention entry points, forward
-// (attention.cu: tt_attn_fwd, tt_attn_fwd_v2, tt_attn_fwd_bias) and backward
-// (attention_bwd.cu: tt_attn_bwd_dq, tt_attn_bwd_dkv), take their
-// tensor-core bodies: head dim 64, f32 or bf16 (tc_body in
-// ops/flash_attention.py is the same rule, for the wrappers' alignment
-// check; their counters read the kTcLaunched report).
-inline bool tc_body(int dtype, int D) { return D == 64 && (dtype == kF32 || dtype == kBF16); }
+// tc_body(dtype, D, mode): the rule by which the forward attention entry
+// points (attention.cu: tt_attn_fwd, tt_attn_fwd_v2, tt_attn_fwd_bias, their
+// AttnMode) take their tensor-core bodies (attention_tc.cu): f32 or bf16, at
+// head dim 64 in every form, and at head dim 32 (AudioLDM's) in the static
+// form, the one a path launches there. bwd_tc_body(dtype, D): the same for
+// the backward entry points (attention_bwd.cu: tt_attn_bwd_dq,
+// tt_attn_bwd_dkv; attention_bwd_tc.cu): head dim 64, f32 or bf16. Both are
+// in ops/flash_attention.py too, for the wrappers' alignment check; their
+// counters read the kTcLaunched report.
+inline bool tc_body(int dtype, int D, int mode) {
+  return (dtype == kF32 || dtype == kBF16) && (D == 64 || (D == 32 && mode == kStatic));
+}
+inline bool bwd_tc_body(int dtype, int D) { return D == 64 && (dtype == kF32 || dtype == kBF16); }
 
 // The same report for an entry point with a thread-block-cluster body
 // (tt_gn_silu_bwd): its wrapper counts cluster_launches from it.

@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the tensor-core bodies (attention_tc.cu,
-// attention_bwd_tc.cu, int8_gemm_tc.cu, winograd_tc.cu): the 128-byte
-// swizzle, wgmma shared-memory descriptors, the cp.async ring's copies, the
-// proxy and wgmma fences, the register-A m64n64k16 bf16 product, the
-// shared-memory-A m64n64k16 bf16 product, the m64n128k32 s8 product, and the
-// 3xTF32 products of the f32 attention bodies and the f32 Winograd GEMM
-// (splits, staging, fragments).
+// attention_bwd_tc.cu, int8_gemm_tc.cu, winograd_tc.cu): the 128-byte and
+// 64-byte swizzles, wgmma shared-memory descriptors, the cp.async ring's
+// copies, the proxy and wgmma fences, the register-A m64n64k16 and m64n32k16
+// bf16 products, the shared-memory-A m64n64k16 bf16 product, the m64n128k32
+// s8 product, and the 3xTF32 products of the f32 attention bodies and the f32
+// Winograd GEMM (splits, staging, fragments), at head dim 64 and 32.
 // gn_silu.cu's cluster body takes the cp.async copies. sm_90a only.
 #pragma once
 
@@ -20,11 +20,25 @@ __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// The same for a tile of 64-byte rows (bf16 rows of 32 head dims) under the
+// 64-byte swizzle: chunk c (of 4) of row r at c ^ ((r / 2) % 4), the XOR of
+// address bits 4-5 with bits 7-8; the pattern repeats every 512 bytes.
+__device__ __forceinline__ uint32_t sw64(int r, int c) {
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// The layout types of a wgmma descriptor (bits 62-63) used here.
+constexpr uint64_t kSwizzle128 = 1, kSwizzle64 = 2;
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, all in 16-byte units, and the layout type (128-byte swizzle
+// unless another is named). A K-major operand's SBO is the stride between
+// groups of 8 rows; an MN-major (transposed) one's SBO is that along K and
+// its LBO the stride between swizzle atoms along MN.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout = kSwizzle128) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
+         (uint64_t)(sbo >> 4) << 32 | layout << 62;
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
@@ -99,6 +113,18 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// The same at n32: B 16 x 32 bf16 stored (k, n) in 64-byte rows; d is the
+// m64n32 f32 accumulator (the P V product at head dim 32).
+__device__ __forceinline__ void wgmma_rs32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : TT_ACC8(0), TT_ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d (+)= A B^T for one k16 step: A 64 x 16 and B 64 x 16 bf16, both K-major
 // in shared memory; d is the m64n64 f32 accumulator (overwritten if !acc).
 __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
@@ -149,16 +175,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // (mma_tf32x3_ss_folded, CUTLASS's order). .tf32 wgmma takes K-major
 // operands only.
 //
-// Two shared-memory layouts of 64-column f32 operands, both 128-byte
-// swizzled on 1024-byte aligned bases, each as tf32 hi then lo:
-//   * rows (R, 64): the head dim contiguous (q, k as stored), the A or B of a
-//     product over the head dim; a row is 256 bytes, two swizzle atoms, so
-//     each of hi and lo is two (R, 32) halves: hi at 0 and R*128, lo at
-//     2R*128 and 3R*128. 4R*128 bytes.
-//   * cols (64, NC): an (NC, 64) tile transposed, the B of a product over its
-//     NC rows (k, q, v, dO as B of P V, dS K, dS^T Q, P^T dO): 64 rows of NC
-//     tf32 values, each of hi and lo NC/32 halves of 64 x 128 bytes. The tile
-//     rows are stored in kpos order (below). 512*NC bytes.
+// Two shared-memory layouts of D-column f32 operands (D = 64, or 32 in the
+// forward at head dim 32), both 128-byte swizzled on 1024-byte aligned bases,
+// each as tf32 hi then lo:
+//   * rows (R, D): the head dim contiguous (q, k as stored), the A or B of a
+//     product over the head dim; a row is 4D bytes, D/32 swizzle atoms, so
+//     each of hi and lo is D/32 (R, 32) halves: at D = 64 hi at 0 and R*128,
+//     lo at 2R*128 and 3R*128; at D = 32 hi at 0, lo at R*128. 4R*D bytes.
+//   * cols (D, NC): an (NC, D) tile transposed, the B of a product over its
+//     NC rows (k, q, v, dO as B of P V, dS K, dS^T Q, P^T dO): D rows of NC
+//     tf32 values, each of hi and lo NC/32 halves of D x 128 bytes. The tile
+//     rows are stored in kpos order (below). 8*D*NC bytes.
 //
 // The A operand of a product over NC columns comes from registers: the m64nN
 // f32 accumulator of the logit product gives a thread columns 2t, 2t+1 of
@@ -183,8 +210,9 @@ __device__ __forceinline__ int kpos(int c) {
 }
 
 // Stage the 4 f32 values of raw 16-byte chunk c (columns 4c .. 4c+3) of row r
-// into a rows operand of R rows at `op`, split into hi and lo; `mul` scales
-// them first (in f32).
+// into a rows operand of R rows of D columns at `op`, split into hi and lo;
+// `mul` scales them first (in f32).
+template <int D = 64>
 __device__ __forceinline__ void stage_tf32_rows(uint8_t* op, int R, int r, int c, uint4 raw,
                                                 float mul = 1.0f) {
   const float x[4] = {__uint_as_float(raw.x) * mul, __uint_as_float(raw.y) * mul,
@@ -197,21 +225,23 @@ __device__ __forceinline__ void stage_tf32_rows(uint8_t* op, int R, int r, int c
   }
   const uint32_t off = (c >> 3) * R * 128 + sw128(r, c & 7);
   *reinterpret_cast<float4*>(op + off) = make_float4(hi[0], hi[1], hi[2], hi[3]);
-  *reinterpret_cast<float4*>(op + 2 * R * 128 + off) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+  *reinterpret_cast<float4*>(op + (D / 32) * R * 128 + off) =
+      make_float4(lo[0], lo[1], lo[2], lo[3]);
 }
 
-// Stage the same chunk (row r of an NC-row tile) into a cols operand at `op`:
-// value i goes to row 4c + i, column kpos(r). A warp that stages 32
-// consecutive rows of one chunk writes 32 distinct banks per store.
+// Stage the same chunk (row r of an NC-row tile) into a cols operand of D
+// rows at `op`: value i goes to row 4c + i, column kpos(r). A warp that
+// stages 32 consecutive rows of one chunk writes 32 distinct banks per store.
+template <int D = 64>
 __device__ __forceinline__ void stage_tf32_cols(uint8_t* op, int NC, int r, int c, uint4 raw) {
   const float x[4] = {__uint_as_float(raw.x), __uint_as_float(raw.y), __uint_as_float(raw.z),
                       __uint_as_float(raw.w)};
   const int k = kpos(r), kk = k & 31;
-  const uint32_t lo_off = (NC >> 5) * 64 * 128;
+  const uint32_t lo_off = (NC >> 5) * D * 128;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float hi = tf32_rna(x[i]);
-    const uint32_t off = (k >> 5) * 64 * 128 + sw128(4 * c + i, kk >> 2) + (kk & 3) * 4;
+    const uint32_t off = (k >> 5) * D * 128 + sw128(4 * c + i, kk >> 2) + (kk & 3) * 4;
     *reinterpret_cast<float*>(op + off) = hi;
     *reinterpret_cast<float*>(op + lo_off + off) = tf32_rna(x[i] - hi);
   }
@@ -248,7 +278,8 @@ struct Tf32A {
 
 // d (+)= A B^T for one k step (k8 in TF32, k16 in bf16): A 64 rows, B N rows,
 // both K-major in shared memory; d is the m64nN f32 accumulator (overwritten
-// if !acc). N = 32 is f32 dkv's query tile, N = 64 the others.
+// if !acc). N = 32 is f32 dkv's query tile and the P V product at head dim
+// 32, N = 64 the others.
 template <int N> struct Mma;
 
 template <>
@@ -259,6 +290,15 @@ struct Mma<32> {
                  ", %16, %17, p, 1, 1;\n}\n"
                  : TT_ACC16(0)
                  : "l"(a), "l"(b), "r"(acc));
+  }
+  // A from registers (a Tf32A k8 step), B K-major in shared memory
+  __device__ __forceinline__ static void tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t b, int acc) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " TT_D16
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : TT_ACC16(0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 
@@ -293,20 +333,22 @@ struct Mma<64> {
 #undef TT_D16
 #undef TT_ACC16
 
-// d (+)= A B^T over the 64 head dims in 3xTF32 (issued, not waited for): A
+// d (+)= A B^T over the D head dims in 3xTF32 (issued, not waited for): A
 // the 64 rows from row a0 of a rows operand of ra rows at shared address a,
 // B the N rows of a rows operand at b; d is overwritten unless acc (then the
 // products add to what it holds); e receives the cross terms, to be added to
 // d once waited for.
-template <int N>
+template <int N, int D = 64>
 __device__ __forceinline__ void mma_tf32x3_ss(float (&d)[N / 2], float (&e)[N / 2], uint32_t a,
                                               int ra, int a0, uint32_t b, int acc = 0) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < D / 8; ++kk) {
     const int h = kk >> 2, o = (kk & 3) * 32;  // half of the row, bytes into it
     const uint32_t ah = a + h * ra * 128 + a0 * 128 + o, bh = b + h * N * 128 + o;
-    const uint64_t a_hi = smem_desc(ah, 16, 1024), a_lo = smem_desc(ah + 2 * ra * 128, 16, 1024);
-    const uint64_t b_hi = smem_desc(bh, 16, 1024), b_lo = smem_desc(bh + 2 * N * 128, 16, 1024);
+    const uint64_t a_hi = smem_desc(ah, 16, 1024);
+    const uint64_t a_lo = smem_desc(ah + (D / 32) * ra * 128, 16, 1024);
+    const uint64_t b_hi = smem_desc(bh, 16, 1024);
+    const uint64_t b_lo = smem_desc(bh + (D / 32) * N * 128, 16, 1024);
     Mma<N>::tf32(d, a_hi, b_hi, kk > 0 || acc);
     Mma<N>::tf32(e, a_hi, b_lo, kk);
     Mma<N>::tf32(e, a_lo, b_hi, 1);
@@ -340,19 +382,19 @@ __device__ __forceinline__ void mma_tf32x3_ss_folded(float (&d)[N / 2], uint32_t
 }
 
 // d += A B over NC in 3xTF32 (issued, not waited for): A in registers, B the
-// cols operand (64, NC) at shared address b; e (overwritten) receives the
+// cols operand (D, NC) at shared address b; e (overwritten) receives the
 // cross terms, to be added to d once waited for.
-template <int NC>
-__device__ __forceinline__ void mma_tf32x3_rs(float (&d)[32], float (&e)[32], const Tf32A<NC>& a,
-                                              uint32_t b) {
+template <int NC, int D = 64>
+__device__ __forceinline__ void mma_tf32x3_rs(float (&d)[D / 2], float (&e)[D / 2],
+                                              const Tf32A<NC>& a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < NC / 8; ++kk) {
-    const uint32_t bh = b + (kk >> 2) * 64 * 128 + (kk & 3) * 32;
+    const uint32_t bh = b + (kk >> 2) * D * 128 + (kk & 3) * 32;
     const uint64_t b_hi = smem_desc(bh, 16, 1024);
-    const uint64_t b_lo = smem_desc(bh + (NC >> 5) * 64 * 128, 16, 1024);
-    Mma<64>::tf32_rs(d, a.hi[kk], b_hi, 1);
-    Mma<64>::tf32_rs(e, a.hi[kk], b_lo, kk);
-    Mma<64>::tf32_rs(e, a.lo[kk], b_hi, 1);
+    const uint64_t b_lo = smem_desc(bh + (NC >> 5) * D * 128, 16, 1024);
+    Mma<D>::tf32_rs(d, a.hi[kk], b_hi, 1);
+    Mma<D>::tf32_rs(e, a.hi[kk], b_lo, kk);
+    Mma<D>::tf32_rs(e, a.lo[kk], b_hi, 1);
   }
 }
 

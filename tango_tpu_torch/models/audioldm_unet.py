@@ -20,8 +20,8 @@ state-dict key (utils/convert.py:from_jax_params), the self-attentions'
 q, k and v fused into one `to_qkv`. GroupNorm goes through
 ops.basic.group_norm (the GN kernels) and attention through
 ops.attention.multi_head_attention (the attention kernel at Sq >= 256; head
-dim 32 here, so its CUDA-core body); convolutions and projections are
-cuDNN / cuBLAS, as they were XLA in JAX.
+dim 32 here, which attn_fwd's tensor-core body takes); convolutions and
+projections are cuDNN / cuBLAS, as they were XLA in JAX.
 """
 
 from __future__ import annotations

@@ -43,6 +43,8 @@ _SIGNATURES = {
     # q, k, v, o, BH, Sq, Skv, D, qscale, dtype, stream
     "tt_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "tt_attn_fwd_v2": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # the static form's CUDA-core body at any head dim (a yardstick, on no path)
+    "tt_attn_fwd_core": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, bias, o, BH, Sq, Skv, D, heads, bias rows, qscale, dtype, stream
     "tt_attn_fwd_bias": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, do, dq, lse, delta, BH, Sq, Skv, D, scale, dtype, stream

@@ -1,8 +1,11 @@
 """Attention kernels and their plain versions.
 
-Forward, three kernels of one tile loop in csrc/attention.cu, and at head
-dim 64 (`tc_body`: f32 and bf16, all three) tensor-core (wgmma) bodies of
-the same arithmetic in csrc/attention_tc.cu (f32: 3xTF32 products):
+Forward, three kernels of one tile loop in csrc/attention.cu (the
+CUDA-core body), and tensor-core (wgmma) bodies of the same arithmetic in
+csrc/attention_tc.cu (f32: 3xTF32 products) where `tc_body` holds: f32 and
+bf16 at head dim 64 in all three forms, and at head dim 32 (AudioLDM's) in
+the static form of `attn_fwd`; `attn_fwd_v2` and `attn_fwd_bias` keep the
+CUDA-core body at 32, where no path launches them:
   * `attn_fwd` replaces `_attn_kernel` (tango_tpu/ops/flash_attention.py:56),
     the static-shift exp2 softmax with deferred division: q is prescaled by
     scale*log2(e) and rounded to the storage type, p = exp2(min(l - 20, 96)),
@@ -21,7 +24,7 @@ Backward, `attn_bwd_dq` and `attn_bwd_dkv` replace `_bwd_dq_kernel` and
 softmax, recomputed from q, k and v, with JAX's roundings (ds to the storage
 type before both products that take it, p to dO's type before dV = p^T dO).
 dq also writes the per-row lse and delta that dkv reads, as (BH, Sq) f32. In
-f32 and bf16 at head dim 64 (`tc_body`) both run the tensor-core body of
+f32 and bf16 at head dim 64 (`bwd_tc_body`) both run the tensor-core body of
 csrc/attention_bwd_tc.cu (f32: 3xTF32 products), other head dims the
 CUDA-core body of csrc/attention_bwd.cu.
 Bound on the H100: operations (see the CUDA files' notes).
@@ -49,8 +52,10 @@ SOFTMAX_SHIFT = 20.0
 SOFTMAX_CLAMP = 96.0
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 TC_HEAD_DIM = 64
+STATIC_TC_HEAD_DIMS = (32, 64)  # the static form's tensor-core head dims
+FORMS = ("static", "online", "bias")  # attn_fwd, attn_fwd_v2, attn_fwd_bias (tt::AttnMode)
 _SRC = "tango_tpu_torch/csrc/attention.cu"
-_TC_SRC = "tango_tpu_torch/csrc/attention_tc.cu"  # D = 64, f32 and bf16
+_TC_SRC = "tango_tpu_torch/csrc/attention_tc.cu"  # f32 and bf16: D = 64, and 32 (static)
 _BWD_SRC = "tango_tpu_torch/csrc/attention_bwd.cu"
 _BWD_TC_SRC = "tango_tpu_torch/csrc/attention_bwd_tc.cu"  # f32 and bf16 at D = 64, training's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,15 +76,26 @@ def v2_route(sq: int, skv: int) -> bool:
     return skv > 4096 and skv % 512 == 0 and sq % 128 == 0
 
 
-def tc_body(dtype: torch.dtype, d: int) -> bool:
-    """Whether an attention kernel, forward (attn_fwd, attn_fwd_v2,
-    attn_fwd_bias: csrc/attention_tc.cu) or backward (attn_bwd_dq,
-    attn_bwd_dkv: csrc/attention_bwd_tc.cu), runs on its tensor-core body
-    rather than the CUDA-core one: head dim 64, the width of every attention
-    of the full-width UNet, in f32 or bf16, in every form (f32 on 3xTF32
-    products, within JAX's f32 limits; the trainer's f32 included). The C
-    entry points apply the same rule (`tc_body` in csrc/common.cuh); here it
-    decides the alignment check."""
+def tc_body(dtype: torch.dtype, d: int, form: str) -> bool:
+    """Whether a forward attention kernel of `form` (FORMS: attn_fwd
+    "static", attn_fwd_v2 "online", attn_fwd_bias "bias") runs on its
+    tensor-core body (csrc/attention_tc.cu) rather than the CUDA-core one:
+    f32 or bf16 (f32 on 3xTF32 products, within JAX's f32 limits; the
+    trainer's f32 included), at head dim 64, the width of every attention of
+    the full-width UNet, in every form, and at head dim 32, AudioLDM's, in
+    the static form, the one its path launches. The C entry points apply the
+    same rule (`tc_body` in csrc/common.cuh); here it decides the alignment
+    check."""
+    if form not in FORMS:
+        raise ValueError(f"tc_body: form {form!r} (one of {FORMS})")
+    dims = STATIC_TC_HEAD_DIMS if form == "static" else (TC_HEAD_DIM,)
+    return d in dims and dtype in (torch.float32, torch.bfloat16)
+
+
+def bwd_tc_body(dtype: torch.dtype, d: int) -> bool:
+    """Whether the backward kernels (attn_bwd_dq, attn_bwd_dkv) run on their
+    tensor-core body (csrc/attention_bwd_tc.cu): head dim 64 in f32 or bf16
+    (`bwd_tc_body` in csrc/common.cuh)."""
     return d == TC_HEAD_DIM and dtype in (torch.float32, torch.bfloat16)
 
 
@@ -158,10 +174,10 @@ def attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
 
 def _launch_fwd(fn, q, k, v, scale, bias=None, heads=1):
     """Launch attn_fwd, attn_fwd_v2 or (with a bias) attn_fwd_bias (fn) into
-    a new output; the C entry point picks the body by `tc_body`, and
-    fn.tc_launches counts the tensor-core ones it reports."""
+    a new output; the C entry point picks the body by `tc_body` for fn's
+    form, and fn.tc_launches counts the tensor-core ones it reports."""
     o = torch.empty_like(q)
-    tc = tc_body(q.dtype, q.shape[2])
+    tc = tc_body(q.dtype, q.shape[2], fn.form)
     if tc:
         check_tc_aligned(fn.__name__, q, k, v, *(() if bias is None else (bias,)), o)
     if bias is None:
@@ -198,7 +214,9 @@ def attn_fwd_v2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float)
 
 
 attn_fwd.tc_launches = attn_fwd_v2.tc_launches = 0
-attn_fwd.core_source = attn_fwd_v2.core_source = _SRC  # the CUDA-core body, other D
+attn_fwd.form, attn_fwd_v2.form = "static", "online"
+# the CUDA-core body: attn_fwd at D 8, 16, 128; attn_fwd_v2 at every D but 64
+attn_fwd.core_source = attn_fwd_v2.core_source = _SRC
 
 
 def attn_fwd_bias_plain(q, k, v, bias, heads: int, scale: float):
@@ -233,7 +251,8 @@ def attn_fwd_bias(q, k, v, bias, heads: int, scale: float):
 
 
 attn_fwd_bias.tc_launches = 0
-attn_fwd_bias.core_source = _SRC  # the CUDA-core body, other D
+attn_fwd_bias.form = "bias"
+attn_fwd_bias.core_source = _SRC  # the CUDA-core body, every D but 64
 
 
 def attn_bwd_dq_plain(q, k, v, do, scale: float):
@@ -263,13 +282,13 @@ def attn_bwd_dq(q, k, v, do, scale: float):
 
 def _launch_dq(q, k, v, do, scale):
     """Launch attn_bwd_dq into new outputs; the C entry point picks the body
-    by `tc_body`, and attn_bwd_dq.tc_launches counts the tensor-core
+    by `bwd_tc_body`, and attn_bwd_dq.tc_launches counts the tensor-core
     ones it reports."""
     bh, sq, d = q.shape
     dq = torch.empty_like(q)
     lse = torch.empty((bh, sq), device=q.device, dtype=torch.float32)
     delta = torch.empty_like(lse)
-    tc = tc_body(q.dtype, d)
+    tc = bwd_tc_body(q.dtype, d)
     if tc:
         check_tc_aligned("attn_bwd_dq", q, k, v, do, dq)
     count_tc(attn_bwd_dq, tc, _launch(
@@ -307,11 +326,11 @@ def attn_bwd_dkv(q, k, v, do, lse, delta, scale: float):
 
 def _launch_dkv(q, k, v, do, lse, delta, scale):
     """Launch attn_bwd_dkv into new outputs; the C entry point picks the body
-    by `tc_body`, and attn_bwd_dkv.tc_launches counts the tensor-core
+    by `bwd_tc_body`, and attn_bwd_dkv.tc_launches counts the tensor-core
     ones it reports."""
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    tc = tc_body(q.dtype, q.shape[2])
+    tc = bwd_tc_body(q.dtype, q.shape[2])
     if tc:
         check_tc_aligned("attn_bwd_dkv", q, k, v, do, dk, dv)
     count_tc(attn_bwd_dkv, tc, _launch(

@@ -1,7 +1,7 @@
 """The backward tensor-core body (csrc/attention_bwd_tc.cu) on the CPU.
 
 The CUDA body itself runs only on the card (`chip_smoke.py` holds it against
-the plain versions there). Here: the rule that picks it (`tc_body`), the
+the plain versions there). Here: the rule that picks it (`bwd_tc_body`), the
 wrappers' alignment check and counters for it, and `bwd_walk`, a plain-torch
 emulation of its arithmetic: the products under the body's splits (f32:
 3xTF32 with round-to-nearest-away splits for all five products, the logits
@@ -51,10 +51,13 @@ def _unet_head_dims(cfg):
 @pytest.mark.parametrize("d", tfa.KERNEL_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bwd_tc_body_rule(dtype, d):
-    """The backward kernels take the forward's rule, `tc_body`: f32 and bf16
-    at head dim 64 take the tensor-core body; every other head dim the
-    CUDA-core one."""
-    assert tfa.tc_body(dtype, d) == (d == 64)
+    """The backward kernels' rule, `bwd_tc_body`: f32 and bf16 at head dim 64
+    take the tensor-core body; every other head dim the CUDA-core one, 32
+    included, where the forward's static form has a tensor-core body
+    (`tc_body`); a type the kernels do not take has none."""
+    assert tfa.bwd_tc_body(dtype, d) == (d == 64)
+    assert not tfa.bwd_tc_body(torch.float16, d)
+    assert tfa.tc_body(dtype, d, "static") == (d in (32, 64))
 
 
 def test_bwd_tc_body_takes_every_full_width_unet_attention():
@@ -63,7 +66,8 @@ def test_bwd_tc_body_takes_every_full_width_unet_attention():
     bf16."""
     dims = _unet_head_dims(configs.TANGO_UNET)
     assert dims == {64}
-    assert all(tfa.tc_body(dt, d) for d in dims for dt in (torch.float32, torch.bfloat16))
+    assert all(tfa.bwd_tc_body(dt, d) and tfa.tc_body(dt, d, "static")
+               for d in dims for dt in (torch.float32, torch.bfloat16))
 
 
 def _misaligned(shape, dtype=torch.float32):
@@ -115,7 +119,8 @@ def test_bwd_launch_checks_alignment_and_counts_tc(fn, launch, monkeypatch):
 def test_tc_launches_count_the_entry_points_report(name, monkeypatch):
     """tc_launches counts what the C entry point reports, not the wrapper's
     copy of its rule: a report of the other body than the rule names raises
-    (either way round) and counts no tensor-core launch; a CUDA error code
+    (either way round: head dim 64, and 16, which every kernel runs on its
+    CUDA-core body) and counts no tensor-core launch; a CUDA error code
     raises as one."""
     fn = getattr(tfa, name)
     tc_dtype = torch.bfloat16 if name.startswith("attn_fwd") else torch.float32
@@ -125,7 +130,7 @@ def test_tc_launches_count_the_entry_points_report(name, monkeypatch):
     fake_kernel_library(monkeypatch, [0, ops.TC_LAUNCHED, 700, ops.TC_LAUNCHED])
     ops.reset_counters()
     tc = torch.zeros(2, 128, 64, dtype=tc_dtype)
-    core = torch.zeros(2, 128, 32, dtype=tc_dtype)
+    core = torch.zeros(2, 128, 16, dtype=tc_dtype)
     with pytest.raises(RuntimeError, match="CUDA-core body against"):
         launch(tc, tc, tc, tc)
     with pytest.raises(RuntimeError, match="tensor-core body against"):
@@ -217,14 +222,14 @@ def bwd_walk(q, k, v, do, scale, logit="3xtf32", grad="3xtf32", tiles=(64, 32),
     return rnd(dq), rnd(dk), rnd(dv), lse, delta
 
 
-def _inputs(b, h, sq, skv, amp, seed, dtype=jnp.float32):
-    """numpy q, k (at amplitude amp), v, do (B, H, S, 64) in dtype, as JAX
-    arrays and as (B*H, S, 64) f32 torch tensors holding the same values."""
+def _inputs(b, h, sq, skv, amp, seed, dtype=jnp.float32, d=64):
+    """numpy q, k (at amplitude amp), v, do (B, H, S, d) in dtype, as JAX
+    arrays and as (B*H, S, d) f32 torch tensors holding the same values."""
     rng = np.random.RandomState(seed)
     shapes = ((sq, amp), (skv, amp), (skv, 1.0), (sq, 1.0))
-    arrays = [jnp.asarray((rng.randn(b, h, s, 64) * a).astype(np.float32), dtype)
+    arrays = [jnp.asarray((rng.randn(b, h, s, d) * a).astype(np.float32), dtype)
               for s, a in shapes]
-    flat = [torch.from_numpy(np.array(x, np.float32).reshape(b * h, x.shape[2], 64))
+    flat = [torch.from_numpy(np.array(x, np.float32).reshape(b * h, x.shape[2], d))
             for x in arrays]
     return arrays, flat
 

@@ -1,7 +1,7 @@
 """The f32 tensor-core attention bodies on the CPU: the forward of
 csrc/attention_tc.cu (`attn_fwd`, `attn_fwd_v2` and `attn_fwd_bias` in f32
-at head dim 64) and the gradient products of csrc/attention_bwd_tc.cu, both
-on 3xTF32 products.
+at head dim 64, and `attn_fwd` at AudioLDM's 32) and the gradient products
+of csrc/attention_bwd_tc.cu, both on 3xTF32 products.
 
 The CUDA bodies run only on the card (`chip_smoke.py` holds them against the
 plain versions and float64 there). Here: `fwd_walk`, a plain-torch emulation
@@ -11,7 +11,8 @@ the running max, f32 denominators), held to JAX's f32 forward limits (atol
 2e-5, rtol 1e-4, tests/test_flash_attention.py) against
 `flash_attention(interpret=True)` and, in its online form,
 `flash_attention_v2(interpret=True)` at unit amplitude, JAX's extreme-logit
-case, and against float64 with q and k at amplitude 3; in its biased form
+case, and against float64 with q and k at amplitude 3 (the static form at
+head dims 64 and 32); in its biased form
 (bias * log2 e added to the 3xTF32 logits before the running max) against
 `flash_attention(bias=..., interpret=True)` with one bias row and a row a
 query at ragged Sq and Skv, with a fully masked batch row, and against
@@ -38,12 +39,14 @@ from tests.test_torch_ops_long import _extreme_qk
 torch.set_num_threads(1)
 
 FWD_TOL = (2e-5, 1e-4)  # JAX's f32 forward limits
-TILE = 64  # keys a K/V tile of the f32 forward body
+TILE = {64: 64, 32: 32}  # keys a K/V tile of the f32 forward body, by head dim
 
 
-def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32", online=False, bias=None, heads=1):
-    """The f32 forward body's arithmetic on (BH, S, 64) f32 tensors: qs = q *
-    qscale in f32, 64-key tiles (the last one ragged), s = qs . k and acc +=
+def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32", online=False, bias=None, heads=1,
+             tile=None):
+    """The f32 forward body's arithmetic on (BH, S, D) f32 tensors: qs = q *
+    qscale in f32, `tile`-key tiles (the body's, TILE[D], unless given: 64 at
+    head dim 64, 32 at 32; the last one ragged), s = qs . k and acc +=
     p . v under the given product schemes (`product`: "3xtf32", "tf32",
     "split_bf16", "f32"), denominators of the f32 p. Static form: p =
     exp2(min(s - 20, 96)), a zero row where the denominator underflows.
@@ -59,13 +62,14 @@ def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32", online=False, bias=Non
         bias = (bias - bias.amax(-1, keepdim=True)) * torch.tensor(np.float32(tfa.LOG2_E))
     qs = q * tfa._qscale(scale)
     bh, sq, d = q.shape
+    tile = tile or TILE[d]
     den = torch.zeros(bh, sq, 1)
     acc = torch.zeros(bh, sq, d)
     m = torch.full((bh, sq, 1), -1e30)
-    for k0 in range(0, k.shape[1], TILE):
-        s = product(qs, k[:, k0:k0 + TILE].transpose(-1, -2), logit)
+    for k0 in range(0, k.shape[1], tile):
+        s = product(qs, k[:, k0:k0 + tile].transpose(-1, -2), logit)
         if bias is not None:
-            s = s + bias[..., k0:k0 + TILE]
+            s = s + bias[..., k0:k0 + tile]
         if online:
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             alpha = torch.exp2(m - m_new)
@@ -74,7 +78,7 @@ def fwd_walk(q, k, v, scale, logit="3xtf32", pv="3xtf32", online=False, bias=Non
         else:
             p = torch.exp2(torch.clamp(s - tfa.SOFTMAX_SHIFT, max=tfa.SOFTMAX_CLAMP))
         den = den + p.sum(-1, keepdim=True)
-        acc = acc + product(p, v[:, k0:k0 + TILE], pv)
+        acc = acc + product(p, v[:, k0:k0 + tile], pv)
     if online:
         return acc / den
     return acc / torch.where(den == 0.0, torch.ones_like(den), den)
@@ -95,38 +99,51 @@ def _fwd_ratio(tensors, logit="3xtf32", pv="3xtf32", online=False):
                   _float64_fwd(q, k, v, 0.125).numpy(), FWD_TOL)
 
 
-@pytest.mark.parametrize("b,h,sq,skv", [(1, 2, 256, 256), (2, 1, 256, 333)])
-def test_fwd_walk_matches_pallas(b, h, sq, skv):
+@pytest.mark.parametrize("b,h,sq,skv,d", [(1, 2, 256, 256, 64), (2, 1, 256, 333, 64),
+                                          (1, 2, 256, 256, 32), (2, 1, 256, 333, 32),
+                                          (1, 4, 256, 1024, 32)])
+def test_fwd_walk_matches_pallas(b, h, sq, skv, d):
     """The 3xTF32 walk within JAX's f32 limits of `_attn_kernel` in interpret
-    mode, at unit amplitude (333 keys: a ragged last tile of 13)."""
-    arrays, tensors = _inputs(b, h, sq, skv, 1.0, 41)
+    mode, at unit amplitude (333 keys: a ragged last tile of 13 at head dim
+    64, 64-key tiles; at AudioLDM's 32, 32-key tiles, of 13 too), at scale
+    d^-0.5 (1024 keys: the FiLM UNet's ds = 2 level)."""
+    arrays, tensors = _inputs(b, h, sq, skv, 1.0, 41, d=d)
     q, k, v = arrays[:3]
-    ref = np.asarray(jfa.flash_attention(q, k, v, scale=0.125, interpret=True), np.float32)
-    out = fwd_walk(*tensors[:3], 0.125).numpy().reshape(ref.shape)
+    scale = d**-0.5
+    ref = np.asarray(jfa.flash_attention(q, k, v, scale=scale, interpret=True), np.float32)
+    out = fwd_walk(*tensors[:3], scale).numpy().reshape(ref.shape)
     np.testing.assert_allclose(out, ref, atol=FWD_TOL[0], rtol=FWD_TOL[1])
 
 
-def test_fwd_walk_matches_plain_version_ragged():
+@pytest.mark.parametrize("d", [64, 32])
+def test_fwd_walk_matches_plain_version_ragged(d):
     """The walk against the port's plain attn_fwd, which the card holds the
     body against, at the smoke's ragged shape (200 queries, 333 keys) and
-    limits (2e-5 / 1e-4)."""
-    _, (q, k, v, _) = _inputs(1, 3, 200, 333, 1.0, 42)
-    np.testing.assert_allclose(fwd_walk(q, k, v, 0.125).numpy(),
-                               tfa.attn_fwd_plain(q, k, v, 0.125).numpy(),
+    limits (2e-5 / 1e-4), at head dims 64 and 32."""
+    _, (q, k, v, _) = _inputs(1, 3, 200, 333, 1.0, 42, d=d)
+    np.testing.assert_allclose(fwd_walk(q, k, v, d**-0.5).numpy(),
+                               tfa.attn_fwd_plain(q, k, v, d**-0.5).numpy(),
                                atol=FWD_TOL[0], rtol=FWD_TOL[1])
 
 
-@pytest.mark.parametrize("seed", [27, 41])
-def test_fwd_walk_within_f32_limits_at_amplitude_3(seed):
+@pytest.mark.parametrize("seed,d", [(27, 64), (41, 64), (27, 32), (41, 32)])
+def test_fwd_walk_within_f32_limits_at_amplitude_3(seed, d):
     """With q and k at amplitude 3 (base-2 logits up to ~60) the walk stays
-    within JAX's f32 limits against float64 (10 heads of 1024), as close as
-    the plain f32 version."""
-    _, tensors = _inputs(1, 10, 1024, 1024, 3.0, seed)
-    walk = _fwd_ratio(tensors)
+    within JAX's f32 limits against float64 (10 heads of 1024), at head dim
+    64 as close as the plain f32 version, and at AudioLDM's 32 (scale
+    d^-0.5, so the logits' spread is the same) within the limits. The plain
+    version's own share there swings with the draw (0.30 at seed 27, 0.33 at
+    41; 0.47-0.99 at head dim 64), and the walk reads 0.48 and 0.33, below
+    its 0.47-0.59 at head dim 64."""
+    _, tensors = _inputs(1, 10, 1024, 1024, 3.0, seed, d=d)
     q, k, v = tensors[:3]
-    plain = _ratio(tfa.attn_fwd_plain(q, k, v, 0.125).numpy(),
-                   _float64_fwd(q, k, v, 0.125).numpy(), FWD_TOL)
-    assert walk < 1.0 and walk < 1.5 * plain, (walk, plain)
+    scale = d**-0.5
+    exact = _float64_fwd(q, k, v, scale).numpy()
+    walk = _ratio(fwd_walk(q, k, v, scale).numpy(), exact, FWD_TOL)
+    plain = _ratio(tfa.attn_fwd_plain(q, k, v, scale).numpy(), exact, FWD_TOL)
+    assert walk < 1.0, (walk, plain)
+    if d == 64:
+        assert walk < 1.5 * plain, (walk, plain)
 
 
 @pytest.mark.parametrize("b,h,sq,skv", [(1, 2, 128, 4608), (2, 1, 128, 4200)])
