@@ -122,7 +122,8 @@ Phases, one short JSON line each:
            every attention launch on its tensor-core body, every GroupNorm on
            its cluster body); peak memory and launches per rank logged, with
            the card's name and power limit;
-  mustango_build, mustango, mustango_predictors, mustango_cli
+  mustango_build, mustango, mustango_beam_loops, mustango_predictors,
+  mustango_cli
            after the Tango snapshot is deleted (free disk checked first):
            the full-width Mustango (TANGO_UNET's geometry with the `*Music`
            blocks, two extra 1024-wide streams; FLAN-T5-Large, TANGO_VAE,
@@ -136,17 +137,25 @@ Phases, one short JSON line each:
            UNet evaluation of each pipeline, whose attn_fwd launches must
            be 3x Tango's; then path `mustango`, counted: generate of
            MUSTANGO_PROMPTS[0] with both predictors (DeBERTa's beats, the
-           5-beam search's chords), generate_for_batch of the 4 prompts at
+           5-beam search's chords on its default, the device loop replayed
+           as a CUDA graph: its steps and host syncs logged beside the
+           predictors' seconds), generate_for_batch of the 4 prompts at
            batch 4 with explicit features (MUSTANGO_BEATS, MUSTANGO_CHORDS)
            and generate of the first with them, whose latents the batch's
            row 0 must match within MUSTANGO_ROW0_REL_L2; every attn_fwd on
            its tensor-core body, every gn_silu_fwd on its cluster body,
-           163872-sample non-silent int16 waveforms; then, uncounted, the predictors on
-           the card against the same modules on the CPU in f32 (DeBERTa's
-           logits and intervals, T5's first-step log-probabilities within
-           PREDICTOR_LIMITS; the beam tokens equal, or at the first step
-           whose ranking differs the CPU's margin between the two
-           candidates within twice their card-vs-CPU difference, logged);
+           163872-sample non-silent int16 waveforms; then, uncounted, the
+           chord search on the card again as the graphed device loop (the
+           same tokens), the eager device loop and the host loop, each timed
+           (mustango_beam_loops: the device loop's tokens equal the host
+           loop's, or differ at a near-tie of f32 against f64 scores that
+           first_divergence finds on the eager loop's log-probabilities);
+           the predictors on the card against the same modules on the CPU
+           in f32 (DeBERTa's logits and intervals, T5's first-step
+           log-probabilities within PREDICTOR_LIMITS; the host loop's beam
+           tokens equal, or at the first step whose ranking differs the
+           CPU's margin between the two candidates within twice their
+           card-vs-CPU difference, logged);
            convert_cli export-mustango of the snapshot reloaded bit-equal;
            serve.main --music at 2 steps once; the directory deleted;
   audioldm_build, audioldm, audioldm_cli
@@ -2505,20 +2514,25 @@ def compare_modules(pairs) -> dict:
     return out
 
 
-def first_divergence(card_lps, cpu_lps, num_beams: int, min_length: int, eos: int):
-    """Replays T5Seq2Seq.generate's candidate ranking on the card's and the
-    CPU's per-step log-probabilities in lockstep. None when every step ranks
-    the same top 2*num_beams candidates; else (step, the CPU's margin between
-    its candidate and the card's at the first rank that differs, scored by
-    the CPU, and the largest card-vs-CPU difference of those candidates'
-    scores at that step)."""
+def first_divergence(card_lps, cpu_lps, num_beams: int, min_length: int, eos: int,
+                     card_dtype=None):
+    """Replays T5Seq2Seq.generate's candidate ranking on two runs' per-step
+    log-probabilities in lockstep (the card's and the CPU's, or the card's
+    device loop's and its host loop's), the second's scores summed in f64 as
+    the host loop sums them, the first's in `card_dtype` (f64 by default;
+    np.float32 for the device loop's). None when every step ranks the same
+    top 2*num_beams candidates; else (step, the second run's margin between
+    its candidate and the first's at the first rank that differs, scored by
+    the second, and the largest difference of those candidates' scores
+    between the two at that step)."""
     import numpy as np
 
-    sa = np.full(num_beams, -1e9)
-    sa[0] = 0.0
-    sb = sa.copy()
+    card_dtype = card_dtype or np.float64
+    sb = np.full(num_beams, -1e9)
+    sb[0] = 0.0
+    sa = sb.astype(card_dtype)
     for s, (a, b) in enumerate(zip(card_lps, cpu_lps)):
-        a, b = a.copy(), b.copy()
+        a, b = a.astype(card_dtype), b.copy()
         if s + 1 < min_length:
             a[:, eos] = b[:, eos] = -np.inf
         fa, fb = (sa[:, None] + a).reshape(-1), (sb[:, None] + b).reshape(-1)
@@ -2535,13 +2549,15 @@ def first_divergence(card_lps, cpu_lps, num_beams: int, min_length: int, eos: in
     return None
 
 
-def predictors_card_vs_cpu(pred, beats_io: list, chords_io: list, card_lps: list) -> dict:
+def predictors_card_vs_cpu(pred, beats_io: list, chords_io: list, card_lps: list,
+                           card_tokens) -> dict:
     """The predictors of the `mustango` path on the card against the same
     modules on the CPU, both f32 (matmuls without TF32): DeBERTa's logits
     and intervals on the path's tokens, the T5 decoder's first-step
-    log-probabilities, and the beam search's tokens (`first_divergence`
-    explains a difference by a near-tie or fails). Raises past
-    PREDICTOR_LIMITS."""
+    log-probabilities, and the host beam search's tokens on the card
+    (`card_tokens`, `card_lps` its log-probabilities) against the CPU's
+    (`first_divergence` explains a difference by a near-tie or fails).
+    Raises past PREDICTOR_LIMITS."""
     import numpy as np
 
     from tango_tpu_torch.models.deberta import DebertaV2ForBeats
@@ -2568,7 +2584,7 @@ def predictors_card_vs_cpu(pred, beats_io: list, chords_io: list, card_lps: list
                                 float(np.abs(cpu).max()))
     del bm
     cm = on_cpu(lambda: T5Seq2Seq(pred.chords_model.cfg), pred.chords_model)
-    (c_ids, c_mask, kw), card_tokens = chords_io[0]
+    (c_ids, c_mask, kw), _ = chords_io[0]
     cpu_lps, step = [], cm.step
 
     def recording_step(*a, **k):
@@ -2577,7 +2593,7 @@ def predictors_card_vs_cpu(pred, beats_io: list, chords_io: list, card_lps: list
         return lp
 
     cm.step = recording_step
-    cpu_tokens = cm.generate(c_ids.cpu(), c_mask.cpu(), **kw)
+    cpu_tokens = cm.generate(c_ids.cpu(), c_mask.cpu(), device_loop=False, **kw)
     out["t5_first_step"] = card_vs_cpu("t5_first_step", card_lps[0], cpu_lps[0],
                                        PREDICTOR_LIMITS["t5_first_step"],
                                        float(np.abs(cpu_lps[0]).max()))
@@ -2599,6 +2615,78 @@ def predictors_card_vs_cpu(pred, beats_io: list, chords_io: list, card_lps: list
     return out
 
 
+def beam_loops_on_card(model, chords_io: list, counted_stats: dict) -> tuple:
+    """The chord predictor's three loops on the card, uncounted, on the
+    counted path's prompt (`counted_stats` its search's `beam_stats`, which
+    must be the graphed loop's): the graphed device loop again (warm: its tokens
+    must equal the counted run's), the same device loop eager (timed, then
+    once more with its log-probabilities recorded) and the host loop with
+    its log-probabilities recorded. The device loop's tokens must equal the
+    host loop's, or the eager loop's equal them and `first_divergence` find
+    a near-tie at the first step that ranks apart (f32 scores against f64).
+    -> (the log line, the host loop's log-probabilities and tokens)."""
+    import numpy as np
+
+    (ids, mask, kw), graph_tokens = chords_io[0]
+    out = {"counted": counted_stats}
+
+    def timed(call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = call()
+        torch.cuda.synchronize()
+        return toks, round(time.perf_counter() - t0, 4), dict(model.beam_stats)
+
+    warm, out["graph_warm_s"], out["graph_warm"] = timed(lambda: model.generate(ids, mask, **kw))
+    with torch.inference_mode():
+        pre = model.precompute(model.encode(ids, mask), mask, kw["max_length"])
+    full = dict(kw, length_penalty=1.0, eos_token_id=1, pad_token_id=0, decoder_start_token_id=0)
+    eager, out["eager_s"], out["eager"] = timed(
+        lambda: model.device_beam_search(*pre, graph=False, **full))
+    eager_lps, host_lps, static_step, step = [], [], model.static_step, model.step
+
+    def recording(fn, into):
+        def call(*a, **k):
+            lp = fn(*a, **k)
+            into.append(lp.double().cpu().numpy())
+            return lp
+        return call
+
+    model.static_step = recording(static_step, eager_lps)
+    try:
+        eager_rec = model.device_beam_search(*pre, graph=False, **full)
+    finally:
+        del model.static_step
+    model.step = recording(step, host_lps)
+    try:
+        host, out["host_s"], out["host"] = timed(
+            lambda: model.generate(ids, mask, device_loop=False, **kw))
+    finally:
+        del model.step
+    problems = []
+    if not (counted_stats["loop"] == "device" and counted_stats["graph"]):
+        problems.append(f"the counted chord search ran {counted_stats}, not the graphed loop")
+    if not np.array_equal(warm, graph_tokens):
+        problems.append("a second graphed search gave other tokens")
+    if not np.array_equal(eager_rec, eager):
+        problems.append("two eager device searches gave other tokens")
+    out["device_vs_host_equal"] = same = bool(np.array_equal(graph_tokens, host))
+    out["graph_vs_eager_equal"] = bool(np.array_equal(graph_tokens, eager))
+    out["lens"] = {"device": len(graph_tokens), "host": len(host)}
+    if not same:
+        # the eager loop's steps stand for the graph's only where they agree
+        div = first_divergence(eager_lps, host_lps, kw["num_beams"], kw["min_length"], 1,
+                               card_dtype=np.float32)
+        out["divergence"] = div
+        if not out["graph_vs_eager_equal"] or div is None or not div[1] <= 2 * div[2]:
+            problems.append(f"device and host loop tokens differ, not at a near-tie: {div}")
+    out["problems"] = problems
+    log("mustango_beam_loops", **out)
+    if problems:
+        raise AssertionError("mustango beam loops: " + "; ".join(problems))
+    return out, host_lps, host
+
+
 def mustango_phase(C, ops, tango, counted, instrument, expect_len: int, root: str) -> tuple:
     """Phase `mustango`: the full-width Mustango (TANGO_UNET's geometry with
     the `*Music` blocks, FLAN-T5-Large, TANGO_VAE, TANGO_HIFIGAN, a 1024-wide
@@ -2609,10 +2697,12 @@ def mustango_phase(C, ops, tango, counted, instrument, expect_len: int, root: st
     generate(MUSTANGO_PROMPT) with both predictors, generate_for_batch of
     MUSTANGO_PROMPTS with explicit features, and generate of the first
     prompt with the same features, whose latents the batch's row 0 must
-    match. Checks the launch bodies, 3x Tango's attn_fwd an evaluation, the
-    predictors card vs CPU; then, uncounted, export-mustango reloaded
-    bit-equal and serve.main --music once. Deletes `root`. Returns counted's
-    (launches, shapes)."""
+    match; the chord search runs its default, the graphed device loop, whose
+    steps and host syncs are logged. Checks the launch bodies, 3x Tango's
+    attn_fwd an evaluation, the chord search's loops against each other
+    (`beam_loops_on_card`) and the predictors card vs CPU; then, uncounted,
+    export-mustango reloaded bit-equal and serve.main --music once. Deletes
+    `root`. Returns counted's (launches, shapes)."""
     import dataclasses
     import wave
 
@@ -2705,21 +2795,16 @@ def mustango_phase(C, ops, tango, counted, instrument, expect_len: int, root: st
     # the counted path; the predictors' inputs, outputs and log-probabilities,
     # the features and every decoded latent recorded
     pred = ms.predictor
-    beats_io, chords_io, card_lps, latents, rec = [], [], [], [], {}
+    beats_io, chords_io, latents, rec = [], [], [], {}
     hook = pred.beats_model.register_forward_hook(
         lambda mod, args, out: beats_io.append((args, out)))
-    real_generate, real_step, real_pred = (pred.chords_model.generate, pred.chords_model.step,
-                                           pred.generate)
+    real_generate, real_pred = pred.chords_model.generate, pred.generate
 
     def recording_generate(ids, mask, **kw):
         toks = real_generate(ids, mask, **kw)
         chords_io.append(((ids, mask, kw), toks))
+        rec["beam"] = dict(pred.chords_model.beam_stats)
         return toks
-
-    def recording_step(*a, **k):
-        lp = real_step(*a, **k)
-        card_lps.append(lp.double().cpu().numpy())
-        return lp
 
     def recording_pred(prompt):
         s0 = time.perf_counter()
@@ -2728,7 +2813,7 @@ def mustango_phase(C, ops, tango, counted, instrument, expect_len: int, root: st
         rec["predictors_s"] = time.perf_counter() - s0
         return pred_out
 
-    pred.chords_model.generate, pred.chords_model.step = recording_generate, recording_step
+    pred.chords_model.generate = recording_generate
     pred.generate = recording_pred
     remove = instrument(ms)
     checked_decode = ms.decode
@@ -2771,7 +2856,8 @@ def mustango_phase(C, ops, tango, counted, instrument, expect_len: int, root: st
                     fallback_tokenizers=fallbacks, per_eval=per_eval,
                     attn_fwd_per_eval=launches["attn_fwd"] / (len(calls) * STEPS),
                     predictors_s=round(rec["predictors_s"], 3),
-                    beam_steps=len(card_lps),
+                    beam_loop=rec["beam"]["loop"], beam_graph=rec["beam"]["graph"],
+                    beam_steps=rec["beam"]["steps"], beam_syncs=rec["beam"]["syncs"],
                     predicted_beats=len(pb[0][0]) if pb and pb[0] else 0,
                     predicted_chords=rec["features"][1], row0=rec["row0"])
 
@@ -2779,7 +2865,7 @@ def mustango_phase(C, ops, tango, counted, instrument, expect_len: int, root: st
     ms.decode = checked_decode
     remove()
     hook.remove()
-    pred.chords_model.generate, pred.chords_model.step = real_generate, real_step
+    del pred.chords_model.generate
     pred.generate = real_pred
     problems = []
     tango_attn, music_attn = (per_eval[k].get("attn_fwd", 0) for k in ("tango", "mustango"))
@@ -2793,7 +2879,8 @@ def mustango_phase(C, ops, tango, counted, instrument, expect_len: int, root: st
                         f"{MUSTANGO_ROW0_REL_L2}")
     if problems:
         raise AssertionError("mustango: " + "; ".join(problems))
-    predictors_card_vs_cpu(pred, beats_io, chords_io, card_lps)
+    _, card_lps, card_tokens = beam_loops_on_card(pred.chords_model, chords_io, rec["beam"])
+    predictors_card_vs_cpu(pred, beats_io, chords_io, card_lps, card_tokens)
     del ms, pred, unet, beats_io, chords_io, card_lps, latents, remove, calls
     torch.cuda.empty_cache()
 

@@ -10,9 +10,17 @@ whatever the compute dtype.
 `T5Seq2Seq.generate` is HF's beam search (transformers 4.57's
 BeamSearchScorer semantics) over a KV-cached decoder: one single-token step
 per generated token, the cross-attention K/V projected once at batch 1 and
-broadcast to the beams. The bookkeeping runs on the host in numpy, from one
-host copy of each step's f32 log-probabilities, exactly as JAX's host loop
-(tango_tpu/models/t5.py:648-740), which is pinned token for token to HF.
+broadcast to the beams. It has two loops, as JAX's has, both pinned token for
+token to HF:
+- the device loop (`device_beam_search`, JAX's `_device_beam_search`,
+  tango_tpu/models/t5.py:420-566): beams, f32 scores and finished hypotheses
+  in fixed-size tensors on the model's device, a shape-static step
+  (`static_step`), the host reading a `done` flag once every BEAM_CHUNK
+  steps. On CUDA a chunk of steps is one CUDA graph, replayed; on the CPU
+  the same code runs eagerly. The default on CUDA.
+- the host loop: the bookkeeping in numpy on the host, from one host copy of
+  each step's log-probabilities in f64, exactly as JAX's host loop
+  (tango_tpu/models/t5.py:648-740). The default on the CPU.
 
 `t5_config_from_state_dict` and `convert_t5_encoder` read an HF
 T5EncoderModel state dict (a snapshot's `text_encoder.*`): the geometry from
@@ -270,6 +278,182 @@ class T5Decoder(nn.Module):
         return self.head(x)
 
 
+# steps of the device beam search between two host reads of its `done` flag
+BEAM_CHUNK = 8
+
+
+def use_device_loop(device_loop: Optional[bool], device) -> bool:
+    """`generate`'s loop: the device loop where asked, else (None) where the
+    model is on CUDA, as JAX's default is off the CPU."""
+    if device_loop is None:
+        return torch.device(device).type == "cuda"
+    return bool(device_loop)
+
+
+class _BeamSearch:
+    """The device loop's state in fixed-size tensors, its step and its CUDA
+    graph: the counterpart of JAX's `_device_beam_search`
+    (tango_tpu/models/t5.py:420-566), statement for statement. The prompt's
+    cross K / V and biases are copied into static buffers at batch 1, where
+    the step reads them once for all beams. A step after `done` leaves the
+    state as it was: every write is masked by it."""
+
+    NEG = -1e9
+
+    def __init__(self, model, key, ck, cv, self_bias, enc_bias):
+        (self.K, self.min_length, self.L, self.early_stopping, self.length_penalty, self.eos,
+         self.pad, self.start, _, self.chunk) = key[:10]
+        self.key, self.graph = key, None
+        c, K, L, dev = model.cfg, self.K, self.L, ck.device
+        self.ck, self.cv = torch.empty_like(ck), torch.empty_like(cv)
+        self.self_bias, self.enc_bias = torch.empty_like(self_bias), torch.empty_like(enc_bias)
+        dec = model.decoder
+        vocab = (dec.token_embedding if c.tie_word_embeddings else dec.lm_head).weight.shape[0]
+        self.eos_column = torch.arange(vocab, device=dev) == self.eos
+        self.ranks = torch.arange(2 * K, device=dev)
+        self.beams = torch.arange(K, device=dev)
+
+        def state(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        self.cur_len, self.done = state((), torch.long), state((), torch.bool)
+        self.tok_cur, self.buf = state((K,), torch.long), state((K, L), torch.long)
+        self.scores = state((K,), torch.float32)
+        self.kc = state((c.num_layers, K, c.num_heads, L, c.d_kv), ck.dtype)
+        self.vc = torch.empty_like(self.kc)
+        self.hyps_score, self.hyps_tok = state((K,), torch.float32), state((K, L), torch.long)
+        self.hyps_len, self.n_hyps = state((K,), torch.long), state((), torch.long)
+
+    def load(self, ck, cv, self_bias, enc_bias):
+        """A prompt's inputs into the static buffers, and the initial state."""
+        for dst, src in ((self.ck, ck), (self.cv, cv), (self.self_bias, self_bias),
+                         (self.enc_bias, enc_bias)):
+            dst.copy_(src)
+        self.cur_len.fill_(1)
+        self.done.fill_(False)
+        self.tok_cur.fill_(self.start)
+        self.buf.fill_(self.pad)
+        self.buf[:, 0] = self.start
+        self.scores.fill_(self.NEG)
+        self.scores[0] = 0.0  # every beam starts the same: keep one live
+        self.kc.zero_()
+        self.vc.zero_()
+        self.hyps_score.fill_(self.NEG)
+        self.hyps_tok.fill_(self.pad)
+        self.hyps_len.zero_()
+        self.n_hyps.zero_()
+
+    def capture(self, model):
+        """One CUDA graph of a chunk of steps, after a warm-up on a side
+        stream (PyTorch's CUDA-graph recipe); the warm-up's steps change the
+        state, so the caller loads it again."""
+        side = torch.cuda.Stream(self.kc.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.run(model, self.chunk)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.run(model, self.chunk)
+        self.graph = graph
+
+    def run(self, model, n: int):
+        for _ in range(n):
+            self.step(model)
+
+    @staticmethod
+    def _at(t, i):
+        """t[i] for a 0-d index tensor, with no host read."""
+        return t.index_select(0, i.view(1))[0]
+
+    def _insert_hyp(self, push, norm, row, row_len):
+        """HF's BeamHypotheses.add where push: append while fewer than K,
+        else replace the first-found worst if norm beats it."""
+        K, at = self.K, self._at
+        not_full = self.n_hyps < K
+        worst = torch.argmin(self.hyps_score)
+        slot = torch.where(not_full, self.n_hyps, worst).view(1)
+        do = push & (not_full | (norm > at(self.hyps_score, worst)))
+        for store, new in ((self.hyps_score, norm), (self.hyps_tok, row),
+                           (self.hyps_len, row_len)):
+            store.index_copy_(0, slot, torch.where(do, new, store.index_select(0, slot)[0])[None])
+        self.n_hyps.copy_(torch.where(do, (self.n_hyps + 1).clamp(max=K), self.n_hyps))
+
+    def step(self, model):
+        K, L = self.K, self.L
+        live = ~self.done
+        cur_len = self.cur_len
+        pos = (cur_len - 1).view(1)
+        caches = (self.kc, self.vc)
+        kept = [cache.index_select(3, pos) for cache in caches]
+        lp = model.static_step(self.tok_cur, pos[0], self.kc, self.vc, self.ck, self.cv,
+                               self.self_bias, self.enc_bias)  # (K, V) f32
+        for cache, old in zip(caches, kept):  # after done, the K / V written back
+            cache.index_copy_(3, pos, torch.where(live, cache.index_select(3, pos), old))
+        V = lp.shape[1]
+        lp = torch.where((cur_len < self.min_length) & self.eos_column, -torch.inf, lp)
+        flat = (self.scores[:, None] + lp).reshape(-1)
+        # ties go to the lowest flat index, as in lax.top_k and the host
+        # loop's stable argsort; torch.topk does not promise that order
+        top_vals, top_idx = torch.sort(flat, descending=True, stable=True)
+        top_vals, top_idx = top_vals[:2 * K], top_idx[:2 * K]
+        top_beams, top_toks = top_idx // V, top_idx % V
+        # HF's norm length: the generated tokens with the one consumed now,
+        # without the start token = cur_len
+        norm = top_vals / cur_len.float() ** self.length_penalty
+        # the last step's candidates reach max_length: HF finishes the top K
+        # of them whether or not they end in eos
+        is_final = cur_len == L - 1
+        is_eos = top_toks == self.eos
+        col = cur_len.clamp(max=L - 1).view(1)  # the column this step fills
+        rows = self.buf.index_select(0, top_beams[:K])
+        rows.index_copy_(1, col, torch.where(is_eos[:K, None], rows.index_select(1, col),
+                                             top_toks[:K, None]))
+        row_lens = torch.where(is_eos, cur_len, cur_len + 1)
+        push = (is_eos | is_final) & live
+        for r in range(K):  # ranks past K finish nothing
+            self._insert_hyp(push[r], norm[r], rows[r], row_lens[r])
+
+        # non-eos candidates fill the next beams in rank order
+        order = torch.sort(is_eos.long() * (2 * K) + self.ranks).indices[:K]
+        taken = ~is_eos[order] & live
+        n_sel = taken.sum()
+        sel_scores = torch.where(taken, top_vals[order], self.NEG)
+        sel_beams = torch.where(taken, top_beams[order], 0)
+        sel_toks = torch.where(taken, top_toks[order], self.pad)
+
+        buf = self.buf.index_select(0, sel_beams)
+        buf.index_copy_(1, col, sel_toks[:, None])
+        self.buf.copy_(torch.where(live, buf, self.buf))
+        keep = torch.where(live, sel_beams, self.beams)
+        for cache in caches:
+            cache.copy_(cache.index_select(1, keep))
+        self.scores.copy_(torch.where(live, sel_scores, self.scores))
+        self.tok_cur.copy_(torch.where(live, sel_toks, self.tok_cur))
+        cur_len = cur_len + live.long()
+        kept_min = torch.where(self.beams < self.n_hyps, self.hyps_score, torch.inf).min()
+        # HF 4.57's early-stop heuristic: the best running beam after
+        # selection over the generated length without the start token
+        best_possible = sel_scores[0] / (cur_len - 1).float() ** self.length_penalty
+        is_done = self.n_hyps >= K
+        if not self.early_stopping:
+            is_done = is_done & (kept_min >= best_possible)
+        self.done.copy_(self.done | (n_sel == 0) | is_done | (cur_len >= L))
+        self.cur_len.copy_(cur_len)
+
+    def result(self) -> torch.Tensor:
+        """(L + 2,): the best hypothesis with eos appended below max_length,
+        its length, and the steps taken."""
+        at, L = self._at, self.L
+        best = torch.argmax(torch.where(self.beams < self.n_hyps, self.hyps_score, -torch.inf))
+        tokens, out_len = self.hyps_tok.index_select(0, best.view(1))[0], at(self.hyps_len, best)
+        short = out_len < L
+        end = out_len.clamp(max=L - 1).view(1)
+        tokens.index_copy_(0, end, torch.where(short, self.eos, tokens.index_select(0, end)))
+        out_len = torch.where(short, out_len + 1, out_len)
+        return torch.cat([tokens, out_len.view(1), (self.cur_len - 1).view(1)])
+
+
 class T5Seq2Seq(nn.Module):
     """Encoder + decoder (T5ForConditionalGeneration), one input embedding
     shared by both, with HF-compatible beam search (`generate`). The Mustango
@@ -283,6 +467,10 @@ class T5Seq2Seq(nn.Module):
         self.decoder = T5Decoder(cfg)
         # one input embedding, HF's `shared`, under both names
         self.decoder.token_embedding = self.encoder.token_embedding
+        # the device loop's state (and on CUDA its graph) for the last key
+        self._beam_search: Optional[_BeamSearch] = None
+        # what the last generate ran: its loop, steps and host syncs
+        self.beam_stats: Optional[dict] = None
 
     def encode(self, input_ids, attention_mask):
         return self.encoder(input_ids, attention_mask)
@@ -310,27 +498,56 @@ class T5Seq2Seq(nn.Module):
     def step(self, tok, pos: int, kc, vc, ck, cv, self_bias, enc_bias):
         """One cached decode step: tok (B,) at position pos; kc / vc (L, B, H,
         max_len, dkv) self-attention caches, written at pos in place; ck / cv
-        the cross K / V; -> log-probabilities (B, vocab) f32."""
+        the cross K / V (L, B or 1, H, S_e, dkv) and enc_bias (B or 1, 1, 1,
+        S_e): at batch 1 every row attends to the one prompt; ->
+        log-probabilities (B, vocab) f32."""
+        def write(cache, new):
+            cache[:, :, pos] = new
+
+        return self._cached_step(tok, write, lambda cache: cache[:, :, :pos + 1],
+                                 self_bias[None, :, pos:pos + 1, :pos + 1],
+                                 kc, vc, ck, cv, enc_bias)
+
+    def static_step(self, tok, pos: torch.Tensor, kc, vc, ck, cv, self_bias, enc_bias):
+        """`step` with every shape fixed, the step of the device loop (JAX's
+        `step`, tango_tpu/models/t5.py:351-412): pos a 0-d int64 tensor; the
+        new K / V written at pos by an indexed copy; the self-attention over
+        all max_len cache positions, the causal bias row selected by pos,
+        whose -1e9 makes the later positions' weights exactly 0 in f32. It
+        computes what `step` computes, in another summation order."""
+        at = pos.view(1)
+
+        def write(cache, new):
+            cache.index_copy_(2, at, new[:, :, None])
+
+        return self._cached_step(tok, write, lambda cache: cache,
+                                 self_bias.index_select(1, at)[None], kc, vc, ck, cv, enc_bias)
+
+    def _cached_step(self, tok, write, attend, bias_row, kc, vc, ck, cv, enc_bias):
+        """The decoder on one token a row: write(cache, new) stores a layer's
+        new K or V (B, H, dkv), attend(cache) gives the keys / values the
+        query sees, bias_row (1, H, 1, keys) is their bias."""
         c, dec = self.cfg, self.decoder
         x = dec.token_embedding(tok)  # (B, d)
         b, nh, dkv = x.shape[0], c.num_heads, c.d_kv
-        bias_row = self_bias[None, :, pos:pos + 1, :pos + 1]  # (1, H, 1, pos + 1)
         for i in range(c.num_layers):
             blk = getattr(dec, f"block_{i}")
             a = blk.self_attn
             h = blk.ln_self(x)
             q = a.q(h).reshape(b, nh, 1, dkv)
-            kc[i, :, :, pos] = a.k(h).reshape(b, nh, dkv)
-            vc[i, :, :, pos] = a.v(h).reshape(b, nh, dkv)
-            logits = q.float() @ kc[i, :, :, :pos + 1].float().transpose(-1, -2) + bias_row
+            write(kc[i], a.k(h).reshape(b, nh, dkv))
+            write(vc[i], a.v(h).reshape(b, nh, dkv))
+            logits = q.float() @ attend(kc[i]).float().transpose(-1, -2) + bias_row
             probs = torch.softmax(logits, dim=-1).to(x.dtype)
-            x = x + a.o((probs @ vc[i, :, :, :pos + 1]).reshape(b, nh * dkv))
+            x = x + a.o((probs @ attend(vc[i])).reshape(b, nh * dkv))
 
-            a = blk.cross_attn
-            q = a.q(blk.ln_cross(x)).reshape(b, nh, 1, dkv)
+            # one prompt's K / V for every row: the rows fold into the
+            # product's M, and the K / V are read once
+            a, kb = blk.cross_attn, ck.shape[1]
+            q = a.q(blk.ln_cross(x)).reshape(kb, b // kb, nh, dkv).transpose(1, 2)
             logits = q.float() @ ck[i].float().transpose(-1, -2) + enc_bias
             probs = torch.softmax(logits, dim=-1).to(x.dtype)
-            x = x + a.o((probs @ cv[i]).reshape(b, nh * dkv))
+            x = x + a.o((probs @ cv[i]).transpose(1, 2).reshape(b, nh * dkv))
             x = x + blk.ff(blk.ln_ff(x))
         return torch.log_softmax(dec.head(x), dim=-1)
 
@@ -351,10 +568,13 @@ class T5Seq2Seq(nn.Module):
         log-probabilities / length**length_penalty; with early_stopping the
         search stops once num_beams hypotheses have finished.
 
-        `device_loop` is JAX's switch between its host loop and one
-        `lax.while_loop` on the device (which saves round trips to a remote
-        TPU); it is kept for the signature, and either value runs the host
-        loop here."""
+        `device_loop` is JAX's switch: True runs the device loop
+        (`device_beam_search`: f32 scores on the model's device, on CUDA one
+        CUDA graph a chunk of BEAM_CHUNK steps), False the host loop (numpy,
+        f64 scores); None, the default, picks the device loop when the
+        parameters are on CUDA and the host loop on the CPU
+        (`use_device_loop`), as JAX picks by its backend. `beam_stats` then
+        says which loop ran, its steps and its host syncs."""
         assert input_ids.shape[0] == 1, "beam generate handles one prompt at a time"
         if max_length <= 1:
             # HF: the decode loop never runs; generate returns the start token
@@ -366,9 +586,12 @@ class T5Seq2Seq(nn.Module):
         enc_hidden = self.encode(ids, mask)
         # the cross K / V rows are the same for every beam: project at batch 1
         ck, cv, self_bias, enc_bias = self.precompute(enc_hidden, mask, max_length)
-        ck = ck.expand(-1, num_beams, -1, -1, -1)
-        cv = cv.expand(-1, num_beams, -1, -1, -1)
-        enc_bias = enc_bias.expand(num_beams, -1, -1, -1)
+        if use_device_loop(device_loop, dev):
+            return self.device_beam_search(
+                ck, cv, self_bias, enc_bias, num_beams=num_beams, min_length=min_length,
+                max_length=max_length, early_stopping=early_stopping,
+                length_penalty=length_penalty, eos_token_id=eos_token_id,
+                pad_token_id=pad_token_id, decoder_start_token_id=decoder_start_token_id)
         kc = torch.zeros((c.num_layers, num_beams, c.num_heads, max_length, c.d_kv),
                          dtype=ck.dtype, device=dev)
         vc = torch.zeros_like(kc)
@@ -397,8 +620,9 @@ class T5Seq2Seq(nn.Module):
             best_possible = best_running / ((cur_len_next - 1) ** length_penalty)
             return min(h[0] for h in hyps) >= best_possible
 
-        cur_len = 1
+        cur_len, steps = 1, 0
         while cur_len < max_length:
+            steps += 1
             lp_dev = self.step(torch.as_tensor(tok_cur, device=dev), cur_len - 1, kc, vc, ck, cv,
                                self_bias, enc_bias)
             lp = lp_dev.cpu().numpy().astype(np.float64)  # (num_beams, vocab)
@@ -442,10 +666,57 @@ class T5Seq2Seq(nn.Module):
             if hyp_done(cur_len, float(new_beams[0][0])):
                 break
 
+        self.beam_stats = {"loop": "host", "graph": False, "steps": steps, "syncs": steps}
         out = list(max(hyps, key=lambda h: h[0])[1])
         if len(out) < max_length:
             out.append(eos_token_id)
         return np.asarray(out, np.int32)
+
+    @torch.inference_mode()
+    def device_beam_search(self, ck, cv, self_bias, enc_bias, *, num_beams: int,
+                           min_length: int, max_length: int, early_stopping: bool,
+                           length_penalty: float, eos_token_id: int, pad_token_id: int,
+                           decoder_start_token_id: int, chunk: int = BEAM_CHUNK,
+                           graph: Optional[bool] = None) -> np.ndarray:
+        """The device loop over `precompute`'s outputs at batch 1 -> the best
+        token sequence, as `generate` returns it. The state lives in
+        fixed-size tensors on ck's device; the host reads the `done` flag
+        once every `chunk` steps and the result once at the end. `graph`
+        (default: on CUDA) replays a chunk as one CUDA graph, captured once
+        for the key of the search; False runs the same steps eagerly. A
+        failed capture or replay raises: nothing falls back to another
+        loop."""
+        graph = ck.is_cuda if graph is None else graph
+        if graph and not ck.is_cuda:
+            raise ValueError("a CUDA graph of the beam search needs the model on CUDA")
+        # a parameter replaced since the capture would leave the graph reading
+        # freed memory: the parameters' addresses are part of the key
+        key = (num_beams, min_length, max_length, bool(early_stopping), float(length_penalty),
+               eos_token_id, pad_token_id, decoder_start_token_id, ck.shape[3], chunk,
+               str(ck.device), ck.dtype, tuple(p.data_ptr() for p in self.decoder.parameters()))
+        if self._beam_search is None or self._beam_search.key != key:
+            # the last key's buffers and graph pool are freed first, as JAX
+            # clears its loops when max_length changes
+            self._beam_search = None
+            self._beam_search = _BeamSearch(self, key, ck, cv, self_bias, enc_bias)
+        search = self._beam_search
+        search.load(ck, cv, self_bias, enc_bias)
+        if graph and search.graph is None:
+            search.capture(self)
+            search.load(ck, cv, self_bias, enc_bias)
+        syncs = 0
+        while True:
+            if graph:
+                search.graph.replay()
+            else:
+                search.run(self, chunk)
+            syncs += 1
+            if bool(search.done):  # the one read a chunk
+                break
+        out = search.result().cpu().numpy()  # tokens, length, steps: one read
+        self.beam_stats = {"loop": "device", "graph": graph, "steps": int(out[-1]),
+                           "syncs": syncs + 1, "chunk": chunk}
+        return out[: int(out[-2])].astype(np.int32)
 
 
 def t5_config_from_state_dict(sd: Mapping[str, torch.Tensor]) -> T5Config:
