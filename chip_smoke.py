@@ -8,6 +8,17 @@ Phases, one short JSON line each:
   device   the card's name and power limit;
   build    nvcc of tango_tpu_torch/csrc/*.cu into build/ (or the cached library),
            one nvcc per source, all started together, then one link;
+  ingest   audio ingestion on the host: in a child process with one BLAS
+           thread, each fixture of tests/data/ingest/ (FLAC, MPEG-1 Layer III,
+           Ogg Vorbis, Ogg Opus, AIFF; scripts/make_ingest_fixtures.py) read
+           INGEST_REPS times through the port's read_wav and held against
+           JAX's decode committed beside it (FLAC and AIFF bit-equal, the
+           rest within INGEST_LIMIT); the decode seconds, the audio seconds
+           decoded per wall second and the samples per second by format, the
+           FLAC subframes each path decoded (native C or python) and the C
+           decoder's build, and whether the system libopus loads (without
+           it, validate_manifest must refuse an Opus manifest with
+           ValueError, and the train_cli manifest holds no Opus clip);
   model    full-width Tango (TANGO_UNET, FLAN-T5-Large encoder, TANGO_VAE,
            TANGO_HIFIGAN, SD-2.1 DDPM) with seeded random bf16 weights;
   warmup   one 1-step generate (first-use costs of cuDNN and cuBLAS);
@@ -64,13 +75,17 @@ Phases, one short JSON line each:
            request, whose WAV must equal generate at that seed sample for
            sample; two bad bodies, 400; every response a non-silent 16 kHz
            mono int16 WAV of the clip's length; the latencies logged.
-           train_cli: train/cli.py's main on 8 synthetic WAVs
-           (--tango_snapshot and --hf_model the snapshot, batch 2,
+           train_cli: train/cli.py's main on a manifest of 8 clips, one
+           each of FLAC, mp3, Ogg Vorbis, AIFF and (where libopus loads)
+           Ogg Opus, copies of the ingest fixtures, and synthetic WAVs for
+           the rest (--tango_snapshot and --hf_model the snapshot, batch 2,
            accumulation 2, 2 updates, one epoch, best): the args and one
            epoch record with finite losses, `best` with the UNet's keys and
-           not the snapshot's weights, the micro-steps' ms and the peak
-           memory logged. dpo: train/dpo_cli.py's main on a 4-row preference
-           manifest (batch 2, accumulation 1, 2 epochs, 1 of them SFT-first,
+           not the snapshot's weights, every clip decoded by its format's
+           decoder (none replaced by the loader's constant stand-in), the
+           micro-steps' ms, the seconds the trainer waited on each batch of
+           the loader (loader_wait_s) and the peak memory logged.
+           dpo: train/dpo_cli.py's main on a 4-row preference manifest (batch 2, accumulation 1, 2 epochs, 1 of them SFT-first,
            a 2-row validation file): one sft and one dpo record with finite
            losses and implicit_acc in [0, 1], `last` and `best`, the
            reference UNet bit-equal to the snapshot's after the run, the ms
@@ -378,6 +393,11 @@ TF32_FLOPS = 495e12         # dense tensor-core TF32
 # also the bound of the f32 Winograd convolution's products
 F32_TC_FLOPS = TF32_FLOPS / 3
 TRAIN_WAVS = 8
+INGEST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "ingest")
+INGEST_FORMATS = ("flac", "mp3", "ogg", "opus", "aiff")  # clip.<name> in INGEST_DIR
+INGEST_EXACT = ("flac", "aiff")  # bit-equal to JAX's decode; the rest within INGEST_LIMIT
+INGEST_LIMIT = 1 / 32768  # one int16 step: numpy may sum in another order here than there
+INGEST_REPS = 3
 TRAIN_BATCH = 2
 TRAIN_CAPTIONS = ["a dog barks", "rain on a tin roof", "an engine idles", "birds sing"]
 PROMPT = "a dog barks"
@@ -1798,6 +1818,135 @@ def write_wavs(root: str, n: int, seconds: float, seed: int) -> str:
     return manifest
 
 
+def ingest_child(out: str) -> int:
+    """Phase ingest's work, in a child process started with one BLAS thread:
+    each fixture read INGEST_REPS times through the port's read_wav and held
+    against JAX's decode in reference.npz; the record as JSON in `out`."""
+    import numpy as np
+
+    from tango_tpu_torch.audio import flac, flac_native, opus
+    from tango_tpu_torch.audio.wav import read_wav, sniff_format
+    from tango_tpu_torch.train.data import Example, validate_manifest
+
+    ref = np.load(os.path.join(INGEST_DIR, "reference.npz"))
+    libopus = opus.libopus_available()
+    formats, problems = {}, []
+    for name in INGEST_FORMATS:
+        path = os.path.join(INGEST_DIR, f"clip.{name}")
+        if sniff_format(path) != name:
+            problems.append(f"{name}: sniffed as {sniff_format(path)!r}")
+            continue
+        if name == "opus" and not libopus:
+            # JAX's behaviour: the preflight refuses an Opus manifest
+            try:
+                validate_manifest([Example(path, "opus")])
+                refused = False
+            except ValueError as e:
+                refused = "libopus" in str(e)
+            formats[name] = {"preflight_refused": refused}
+            if not refused:
+                problems.append("opus without libopus: the preflight did not refuse it")
+            continue
+        subframes = dict(flac.SUBFRAMES)
+        times = []
+        for _ in range(INGEST_REPS):
+            t0 = time.perf_counter()
+            pcm, rate = read_wav(path)
+            times.append(time.perf_counter() - t0)
+        if name in INGEST_EXACT:
+            want, limit = ref[f"{name}_int16"].astype(np.float32) / 32768.0, 0.0
+        else:
+            want, limit = ref[f"{name}_f32"], INGEST_LIMIT
+        channels = 1 if pcm.ndim == 1 else pcm.shape[1]
+        rec = {"rate": rate, "channels": channels, "audio_s": len(pcm) / rate,
+               "file_bytes": os.path.getsize(path), "decode_s": times,
+               "audio_s_per_s": len(pcm) / rate / min(times),
+               "msamples_per_s": len(pcm) * channels / min(times) / 1e6, "limit": limit}
+        if pcm.dtype != np.float32 or pcm.shape != want.shape or rate != int(ref[f"{name}_rate"]):
+            problems.append(f"{name}: {pcm.dtype} {pcm.shape} at {rate} Hz, JAX's float32 "
+                            f"{want.shape} at {int(ref[f'{name}_rate'])} Hz")
+        else:
+            rec["max_abs_err"] = float(np.abs(pcm.astype(np.float64) - want).max())
+            if rec["max_abs_err"] > limit:
+                problems.append(f"{name}: {rec['max_abs_err']} from JAX's decode (limit {limit})")
+        if name == "flac":
+            rec["subframes"] = {k: v - subframes[k] for k, v in flac.SUBFRAMES.items()}
+            rec["path"] = "native" if rec["subframes"]["python"] == 0 else "python"
+            rec["native_build"] = flac_native.build_info
+        formats[name] = rec
+    with open(out, "w") as f:
+        json.dump({"libopus": libopus, "formats": formats, "problems": problems}, f)
+    return 0
+
+
+def ingest_phase(out: str) -> dict:
+    """Phase ingest: `ingest_child` in a process of its own with one BLAS
+    thread (OMP, OpenBLAS and MKL), so that the rates are one host thread's;
+    its record logged. Returns the record."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--ingest", out], env=env,
+                   check=True, timeout=300)
+    with open(out) as f:
+        rec = json.load(f)
+    os.remove(out)
+    log("ingest", seconds=round(time.perf_counter() - t0, 3), reps=INGEST_REPS, **rec)
+    if rec["problems"]:
+        raise AssertionError("ingest: " + "; ".join(rec["problems"]))
+    return rec
+
+
+def mix_formats(manifest: str, libopus: bool) -> list:
+    """Point the first rows of `manifest` (write_wavs') at copies of the
+    ingest fixtures, one a format (Opus only where libopus loads), beside
+    the WAVs, which stay on the disk; returns each row's file extension."""
+    names = [n for n in INGEST_FORMATS if n != "opus" or libopus]
+    with open(manifest) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    for row, name in zip(rows, names):
+        dst = os.path.splitext(row["location"])[0] + f".{name}"
+        shutil.copyfile(os.path.join(INGEST_DIR, f"clip.{name}"), dst)
+        row["location"] = dst
+    with open(manifest, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in rows))
+    return [os.path.splitext(r["location"])[1][1:] for r in rows]
+
+
+def watched_loader(waits: dict, decoded: dict):
+    """Record, on train/data.py's loader, the seconds the consumer waited for
+    each batch (waits["train" or "validation"]) and each file's decode
+    outcome (decoded[extension] -> [ok, ...]); returns the undo function."""
+    from tango_tpu_torch.train import data
+
+    loader_iter, decode_one = data.FeaturizedLoader.__iter__, data._decode_one
+
+    def timed_iter(self):
+        gen = loader_iter(self)
+        key = "train" if self.shuffle else "validation"
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(gen)
+                except StopIteration:
+                    return
+                waits.setdefault(key, []).append(round(time.perf_counter() - t0, 4))
+                yield item
+        finally:
+            gen.close()
+
+    def recorded_decode(args):
+        out = decode_one(args)
+        decoded.setdefault(os.path.splitext(args[0])[1][1:], []).append(out is not None)
+        return out
+
+    data.FeaturizedLoader.__iter__, data._decode_one = timed_iter, recorded_decode
+
+    def undo():
+        data.FeaturizedLoader.__iter__, data._decode_one = loader_iter, decode_one
+    return undo
+
+
 def read_counters(ops) -> tuple[dict, dict, dict, dict]:
     """Every kernel's launches and launched shapes, and the tensor-core and
     cluster launches of the kernels with such bodies."""
@@ -2030,8 +2179,11 @@ def timed_methods(cls, names, times: dict):
 def train_cli_phase(snap_dir: str, root: str, start: dict, ops) -> tuple:
     """`python -m tango_tpu_torch.train.cli`'s main on the snapshot (the VAE
     with its encoder from --tango_snapshot, the UNet and T5 from --hf_model)
-    and 8 synthetic WAVs: batch 2, accumulation 2, 2 updates, one epoch,
-    validation on the first 2 clips, `best` kept. Counters zeroed just
+    and the 8 clips of data/train.json (mix_formats': a clip of each format
+    the port reads, WAVs for the rest): batch 2, accumulation 2, 2 updates,
+    one epoch, validation on the first 2 clips, `best` kept. Every clip must
+    decode (none replaced by the loader's constant stand-in); the seconds
+    the trainer waited on the loader are logged. Counters zeroed just
     before main and read after. `start`: the snapshot's UNet weights.
     Returns (launches, shapes, tc, cluster)."""
     import numpy as np
@@ -2042,8 +2194,12 @@ def train_cli_phase(snap_dir: str, root: str, start: dict, ops) -> tuple:
     manifest = os.path.join(root, "data", "train.json")
     val = os.path.join(root, "data", "val.json")
     out = os.path.join(root, "train_cli")
-    times = {}
-    undo = timed_methods(sft.SFTTrainer, ("train_step",), times)
+    with open(manifest) as f:
+        formats = sorted({os.path.splitext(json.loads(line)["location"])[1][1:]
+                          for line in f if line.strip()})
+    times, waits, decoded = {}, {}, {}
+    undo_steps = timed_methods(sft.SFTTrainer, ("train_step",), times)
+    undo_loader = watched_loader(waits, decoded)
     ops.reset_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2058,11 +2214,16 @@ def train_cli_phase(snap_dir: str, root: str, start: dict, ops) -> tuple:
                               "--output_dir", out, "--device", DEVICE])
         torch.cuda.synchronize()
     finally:
-        undo()
+        undo_steps()
+        undo_loader()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches, shapes, tc, cluster = read_counters(ops)
     problems = body_problems("train_cli", launches, tc, cluster)
+    failed = {ext: v.count(False) for ext, v in decoded.items() if not all(v)}
+    if failed or sorted(decoded) != formats:
+        problems.append(f"decoded {sorted(decoded)} of the manifest's {formats}; the constant "
+                        f"stand-in for {failed}")
     with open(os.path.join(out, "summary.jsonl")) as f:
         records = [json.loads(line) for line in f if line.strip()]
     if (len(records) != 2 or set(records[0]) != {"args"}
@@ -2080,8 +2241,9 @@ def train_cli_phase(snap_dir: str, root: str, start: dict, ops) -> tuple:
     if not finite:
         problems.append("non-finite weights in the best checkpoint")
     log("train_cli", seconds=round(seconds, 3), peak_memory_bytes=peak,
-        ms_per_micro_step=times.get("train_step"), records=records[1:], launches=launches,
-        tc_launches=tc, cluster_launches=cluster,
+        ms_per_micro_step=times.get("train_step"), loader_wait_s=waits,
+        decoded={ext: len(v) for ext, v in sorted(decoded.items())}, records=records[1:],
+        launches=launches, tc_launches=tc, cluster_launches=cluster,
         shapes={n: len(v) for n, v in shapes.items()}, problems=problems)
     del state, best
     torch.cuda.empty_cache()
@@ -3784,6 +3946,8 @@ def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
 def main(argv) -> int:
     if argv[:1] == ["--mesh-rank"]:  # a rank of phase mesh, started by mesh_phase
         return mesh_rank_main(argv[1], argv[2])
+    if argv[:1] == ["--ingest"]:  # phase ingest's child, started by ingest_phase
+        return ingest_child(argv[1])
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     detail = "--detail" in argv
     if not torch.cuda.is_available():
@@ -3806,6 +3970,8 @@ def main(argv) -> int:
     _build.load()
     log("build", seconds=round(_build.build_info["seconds"], 3),
         reused=_build.build_info["reused"], library=os.path.basename(_build.build_info["path"]))
+    ingest = ingest_phase(os.path.join(os.path.dirname(_build.build_info["path"]),
+                                       "smoke_ingest.json"))
 
     t0 = time.perf_counter()
     tango = Tango.from_components(
@@ -3977,6 +4143,7 @@ def main(argv) -> int:
     by_path["serve_http"] = serve_http_phase(snap_dir, counted, instrument, wav_len(frames))
     start = {k: v.detach().to("cpu", torch.float32) for k, v in tango.model.unet.state_dict().items()}
     manifest = write_wavs(os.path.join(snap_root, "data"), TRAIN_WAVS, 10.24, seed=0)
+    mix_formats(manifest, ingest["libopus"])
     with open(manifest) as f:
         rows = f.readlines()
     with open(os.path.join(snap_root, "data", "val.json"), "w") as f:

@@ -1,13 +1,13 @@
-"""WAV reading and resampling, port of the WAV path of tango_tpu/audio/wav.py.
+"""Audio reading and resampling, port of tango_tpu/audio/wav.py.
 
 The reference read path: read, take the first channel, resample to 16 kHz
 (polyphase FIR, `scipy.signal.resample_poly`), normalise (zero mean, peak
-0.5), pad or trim to the segment, renormalise to peak 0.5. Reading is
-`scipy.io.wavfile`. The JAX package's other decoders (FLAC, MPEG audio, Ogg
-Vorbis and Opus, AIFF) are not ported yet (ROADMAP queue A #11): a file of
-one of those formats raises NotImplementedError, by its magic bytes, so a
-manifest of them fails loudly instead of training on the loader's constant
-stand-in for an unreadable file.
+0.5), pad or trim to the segment, renormalise to peak 0.5. `read_wav`
+dispatches by the file's magic bytes (`sniff_format`), as JAX does: WAV
+through `scipy.io.wavfile`, FLAC (audio/flac.py), MPEG Layer I/II/III
+(audio/mp3.py), Ogg Vorbis (audio/vorbis.py), Ogg Opus (audio/opus.py, the
+system libopus) and AIFF / AIFF-C (audio/aiff.py), so a manifest may mix the
+six formats.
 """
 
 from __future__ import annotations
@@ -20,9 +20,6 @@ from scipy.io import wavfile
 from scipy.signal import resample_poly as _scipy_resample_poly
 
 from tango_tpu_torch.audio.stft import normalize_wav, pad_wav
-
-# formats the JAX package decodes and the port does not yet
-UNPORTED_FORMATS = ("flac", "mp3", "ogg", "opus", "aiff")
 
 
 def _is_mpeg_sync(b0: int, b1: int) -> bool:
@@ -84,17 +81,6 @@ def sniff_format(path: str) -> str:
     return f"unknown format (magic {head[:4]!r})"
 
 
-def check_decodable(path: str) -> str:
-    """The file's format (`sniff_format`); NotImplementedError for one whose
-    decoder is not ported."""
-    fmt = sniff_format(path)
-    if fmt in UNPORTED_FORMATS:
-        raise NotImplementedError(
-            f"{path}: {fmt} decoding is not ported to tango_tpu_torch yet (ROADMAP queue A "
-            "#11, ingestion); transcode to WAV")
-    return fmt
-
-
 def _check_rate(sr: int) -> int:
     # a corrupt rate field would make the 16 kHz resample allocate len*16000 samples
     if not 1000 <= sr <= 768000:
@@ -103,8 +89,34 @@ def _check_rate(sr: int) -> int:
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
-    """A WAV file -> (float32 samples in [-1, 1], sample rate)."""
-    check_decodable(path)
+    """A WAV, FLAC, mp3, Ogg Vorbis / Opus or AIFF file -> (float32 samples
+    in [-1, 1], sample rate), by magic bytes."""
+    fmt = sniff_format(path)
+    if fmt == "flac":
+        from tango_tpu_torch.audio.flac import read_flac
+
+        pcm, sr = read_flac(path)
+        return pcm, _check_rate(sr)
+    if fmt == "mp3":
+        from tango_tpu_torch.audio.mp3 import read_mp3
+
+        pcm, sr = read_mp3(path)
+        return pcm, _check_rate(sr)
+    if fmt == "ogg":
+        from tango_tpu_torch.audio.vorbis import read_vorbis
+
+        pcm, sr = read_vorbis(path)
+        return pcm, _check_rate(sr)
+    if fmt == "opus":
+        from tango_tpu_torch.audio.opus import read_opus
+
+        pcm, sr = read_opus(path)
+        return pcm, _check_rate(sr)
+    if fmt == "aiff":
+        from tango_tpu_torch.audio.aiff import read_aiff
+
+        pcm, sr = read_aiff(path)
+        return pcm, _check_rate(sr)
     sr, data = wavfile.read(path)
     if data.dtype == np.int16:
         data = data.astype(np.float32) / 32768.0

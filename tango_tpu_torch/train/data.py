@@ -7,10 +7,11 @@ previous step; `num_prefetch` batches are queued. `decode_workers > 0`
 decodes in a spawned process pool instead of the thread. Manifests are the
 reference's JSON lines ({"dataset", "location", "captions"}).
 
-An unreadable file becomes the reference's constant waveform, as in JAX,
-but a format whose decoder is not ported (NotImplementedError, see
-audio/wav.py) always raises: a FLAC or mp3 manifest would otherwise train
-on constants.
+The audio may be WAV, FLAC, mp3 (MPEG Layer I/II/III), Ogg Vorbis, Ogg Opus
+or AIFF, mixed in one manifest (audio/wav.py dispatches by magic bytes).
+`validate_manifest` refuses a missing file or another format before
+training starts; a file that fails to decode later becomes the reference's
+constant waveform, as in JAX.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 
 from tango_tpu_torch.audio.mix import mix_pairs
 from tango_tpu_torch.audio.stft import MelSpectrogram, wav_batch_to_fbank
-from tango_tpu_torch.audio.wav import check_decodable, read_wav_file
+from tango_tpu_torch.audio.wav import read_wav_file, sniff_format
 
 
 @dataclass
@@ -64,37 +65,47 @@ def load_manifest(path: str, prefix: str = "", text_column: str = "captions",
 
 
 def validate_manifest(examples: Sequence[Example], max_report: int = 20) -> None:
-    """Preflight before training: every file must exist and be a WAV.
+    """Preflight before training: every file must exist and sniff as a
+    format the port decodes (WAV, FLAC, mp3, Ogg Vorbis, AIFF, Ogg Opus).
 
-    A format the JAX package decodes but the port does not yet raises
-    NotImplementedError; a missing or unrecognised file, ValueError."""
+    Opus packets decode through the system libopus, whose presence is
+    checked at the first Opus file; a manifest that holds Opus without it
+    raises ValueError, as does a missing or unrecognised file."""
+    from tango_tpu_torch.audio.opus import libopus_available
+
     bad = []
+    opus_checked = False
     for ex in examples:
         try:
-            fmt = check_decodable(ex.location)
+            fmt = sniff_format(ex.location)
         except OSError as e:
             bad.append(f"{ex.location}: {e.strerror or e}")
-            continue
-        if fmt != "wav":
-            bad.append(f"{ex.location}: {fmt}")
+        else:
+            if fmt == "opus" and not opus_checked:
+                if not libopus_available():
+                    raise ValueError(
+                        "manifest preflight failed: the manifest contains Ogg Opus audio "
+                        f"({ex.location}) but the system libopus shared library is not "
+                        "loadable; install libopus0 or transcode to wav/flac/mp3/ogg-vorbis")
+                opus_checked = True
+            if fmt not in ("wav", "flac", "mp3", "ogg", "aiff", "opus"):
+                bad.append(f"{ex.location}: {fmt}")
         if len(bad) > max_report:
             break
     if bad:
         more = "" if len(bad) <= max_report else f"\n  ... (more than {max_report})"
-        raise ValueError(f"manifest preflight failed: {len(bad)}+ unreadable audio files "
-                         "(supported: WAV):\n  " + "\n  ".join(bad[:max_report]) + more)
+        raise ValueError(f"manifest preflight failed: {len(bad)}+ undecodable audio files "
+                         "(supported: WAV, FLAC, mp3/MPEG-1/2, Ogg Vorbis, AIFF, Ogg Opus):\n  "
+                         + "\n  ".join(bad[:max_report]) + more)
 
 
 def _decode_one(args):
-    """Worker-side read_wav_file: the waveform, None for an unreadable file
-    (the parent substitutes the constant waveform), or the NotImplementedError
-    of an unported format, which the parent raises. Raises nothing itself: an
-    exception would poison the pool's map."""
+    """Worker-side read_wav_file: the waveform, or None for a file that
+    fails to decode (the parent substitutes the constant waveform). Raises
+    nothing itself: an exception would poison the pool's map."""
     location, segment_samples = args
     try:
         return read_wav_file(location, segment_samples)
-    except NotImplementedError as e:
-        return e
     except Exception:
         return None
 
@@ -167,8 +178,6 @@ class FeaturizedLoader:
             decoded = [_decode_one((ex.location, seg)) for ex in batch]
         waves = []
         for w in decoded:
-            if isinstance(w, NotImplementedError):
-                raise w
             # an unreadable file: the reference's constant waveform
             waves.append(0.5 * np.ones((1, seg), np.float32) if w is None else w)
         waves = np.concatenate(waves, 0)

@@ -2,8 +2,7 @@
 
 Both `sniff_format`s read the same file header; the port keeps its own copy
 of the JAX rule (it imports nothing of the JAX package), so this pins the two
-together. `check_decodable` then raises NotImplementedError for a format
-whose decoder the port lacks and passes every other answer through.
+together. `read_wav` dispatches on that answer in both packages.
 """
 
 import pytest
@@ -61,8 +60,3 @@ def test_sniff_format_matches_jax(name, tmp_path):
         assert got == EXPECTED[name]
     else:
         assert "unsupported" in got or got.startswith("unknown format")
-    if got in twav.UNPORTED_FORMATS:
-        with pytest.raises(NotImplementedError, match="queue A #11"):
-            twav.check_decodable(str(path))
-    else:
-        assert twav.check_decodable(str(path)) == got

@@ -298,9 +298,10 @@ def test_tokenizer_pads_truncates_and_appends_eos():
 
 def test_import_hygiene():
     """Importing the port (every module, the evaluation, CLAP's, Mustango's
-    and its DeBERTa, AudioLDM's pipeline and CLI, the registry, the EMA and
-    the device mesh included) and chip_smoke loads no JAX, no JAX package and no
-    transformers / huggingface_hub / sklearn / sentencepiece."""
+    and its DeBERTa, AudioLDM's pipeline and CLI, the registry, the EMA, the
+    device mesh and the audio decoders included) and chip_smoke loads no JAX,
+    no JAX package and no transformers / huggingface_hub / sklearn /
+    sentencepiece."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import tango_tpu_torch, chip_smoke\n"
@@ -315,7 +316,8 @@ def test_import_hygiene():
         "assert 'tango_tpu_torch.models.deberta' in sys.modules\n"
         "for m in ('audioldm.pipeline', 'audioldm.cli', 'registry', 'utils.ema',\n"
         "          'models.audioldm_unet', 'schedulers.ddim', 'parallel.mesh',\n"
-        "          'parallel.dryrun', 'parallel.launch'):\n"
+        "          'parallel.dryrun', 'parallel.launch', 'audio.flac', 'audio.flac_native',\n"
+        "          'audio.mp3', 'audio.mp3_tables', 'audio.vorbis', 'audio.aiff', 'audio.opus'):\n"
         "    assert 'tango_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n"
     )

@@ -14,8 +14,7 @@
   * the schedule, AdamW and gradient accumulation against optax fed the same
     gradients (f32 rounding only: 1e-6);
   * the trainer's behaviour, ported from tests/test_train.py;
-  * native checkpoints, and a manifest of a format whose decoder is not
-    ported, which must raise.
+  * native checkpoints, and the loader's spawned decode pool on a FLAC clip.
 """
 
 import json
@@ -53,7 +52,6 @@ from tango_tpu_torch.train import sft as tsft
 from tango_tpu_torch.train.data import (
     Example,
     FeaturizedLoader,
-    _decode_one,
     load_manifest,
     validate_manifest,
 )
@@ -276,18 +274,21 @@ def test_loader_fbanks_match_jax_loader(tmp_path):
 
 def test_decode_pool_matches_serial(tmp_path):
     """decode_workers > 0 (a spawned process pool) gives the serial batches,
-    and an unported format raises from the pool too."""
-    examples = load_manifest(_write_manifest(tmp_path, n=2))
+    on a WAV and a FLAC clip (the FLAC decoder runs in the spawned worker)."""
+    from tests._flac_encoder import encode_flac
+
+    t = np.arange(22050) / 22050
+    flac = tmp_path / "a.flac"
+    flac.write_bytes(encode_flac(np.round(8000 * np.sin(2 * np.pi * 330 * t)).astype(np.int64),
+                                 sample_rate=22050, kind="fixed", order=2, rice_param=8))
+    examples = load_manifest(_write_manifest(tmp_path, n=1)) + [Example(str(flac), "flac")]
     serial = next(iter(FeaturizedLoader(examples, 2, target_length=32, shuffle=False)))
+    assert np.std(serial["waveforms"][1]) > 0.1  # decoded, not the constant stand-in
     loader = FeaturizedLoader(examples, 2, target_length=32, shuffle=False, decode_workers=1)
     try:
         pooled = next(iter(loader))
+        np.testing.assert_array_equal(pooled["waveforms"], serial["waveforms"])
         np.testing.assert_array_equal(pooled["fbank"], serial["fbank"])
-        flac = tmp_path / "a.flac"
-        flac.write_bytes(b"fLaC" + b"\0" * 60)
-        loader.examples = [Example(str(flac), "x")] * 2
-        with pytest.raises(NotImplementedError):
-            next(iter(loader))
     finally:
         loader.close()
 
@@ -301,26 +302,6 @@ def test_manifest_loader_with_mixup(tmp_path):
     assert len(batches) == 2  # drop_last
     assert batches[0]["fbank"].shape == (3, 64, 64)  # 2 + 1 mixed
     assert " and " in batches[0]["captions"][2]
-
-
-def test_unported_format_raises_not_implemented(tmp_path):
-    """A FLAC manifest fails loudly, in the preflight and in the loader: it is
-    not replaced by the constant waveform an unreadable file gets."""
-    flac = tmp_path / "a.flac"
-    flac.write_bytes(b"fLaC" + b"\0" * 60)
-    garbage = tmp_path / "b.wav"
-    garbage.write_bytes(b"not audio at all" * 4)
-    examples = [Example(str(flac), "x"), Example(str(flac), "y")]
-    with pytest.raises(NotImplementedError, match="queue A #11"):
-        validate_manifest(examples)
-    with pytest.raises(NotImplementedError, match="queue A #11"):
-        list(FeaturizedLoader(examples, batch_size=2, target_length=16))
-    assert isinstance(_decode_one((str(flac), 160)), NotImplementedError)
-    with pytest.raises(ValueError, match="preflight"):
-        validate_manifest([Example(str(garbage), "z")])
-    batch = next(iter(FeaturizedLoader([Example(str(garbage), "z")] * 2, batch_size=2,
-                                       target_length=16)))
-    np.testing.assert_allclose(batch["waveforms"], 0.5)  # the reference's stand-in
 
 
 # ------------------------------------------------------------------ optimizer
