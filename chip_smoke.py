@@ -116,7 +116,7 @@ Phases, one short JSON line each:
            card over gloo (parallel.launch, torchrun's variables, a free
            port), this process's cache freed first. One-process references
            first: this pipeline's latents for MESH_PROMPTS at MESH_SEED, the
-           ms of a bf16 UNet step at CFG batch 2 and 8, and a full-width f32
+           ms of a bf16 UNet step at CFG batch 2, and a full-width f32
            SFT (remat, uncondition) at batch 2 for 2 updates on seeded WAVs,
            its losses and parameters. (a) TP = 2: each rank holds the
            snapshot's f32 UNet, evaluates it at batch 1 whole, shards it and
@@ -125,18 +125,33 @@ Phases, one short JSON line each:
            then Tango(dir, mesh=make_mesh(data=1, model=2)) in bf16:
            generate_for_batch of the 4 prompts, 10 steps, CFG, whose latents
            must be within MESH_TP_REL_L2 of one process's, and the ms a step
-           at CFG batch 2 and 8; (b) DP = 2: SFTTrainer(mesh=) at batch 1 a
+           at CFG batch 2 (batch 8 is not timed apart, for time: the
+           generate_for_batch above runs at it); (b) DP = 2: SFTTrainer(mesh=) at batch 1 a
            rank on the same global batches, its losses within
            MESH_LOSS_RTOL and every parameter within MESH_PARAM_LR_FACTOR lr
            (both runs' convolutions without TF32)
            of one process's, the ms an update and the all-reduce's share;
            (c) dryrun_multichip(4), the 2 x 2 DP x TP step of the dry run's
-           tiny config against its meshless step. Each rank zeroes its
-           counters before its counted work and saves its launches, shapes
-           and bodies; their sums are path `mesh` (PATH_KERNELS["mesh"],
-           every attention launch on its tensor-core body, every GroupNorm on
-           its cluster body); peak memory and launches per rank logged, with
-           the card's name and power limit;
+           tiny config against its meshless step; (d) SP = 2 (line
+           `mesh_sp`): sequence parallelism over the long clip's 512
+           latent frames (8192 first-level tokens), each rank with the
+           snapshot's UNet replicated: an f32 evaluation at batch 1 with
+           latent_sharder=partial(shard_latents_seq, mesh=mesh) against the
+           rank's meshless one (MESH_SP_F32_LIMIT in f32 convolutions,
+           MESH_F32_LIMIT with TF32), then in bf16
+           AudioDiffusion(latent_sharder=)'s sample of PROMPT, MESH_SP_STEPS
+           DDPM steps at CFG batch 2 at MESH_SEED, within MESH_TP_REL_L2 of
+           this process's; both ranks' outputs bit-equal; the ms a step
+           beside one process's, each evaluation's collectives by kind (halo,
+           group_norm, kv, output) and the bytes a rank received. Each rank
+           zeroes its counters before its counted work and saves its
+           launches, shapes and bodies; the sums of (a)-(c) are path `mesh`
+           (PATH_KERNELS["mesh"]), (d)'s path `sp` (PATH_KERNELS["sp"]:
+           gn_stats, gn_apply, attn_fwd at the slabs' queries against every
+           key, attn_fwd_v2; no gn_silu_fwd); on both every attention launch
+           on its tensor-core body, every GroupNorm on its cluster body;
+           peak memory and launches per rank logged, with the card's name
+           and power limit;
   mustango_build, mustango, mustango_beam_loops, mustango_predictors,
   mustango_cli
            after the Tango snapshot is deleted (free disk checked first):
@@ -341,7 +356,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import faulthandler
+import functools
 import json
 import math
 import os
@@ -366,8 +383,13 @@ DEADLINE_S = 720
 # rows a rank for MESH_DP_UPDATES updates against one process at MESH_DP_BATCH,
 # its convolutions in f32 too (`f32_convolutions`): losses within
 # MESH_LOSS_RTOL, every parameter within MESH_PARAM_LR_FACTOR lr (JAX's Adam
-# amplification bound, tests/test_parallel.py:162-171); each launch of ranks
-# within MESH_LAUNCH_TIMEOUT_S
+# amplification bound, tests/test_parallel.py:162-171); (d) SP = 2 over the
+# long clip's latents: an f32 UNet evaluation within MESH_SP_F32_LIMIT of the
+# rank's meshless one's largest magnitude in f32 convolutions (only two-part
+# sums are reordered) and within MESH_F32_LIMIT with TF32 ones, and a bf16
+# AudioDiffusion(latent_sharder=) sample of MESH_SP_STEPS DDPM steps at CFG
+# batch 2 within MESH_TP_REL_L2 of one process's; each launch of ranks within
+# MESH_LAUNCH_TIMEOUT_S
 MESH_PROMPTS = ["a dog barks", "rain on a tin roof", "an engine idles", "birds sing"]
 MESH_SEED = 11
 MESH_TP_REL_L2 = 0.05
@@ -378,6 +400,8 @@ MESH_LOSS_RTOL = 1e-3
 MESH_PARAM_LR_FACTOR = 2.5
 MESH_LAUNCH_TIMEOUT_S = 300
 MESH_TARGET_LENGTH = 1024  # fbank frames of (b)'s clips: 10.24 s, 256 latent frames
+MESH_SP_F32_LIMIT = 1e-4
+MESH_SP_STEPS = 2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # the softmax's exp2 on the multi-function units: 16 a clock an SM (sm_90),
 # 132 SMs at 1.98 GHz; the floor of attention at head dim 32, one exp2 a logit
@@ -446,7 +470,7 @@ BIAS_TC_SHAPES = [((6, 200, 64), (6, 333, 64), (2, 1, 333)),
 # the serving paths: every attention kernel launch there is bf16 at D = 64,
 # or (audioldm) f32 attn_fwd at D = 32, and takes the tensor-core body
 TC_PATHS = ("serve", "snapshot", "serve_http", "long_clip", "long_prompt", "int8", "int8_conv",
-            "mustango", "audioldm")
+            "mustango", "audioldm", "sp")
 # paths whose attention runs the CUDA-core body (csrc/attention.cu): none.
 # AudioLDM's FiLM UNet, heads of 32 (num_head_channels), was one until
 # attn_fwd's static form took a tensor-core body at head dim 32; every path's
@@ -465,6 +489,11 @@ PATH_KERNELS = {
 PATH_KERNELS["snapshot"] = PATH_KERNELS["serve"]
 # phase mesh's ranks serve (a) and train (b): the training path's kernels
 PATH_KERNELS["mesh"] = PATH_KERNELS["train"]
+# phase mesh (d), sequence parallelism over the long clip: every GroupNorm on
+# the two-stage kernels (statistics across slabs), the slabs' queries against
+# every key at levels 1-2 (attn_fwd) and 0 (attn_fwd_v2); SP_IDLE_KERNELS never
+PATH_KERNELS["sp"] = ("gn_stats", "gn_apply", "attn_fwd", "attn_fwd_v2")
+SP_IDLE_KERNELS = ("gn_silu_fwd",)
 # the snapshot phase's batch-generation CLI run over BATCH_PROMPTS: steps, batch size
 CLI_STEPS = 2
 CLI_BATCH = 2
@@ -1187,6 +1216,27 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
             for row in case.detail:
                 log("kernel_shape", name=case.name, **row)
     return cases
+
+
+def path_shape_times(cases: dict, path_shapes: dict) -> dict:
+    """A path's own shapes in the kernels phase: by kernel and dtype, the
+    shapes, and the sums of their rows' ms, plain_ms, library_ms and
+    bound_ms (the rows `check_kernels` timed at those shapes)."""
+    norm = lambda x: json.dumps(x, default=list)  # noqa: E731  tuples and lists alike
+    out = {}
+    for name, shapes in path_shapes.items():
+        want = {norm(s) for s in shapes}
+        for row in cases[name].detail if name in cases else ():
+            if norm(row["shape"]) not in want:
+                continue
+            rec = out.setdefault(name, {}).setdefault(row.get("dtype", "bf16"), {
+                "shapes": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0})
+            rec["shapes"] += 1
+            for key in ("ms", "plain_ms", "bound_ms"):
+                rec[key] += row[key]
+            if row["library_ms"] is not None:
+                rec["library_ms"] = (rec["library_ms"] or 0.0) + row["library_ms"]
+    return out
 
 
 def check_bwd(K, cases, q, k, v, do, scale, tol, stat_tol, what):
@@ -3510,13 +3560,14 @@ def mesh_unet_inputs(unet, latent: tuple, batch: int, text_len: int, dtype, devi
     return lat, t, ctx.to(dtype), torch.ones(batch, text_len, dtype=torch.long, device=device)
 
 
-def ms_per_step(model, batch: int, text_len: int, device, reps: int = 3) -> float:
+def ms_per_step(model, batch: int, text_len: int, device, reps: int = 3,
+                latent: tuple | None = None) -> float:
     """Host ms of one evaluation of the pipeline model's UNet at CFG batch
-    `batch`, ended by a synchronize: under TP its collectives run on the host
-    too."""
+    `batch` (at latent (T, F), the model's by default), ended by a
+    synchronize: under TP and SP its collectives run on the host too."""
     unet = model.unet
-    args = mesh_unet_inputs(unet, (model.latent_t_size, model.latent_f_size), batch, text_len,
-                            unet.conv_in.weight.dtype, device, 5)
+    args = mesh_unet_inputs(unet, latent or (model.latent_t_size, model.latent_f_size), batch,
+                            text_len, unet.conv_in.weight.dtype, device, 5)
     with torch.inference_mode():
         unet(*args)
         torch.cuda.synchronize()
@@ -3531,8 +3582,8 @@ def mesh_rank_tp(job: dict, mesh, ops) -> dict:
     """Phase mesh (a), one rank of TP = 2: the f32 UNet at batch 1 against the
     same rank's unsharded UNet, with cuDNN's TF32 convolutions (its default)
     and in f32 convolutions (`f32_convolutions`), then Tango(snapshot, mesh=)
-    in bf16: generate_for_batch of MESH_PROMPTS and the ms a step at CFG
-    batch 2 and 8."""
+    in bf16: generate_for_batch of MESH_PROMPTS (CFG batch 8) and the ms a
+    step at CFG batch 2."""
     from tango_tpu_torch.models.unet import UNet2DConditionModel
     from tango_tpu_torch.parallel import mesh as pmesh
     from tango_tpu_torch.pipeline import Tango, build_module
@@ -3579,8 +3630,7 @@ def mesh_rank_tp(job: dict, mesh, ops) -> dict:
                                     batch_size=len(MESH_PROMPTS), seed=MESH_SEED)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    ms = {f"cfg_batch_{b}": ms_per_step(tango.model, b, tango.max_text_length, dev)
-          for b in (2, 2 * len(MESH_PROMPTS))}
+    ms = {"cfg_batch_2": ms_per_step(tango.model, 2, tango.max_text_length, dev)}
     heads = sorted({m.local_heads for m in tango.model.unet.modules()
                     if hasattr(m, "local_heads")})
     return {"f32_rel_err": f32_err, "f32_conv_rel_err": f32_conv_err,
@@ -3646,7 +3696,80 @@ def mesh_rank_dp_f32(job: dict, mesh, ops) -> dict:
         return mesh_rank_dp(job, mesh, ops)
 
 
-MESH_PARTS = {"tp": mesh_rank_tp, "dp": mesh_rank_dp_f32}
+def mesh_rank_sp(job: dict, mesh, ops) -> dict:
+    """Phase mesh (d), one rank of SP = 2 over the long clip's latents
+    (job["sp_latent"]): the snapshot's f32 UNet at batch 1 against the same
+    rank's meshless evaluation, in f32 convolutions (`f32_convolutions`) and
+    with cuDNN's TF32 ones; then the UNet in the parent pipeline's dtype
+    (bf16: its weights): one evaluation at batch 1 against its meshless one
+    (relative L2, beside the meshless one's from the f32 evaluation: the
+    dtype's own noise), and in AudioDiffusion(latent_sharder=) a sample of
+    PROMPT's encodings at MESH_SEED, MESH_SP_STEPS DDPM steps at CFG batch
+    2, and the ms a step. The counters are zeroed after the meshless
+    evaluations, so the part's launches are SP's. The collectives of an
+    evaluation by kind, and the bytes this rank received, from the mesh's
+    `seq_stats`."""
+    from tango_tpu_torch.models.diffusion import AudioDiffusion
+    from tango_tpu_torch.models.unet import UNet2DConditionModel
+    from tango_tpu_torch.parallel import mesh as pmesh
+    from tango_tpu_torch.pipeline import build_module
+    from tango_tpu_torch.utils.checkpoint import load_main_weights
+
+    dev = mesh.device
+    main = load_main_weights(job["snapshot"])
+    unet = build_module(lambda: UNet2DConditionModel(main["unet_config"]), main["unet_params"],
+                        dev, torch.float32, 0)
+    del main
+    args = mesh_unet_inputs(unet, job["sp_latent"], 1, 128, torch.float32, dev, 3)
+    low = copy.deepcopy(unet).to(job["sp_dtype"])
+    args_low = (args[0], args[1], args[2].to(job["sp_dtype"]), args[3])
+    with torch.inference_mode():
+        ref = unet(*args).float()
+        with f32_convolutions():
+            ref_f32 = unet(*args).float()
+        ref_low = low(*args_low).float()
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    sharder = functools.partial(pmesh.shard_latents_seq, mesh=mesh)
+    unet.latent_sharder = sharder
+    with torch.inference_mode():
+        out = unet(*args).float()
+        with f32_convolutions():
+            out_f32 = unet(*args).float()
+    f32_stats = {k: v / 2 for k, v in mesh.seq_stats.items()}
+    mesh.seq_stats.clear()
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    rel_l2 = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    del unet
+    low.latent_sharder = sharder
+    with torch.inference_mode():
+        out_low = low(*args_low).float()
+    mesh.seq_stats.clear()
+    out_rec = {"f32_rel_err": rel(out, ref), "f32_conv_rel_err": rel(out_f32, ref_f32),
+               "f32_out": out_f32.cpu(), "f32_collectives": f32_stats,
+               "low_rel_l2": rel_l2(out_low, ref_low), "low_floor_rel_l2": rel_l2(ref_low, ref)}
+    del out, ref, out_f32, ref_f32, out_low, ref_low
+    diff = AudioDiffusion(low, job["scheduler_config"],
+                          latent_t_size=job["sp_latent"][0], latent_f_size=job["sp_latent"][1],
+                          dtype=job["sp_dtype"], latent_sharder=sharder)
+    text = {k: v.to(dev) for k, v in torch.load(os.path.join(job["work"], "sp_text.pt")).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lat = diff.sample(text["cond"], text["mask"],
+                          [torch.Generator(device=dev).manual_seed(MESH_SEED)],
+                          num_steps=MESH_SP_STEPS, guidance_scale=3.0,
+                          uncond_embeds=text["uncond"], uncond_mask=text["umask"])
+    torch.cuda.synchronize()
+    out_rec.update(sample_s=time.perf_counter() - t0, latents=lat.float().cpu(),
+                   bf16_collectives={k: v / MESH_SP_STEPS for k, v in mesh.seq_stats.items()})
+    out_rec["ms_per_step"] = {"cfg_batch_2": ms_per_step(diff, 2, 128, dev, reps=2,
+                                                         latent=job["sp_latent"])}
+    return out_rec
+
+
+MESH_PARTS = {"tp": mesh_rank_tp, "dp": mesh_rank_dp_f32, "sp": mesh_rank_sp}
 
 
 def mesh_rank_main(part: str, work: str) -> int:
@@ -3693,16 +3816,26 @@ def mesh_batches(job: dict, tango, work: str) -> list:
     return out
 
 
-def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> tuple:
+def long_clip_frames(model) -> int:
+    """The latent frames of a LONG_CLIP_S clip, as Tango.generate rounds
+    them (a multiple of the UNet's downsampling)."""
+    factor = 2 ** (len(model.unet_config.block_out_channels) - 1)
+    return factor * max(round(LONG_CLIP_S * 25.6 / factor), 1)
+
+
+def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> dict:
     """Phase mesh: the port's device mesh on the card, its ranks processes
     sharing the one card over gloo (parallel.launch with torchrun's
     variables). (a) TP = 2 serving of the snapshot in bf16 against this
     process's pipeline at the same seed, and an f32 UNet evaluation at batch 1
     against the rank's unsharded one; (b) DP = 2 full-width f32 SFT at batch
     1 a rank against one process at batch 2; (c) dryrun_multichip(4), the
-    2 x 2 step of the dry run's tiny config. The ranks' launches, shapes and
-    bodies are summed into path `mesh`. Returns (launches, shapes,
-    tensor-core launches, cluster launches); raises on any failed check."""
+    2 x 2 step of the dry run's tiny config; (d) SP = 2 over the long clip's
+    latents (`mesh_rank_sp`) against the rank's meshless UNet and this
+    process's sample. The launches, shapes and bodies of (a)-(c)'s ranks are
+    summed into path `mesh`, (d)'s into path `sp`. Returns {path: (launches,
+    shapes, tensor-core launches, cluster launches)}; raises on any failed
+    check."""
     from tango_tpu_torch.parallel.dryrun import dryrun_multichip
     from tango_tpu_torch.parallel.launch import check, launch
     from tango_tpu_torch.train.sft import SFTTrainer
@@ -3710,14 +3843,17 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> tuple:
     t_phase = time.perf_counter()
     work = os.path.join(root, "mesh")
     os.makedirs(work, exist_ok=True)
+    sp_latent = (long_clip_frames(tango.model), tango.model.latent_f_size)
     job = {"snapshot": snap_dir, "work": work, "device": DEVICE, "steps": STEPS,
            "target_length": MESH_TARGET_LENGTH,
            "latent": (tango.model.latent_t_size, tango.model.latent_f_size),
+           "sp_latent": sp_latent, "sp_dtype": tango.dtype,
            "unet_config": C.TANGO_UNET, "vae_config": C.TANGO_VAE,
            "scheduler_config": C.SD21_SCHEDULER,
            "train_config": C.TrainConfig(gradient_accumulation_steps=1,
                                          max_train_steps=MESH_DP_UPDATES),
-           "parts": {"tp": {"data": 1, "model": 2}, "dp": {"data": 2, "model": 1}}}
+           "parts": {"tp": {"data": 1, "model": 2}, "dp": {"data": 2, "model": 1},
+                     "sp": {"data": 1, "model": 2}}}
     torch.save(job, os.path.join(work, "job.pt"))
 
     # one process: (a)'s latents and ms a step, (b)'s losses and parameters
@@ -3725,9 +3861,20 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> tuple:
     with torch.inference_mode():
         one["latents"] = tango.sample_latents(MESH_PROMPTS, STEPS, 3.0, 1, MESH_SEED, 0).cpu()
     wav_len = tango.decode_to_waveform(one["latents"][:1].to(DEVICE)).shape[1]
-    one["ms_per_step"] = {f"cfg_batch_{b}": ms_per_step(tango.model, b, tango.max_text_length,
-                                                        DEVICE)
-                          for b in (2, 2 * len(MESH_PROMPTS))}
+    one["ms_per_step"] = {"cfg_batch_2": ms_per_step(tango.model, 2, tango.max_text_length,
+                                                     DEVICE)}
+    # (d)'s: PROMPT's encodings, the long clip's sample and its ms a step
+    with torch.inference_mode():
+        cond, mask = tango.encode_text([PROMPT])
+        uncond, umask = tango.encode_text([""])
+        one["sp_latents"] = tango.model.sample(
+            cond, mask, [torch.Generator(device=DEVICE).manual_seed(MESH_SEED)],
+            num_steps=MESH_SP_STEPS, guidance_scale=3.0, uncond_embeds=uncond,
+            uncond_mask=umask, latent_t_size=sp_latent[0]).float().cpu()
+    torch.save({"cond": cond.cpu(), "mask": mask.cpu(), "uncond": uncond.cpu(),
+                "umask": umask.cpu()}, os.path.join(work, "sp_text.pt"))
+    one["sp_ms_per_step"] = {"cfg_batch_2": ms_per_step(tango.model, 2, tango.max_text_length,
+                                                        DEVICE, latent=sp_latent)}
     batches = mesh_batches(job, tango, work)
     torch.save(batches, os.path.join(work, "dp_batches.pt"))
     diffusion, vae, cfg = mesh_sft_setup(job, DEVICE)
@@ -3751,7 +3898,7 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> tuple:
     ref_s = time.perf_counter() - t_phase
 
     ranks, part_s = {}, {}
-    for part in ("tp", "dp"):
+    for part in ("tp", "dp", "sp"):
         t0 = time.perf_counter()
         world = job["parts"][part]["data"] * job["parts"][part]["model"]
         results = launch([sys.executable, os.path.abspath(__file__), "--mesh-rank", part, work],
@@ -3767,16 +3914,21 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> tuple:
 
     # summed over the ranks under this process's names (a kernel that a rank
     # never imported, such as winograd_conv3x3, counts 0 there)
-    every = [r for part in ranks.values() for r in part]
     names, _, tc_names, cluster_names = read_counters(ops)
-    launches = {n: sum(r["launches"].get(n, 0) for r in every) for n in names}
-    shapes = {n: set().union(*(r["shapes"].get(n, set()) for r in every)) for n in names}
-    tc = {n: sum(r["tc"].get(n, 0) for r in every) for n in tc_names}
-    cluster = {n: sum(r["cluster"].get(n, 0) for r in every) for n in cluster_names}
+
+    def summed(every):
+        return ({n: sum(r["launches"].get(n, 0) for r in every) for n in names},
+                {n: set().union(*(r["shapes"].get(n, set()) for r in every)) for n in names},
+                {n: sum(r["tc"].get(n, 0) for r in every) for n in tc_names},
+                {n: sum(r["cluster"].get(n, 0) for r in every) for n in cluster_names})
+
+    paths = {"mesh": summed(ranks["tp"] + ranks["dp"]), "sp": summed(ranks["sp"])}
+    launches, shapes, tc, cluster = paths["mesh"]
     tp0, dp0 = ranks["tp"][0], ranks["dp"][0]
     rel_l2 = float((tp0["latents"] - one["latents"]).norm() / one["latents"].norm())
     loss_err = [abs(a - b) / abs(b) for a, b in zip(dp0["losses"], one["losses"])]
     problems = body_problems("mesh", launches, tc, cluster)
+    problems += sp_problems(ranks["sp"], one["sp_latents"], paths["sp"])
     if rel_l2 > MESH_TP_REL_L2:
         problems.append(f"TP = 2 latents {rel_l2} (relative L2) from one process's")
     for key in ("f32_rel_err", "f32_conv_rel_err"):
@@ -3819,10 +3971,59 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> tuple:
                 "dp_loss_rtol": MESH_LOSS_RTOL, "dp_param_lr": MESH_PARAM_LR_FACTOR},
         reference_s=round(ref_s, 3), part_s={k: round(v, 3) for k, v in part_s.items()},
         phase_s=round(time.perf_counter() - t_phase, 3), problems=problems)
+    sp_launches, sp_shapes, sp_tc, sp_cluster = paths["sp"]
+    sp0 = ranks["sp"][0]
+    log("mesh_sp", card=nvidia_smi(), backend=sp0["backend"], world=len(ranks["sp"]),
+        latent=list(sp_latent), steps=MESH_SP_STEPS,
+        ms_per_unet_step={"sp2": [r["ms_per_step"] for r in ranks["sp"]],
+                          "one_process": one["sp_ms_per_step"]},
+        sample_s=[round(r["sample_s"], 3) for r in ranks["sp"]],
+        latents_rel_l2=float((sp0["latents"] - one["sp_latents"]).norm()
+                             / one["sp_latents"].norm()),
+        f32_rel_err=[r["f32_rel_err"] for r in ranks["sp"]],
+        f32_conv_rel_err=[r["f32_conv_rel_err"] for r in ranks["sp"]],
+        bf16_eval_rel_l2=sp0["low_rel_l2"], bf16_meshless_vs_f32_rel_l2=sp0["low_floor_rel_l2"],
+        collectives_per_eval={"f32_batch_1": sp0["f32_collectives"],
+                              "bf16_cfg_batch_2": sp0["bf16_collectives"]},
+        peak_memory_bytes=[r["peak_memory_bytes"] for r in ranks["sp"]],
+        launches={n: c for n, c in sp_launches.items() if c}, tc_launches=sp_tc,
+        cluster_launches=sp_cluster, shapes={n: len(v) for n, v in sp_shapes.items() if v},
+        bounds={"f32_conv": MESH_SP_F32_LIMIT, "f32": MESH_F32_LIMIT,
+                "latents_rel_l2": MESH_TP_REL_L2},
+        part_s=round(part_s["sp"], 3),
+        total_s_since_phase=round(time.perf_counter() - t_phase, 3))
     shutil.rmtree(work)
     if problems:
         raise AssertionError("; ".join(problems))
-    return launches, shapes, tc, cluster
+    return paths
+
+
+def sp_problems(ranks: list, one_latents, path: tuple) -> list:
+    """Phase mesh (d)'s failed checks: each rank's f32 evaluation against its
+    meshless one (MESH_SP_F32_LIMIT in f32 convolutions, MESH_F32_LIMIT with
+    TF32), its bf16 latents against one process's (MESH_TP_REL_L2), finite;
+    the ranks' f32 outputs and latents bit-equal; path `sp`'s kernels
+    (PATH_KERNELS["sp"] launched, SP_IDLE_KERNELS not, every attention on
+    its tensor-core body)."""
+    problems = []
+    for r in ranks:
+        if not (r["f32_conv_rel_err"] <= MESH_SP_F32_LIMIT
+                and r["f32_rel_err"] <= MESH_F32_LIMIT):
+            problems.append(f"SP = 2 rank {r['rank']}: f32 UNet {r['f32_conv_rel_err']} (f32 "
+                            f"convolutions), {r['f32_rel_err']} (TF32) from the meshless one's, "
+                            "of its largest magnitude")
+        rel = float((r["latents"] - one_latents).norm() / one_latents.norm())
+        if not rel <= MESH_TP_REL_L2 or not bool(torch.isfinite(r["latents"]).all()):
+            problems.append(f"SP = 2 rank {r['rank']}: latents {rel} (relative L2) from one "
+                            "process's")
+    if not all(torch.equal(r[k], ranks[0][k]) for r in ranks for k in ("f32_out", "latents")):
+        problems.append("SP = 2: the ranks' gathered outputs differ")
+    launches, _, tc, cluster = path
+    problems += body_problems("sp", launches, tc, cluster)
+    busy = {n: launches[n] for n in SP_IDLE_KERNELS if launches[n]}
+    if busy:
+        problems.append(f"SP = 2 launched {busy}: its GroupNorms need statistics across slabs")
+    return problems
 
 
 def train_phase(C, ops) -> tuple[dict, dict, dict, dict]:
@@ -4093,8 +4294,7 @@ def main(argv) -> int:
     frames = tango.model.latent_t_size
     # 4x VAE, x160 vocoder, +32 samples of the vocoder's transposed-conv edge
     wav_len = lambda latent_t: latent_t * 4 * 160 + 32  # noqa: E731
-    factor = 2 ** (len(tango.model.unet_config.block_out_channels) - 1)
-    long_t = factor * max(round(LONG_CLIP_S * 25.6 / factor), 1)  # as Tango.generate
+    long_t = long_clip_frames(tango.model)
     remove = instrument(tango)
     by_path = {"serve": counted("serve", serve, wav_len(frames), phase="slice")}
     remove()
@@ -4157,9 +4357,9 @@ def main(argv) -> int:
      cluster_launches["tango2_eval"]) = tango2_eval_phase(snap_dir, snap_root, ops)
     by_path["tango2_eval"] = (path_launches, path_shapes)
     torch.cuda.empty_cache()
-    (path_launches, path_shapes, tc_launches["mesh"],
-     cluster_launches["mesh"]) = mesh_phase(C, ops, tango, snap_dir, snap_root)
-    by_path["mesh"] = (path_launches, path_shapes)
+    for path, (path_launches, path_shapes, tc_launches[path],
+               cluster_launches[path]) in mesh_phase(C, ops, tango, snap_dir, snap_root).items():
+        by_path[path] = (path_launches, path_shapes)
     log("mesh_done", total_s=round(time.perf_counter() - t_start, 3))
     shutil.rmtree(snap_root)
     torch.cuda.empty_cache()
@@ -4310,6 +4510,8 @@ def main(argv) -> int:
         **{n: {"err_f32": c.err["f32"], "err_bf16": c.err["bf16"], "ms": c.ms,
                "plain_ms": c.plain_ms, "library_ms": c.library_ms, "bound_ms": c.bound,
                "f32": c.f32, **c.notes, "shapes": len(shapes[n])} for n, c in cases.items()})
+
+    log("kernels_sp", **path_shape_times(cases, by_path["sp"][1]))
 
     print(smi, flush=True)
     kernels = ops.all_kernels()

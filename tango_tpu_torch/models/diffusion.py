@@ -14,12 +14,13 @@ step and the loss.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
 from tango_tpu_torch.configs import SchedulerConfig, UNetConfig, resolve_device
 from tango_tpu_torch.models.unet import UNet2DConditionModel
+from tango_tpu_torch.parallel.mesh import seq_mesh
 from tango_tpu_torch.schedulers.ddim import DDIMScheduler
 from tango_tpu_torch.schedulers.ddpm import DDPMScheduler
 from tango_tpu_torch.utils.init import init_random_
@@ -43,7 +44,11 @@ def randn_rows(shape, generator: Generators, device) -> torch.Tensor:
 class AudioDiffusion:
     """The UNet with its schedulers. `unet` is a module, or a UNetConfig from
     which one is built on `device` in `dtype` (with `remat`), its weights
-    left uninitialised until `init_params` or a `load_state_dict`."""
+    left uninitialised until `init_params` or a `load_state_dict`.
+    `latent_sharder` (sequence parallelism, JAX's field:
+    `functools.partial(parallel.mesh.shard_latents_seq, mesh=mesh)`) goes to
+    the UNet, built or given; its forward returns the whole prediction on
+    every rank, so the sampler and the schedulers run as without it."""
 
     unet: Union[UNet2DConditionModel, UNetConfig]
     scheduler_config: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
@@ -53,13 +58,18 @@ class AudioDiffusion:
     latent_f_size: int = 16
     dtype: torch.dtype = torch.float32
     remat: bool = False
+    latent_sharder: Optional[Callable] = None
     device: Union[str, torch.device, None] = None
 
     def __post_init__(self):
         if isinstance(self.unet, UNetConfig):
             with torch.device("meta"):
-                unet = UNet2DConditionModel(self.unet, remat=self.remat)
+                unet = UNet2DConditionModel(self.unet, remat=self.remat,
+                                            latent_sharder=self.latent_sharder)
             self.unet = unet.to_empty(device=resolve_device(self.device)).to(self.dtype)
+        elif self.latent_sharder is not None:
+            seq_mesh(self.latent_sharder)
+            self.unet.latent_sharder = self.latent_sharder
         self.noise_scheduler = DDPMScheduler.create(self.scheduler_config)
         self.inference_scheduler = DDPMScheduler.create(self.scheduler_config)
 

@@ -17,8 +17,9 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, self.groups, self.eps, self.act)
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        """`sp`: the mesh whose 'model' ranks hold x's slabs (ops.basic.group_norm)."""
+        return group_norm(x, self.weight, self.bias, self.groups, self.eps, self.act, sp)
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,33 @@ with the strict key check; `quantize_unet_` turns a float UNet into the same.
 being recorded: the forward kernels of a block then run twice per training
 step.
 
+`latent_sharder=functools.partial(parallel.mesh.shard_latents_seq,
+mesh=mesh)` (JAX's field) runs the forward sequence-parallel over the
+mesh's 'model' ranks, each holding the whole input and the parameters
+replicated: from `conv_in` to `conv_out` each rank computes its
+contiguous slab of the latent time axis T (channels-first, the rows of
+dim 2) at every level that 'model' divides into slabs of an even number of
+rows (or of any number at the last level, which does not downsample);
+another level runs whole on every rank (JAX leaves it unconstrained), its
+input gathered, and the slabs resume at the next level that divides. The
+exchanges (parallel/mesh.py):
+  * a 3x3 stride-1 convolution (`seq_conv`: the resnets', `conv_out`)
+    reads one halo row from each neighbour and pads only F; `conv_in` takes
+    its halo from the whole input every rank holds; `Upsample2D` exchanges
+    its rows before the nearest-2x upsample, which makes them the halo
+    after it; `Downsample2D` (a slab starts on an even row) reads the row
+    above with padding 1, the row below with diffusers' asymmetric padding 0;
+  * a GroupNorm all-reduces its partial sums (ops.basic.group_norm's `sp`);
+  * a self-attention gathers its normed hidden states (C wide, half the
+    bytes of K and V) and projects K and V for every token; each rank keeps
+    its queries (a T-slab of (T, F) row-major tokens is a contiguous range);
+  * 1x1 convolutions, projections, the feed-forward and every stream's
+    cross-attention are local; the output is gathered along T, so every
+    rank returns the meshless-shaped prediction.
+Forward only: with gradients recorded it raises (ROADMAP queue A #10c), as
+it does for a TP-sharded UNet (SP and TP are alternative uses of 'model')
+and for an int8 one (#10d).
+
 Mustango's music UNet is this UNet with `cfg.extra_cond_streams = 2`: every
 cross-attention layer runs one Transformer2DModel per stream in sequence,
 text (`attentions_{i}`), then beats (`attentions_{i}_extra1`), then chords
@@ -42,8 +69,20 @@ from tango_tpu_torch.configs import UNetConfig
 from tango_tpu_torch.models.layers import GroupNorm, nchw_to_nhwc, nhwc_to_nchw
 from tango_tpu_torch.ops.attention import multi_head_attention
 from tango_tpu_torch.ops.basic import geglu, silu
-from tango_tpu_torch.ops.quant import quantize_unet_
-from tango_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model, split_span
+from tango_tpu_torch.ops.quant import QConv2d, QLinear, quantize_unet_
+from tango_tpu_torch.parallel.mesh import (
+    SP_NO_BACKWARD,
+    copy_to_model,
+    gather_seq,
+    halo_rows,
+    reduce_from_model,
+    seq_mesh,
+    slab_span,
+    split_span,
+)
+
+SP_INT8 = ("sequence parallelism of an int8 UNet: QConv2d quantizes with one scale a sample, "
+           "an amax over every slab (ROADMAP queue A #10d)")
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -68,6 +107,38 @@ def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
     return (1.0 - mask.float()) * -10000.0
 
 
+def _conv_unpadded_t(conv: nn.Conv2d, x):
+    """conv over x with no padding of T, x's first spatial axis: x carries
+    the rows the padding would give."""
+    return F.conv2d(x, conv.weight, conv.bias, conv.stride, (0, conv.padding[1]))
+
+
+def seq_conv(conv: nn.Conv2d, x, sp):
+    """A 'same' stride-1 convolution of x; under sequence parallelism (`sp`,
+    the mesh) of this rank's T-slab x, the neighbours' halo rows in place of
+    T's zero padding."""
+    if sp is None or conv.padding[0] == 0:
+        return conv(x)
+    h = conv.padding[0]
+    top, bottom = halo_rows(x, sp, h, h)
+    return _conv_unpadded_t(conv, torch.cat([top, x, bottom], 2))
+
+
+def _down_len(t: int, padding: int) -> int:
+    """Rows after a Downsample2D of t rows."""
+    return (t + 2 * padding - 3) // 2 + 1 if padding else (t - 2) // 2 + 1
+
+
+def _reslab(x, src, dst, kind: str = "level"):
+    """x (B, C, T, F) from one level's placement to another's: a mesh, this
+    rank's T-slab; None, the whole."""
+    if src is not None and dst is None:
+        return gather_seq(x, src, 2, kind)
+    if src is None and dst is not None:
+        return x.narrow(2, *slab_span(x.shape[2], dst)).contiguous()
+    return x
+
+
 class TimestepEmbedding(nn.Module):
     def __init__(self, in_dim: int, dim: int):
         super().__init__()
@@ -88,10 +159,10 @@ class ResnetBlock2D(nn.Module):
         self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
-    def forward(self, x, temb):
-        h = self.conv1(self.norm1(x))
+    def forward(self, x, temb, sp=None):
+        h = seq_conv(self.conv1, self.norm1(x, sp), sp)
         h = h + self.time_emb_proj(silu(temb))[:, :, None, None]
-        h = self.conv2(self.norm2(h))
+        h = seq_conv(self.conv2, self.norm2(h, sp), sp)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -142,7 +213,9 @@ class Attention(nn.Module):
         lo, hi = split_span(self.heads, parts, index)
         self.local_heads, self.tp_mesh = hi - lo, mesh
 
-    def forward(self, x, context=None, bias=None):
+    def forward(self, x, context=None, bias=None, sp=None):
+        if sp is not None:
+            return self.to_out_0(self._seq_self_attention(x, sp))
         tp = self.tp_mesh
         if tp is not None:
             x = copy_to_model(x, tp)
@@ -160,6 +233,17 @@ class Attention(nn.Module):
         if tp is None:
             return self.to_out_0(out)
         return reduce_from_model(F.linear(out, self.to_out_0.weight), tp) + self.to_out_0.bias
+
+    def _seq_self_attention(self, x, sp):
+        """Self-attention of a T-slab's tokens x under sequence parallelism:
+        the normed hidden states of every token gathered (in rank order, the
+        token order), q projected for the slab, k and v for every token."""
+        whole = gather_seq(x, sp, 1, "kv")
+        inner = self.to_out_0.in_features
+        q = F.linear(x, self.to_qkv.weight[:inner])
+        k, v = F.linear(whole, self.to_qkv.weight[inner:]).chunk(2, dim=-1)
+        return multi_head_attention(q, k, v, heads=self.heads, upcast=self.upcast,
+                                    global_queries=whole.shape[1])
 
 
 class FeedForward(nn.Module):
@@ -211,8 +295,8 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context, context_bias):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, context, context_bias, sp=None):
+        x = x + self.attn1(self.norm1(x), sp=sp)
         x = x + self.attn2(self.norm2(x), context=context, bias=context_bias)
         return x + self.ff(self.norm3(x))
 
@@ -234,11 +318,11 @@ class Transformer2DModel(nn.Module):
             inner, heads, dim_head, context_dim, cfg.upcast_attention)
         self.add_module(self.proj_names[1], nn.Linear(inner, channels))
 
-    def forward(self, x, context, context_bias):
+    def forward(self, x, context, context_bias, sp=None):
         b, c, hh, ww = x.shape
-        h = self.norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        h = self.norm(x, sp).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         h = getattr(self, self.proj_names[0])(h)
-        h = self.transformer_blocks_0(h, context, context_bias)
+        h = self.transformer_blocks_0(h, context, context_bias, sp)
         h = getattr(self, self.proj_names[1])(h)
         return h.reshape(b, hh, ww, c).permute(0, 3, 1, 2) + x
 
@@ -249,7 +333,14 @@ class Downsample2D(nn.Module):
         self.padding = padding
         self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=padding)
 
-    def forward(self, x):
+    def forward(self, x, sp=None):
+        if sp is not None:
+            # output row i reads rows 2i - p .. 2i - p + 2, so a slab that
+            # starts on an even row reads p rows above it, and with p = 0 the
+            # row below (the last rank's: the pad's zero row)
+            top, bottom = halo_rows(x, sp, self.padding, int(self.padding == 0))
+            x = torch.cat([top, x, bottom], 2)
+            return _conv_unpadded_t(self.conv, F.pad(x, (0, 1)) if self.padding == 0 else x)
         if self.padding == 0:
             x = F.pad(x, (0, 1, 0, 1))  # asymmetric pad-then-conv of diffusers
         return self.conv(x)
@@ -260,8 +351,13 @@ class Upsample2D(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
 
-    def forward(self, x):
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+    def forward(self, x, sp=None):
+        if sp is None:
+            return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        # the neighbours' rows before the upsample are its halo after it
+        top, bottom = halo_rows(x, sp, 1, 1)
+        up = F.interpolate(torch.cat([top, x, bottom], 2), scale_factor=2.0, mode="nearest")
+        return _conv_unpadded_t(self.conv, up[:, :, 1:-1])
 
 
 def _stream_names(prefix: str, cfg: UNetConfig) -> list:
@@ -276,10 +372,10 @@ def _add_streams(owner: nn.Module, prefix: str, ch: int, heads: int, cfg: UNetCo
         owner.add_module(name, Transformer2DModel(ch, heads, ch // heads, dim, cfg))
 
 
-def _run_streams(owner: nn.Module, prefix: str, x, contexts, biases):
+def _run_streams(owner: nn.Module, prefix: str, x, contexts, biases, sp=None):
     """The stream transformers in sequence: text, then the extra streams."""
     for name, context, bias in zip(_stream_names(prefix, owner.cfg), contexts, biases):
-        x = getattr(owner, name)(x, context, bias)
+        x = getattr(owner, name)(x, context, bias, sp)
     return x
 
 
@@ -305,30 +401,31 @@ class _Block(nn.Module):
         elif resample == "up":
             self.upsamplers_0 = Upsample2D(out_ch)
 
-    def layer(self, i, x, temb, context, bias):
-        x = getattr(self, f"resnets_{i}")(x, temb)
+    def layer(self, i, x, temb, context, bias, sp=None):
+        x = getattr(self, f"resnets_{i}")(x, temb, sp)
         if self.has_attn:
-            x = _run_streams(self, f"attentions_{i}", x, context, bias)
+            x = _run_streams(self, f"attentions_{i}", x, context, bias, sp)
         return x
 
-    def down(self, x, temb, context, bias):
-        """A down level: its output and the skip states it adds."""
+    def down(self, x, temb, context, bias, sp=None):
+        """A down level: its output and the skip states it adds. `sp`: the
+        mesh whose T-slabs x is, or None."""
         outs = []
         for i in range(self.n):
-            x = self.layer(i, x, temb, context, bias)
+            x = self.layer(i, x, temb, context, bias, sp)
             outs.append(x)
         if hasattr(self, "downsamplers_0"):
-            x = self.downsamplers_0(x)
+            x = self.downsamplers_0(x, sp)
             outs.append(x)
         return x, outs
 
-    def up(self, x, skips, temb, context, bias):
+    def up(self, x, skips, temb, context, bias, sp=None):
         """An up level over its skip states, the last one first."""
         for j in range(self.n):
             x = torch.cat([x, skips[-1 - j]], dim=1)
-            x = self.layer(j, x, temb, context, bias)
+            x = self.layer(j, x, temb, context, bias, sp)
         if hasattr(self, "upsamplers_0"):
-            x = self.upsamplers_0(x)
+            x = self.upsamplers_0(x, sp)
         return x
 
 
@@ -342,9 +439,9 @@ class UNetMidBlock2DCrossAttn(nn.Module):
         _add_streams(self, "attentions_0", ch, heads, cfg)
         self.resnets_1 = ResnetBlock2D(ch, ch, temb_ch, cfg.norm_num_groups, cfg.norm_eps)
 
-    def forward(self, x, temb, context, bias):
-        x = _run_streams(self, "attentions_0", self.resnets_0(x, temb), context, bias)
-        return self.resnets_1(x, temb)
+    def forward(self, x, temb, context, bias, sp=None):
+        x = _run_streams(self, "attentions_0", self.resnets_0(x, temb, sp), context, bias, sp)
+        return self.resnets_1(x, temb, sp)
 
 
 class UNet2DConditionModel(nn.Module):
@@ -355,10 +452,12 @@ class UNet2DConditionModel(nn.Module):
     and the mask a list of the same length, or one mask (or None) for every
     stream (tango_tpu/models/unet.py:452-467)."""
 
-    def __init__(self, cfg: UNetConfig, remat: bool = False):
+    def __init__(self, cfg: UNetConfig, remat: bool = False, latent_sharder=None):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
+        self.latent_sharder = latent_sharder
+        seq_mesh(latent_sharder)  # a sharder the port cannot read raises here
         ch = cfg.block_out_channels
         temb_ch = ch[0] * 4
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch)
@@ -408,8 +507,40 @@ class UNet2DConditionModel(nn.Module):
             # are placeholders until a state dict is loaded
             quantize_unet_(self, cfg.quant_scope)
 
+    def _seq_plan(self, sample) -> list:
+        """Each level's placement under the latent sharder: the mesh where
+        the level runs on T-slabs, None where it runs whole (every level
+        without sequence parallelism). Raises where SP cannot run."""
+        levels = len(self.cfg.block_out_channels)
+        mesh = seq_mesh(self.latent_sharder)
+        if mesh is None:
+            return [None] * levels
+        if torch.is_grad_enabled() and (sample.requires_grad or any(
+                p.requires_grad for p in self.parameters())):
+            raise NotImplementedError(SP_NO_BACKWARD)
+        for m in self.modules():
+            if getattr(m, "tp_mesh", None) is not None:
+                raise ValueError("sequence parallelism of a TP-sharded UNet: SP and TP are "
+                                 "alternative uses of 'model'; shard_params(tp=False)")
+            if isinstance(m, (QLinear, QConv2d)):
+                raise NotImplementedError(SP_INT8)
+        parts, t, plan = mesh.shape["model"], sample.shape[1], []
+        for level in range(levels):
+            last = level == levels - 1
+            plan.append(mesh if t % parts == 0 and (last or t // parts % 2 == 0) else None)
+            t = _down_len(t, self.cfg.downsample_padding)
+        return plan
+
+    def _conv_in_slab(self, x, sp):
+        """conv_in over this rank's T-slab of the whole input x, its halo
+        taken from x (every rank holds all of it)."""
+        p = self.conv_in.padding[0]
+        start, n = slab_span(x.shape[2], sp)
+        return _conv_unpadded_t(self.conv_in, F.pad(x, (0, 0, p, p)).narrow(2, start, n + 2 * p))
+
     def forward(self, sample, timesteps, encoder_hidden_states, encoder_attention_mask=None):
         cfg = self.cfg
+        plan = self._seq_plan(sample)
         dtype = self.conv_in.weight.dtype
         n_streams = 1 + cfg.extra_cond_streams
         contexts = (list(encoder_hidden_states)
@@ -436,20 +567,27 @@ class UNet2DConditionModel(nn.Module):
                 return checkpoint(fn, *args, use_reentrant=False)
             return fn(*args)
 
-        x = self.conv_in(nhwc_to_nchw(sample.to(dtype)))
+        x = nhwc_to_nchw(sample.to(dtype))
+        x = self.conv_in(x) if plan[0] is None else self._conv_in_slab(x, plan[0])
         res = [x]
         for level in range(len(cfg.down_block_types)):
-            x, outs = run(getattr(self, f"down_blocks_{level}").down, x, temb, context, bias)
+            blk = getattr(self, f"down_blocks_{level}")
+            x, outs = run(blk.down, x, temb, context, bias, plan[level])
+            if hasattr(blk, "downsamplers_0"):
+                x = outs[-1] = _reslab(x, plan[level], plan[level + 1])
             res += outs
 
         if cfg.mid_block_type is not None:
-            x = run(self.mid_block, x, temb, context, bias)
+            x = run(self.mid_block, x, temb, context, bias, plan[-1])
 
         for i in range(len(cfg.up_block_types)):
+            level = len(cfg.up_block_types) - 1 - i
             blk = getattr(self, f"up_blocks_{i}")
             skips = res[-blk.n:]
             del res[-blk.n:]
-            x = run(blk.up, x, skips, temb, context, bias)
+            x = run(blk.up, x, skips, temb, context, bias, plan[level])
+            if hasattr(blk, "upsamplers_0"):
+                x = _reslab(x, plan[level], plan[level - 1])
 
-        x = self.conv_out(self.conv_norm_out(x))
-        return nchw_to_nhwc(x)
+        x = seq_conv(self.conv_out, self.conv_norm_out(x, plan[0]), plan[0])
+        return nchw_to_nhwc(_reslab(x, plan[0], None, "output"))

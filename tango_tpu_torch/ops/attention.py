@@ -22,6 +22,11 @@ tango_tpu/ops/attention.py:82-119:
     every biased call to the XLA VJP.
 Everything else is `plain_attention`, as it is XLA in JAX: cross-attention to
 128 text tokens and the 64-token mid level.
+
+Under sequence parallelism a rank's queries are one slab of the tokens and
+k, v hold every token: the rule reads the whole sequence's query count
+(`global_queries`), as JAX's rule sees the unsharded shape, and `v2_route`
+the slab's queries against every key.
 """
 
 from __future__ import annotations
@@ -47,8 +52,11 @@ def multi_head_attention(
     heads: int,
     bias: torch.Tensor | None = None,
     upcast: bool = True,
+    global_queries: int | None = None,
 ) -> torch.Tensor:
-    """Attention over flat (B, S, heads*D) projections -> (B, Sq, heads*D)."""
+    """Attention over flat (B, S, heads*D) projections -> (B, Sq, heads*D).
+    `global_queries`: the query count of the whole sequence where q is a
+    slab of it (sequence parallelism), for the dispatch rule."""
     b, sq, inner = q.shape
     skv = k.shape[1]
     d = inner // heads
@@ -61,7 +69,7 @@ def multi_head_attention(
             bias = bias[:, None, :, :]
         bias = bias.float()
 
-    use_flash = (sq >= 256 and d % 8 == 0 and (bias is None or skv >= 256)
+    use_flash = ((global_queries or sq) >= 256 and d % 8 == 0 and (bias is None or skv >= 256)
                  and kernel_shape_ok(b * heads, sq, skv, d))
 
     qh = q.reshape(b, sq, heads, d).transpose(1, 2)

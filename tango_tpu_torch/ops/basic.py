@@ -4,7 +4,10 @@
 port's convolutions run in; it matches torch.nn.GroupNorm(num_groups, C, eps)
 with f32 statistics. Dispatch follows the JAX rule (tango_tpu/ops/basic.py:52-63):
 the single-pass kernel when one sample's f32 copy is at most 8 MB, else the
-two-stage kernel for at most 64 groups, else the plain reference.
+two-stage kernel for at most 64 groups, else the plain reference. Under
+sequence parallelism (`sp=`) every call takes the two-stage kernels, split
+at their combine by an all-reduce of the partial sums: the single pass
+would see one slab's statistics.
 
 The kernel routes are one autograd Function (`_gn_pallas_vjp` of
 tango_tpu/ops/basic.py:87-130): its forward is the single-pass or two-stage
@@ -29,10 +32,13 @@ from tango_tpu_torch.ops.gn_silu import (
     gn_bwd_supported,
     gn_silu_bwd,
     gn_silu_fwd,
+    group_norm_from_sums,
     group_norm_two_stage,
+    group_sums,
     kernel_shape_ok,
     n_chunks,
 )
+from tango_tpu_torch.parallel.mesh import all_reduce_over_model_
 
 _SINGLE_PASS_BYTES = 8 * 1024 * 1024
 
@@ -104,13 +110,25 @@ def group_norm(
     num_groups: int,
     eps: float = 1e-6,
     act: str | None = None,
+    sp=None,
 ) -> torch.Tensor:
-    """GroupNorm(+SiLU) over x (B, C, *spatial); scale, bias (C,)."""
+    """GroupNorm(+SiLU) over x (B, C, *spatial); scale, bias (C,).
+
+    `sp`: the mesh over whose 'model' ranks x is a slab of the first spatial
+    axis (sequence parallelism), whose groups span every slab. Then the
+    two-stage kernels run split at their combine: gn_stats on the slab, its
+    (B, G, 2) sums all-reduced over 'model', the combine over the whole
+    group's count, gn_apply on the slab; forward only (the UNet refuses
+    gradients under SP)."""
     if act not in (None, "silu"):
         raise ValueError(f"unknown fused act {act}")
     if x.shape[1] % num_groups:
         raise ValueError(f"channels {x.shape[1]} not divisible by groups {num_groups}")
     x = x.contiguous()
+    if sp is not None:
+        count = math.prod(x.shape[2:]) * sp.shape["model"] * (x.shape[1] // num_groups)
+        sums = all_reduce_over_model_(group_sums(x, num_groups), sp)
+        return group_norm_from_sums(x, sums, count, scale, bias, num_groups, eps, act)
     if gn_single_pass_supported(x, num_groups):
         return _GroupNormKernel.apply(x, scale, bias, num_groups, eps, act, False)
     if gn_two_stage_supported(x, num_groups):

@@ -264,20 +264,31 @@ def gn_apply(x, a, b, act: str | None = None):
     return y
 
 
-def group_norm_two_stage(x, gamma, beta, num_groups: int, eps: float = 1e-6,
-                         act: str | None = None):
-    """gn_stats -> per-channel combine (torch) -> gn_apply, as group_norm_pallas2."""
-    b, c = x.shape[0], x.shape[1]
-    hw = math.prod(x.shape[2:])
-    cg = c // num_groups
-    tot = gn_stats(x, num_groups, n_chunks(hw)).sum(dim=2)          # (B, G, 2)
-    n = float(hw * cg)
-    mean = tot[..., 0] / n
-    var = tot[..., 1] / n - mean * mean
+def group_sums(x, num_groups: int):
+    """The first stage: gn_stats over JAX's chunks, its chunks summed: each
+    (batch, group)'s sums of x and x^2, (B, G, 2) f32."""
+    return gn_stats(x, num_groups, n_chunks(math.prod(x.shape[2:]))).sum(dim=2)
+
+
+def group_norm_from_sums(x, sums, count: int, gamma, beta, num_groups: int, eps: float,
+                         act: str | None):
+    """The per-channel combine (torch) of the (B, G, 2) sums over `count`
+    elements a group, then gn_apply over x."""
+    cg = x.shape[1] // num_groups
+    mean = sums[..., 0] / float(count)
+    var = sums[..., 1] / float(count) - mean * mean
     inv = torch.rsqrt(var + eps)
     a = inv.repeat_interleave(cg, 1) * gamma.float()[None]
     bb = beta.float()[None] - mean.repeat_interleave(cg, 1) * a
     return gn_apply(x, a.contiguous(), bb.contiguous(), act)
+
+
+def group_norm_two_stage(x, gamma, beta, num_groups: int, eps: float = 1e-6,
+                         act: str | None = None):
+    """gn_stats -> per-channel combine (torch) -> gn_apply, as group_norm_pallas2."""
+    count = math.prod(x.shape[2:]) * (x.shape[1] // num_groups)
+    return group_norm_from_sums(x, group_sums(x, num_groups), count, gamma, beta, num_groups,
+                                eps, act)
 
 
 # -------------------------------------------------------------------- backward

@@ -11,7 +11,8 @@ SFTTrainer step; rank 0 also takes the meshless step at the global batch
 and holds the mesh step to it at JAX's bounds: the loss within 2e-5 of it
 (relative), every updated parameter within 1e-4; on the card TF32 is off,
 as JAX's f32 bounds assume. The sequence-parallel half
-of JAX's dry run is left out: SP is not ported (ROADMAP queue A #10b).
+of JAX's dry run is left out: it is a training step, and SP's backward is
+not ported (ROADMAP queue A #10c).
 Every rank prints its kernel launches ({"dryrun_rank": ...}) and rank 0 the
 record ({"dryrun": {...}}); `dryrun_multichip(n)` launches the ranks and
 returns that record with every rank's launches.

@@ -18,10 +18,17 @@ collective from sharding annotations, here each use places its own:
     units) a model rank keeps (`tp_layout`), run `copy_to_model` in front of the
     column-parallel layer and `reduce_from_model` after the row-parallel
     one, and add the row-parallel bias once, after the reduction.
-  * sequence parallelism (`shard_latents_seq`) is not ported: in PyTorch it
-    needs conv halos exchanged between time slabs, GroupNorm statistics
-    all-reduced across them and K, V gathered for self-attention (ROADMAP
-    queue A #10b).
+  * sequence parallelism over 'model' (`shard_latents_seq`, the UNet's
+    `latent_sharder`): each model rank runs the UNet on its contiguous slab
+    of the latent time axis, with replicated parameters (never with TP: the
+    two are alternative uses of 'model'). Where XLA derives the exchanges
+    from a sharding constraint, the modules call them here, over
+    `model_group`: the neighbours' boundary rows for a convolution
+    (`halo_rows`), the GroupNorm partial sums (`all_reduce_over_model_`),
+    the slabs gathered in rank order (`gather_seq`: a self-attention's
+    keys and values, a level that runs whole, the output). Each counts its
+    calls and the bytes it receives from the other ranks in the mesh's
+    `seq_stats`. Forward only: the backward is ROADMAP queue A #10c.
 
 A world of one gives a trivial mesh without a process group: every
 collective of an axis of size 1 is the identity, so `mesh=make_mesh()` in
@@ -35,8 +42,10 @@ gloo takes every dtype, bf16 included.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
+import functools
 import os
 import re
 import sys
@@ -47,8 +56,9 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-SP_NOT_PORTED = ("sequence parallelism (shard_latents_seq, latent_sharder=) is not ported yet: "
-                 "ROADMAP queue A #10b")
+SP_NO_BACKWARD = ("sequence parallelism runs the forward only: its backward (the halos' and "
+                  "gathers' gradients, GroupNorm's across slabs) is ROADMAP queue A #10c; "
+                  "run the forward under torch.no_grad()")
 
 # Megatron-style column/row rules by parameter-name suffix, JAX's _TP_RULES on
 # the port's names. A spec names the sharded axis of the torch weight, which
@@ -121,6 +131,9 @@ class Mesh:
     backend: Optional[str] = None
     data_group: Optional[object] = None
     model_group: Optional[object] = None
+    # sequence parallelism's collectives: kind -> calls, "<kind>_bytes" ->
+    # bytes received from the other model ranks
+    seq_stats: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -241,7 +254,7 @@ def shard_params(module: nn.Module, mesh: Mesh, tp: bool = True) -> nn.Module:
     """Shard `module`'s parameters over 'model' by the rules, in place.
 
     tp=False replicates every parameter (each rank keeps its whole copy: the
-    sequence-parallel composition, not ported). Each module that owns
+    sequence-parallel composition, `shard_latents_seq`). Each module that owns
     rule-sharded weights says which slice a model rank keeps
     (`tp_layout(parts, index)` -> {parameter: (axis, full-layout indices)})
     and takes its share of the heads (`enter_tp_(mesh, parts, index)`); the
@@ -390,10 +403,40 @@ def pad_rows(n: int, mesh: Optional[Mesh]) -> int:
 
 
 def shard_latents_seq(latents, mesh=None):
-    """Sequence parallelism: not ported (ROADMAP queue A #10b)."""
-    if mesh is None:
+    """Sequence parallelism's placement of a (B, T, ...) tensor: this rank's
+    contiguous slab of T, by `model_index`, where 'model' divides T; the
+    tensor whole where it does not, or without a mesh, or where 'model' is
+    1 (JAX constrains only the axes the shape can honour).
+
+    `UNet2DConditionModel(latent_sharder=functools.partial(
+    shard_latents_seq, mesh=mesh))` runs the UNet on such slabs
+    (`seq_mesh` reads the mesh back), with the parameters replicated
+    (`shard_params(tp=False)`), never TP-sharded."""
+    if mesh is None or mesh.shape["model"] == 1 or latents.shape[1] % mesh.shape["model"]:
         return latents
-    raise NotImplementedError(SP_NOT_PORTED)
+    return latents.narrow(1, *slab_span(latents.shape[1], mesh))
+
+
+def slab_span(length: int, mesh: Mesh) -> Tuple[int, int]:
+    """(first row, rows) of this rank's slab of `length` rows split over
+    'model' (which divides it), in rank order."""
+    n = length // mesh.shape["model"]
+    return mesh.model_index * n, n
+
+
+def seq_mesh(sharder) -> Optional[Mesh]:
+    """The mesh over whose 'model' axis a latent sharder splits T, None where
+    it splits nothing: a sharder is None or JAX's form,
+    `functools.partial(shard_latents_seq, mesh=mesh)`. The port's modules
+    exchange rows with the other ranks themselves, so they must know the
+    mesh; any other callable raises TypeError."""
+    if sharder is None:
+        return None
+    if not (isinstance(sharder, functools.partial) and sharder.func is shard_latents_seq):
+        raise TypeError(f"latent_sharder {sharder!r}: the port takes "
+                        "functools.partial(shard_latents_seq, mesh=mesh)")
+    mesh = sharder.keywords.get("mesh", sharder.args[0] if sharder.args else None)
+    return None if mesh is None or mesh.shape["model"] == 1 else mesh
 
 
 # ---------------------------------------------------------------- collectives
@@ -407,6 +450,48 @@ def _all_reduce_(t: torch.Tensor, group, mesh: Mesh) -> torch.Tensor:
         return t.copy_(host)
     dist.all_reduce(t, group=group)
     return t
+
+
+def _gather_model(x: torch.Tensor, mesh: Mesh, kind: str) -> list:
+    """Every model rank's `x` (equal shapes), in rank order, on x's device;
+    counted in `mesh.seq_stats` under `kind`."""
+    y = x.to(mesh.comm_device()).contiguous()
+    parts = [torch.empty_like(y) for _ in range(mesh.shape["model"])]
+    dist.all_gather(parts, y, group=mesh.model_group)
+    mesh.seq_stats[kind] += 1
+    mesh.seq_stats[f"{kind}_bytes"] += (len(parts) - 1) * y.numel() * y.element_size()
+    return [p.to(x.device) for p in parts]
+
+
+def gather_seq(x: torch.Tensor, mesh: Mesh, dim: int, kind: str = "gather") -> torch.Tensor:
+    """The whole of a tensor whose slabs along `dim` the model ranks hold (in
+    rank order, of equal lengths), on every model rank."""
+    return torch.cat(_gather_model(x, mesh, kind), dim)
+
+
+def halo_rows(x: torch.Tensor, mesh: Mesh, above: int, below: int, dim: int = 2):
+    """The rows a convolution of this rank's slab reads beyond it: the
+    previous rank's last `above` rows and the next rank's first `below`
+    rows along `dim`, zeros past the first and the last rank (the
+    convolution's zero padding). One all-gather of every rank's edges."""
+    n = x.shape[dim]
+    if above > n or below > n:
+        raise ValueError(f"halo of {above} / {below} rows over a slab of {n}")
+    edges = _gather_model(torch.cat([x.narrow(dim, 0, below), x.narrow(dim, n - above, above)],
+                                    dim), mesh, "halo")
+    i, parts = mesh.model_index, mesh.shape["model"]
+    zeros = lambda rows: x.new_zeros(x.shape[:dim] + (rows,) + x.shape[dim + 1:])  # noqa: E731
+    top = edges[i - 1].narrow(dim, below, above) if i > 0 else zeros(above)
+    bottom = edges[i + 1].narrow(dim, 0, below) if i < parts - 1 else zeros(below)
+    return top, bottom
+
+
+def all_reduce_over_model_(t: torch.Tensor, mesh: Mesh, kind: str = "group_norm"):
+    """Sum `t` over the model ranks in place (GroupNorm's partial sums of
+    the slabs); counted in `mesh.seq_stats` under `kind`."""
+    mesh.seq_stats[kind] += 1
+    mesh.seq_stats[f"{kind}_bytes"] += (mesh.shape["model"] - 1) * t.numel() * t.element_size()
+    return _all_reduce_(t, mesh.model_group, mesh)
 
 
 class _CopyToModel(torch.autograd.Function):

@@ -1,17 +1,20 @@
-"""One rank of the port's multi-process mesh tests (tests/test_torch_parallel.py).
+"""One rank of the port's multi-process mesh tests (tests/test_torch_parallel.py,
+tests/test_torch_sp.py).
 
     python tests/_torch_mesh_child.py JOB OUT_DIR CASE [CASE ...]
 
 launched by `tango_tpu_torch.parallel.launch.launch` with torchrun's
 variables, one process a rank, all on the CPU over gloo. JOB is a
-`torch.save`d dict, one entry a case (configs, state dicts, inputs); each
-case builds its mesh, runs the port under it and rank 0 saves what it got as
-OUT_DIR/<case>.pt. The test process holds those results to JAX's meshless
+`torch.save`d dict, one entry a case (configs, state dicts, inputs); a
+case is named by its function, or as <function>-<tag> where several cases
+share one; each case builds its mesh, runs the port under it and rank 0
+saves what it got as OUT_DIR/<case>.pt. The test process holds those results to JAX's meshless
 functions, or to the port's meshless run. Imports no JAX: the JAX side runs
 in the test process.
 """
 
 import datetime
+import functools
 import sys
 
 import torch
@@ -161,8 +164,52 @@ def t5(j, pmesh):
         return {"out": enc(j["ids"], j["mask"])}
 
 
+def _sp_mesh(j, pmesh):
+    mesh = pmesh.make_mesh(data=j.get("data", 1), model=j["model"], device="cpu")
+    return mesh, functools.partial(pmesh.shard_latents_seq, mesh=mesh)
+
+
+def _same_on_every_rank(t) -> bool:
+    got = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(got, t)
+    return all(torch.equal(g, t) for g in got)
+
+
+def sp_forward(j, pmesh):
+    """The UNet forward sequence-parallel over 'model' (JAX's
+    `latent_sharder=partial(shard_latents_seq, mesh=mesh)`), each data rank
+    on its rows; the output gathered over 'data', the same on every rank."""
+    from tango_tpu_torch.models.unet import UNet2DConditionModel
+
+    mesh, sharder = _sp_mesh(j, pmesh)
+    unet = UNet2DConditionModel(j["cfg"], latent_sharder=sharder)
+    unet.load_state_dict(j["sd"])
+    args = pmesh.shard_batch_or_replicate([j[k] for k in ("x", "t", "c", "mask") if k in j],
+                                          mesh)
+    with torch.no_grad():
+        out = pmesh.gather_rows(unet(*args), mesh, len(j["x"]))
+    return {"out": out, "same_on_every_rank": _same_on_every_rank(out),
+            "stats": dict(mesh.seq_stats)}
+
+
+def sp_sample(j, pmesh):
+    """AudioDiffusion(latent_sharder=...).sample with the given noise: the
+    final latents, the same on every rank."""
+    from tango_tpu_torch.models.diffusion import AudioDiffusion
+
+    mesh, sharder = _sp_mesh(j, pmesh)
+    diff = AudioDiffusion(j["cfg"], latent_t_size=j["latent"][0], latent_f_size=j["latent"][1],
+                          latent_sharder=sharder, device="cpu")
+    diff.unet.load_state_dict(j["sd"])
+    lat = diff.sample(j["cond"], j["mask"], num_steps=j["steps"], guidance_scale=3.0,
+                      uncond_embeds=j["uncond"], uncond_mask=j["umask"],
+                      noise_override=j["noise"])
+    return {"latents": lat, "same_on_every_rank": _same_on_every_rank(lat),
+            "stats": dict(mesh.seq_stats)}
+
+
 CASES = {f.__name__: f for f in (tp_forward, sft_step, generate, mustango, audioldm, dpo_step,
-                                 t5)}
+                                 t5, sp_forward, sp_sample)}
 
 
 def main():
@@ -172,7 +219,7 @@ def main():
     rank, _, _ = pmesh.init_distributed("cpu", timeout=datetime.timedelta(seconds=120))
     job = torch.load(job_path, weights_only=False)
     for case in cases:
-        out = CASES[case](job[case], pmesh)
+        out = CASES[case.split("-")[0]](job[case], pmesh)
         if rank == 0:
             torch.save(out, f"{out_dir}/{case}.pt")
 

@@ -392,15 +392,17 @@ def test_stub_conditioner_matches_jax_in_one_process():
 
 def test_mesh_raises(tmp_path):
     """The mesh is ported (tests/test_torch_parallel.py holds AudioLDM at DP=2
-    to its meshless run); what still raises is sequence parallelism, ROADMAP
-    queue A #10b. A one-process mesh pads nothing."""
+    to its meshless run), and so is sequence parallelism
+    (tests/test_torch_sp.py): on a one-process mesh `shard_latents_seq` is
+    the identity. A missing checkpoint still raises; a one-process mesh
+    pads nothing."""
     mesh = make_mesh(device="cpu")
     assert pl.AudioLDMPipeline(mesh=mesh, device="cpu").pad_batch(5) == 5
     with pytest.raises(FileNotFoundError):
         pl.AudioLDMPipeline.from_checkpoint(str(tmp_path / "none.ckpt"), mesh=mesh,
                                             device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A #10b"):
-        shard_latents_seq(torch.zeros(2, 8, 4, 4), mesh)
+    x = torch.zeros(2, 8, 4, 4)
+    assert shard_latents_seq(x, mesh) is x
     assert pl.AudioLDMPipeline(device="cpu").pad_batch(5) == 5
 
 

@@ -14,7 +14,8 @@ against JAX's (tango_tpu/parallel/mesh.py on the 8 virtual CPU devices):
     JAX_COORDINATOR without its process count;
   * `mesh=make_mesh()` in one process: `Tango.generate_for_batch` and an
     SFT step bit-equal to no mesh;
-  * sequence parallelism raising, naming ROADMAP queue A #10b.
+  * `shard_latents_seq`: the identity at model = 1, a rank's slab at
+    model > 1 (the SP forward itself is tests/test_torch_sp.py's).
 
 The multi-process runs are in tests/test_torch_parallel.py and
 tests/test_torch_multihost.py.
@@ -181,10 +182,12 @@ def test_backend_rule_and_single_process_init(monkeypatch):
 def test_split_span_and_sequence_parallel_raises():
     assert [pmesh.split_span(5, 2, i) for i in range(2)] == [(0, 3), (3, 5)]
     assert [pmesh.split_span(2, 4, i) for i in range(4)] == [(0, 1), (1, 2), (2, 2), (2, 2)]
-    x = torch.zeros(2, 8, 4, 4)
+    x = torch.arange(2 * 8 * 4 * 4, dtype=torch.float32).reshape(2, 8, 4, 4)
     assert pmesh.shard_latents_seq(x) is x
-    with pytest.raises(NotImplementedError, match="queue A #10b"):
-        pmesh.shard_latents_seq(x, pmesh.make_mesh(device="cpu"))
+    assert pmesh.shard_latents_seq(x, pmesh.make_mesh(device="cpu")) is x
+    # model = 2 (a mesh of two ranks, rank 1's place; no group is needed)
+    mesh = pmesh.Mesh(pmesh.rank_grid(2, 1, 2), 1, torch.device("cpu"), "gloo")
+    assert torch.equal(pmesh.shard_latents_seq(x, mesh), x[:, 4:])
 
 
 def test_one_process_mesh_is_bit_equal_to_meshless():

@@ -153,3 +153,36 @@ def test_audioldm_from_checkpoint_matches_jax():
             assert g.to_dict() == w.to_dict()
         else:
             assert g == w, n
+
+
+@pytest.mark.parametrize("which", ["UNet2DConditionModel", "AudioDiffusion"])
+def test_model_constructor_fields_match_jax(which):
+    """The UNet's and AudioDiffusion's constructor fields are JAX's, by name,
+    order and default, `latent_sharder` (sequence parallelism) included.
+    Left out: Flax's `parent` and `name`; the UNet's `dtype` (the port's
+    module takes its dtype by `.to`); AudioDiffusion's `device` (the port's
+    own, last). AudioDiffusion's `unet` is JAX's `unet_config` (the port
+    also takes a built module there); both dtypes default to float32."""
+    import jax.numpy as jnp
+    import torch
+
+    from tango_tpu.models.diffusion import AudioDiffusion as JAudioDiffusion
+    from tango_tpu.models.unet import UNet2DConditionModel as JUNet
+    from tango_tpu_torch.models.diffusion import AudioDiffusion
+    from tango_tpu_torch.models.unet import UNet2DConditionModel
+
+    if which == "UNet2DConditionModel":
+        want = _names_kinds_defaults(JUNet, drop=("parent", "name", "dtype"))
+        got = _names_kinds_defaults(UNet2DConditionModel.__init__)
+    else:
+        want = _names_kinds_defaults(JAudioDiffusion)
+        got = _names_kinds_defaults(AudioDiffusion)
+        assert got[-1][0] == "device" and got[-1][2] is None
+        assert got[0][0] == "unet" and want[0][0] == "unet_config"
+        got, want = got[1:-1], want[1:]
+        dtypes = [(g[2], w[2]) for g, w in zip(got, want) if g[0] == "dtype"]
+        assert dtypes == [(torch.float32, jnp.float32)]
+        got = [g for g in got if g[0] != "dtype"]
+        want = [w for w in want if w[0] != "dtype"]
+    assert got == want
+    assert got[-1][0] == "latent_sharder" and got[-1][2] is None

@@ -1,0 +1,459 @@
+"""Sequence parallelism in the port (parallel/mesh.py's `shard_latents_seq`
+and its collectives, `latent_sharder=` in the UNet and in AudioDiffusion)
+against JAX's meshless functions on the same numpy weights and inputs, as
+JAX's own test holds its SP forward (tests/test_parallel.py:203-251):
+
+  * on 2 and 4 CPU ranks over gloo (tests/_torch_mesh_child.py): the
+    forward of JAX's SP configuration (T = 64) at model = 2 and 4, a DP x SP
+    2 x 2 mesh, a three-level UNet at T = 36 whose second level's slab is
+    odd and whose third level 'model' does not divide (both run whole),
+    `downsample_padding=0`, and a tiny Mustango-stream UNet (two extra
+    streams), each at JAX's atol 2e-5; `AudioDiffusion(latent_sharder=)
+    .sample` fed JAX's `noise_override` against JAX's sampler at
+    tests/test_torch_pipeline.py's atol 2e-4 / rtol 1e-3; every rank's
+    result the same, and each evaluation's collectives counted by kind;
+  * in one process, P threads as the model ranks exchanging through a local
+    all-gather: each kind of halo convolution (stride 1, the upsample's,
+    the downsample's at padding 1 and 0) against the module on the whole,
+    the SP GroupNorm against gn_stats_plain / gn_apply_plain on the whole,
+    the slab's self-attention against the whole's;
+  * the dispatch rule on the whole sequence's query count, the placement
+    rule, and the refusals: gradients (ROADMAP queue A #10c), TP + SP,
+    int8 (#10d), a sharder the port cannot read.
+
+Each launch of ranks has its own time limit, and each rank's process group
+a 120 s timeout.
+"""
+
+import dataclasses
+import functools
+import os
+import pathlib
+import sys
+import threading
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from tango_tpu import configs as JC
+from tango_tpu.models.diffusion import AudioDiffusion as JAudioDiffusion
+from tango_tpu.models.unet import UNet2DConditionModel as JUNet
+from tango_tpu_torch import configs as TC
+from tango_tpu_torch.models import unet as punet
+from tango_tpu_torch.models.diffusion import AudioDiffusion
+from tango_tpu_torch.ops import attention as pattn
+from tango_tpu_torch.ops.basic import group_norm
+from tango_tpu_torch.ops.gn_silu import gn_apply_plain, gn_stats_plain, n_chunks
+from tango_tpu_torch.ops.quant import quantize_unet_
+from tango_tpu_torch.parallel import mesh as pmesh
+from tango_tpu_torch.parallel.launch import check, launch
+from tango_tpu_torch.utils.convert import from_jax_params
+from tango_tpu_torch.utils.init import init_random_
+
+from tests._torch_helpers import random_jax_params
+from tests.test_torch_pipeline_music import MUSIC_KW
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+CHILD = str(REPO / "tests" / "_torch_mesh_child.py")
+LAUNCH_TIMEOUT_S = 240
+
+# JAX's SP configuration (tests/test_parallel.py:213-221)
+SP_UNET = dict(in_channels=4, out_channels=4,
+               down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+               up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+               block_out_channels=(16, 32), layers_per_block=1, cross_attention_dim=16,
+               attention_head_dim=(2, 4), norm_num_groups=8)
+THREE_LEVELS = dict(SP_UNET, down_block_types=("CrossAttnDownBlock2D",) * 2 + ("DownBlock2D",),
+                    up_block_types=("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 2,
+                    block_out_channels=(16, 32, 32), attention_head_dim=(2, 4, 4))
+SAMPLE_LATENT = (64, 4)
+SAMPLE_STEPS = 2
+
+
+# ------------------------------------------------------------------ the jobs
+
+def _forward_case(kw, t_len, model, data=1, seed=0):
+    """A forward job at latent length t_len, and its JAX reference."""
+    cfg = JC.UNetConfig(**kw)
+    streams = 1 + cfg.extra_cond_streams
+    rng = np.random.RandomState(seed)
+    x = rng.randn(2, t_len, 4, cfg.in_channels).astype(np.float32)
+    t = np.array([5, 500])
+    c = [rng.randn(2, 6 + j, cfg.cross_attention_dim).astype(np.float32) for j in range(streams)]
+    mask = [np.ones((2, 6 + j), np.int64) for j in range(streams)]
+    for j, m in enumerate(mask):
+        m[1, 4 + j:] = 0
+    jc, jm = (c, mask) if streams > 1 else (c[0], mask[0])
+    params = random_jax_params(lambda k: JUNet(cfg).init(
+        k, jnp.asarray(x), jnp.asarray(t), jc, jm)["params"], seed + 1)
+    tensors = lambda a: [torch.from_numpy(v) for v in a] if streams > 1 \
+        else torch.from_numpy(a)  # noqa: E731
+    job = dict(cfg=TC.UNetConfig(**kw), sd=from_jax_params(params), x=torch.from_numpy(x),
+               t=torch.from_numpy(t), c=tensors(jc), mask=tensors(jm), model=model, data=data)
+    return job, lambda: np.asarray(jax.jit(JUNet(cfg).apply)({"params": params}, x, t, jc, jm))
+
+
+def _sample_case():
+    """The sampler job on JAX's SP configuration, and JAX's sampler."""
+    cfg = JC.UNetConfig(**SP_UNET)
+    diff = JAudioDiffusion(cfg, latent_t_size=SAMPLE_LATENT[0], latent_f_size=SAMPLE_LATENT[1])
+    rng = np.random.RandomState(7)
+    cond = rng.randn(1, 6, 16).astype(np.float32)
+    uncond = rng.randn(1, 6, 16).astype(np.float32)
+    mask = np.array([[1, 1, 1, 1, 0, 0]])
+    umask = np.ones((1, 6), np.int64)
+    init = rng.randn(1, *SAMPLE_LATENT, 4).astype(np.float32)
+    noises = rng.randn(SAMPLE_STEPS, 1, *SAMPLE_LATENT, 4).astype(np.float32)
+    params = random_jax_params(lambda k: diff.unet.init(
+        k, jnp.zeros((1, *SAMPLE_LATENT, 4)), jnp.zeros((1,), jnp.int32),
+        jnp.zeros((1, 6, 16)))["params"], 8)
+    t = torch.from_numpy
+    job = dict(cfg=TC.UNetConfig(**SP_UNET), sd=from_jax_params(params), latent=SAMPLE_LATENT,
+               cond=t(cond), mask=t(mask), uncond=t(uncond), umask=t(umask),
+               noise=(t(init), t(noises)), steps=SAMPLE_STEPS, model=2)
+
+    def reference():
+        return np.asarray(diff.sample(params, cond, mask, jax.random.PRNGKey(0),
+                                      num_steps=SAMPLE_STEPS, guidance_scale=3.0,
+                                      uncond_embeds=uncond, uncond_mask=umask,
+                                      noise_override=(init, noises)))
+    return job, reference
+
+
+LAUNCHES = {2: ["sp_forward-jax2", "sp_forward-odd", "sp_forward-pad0", "sp_forward-music",
+                "sp_sample"],
+            4: ["sp_forward-jax4", "sp_forward-dp"]}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case's job written once; the 2-rank cases in one launch and the
+    4-rank ones in another, in a thread while this process computes JAX's
+    references; each case's rank-0 result and its reference."""
+    root = tmp_path_factory.mktemp("sp")
+    job, reference = {}, {}
+    job["sp_forward-jax2"], reference["jax"] = _forward_case(SP_UNET, 64, 2)
+    job["sp_forward-jax4"] = dict(job["sp_forward-jax2"], model=4)
+    job["sp_forward-dp"] = dict(job["sp_forward-jax2"], data=2)
+    job["sp_forward-odd"], reference["odd"] = _forward_case(THREE_LEVELS, 36, 2, seed=3)
+    job["sp_forward-pad0"], reference["pad0"] = _forward_case(
+        dict(SP_UNET, downsample_padding=0), 64, 2, seed=5)
+    job["sp_forward-music"], reference["music"] = _forward_case(MUSIC_KW, 64, 2, seed=9)
+    job["sp_sample"], reference["sample"] = _sample_case()
+    torch.save(job, root / "job.pt")
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
+    launched = {}
+
+    def run():
+        for world, cases in LAUNCHES.items():
+            launched[world] = launch(
+                [sys.executable, CHILD, str(root / "job.pt"), str(root), *cases], world,
+                LAUNCH_TIMEOUT_S, env=env, cwd=str(REPO))
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        refs = {case: fn() for case, fn in reference.items()}
+    finally:
+        thread.join()
+    for world in LAUNCHES:
+        check(launched[world], f"{world}-rank launch")
+    got = {c: torch.load(root / f"{c}.pt", weights_only=False) for c in job}
+    return got, refs
+
+
+@pytest.mark.parametrize("case", ["jax2", "jax4", "dp"])
+def test_sp_forward_matches_jax(runs, case):
+    """JAX's SP configuration at model = 2 and 4, and at DP x SP 2 x 2."""
+    got, refs = runs
+    out = got[f"sp_forward-{case}"]
+    np.testing.assert_allclose(out["out"].numpy(), refs["jax"], atol=2e-5)
+    assert out["same_on_every_rank"]
+
+
+@pytest.mark.parametrize("case", ["odd", "pad0", "music"])
+def test_sp_forward_edge_cases_match_jax(runs, case):
+    got, refs = runs
+    out = got[f"sp_forward-{case}"]
+    np.testing.assert_allclose(out["out"].numpy(), refs[case], atol=2e-5)
+    assert out["same_on_every_rank"]
+
+
+def test_sp_sample_matches_jax(runs):
+    got, refs = runs
+    out = got["sp_sample"]
+    np.testing.assert_allclose(out["latents"].numpy(), refs["sample"], atol=2e-4, rtol=1e-3)
+    assert out["same_on_every_rank"]
+    # two CFG evaluations: twice one forward's collectives
+    assert {k: v // SAMPLE_STEPS for k, v in out["stats"].items() if "_bytes" not in k} == \
+        _collectives(TC.UNetConfig(**SP_UNET), whole_levels=0)
+
+
+def _collectives(cfg, whole_levels):
+    """The collectives of one SP evaluation by kind: a halo for every 3x3
+    stride-1 convolution but conv_in and for every resampler, a GroupNorm
+    all-reduce for every GroupNorm, one gather a self-attention and one of
+    the output, on a UNet whose levels all run on slabs except the lowest
+    `whole_levels` (one gather where the slabs stop)."""
+    unet = punet.UNet2DConditionModel(cfg)
+    levels = len(cfg.block_out_channels)
+    slab = lambda name: not any(name.startswith(p) for p in _whole_prefixes(  # noqa: E731
+        levels, whole_levels))
+    halo = sum(slab(n) for n, m in unet.named_modules()
+               if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3) and n != "conv_in"
+               and not n.endswith("downsamplers_0.conv") and not n.endswith("upsamplers_0.conv"))
+    halo += sum(slab(n) for n, m in unet.named_modules()
+                if isinstance(m, (punet.Downsample2D, punet.Upsample2D)))
+    norms = sum(slab(n) for n, m in unet.named_modules()
+                if type(m).__name__ == "GroupNorm")
+    attn = sum(slab(n) for n, m in unet.named_modules() if n.endswith("attn1"))
+    out = {"halo": halo, "group_norm": norms, "kv": attn, "output": 1}
+    if whole_levels:
+        out["level"] = 1
+    return out
+
+
+def _whole_prefixes(levels, whole_levels):
+    """Module name prefixes of the lowest `whole_levels` levels."""
+    lows = range(levels - whole_levels, levels)
+    return tuple([f"down_blocks_{lv}." for lv in lows]
+                 + [f"up_blocks_{levels - 1 - lv}." for lv in lows]
+                 + (["mid_block."] if whole_levels else []))
+
+
+@pytest.mark.parametrize("case,cfg,whole", [
+    ("jax2", SP_UNET, 0), ("pad0", dict(SP_UNET, downsample_padding=0), 0),
+    ("music", MUSIC_KW, 0), ("odd", THREE_LEVELS, 2)])
+def test_sp_collectives_an_evaluation(runs, case, cfg, whole):
+    """One evaluation's collectives by kind; at T = 36 the two lowest levels
+    run whole: no exchange there, one gather where the slabs stop (after
+    the first level's downsampler, which runs on the slabs)."""
+    stats = runs[0][f"sp_forward-{case}"]["stats"]
+    want = _collectives(TC.UNetConfig(**cfg), whole)
+    assert {k: v for k, v in stats.items() if "_bytes" not in k} == want
+    assert all(stats[f"{k}_bytes"] > 0 for k in want)
+
+
+# ---------------------------------------------------- one process, P threads
+
+class ThreadRanks:
+    """`parts` threads of this process as the model ranks of one mesh: the
+    collectives of parallel.mesh go through a local exchange (a barrier and
+    a slot a rank) in place of torch.distributed."""
+
+    def __init__(self, parts: int):
+        self.parts = parts
+        self.barrier = threading.Barrier(parts, timeout=60)
+        self.slots = [None] * parts
+        self.local = threading.local()
+
+    def all_gather(self, out, x, group=None):
+        self.slots[self.local.rank] = x.clone()
+        self.barrier.wait()
+        for o, s in zip(out, self.slots):
+            o.copy_(s)
+        self.barrier.wait()
+
+    def all_reduce(self, t, group=None):
+        parts = [torch.empty_like(t) for _ in range(self.parts)]
+        self.all_gather(parts, t)
+        t.copy_(torch.stack(parts).sum(0))
+
+    def run(self, monkeypatch, fn):
+        """fn(mesh) on every rank, each in its thread, without gradients
+        (a thread does not inherit the caller's no_grad); the results in
+        rank order."""
+        monkeypatch.setattr(pmesh, "dist", types.SimpleNamespace(
+            all_gather=self.all_gather, all_reduce=self.all_reduce))
+        results, errors = [None] * self.parts, []
+
+        def body(r):
+            self.local.rank = r
+            mesh = pmesh.Mesh(pmesh.rank_grid(self.parts, 1, self.parts), r,
+                              torch.device("cpu"), "gloo", None, self)
+            try:
+                with torch.no_grad():
+                    results[r] = fn(mesh)
+            except BaseException as e:  # reported below, after every thread ended
+                errors.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,)) for r in range(self.parts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        if errors:
+            raise errors[0]
+        return results
+
+
+def _slab(x, mesh, dim=2):
+    n = x.shape[dim] // mesh.shape["model"]
+    return x.narrow(dim, mesh.model_index * n, n).contiguous()
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("kind", ["conv3x3", "upsample", "down_pad1", "down_pad0"])
+def test_halo_convolution_matches_whole(monkeypatch, kind, parts):
+    torch.manual_seed(0)
+    x = torch.randn(2, 8, 16, 6)
+    if kind == "conv3x3":
+        conv = torch.nn.Conv2d(8, 8, 3, padding=1)
+        mod = lambda a, sp=None: punet.seq_conv(conv, a, sp)  # noqa: E731
+    elif kind == "upsample":
+        mod = punet.Upsample2D(8)
+    else:
+        mod = punet.Downsample2D(8, padding=1 if kind == "down_pad1" else 0)
+    with torch.no_grad():
+        want = mod(x)
+        got = ThreadRanks(parts).run(monkeypatch, lambda m: mod(_slab(x, m), m))
+    np.testing.assert_allclose(torch.cat(got, 2).numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("parts,act", [(2, "silu"), (4, None)])
+def test_seq_group_norm_matches_plain_versions_on_the_whole(monkeypatch, parts, act):
+    torch.manual_seed(1)
+    x = torch.randn(2, 32, 16, 6) * 2.0 + 0.5
+    g, b = torch.randn(32) * 0.2 + 1.0, torch.randn(32) * 0.1
+    groups, eps = 8, 1e-5
+    # the two plain stages on the whole, the combine between them
+    sums = gn_stats_plain(x, groups, n_chunks(16 * 6)).sum(2)
+    n = 16 * 6 * 32 // groups
+    mean = sums[..., 0] / n
+    inv = torch.rsqrt(sums[..., 1] / n - mean * mean + eps)
+    a = inv.repeat_interleave(32 // groups, 1) * g
+    want = gn_apply_plain(x, a, b - mean.repeat_interleave(32 // groups, 1) * a, act)
+    got = ThreadRanks(parts).run(
+        monkeypatch, lambda m: group_norm(_slab(x, m), g, b, groups, eps, act, sp=m))
+    np.testing.assert_allclose(torch.cat(got, 2).numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+    ref = F.group_norm(x, groups, g, b, eps)
+    np.testing.assert_allclose(torch.cat(got, 2).numpy(),
+                               (F.silu(ref) if act else ref).numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_seq_self_attention_matches_whole(monkeypatch):
+    """A slab's queries against every token's keys and values: 512 tokens,
+    128 a rank at P = 4, which the rule sends to attn_fwd as it does the
+    whole."""
+    torch.manual_seed(2)
+    attn = punet.Attention(32, 2, 16, 32, upcast=True, fuse="qkv")
+    x = torch.randn(2, 512, 32)
+    with torch.no_grad():
+        want = attn(x)
+        got = ThreadRanks(4).run(monkeypatch, lambda m: attn(_slab(x, m, 1), sp=m))
+    np.testing.assert_allclose(torch.cat(got, 1).numpy(), want.numpy(), atol=2e-6, rtol=1e-5)
+
+
+def test_dispatch_keys_the_whole_sequence(monkeypatch):
+    """The rule reads `global_queries` (JAX sees the unsharded shape), and
+    `v2_route` the slab's queries against every key: 128 of 256 queries take
+    attn_fwd, 4096 of 8192 with 8192 keys take attn_fwd_v2."""
+    called = []
+
+    def recorder(name):
+        def fn(q, k, v, scale):
+            called.append((name, q.shape[1], k.shape[1]))
+            return torch.zeros_like(q)
+        return fn
+
+    monkeypatch.setattr(pattn, "attn_fwd", recorder("attn_fwd"))
+    monkeypatch.setattr(pattn, "attn_fwd_v2", recorder("attn_fwd_v2"))
+    for sq, skv, whole in ((128, 256, 256), (4096, 8192, 8192)):
+        q, kv = torch.zeros(1, sq, 64), torch.zeros(1, skv, 64)
+        pattn.multi_head_attention(q, kv, kv, heads=1, global_queries=whole)
+    # a slab of a short sequence stays plain, as the whole does
+    pattn.multi_head_attention(torch.zeros(1, 64, 64), torch.zeros(1, 128, 64),
+                               torch.zeros(1, 128, 64), heads=1, global_queries=128)
+    assert called == [("attn_fwd", 128, 256), ("attn_fwd_v2", 4096, 8192)]
+    # without the global count the slab's 128 queries would go plain
+    pattn.multi_head_attention(torch.zeros(1, 128, 64), torch.zeros(1, 256, 64),
+                               torch.zeros(1, 256, 64), heads=1)
+    assert len(called) == 2
+
+
+# ------------------------------------------------------ placement, refusals
+
+def _mesh(model, rank=0, data=1):
+    return pmesh.Mesh(pmesh.rank_grid(data * model, data, model), rank, torch.device("cpu"),
+                      "gloo")
+
+
+def test_shard_latents_seq_places_slabs():
+    x = torch.arange(2 * 12 * 3, dtype=torch.float32).reshape(2, 12, 3)
+    assert pmesh.shard_latents_seq(x) is x
+    assert pmesh.shard_latents_seq(x, _mesh(1)) is x
+    for model in (2, 3, 4):
+        slabs = [pmesh.shard_latents_seq(x, _mesh(model, r)) for r in range(model)]
+        assert all(s.shape == (2, 12 // model, 3) for s in slabs)
+        assert torch.equal(torch.cat(slabs, 1), x)
+    # T = 12 over 5: whole; the data rank does not move the slab
+    assert pmesh.shard_latents_seq(x, _mesh(5, 3)) is x
+    assert torch.equal(pmesh.shard_latents_seq(x, _mesh(2, 3, data=2)), x[:, 6:])
+
+
+def _sp_unet(model=2, **kw):
+    unet = punet.UNet2DConditionModel(
+        TC.UNetConfig(**dict(SP_UNET, **kw)),
+        latent_sharder=functools.partial(pmesh.shard_latents_seq, mesh=_mesh(model)))
+    init_random_(unet, torch.Generator().manual_seed(0))
+    return unet
+
+
+def _inputs():
+    return torch.randn(1, 16, 4, 4), torch.tensor([5]), torch.randn(1, 6, 16)
+
+
+def test_sp_refuses_gradients():
+    unet = _sp_unet()
+    with pytest.raises(NotImplementedError, match="queue A #10c"):
+        unet(*_inputs())
+    unet.requires_grad_(False)
+    x, t, c = _inputs()
+    with pytest.raises(NotImplementedError, match="queue A #10c"):
+        unet(x.requires_grad_(), t, c)
+
+
+def test_sp_refuses_tensor_parallelism():
+    unet = _sp_unet()
+    unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1.tp_mesh = _mesh(2)
+    with torch.no_grad(), pytest.raises(ValueError, match="SP and TP"):
+        unet(*_inputs())
+
+
+def test_sp_refuses_int8():
+    unet = quantize_unet_(_sp_unet(), "conv")
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="#10d"):
+        unet(*_inputs())
+
+
+def test_sp_sharder_forms():
+    """JAX's form, its mesh read back; a 'model' axis of 1 is no SP (the
+    meshless forward, no collective); another callable is refused."""
+    mesh = _mesh(2)
+    assert pmesh.seq_mesh(functools.partial(pmesh.shard_latents_seq, mesh=mesh)) is mesh
+    assert pmesh.seq_mesh(functools.partial(pmesh.shard_latents_seq)) is None
+    assert pmesh.seq_mesh(None) is None
+    one = _sp_unet(model=1)
+    x, t, c = _inputs()
+    with torch.no_grad():
+        got = one(x, t, c)
+        one.latent_sharder = None
+        np.testing.assert_array_equal(got.numpy(), one(x, t, c).numpy())
+    with pytest.raises(TypeError, match="shard_latents_seq"):
+        punet.UNet2DConditionModel(TC.UNetConfig(**SP_UNET), latent_sharder=lambda x: x)
+    diff = AudioDiffusion(TC.UNetConfig(**SP_UNET), latent_sharder=functools.partial(
+        pmesh.shard_latents_seq, mesh=mesh), device="cpu")
+    assert diff.unet.latent_sharder.keywords["mesh"] is mesh
+    given = AudioDiffusion(one, latent_sharder=functools.partial(pmesh.shard_latents_seq,
+                                                                 mesh=mesh), device="cpu")
+    assert given.unet is one and pmesh.seq_mesh(one.latent_sharder) is mesh
+    assert dataclasses.fields(AudioDiffusion)[-2].name == "latent_sharder"
