@@ -117,13 +117,13 @@ Phases, one short JSON line each:
            port), this process's cache freed first. One-process references
            first: this pipeline's latents for MESH_PROMPTS at MESH_SEED, the
            ms of a bf16 UNet step at CFG batch 2, and a full-width f32
-           SFT (remat, uncondition) at batch 2 for 2 updates on seeded WAVs,
-           its losses and parameters. (a) TP = 2: each rank holds the
+           SFT (remat, uncondition) at batch 2 for MESH_DP_UPDATES (1) update
+           on seeded WAVs, its losses and parameters. (a) TP = 2: each rank holds the
            snapshot's f32 UNet, evaluates it at batch 1 whole, shards it and
            evaluates again (within MESH_F32_LIMIT of the largest magnitude),
            both with TF32 convolutions and in f32 convolutions,
            then Tango(dir, mesh=make_mesh(data=1, model=2)) in bf16:
-           generate_for_batch of the 4 prompts, 10 steps, CFG, whose latents
+           generate_for_batch of the 4 prompts, MESH_TP_STEPS (4) steps, CFG, whose latents
            must be within MESH_TP_REL_L2 of one process's, and the ms a step
            at CFG batch 2 (batch 8 is not timed apart, for time: the
            generate_for_batch above runs at it); (b) DP = 2: SFTTrainer(mesh=) at batch 1 a
@@ -131,8 +131,9 @@ Phases, one short JSON line each:
            MESH_LOSS_RTOL and every parameter within MESH_PARAM_LR_FACTOR lr
            (both runs' convolutions without TF32)
            of one process's, the ms an update and the all-reduce's share;
-           (c) dryrun_multichip(4), the 2 x 2 DP x TP step of the dry run's
-           tiny config against its meshless step; (d) SP = 2 (line
+           (c) dryrun_multichip(4), the 2 x 2 DP x TP and DP x SP steps of
+           the dry run's tiny config against its meshless step (its record
+           in the line, `sp_loss`, `sp_param_max_drift`); (d) SP = 2 (line
            `mesh_sp`): sequence parallelism over the long clip's 512
            latent frames (8192 first-level tokens), each rank with the
            snapshot's UNet replicated: an f32 evaluation at batch 1 with
@@ -143,15 +144,28 @@ Phases, one short JSON line each:
            DDPM steps at CFG batch 2 at MESH_SEED, within MESH_TP_REL_L2 of
            this process's; both ranks' outputs bit-equal; the ms a step
            beside one process's, each evaluation's collectives by kind (halo,
-           group_norm, kv, output) and the bytes a rank received. Each rank
-           zeroes its counters before its counted work and saves its
-           launches, shapes and bodies; the sums of (a)-(c) are path `mesh`
-           (PATH_KERNELS["mesh"]), (d)'s path `sp` (PATH_KERNELS["sp"]:
-           gn_stats, gn_apply, attn_fwd at the slabs' queries against every
-           key, attn_fwd_v2; no gn_silu_fwd); on both every attention launch
-           on its tensor-core body, every GroupNorm on its cluster body;
-           peak memory and launches per rank logged, with the card's name
-           and power limit;
+           group_norm, kv, output) and the bytes a rank received; then (line
+           `mesh_sp_train`) an SP = 2 training step: the snapshot's f32 UNet
+           in SFTTrainer(mesh=) with the latent sharder (remat, min-SNR 5,
+           batch 1 at the long clip's 512 latent frames, accumulation 1, one
+           AdamW update, f32 convolutions), which rank 0 holds to the same
+           step without a mesh: the loss within MESH_LOSS_RTOL, the
+           gradients' relative L2 within MESH_SP_GRAD_REL_L2, every updated
+           parameter within MESH_PARAM_LR_FACTOR lr; both ranks' losses
+           equal; the ms of the step beside the meshless one's, its
+           collectives and bytes by kind (the backward's "<kind>_grad"), the
+           ranks' peak memory. Each rank zeroes its counters before its
+           counted work and saves its launches, shapes and bodies; the sums
+           of (a)-(c) are path `mesh` (PATH_KERNELS["mesh"]), (d)'s
+           evaluations path `sp` (PATH_KERNELS["sp"]: gn_stats, gn_apply,
+           attn_fwd at the slabs' queries against every key, attn_fwd_v2; no
+           gn_silu_fwd), its training step path `sp_train` (those four,
+           gn_bwd_stats, gn_bwd_apply, attn_bwd_dq and attn_bwd_dkv at the
+           slabs' queries against every key; no gn_silu_bwd, and
+           gn_silu_fwd only in the frozen VAE encoder); on each every
+           attention launch on its tensor-core
+           body, every GroupNorm on its cluster body; peak memory and
+           launches per rank logged, with the card's name and power limit;
   mustango_build, mustango, mustango_beam_loops, mustango_predictors,
   mustango_cli
            after the Tango snapshot is deleted (free disk checked first):
@@ -305,7 +319,13 @@ Phases, one short JSON line each:
            `gn_bwd_cluster_size` names (all of them the cluster body;
            --detail rows carry each launch's cluster size and CTAs), and
            their streaming bodies at GN_FWD_STREAMING / GN_BWD_STREAMING,
-           checked only; gn_silu_fwd's host time per call at HOST_US_SHAPE
+           checked only; gn_bwd_stats and gn_bwd_apply (path sp_train's
+           split GroupNorm backward) at the slabs' shapes in both types,
+           against their plain versions at the GroupNorm backward's limits,
+           timed beside aten's GroupNorm backward of the slab; line
+           `kernels_sp_train` sums path sp_train's own shapes, the backward
+           pair at its Sq < Skv ones among them;
+           gn_silu_fwd's host time per call at HOST_US_SHAPE
            (1000 back-to-back calls, `host_us_per_call`). Then
            one shape past each of the wrappers' old launch limits (LIMIT_*),
            checked, not timed; its gn_silu_fwd and gn_silu_bwd also held to
@@ -392,16 +412,23 @@ DEADLINE_S = 720
 # MESH_LAUNCH_TIMEOUT_S
 MESH_PROMPTS = ["a dog barks", "rain on a tin roof", "an engine idles", "birds sing"]
 MESH_SEED = 11
+MESH_TP_STEPS = 4  # (a)'s DDPM steps: fewer than STEPS, for the smoke's time limit
 MESH_TP_REL_L2 = 0.05
 MESH_F32_LIMIT = 2.5e-2
 MESH_DP_BATCH = 2
-MESH_DP_UPDATES = 2
+MESH_DP_UPDATES = 1
 MESH_LOSS_RTOL = 1e-3
 MESH_PARAM_LR_FACTOR = 2.5
 MESH_LAUNCH_TIMEOUT_S = 300
 MESH_TARGET_LENGTH = 1024  # fbank frames of (b)'s clips: 10.24 s, 256 latent frames
 MESH_SP_F32_LIMIT = 1e-4
 MESH_SP_STEPS = 2
+# (d)'s SP = 2 f32 training step against the same step without a mesh: the
+# gradients' relative L2 over every parameter (only the slabs' two-part sums
+# and the attention backward's key split are reordered, in f32 convolutions);
+# the loss within MESH_LOSS_RTOL, each updated parameter within
+# MESH_PARAM_LR_FACTOR lr, as (b)
+MESH_SP_GRAD_REL_L2 = 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # the softmax's exp2 on the multi-function units: 16 a clock an SM (sm_90),
 # 132 SMs at 1.98 GHz; the floor of attention at head dim 32, one exp2 a logit
@@ -494,6 +521,14 @@ PATH_KERNELS["mesh"] = PATH_KERNELS["train"]
 # every key at levels 1-2 (attn_fwd) and 0 (attn_fwd_v2); SP_IDLE_KERNELS never
 PATH_KERNELS["sp"] = ("gn_stats", "gn_apply", "attn_fwd", "attn_fwd_v2")
 SP_IDLE_KERNELS = ("gn_silu_fwd",)
+# its training step: the forward's four, the GroupNorm backward split at its
+# group sums (gn_bwd_stats, the sums all-reduced, gn_bwd_apply) and the
+# attention backward at the slabs' queries against every key; never the
+# single-pass GroupNorm backward (gn_silu_fwd runs there only in the frozen
+# VAE encoder, which is no part of SP)
+PATH_KERNELS["sp_train"] = PATH_KERNELS["sp"] + ("gn_bwd_stats", "gn_bwd_apply", "attn_bwd_dq",
+                                                 "attn_bwd_dkv")
+SP_TRAIN_IDLE_KERNELS = ("gn_silu_bwd",)
 # the snapshot phase's batch-generation CLI run over BATCH_PROMPTS: steps, batch size
 CLI_STEPS = 2
 CLI_BATCH = 2
@@ -848,7 +883,9 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
     )
     from tango_tpu_torch.ops.gn_silu import (
         gn_apply_plain,
+        gn_bwd_apply_plain,
         gn_bwd_cluster_size,
+        gn_bwd_stats_plain,
         gn_fwd_cluster_size,
         gn_silu_bwd_plain,
         gn_silu_fwd_plain,
@@ -1193,6 +1230,54 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
                 cuda_ms(lambda: gn_silu_bwd_plain(x, g, w, b, groups, 1e-5, act)),
                 cuda_ms(lib), *bound_ms(3 * n * x.element_size(), 24 * n, F32_FLOPS),
                 [shape, groups, act], cluster_size=r, ctas=shape[0] * groups * r)
+
+    # the GroupNorm backward split at its group sums (sequence parallelism)
+    # at the slabs' shapes, each half against its plain version (gn_bwd_apply
+    # on the plain sums), timed in both types; the yardstick is aten's
+    # GroupNorm backward of the same slab, one call for all of dx, dgamma and
+    # dbeta of a group the slab holds whole (the pair's work, less the
+    # all-reduce between them)
+    for shape, groups, act in sorted(shapes["gn_bwd_stats"] | shapes["gn_bwd_apply"], key=str):
+        bsz, c, n = shape[0], shape[1], math.prod(shape)
+        hw = n // (bsz * c)
+        count = 2 * n // (bsz * groups)  # the group over SP = 2's two slabs
+        w, b = randn(c, scale=0.2, loc=1.0), randn(c, scale=0.1)
+        for tag, dt in dtypes.items():
+            x = randn(*shape, dtype=dt, scale=2.0, loc=0.5)
+            g = randn(*shape, dtype=dt)
+            xf = x.float().reshape(bsz, groups, -1)
+            mean = xf.mean(-1).contiguous()
+            inv = torch.rsqrt(xf.var(-1, unbiased=False) + 1e-5).contiguous()
+            stats = (x, g, mean, inv, w, b, act)
+            what = f"{shape} {act} {tag}"
+            sums, dparam = K["gn_bwd_stats"](*stats)
+            rsums, rdparam = gn_bwd_stats_plain(*stats)
+            cases["gn_bwd_stats"].add_err(tag, max(
+                assert_close(sums, rsums, *gn_bwd_tol[tag], f"gn_bwd_stats sums {what}"),
+                assert_close(dparam, rdparam, *gn_bwd_tol[tag], f"gn_bwd_stats dparam {what}")))
+            cases["gn_bwd_apply"].add_err(tag, assert_close(
+                K["gn_bwd_apply"](*stats, rsums, count),
+                gn_bwd_apply_plain(*stats, rsums, count), *gn_bwd_tol[tag],
+                f"gn_bwd_apply {what}"))
+            wl, bl = w.to(dt), b.to(dt)
+            y, mu, rstd = torch.ops.aten.native_group_norm(x, wl, bl, bsz, c, hw, groups, 1e-5)
+
+            def lib():
+                gy = torch.ops.aten.silu_backward(g, y) if act == "silu" else g
+                return torch.ops.aten.native_group_norm_backward(
+                    gy, x, mu, rstd, wl, bsz, c, hw, groups, [True, True, True])
+
+            lib_ms = cuda_ms(lib)
+            esize = x.element_size()
+            for name, kern, plain, nbytes, flops in (
+                    ("gn_bwd_stats", lambda: K["gn_bwd_stats"](*stats),
+                     lambda: gn_bwd_stats_plain(*stats), 2 * n * esize + 8 * bsz * (c + groups),
+                     16 * n),
+                    ("gn_bwd_apply", lambda: K["gn_bwd_apply"](*stats, rsums, count),
+                     lambda: gn_bwd_apply_plain(*stats, rsums, count), 3 * n * esize, 20 * n)):
+                add = cases[name].add_time if tag == "bf16" else cases[name].add_time_f32
+                add(cuda_ms(kern), cuda_ms(plain), lib_ms, *bound_ms(nbytes, flops, F32_FLOPS),
+                    [shape, groups, act])
 
     for shape, dt, offset in GN_BWD_STREAMING:
         c, n = shape[1], math.prod(shape)
@@ -3516,16 +3601,18 @@ def audioldm_phase(C, ops, counted, root: str) -> tuple:
 
 # ------------------------------------------------------------------ the mesh
 
-def mesh_sft_setup(job: dict, device):
-    """The full-width f32 SFT of phase mesh (b), built alike in every process:
-    the remat'd UNet, the seeded VAE with its encoder, and the trainer's
-    configuration (accumulation 1, MESH_DP_UPDATES updates)."""
+def mesh_sft_setup(job: dict, device, latent_sharder=None):
+    """The full-width f32 SFT of phase mesh (b) and (d), built alike in every
+    process: the remat'd UNet (sequence-parallel with `latent_sharder`), the
+    seeded VAE with its encoder, and the trainer's configuration
+    (accumulation 1, MESH_DP_UPDATES updates)."""
     from tango_tpu_torch.models.diffusion import AudioDiffusion
     from tango_tpu_torch.models.vae import AutoencoderKL
     from tango_tpu_torch.utils.init import init_random_
 
     diffusion = AudioDiffusion(job["unet_config"], job["scheduler_config"], snr_gamma=5.0,
-                               uncondition=True, remat=True, device=device)
+                               uncondition=True, remat=True, latent_sharder=latent_sharder,
+                               device=device)
     with torch.device("meta"):
         vae = AutoencoderKL(job["vae_config"], with_encoder=True)
     vae = init_random_(vae.to_empty(device=device),
@@ -3717,8 +3804,9 @@ def mesh_rank_sp(job: dict, mesh, ops) -> dict:
 
     dev = mesh.device
     main = load_main_weights(job["snapshot"])
-    unet = build_module(lambda: UNet2DConditionModel(main["unet_config"]), main["unet_params"],
-                        dev, torch.float32, 0)
+    params = main["unet_params"]  # the training step's starting weights
+    unet = build_module(lambda: UNet2DConditionModel(main["unet_config"]), params, dev,
+                        torch.float32, 0)
     del main
     args = mesh_unet_inputs(unet, job["sp_latent"], 1, 128, torch.float32, dev, 3)
     low = copy.deepcopy(unet).to(job["sp_dtype"])
@@ -3764,9 +3852,84 @@ def mesh_rank_sp(job: dict, mesh, ops) -> dict:
     torch.cuda.synchronize()
     out_rec.update(sample_s=time.perf_counter() - t0, latents=lat.float().cpu(),
                    bf16_collectives={k: v / MESH_SP_STEPS for k, v in mesh.seq_stats.items()})
-    out_rec["ms_per_step"] = {"cfg_batch_2": ms_per_step(diff, 2, 128, dev, reps=2,
+    out_rec["ms_per_step"] = {"cfg_batch_2": ms_per_step(diff, 2, 128, dev, reps=1,
                                                          latent=job["sp_latent"])}
+    del diff, low
+    torch.cuda.synchronize()
+    out_rec.update(zip(("launches", "shapes", "tc", "cluster"), read_counters(ops)),
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    out_rec["train"] = sp_train_step(job, mesh, ops, params)
     return out_rec
+
+
+def sp_train_step(job: dict, mesh, ops, params: dict) -> dict:
+    """Phase mesh (d)'s training step, one rank of SP = 2: the snapshot's
+    full-width f32 UNet (remat, min-SNR 5, uncondition) in SFTTrainer(mesh=)
+    with latent_sharder=partial(shard_latents_seq, mesh=mesh), at batch 1 on
+    the long clip's latents (the parent's sp_train_batch.pt: a 2048-frame
+    fbank, PROMPT's encoding), accumulation 1, one AdamW update, in f32
+    convolutions. The counters and the mesh's exchanges are zeroed just
+    before the step and read just after (path `sp_train`). Rank 0 then takes
+    the same step without a mesh (uncounted) and holds the SP step to it:
+    the loss (MESH_LOSS_RTOL), the gradients' relative L2 over every
+    parameter (MESH_SP_GRAD_REL_L2) and each updated parameter
+    (MESH_PARAM_LR_FACTOR lr)."""
+    from tango_tpu_torch.parallel import mesh as pmesh
+    from tango_tpu_torch.train.sft import SFTTrainer
+
+    dev = mesh.device
+    batch = {k: v.to(dev) for k, v in
+             torch.load(os.path.join(job["work"], "sp_train_batch.pt")).items()}
+
+    def step(sharder, before=lambda: None):
+        """(loss, the gradients AdamW took, the updated parameters, ms)."""
+        diffusion, vae, cfg = mesh_sft_setup(job, dev, sharder)
+        trainer = SFTTrainer(diffusion, vae, cfg, total_steps=1,
+                             mesh=None if sharder is None else mesh)
+        state = trainer.init_state(params=params)
+        names = [n for n, _ in state.params.named_parameters()]
+        grads = {}
+        adamw = state.opt_state.opt.step
+
+        def capture(*a, **kw):
+            grads.update({n: p.grad for n, p in zip(names, state.opt_state.params)})
+            return adamw(*a, **kw)
+
+        state.opt_state.opt.step = capture
+        gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+        with f32_convolutions():
+            torch.cuda.synchronize()
+            before()
+            t0 = time.perf_counter()
+            state, loss = trainer.train_step(state, batch, gen)
+            torch.cuda.synchronize()
+        return float(loss), grads, trainer.state_dict(state), 1e3 * (time.perf_counter() - t0)
+
+    def zero():
+        ops.reset_counters()
+        mesh.seq_stats.clear()
+        torch.cuda.reset_peak_memory_stats()
+
+    loss, grads, new, ms = step(functools.partial(pmesh.shard_latents_seq, mesh=mesh), zero)
+    out = dict(zip(("launches", "shapes", "tc", "cluster"), read_counters(ops)), loss=loss,
+               ms_per_step=ms, collectives=dict(mesh.seq_stats),
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if not mesh.is_main:
+        return out
+    torch.cuda.empty_cache()
+    ref_loss, ref_grads, ref_new, ref_ms = step(None)
+    sq = lambda t: float(t.double().norm()) ** 2  # noqa: E731
+    bound = MESH_PARAM_LR_FACTOR * job["train_config"].learning_rate
+    drift = {k: (new[k].float() - v.float()).abs() for k, v in ref_new.items()}
+    out.update(meshless_loss=ref_loss, meshless_ms_per_step=ref_ms,
+               loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
+               grad_rel_l2=math.sqrt(sum(sq(grads[k] - g) for k, g in ref_grads.items())
+                                     / sum(sq(g) for g in ref_grads.values())),
+               param_max_abs_diff=max(float(d.max()) for d in drift.values()),
+               params_over_bound=sum(int(d.gt(bound).sum()) for d in drift.values()),
+               param_bound=bound)
+    return out
 
 
 MESH_PARTS = {"tp": mesh_rank_tp, "dp": mesh_rank_dp_f32, "sp": mesh_rank_sp}
@@ -3793,9 +3956,10 @@ def mesh_rank_main(part: str, work: str) -> int:
                            device=dev)
     out = MESH_PARTS[part](job, mesh, ops)
     torch.cuda.synchronize()
-    launches, shapes, tc, cluster = read_counters(ops)
-    out.update(rank=rank, world=world, backend=mesh.backend, launches=launches, shapes=shapes,
-               tc=tc, cluster=cluster, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if "launches" not in out:  # part sp reads its counters before its training step
+        out.update(zip(("launches", "shapes", "tc", "cluster"), read_counters(ops)),
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+    out.update(rank=rank, world=world, backend=mesh.backend)
     torch.save(out, os.path.join(work, f"{part}_rank{rank}.pt"))
     return 0
 
@@ -3838,13 +4002,14 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> dict:
     check."""
     from tango_tpu_torch.parallel.dryrun import dryrun_multichip
     from tango_tpu_torch.parallel.launch import check, launch
+    from tango_tpu_torch.train.data import FeaturizedLoader, load_manifest
     from tango_tpu_torch.train.sft import SFTTrainer
 
     t_phase = time.perf_counter()
     work = os.path.join(root, "mesh")
     os.makedirs(work, exist_ok=True)
     sp_latent = (long_clip_frames(tango.model), tango.model.latent_f_size)
-    job = {"snapshot": snap_dir, "work": work, "device": DEVICE, "steps": STEPS,
+    job = {"snapshot": snap_dir, "work": work, "device": DEVICE, "steps": MESH_TP_STEPS,
            "target_length": MESH_TARGET_LENGTH,
            "latent": (tango.model.latent_t_size, tango.model.latent_f_size),
            "sp_latent": sp_latent, "sp_dtype": tango.dtype,
@@ -3859,7 +4024,8 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> dict:
     # one process: (a)'s latents and ms a step, (b)'s losses and parameters
     one = {}
     with torch.inference_mode():
-        one["latents"] = tango.sample_latents(MESH_PROMPTS, STEPS, 3.0, 1, MESH_SEED, 0).cpu()
+        one["latents"] = tango.sample_latents(MESH_PROMPTS, MESH_TP_STEPS, 3.0, 1, MESH_SEED,
+                                              0).cpu()
     wav_len = tango.decode_to_waveform(one["latents"][:1].to(DEVICE)).shape[1]
     one["ms_per_step"] = {"cfg_batch_2": ms_per_step(tango.model, 2, tango.max_text_length,
                                                      DEVICE)}
@@ -3873,6 +4039,14 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> dict:
             uncond_mask=umask, latent_t_size=sp_latent[0]).float().cpu()
     torch.save({"cond": cond.cpu(), "mask": mask.cpu(), "uncond": uncond.cpu(),
                 "umask": umask.cpu()}, os.path.join(work, "sp_text.pt"))
+    # (d)'s training batch: one seeded clip's fbank at the long clip's length
+    # (4 frames a latent frame), PROMPT's encoding
+    frames = 4 * sp_latent[0]
+    raw = next(iter(FeaturizedLoader(load_manifest(write_wavs(
+        os.path.join(work, "sp_data"), 1, frames / 100, seed=6)), 1, target_length=frames,
+        shuffle=False)))
+    torch.save({"fbank": torch.as_tensor(raw["fbank"]), "text_embeds": cond.float().cpu(),
+                "text_mask": mask.cpu()}, os.path.join(work, "sp_train_batch.pt"))
     one["sp_ms_per_step"] = {"cfg_batch_2": ms_per_step(tango.model, 2, tango.max_text_length,
                                                         DEVICE, latent=sp_latent)}
     batches = mesh_batches(job, tango, work)
@@ -3922,13 +4096,15 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> dict:
                 {n: sum(r["tc"].get(n, 0) for r in every) for n in tc_names},
                 {n: sum(r["cluster"].get(n, 0) for r in every) for n in cluster_names})
 
-    paths = {"mesh": summed(ranks["tp"] + ranks["dp"]), "sp": summed(ranks["sp"])}
+    paths = {"mesh": summed(ranks["tp"] + ranks["dp"]), "sp": summed(ranks["sp"]),
+             "sp_train": summed([r["train"] for r in ranks["sp"]])}
     launches, shapes, tc, cluster = paths["mesh"]
     tp0, dp0 = ranks["tp"][0], ranks["dp"][0]
     rel_l2 = float((tp0["latents"] - one["latents"]).norm() / one["latents"].norm())
     loss_err = [abs(a - b) / abs(b) for a, b in zip(dp0["losses"], one["losses"])]
     problems = body_problems("mesh", launches, tc, cluster)
     problems += sp_problems(ranks["sp"], one["sp_latents"], paths["sp"])
+    problems += sp_train_problems([r["train"] for r in ranks["sp"]], paths["sp_train"])
     if rel_l2 > MESH_TP_REL_L2:
         problems.append(f"TP = 2 latents {rel_l2} (relative L2) from one process's")
     for key in ("f32_rel_err", "f32_conv_rel_err"):
@@ -3992,6 +4168,22 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> dict:
                 "latents_rel_l2": MESH_TP_REL_L2},
         part_s=round(part_s["sp"], 3),
         total_s_since_phase=round(time.perf_counter() - t_phase, 3))
+    train0 = ranks["sp"][0]["train"]
+    tr_launches, tr_shapes, tr_tc, tr_cluster = paths["sp_train"]
+    log("mesh_sp_train", card=nvidia_smi(), latent=list(sp_latent), batch=1,
+        ms_per_step={"sp2": [r["train"]["ms_per_step"] for r in ranks["sp"]],
+                     "one_process": train0["meshless_ms_per_step"]},
+        losses=[r["train"]["loss"] for r in ranks["sp"]], meshless_loss=train0["meshless_loss"],
+        loss_rel_err=train0["loss_rel_err"], grad_rel_l2=train0["grad_rel_l2"],
+        param_max_abs_diff=train0["param_max_abs_diff"],
+        param_max_share_of_bound=train0["param_max_abs_diff"] / train0["param_bound"],
+        params_over_bound=train0["params_over_bound"],
+        collectives_per_step=train0["collectives"],
+        peak_memory_bytes=[r["train"]["peak_memory_bytes"] for r in ranks["sp"]],
+        launches={n: c for n, c in tr_launches.items() if c}, tc_launches=tr_tc,
+        cluster_launches=tr_cluster, shapes={n: len(v) for n, v in tr_shapes.items() if v},
+        bounds={"loss_rtol": MESH_LOSS_RTOL, "grad_rel_l2": MESH_SP_GRAD_REL_L2,
+                "param": train0["param_bound"]})
     shutil.rmtree(work)
     if problems:
         raise AssertionError("; ".join(problems))
@@ -4023,6 +4215,34 @@ def sp_problems(ranks: list, one_latents, path: tuple) -> list:
     busy = {n: launches[n] for n in SP_IDLE_KERNELS if launches[n]}
     if busy:
         problems.append(f"SP = 2 launched {busy}: its GroupNorms need statistics across slabs")
+    return problems
+
+
+def sp_train_problems(train: list, path: tuple) -> list:
+    """Phase mesh (d)'s training step's failed checks: rank 0's step against
+    its meshless one (the loss within MESH_LOSS_RTOL, the gradients' relative
+    L2 within MESH_SP_GRAD_REL_L2, no parameter past MESH_PARAM_LR_FACTOR
+    lr), every rank's loss the same and finite; path `sp_train`'s kernels
+    (PATH_KERNELS["sp_train"] launched, SP_TRAIN_IDLE_KERNELS not, every
+    attention on its tensor-core body)."""
+    t0, problems = train[0], []
+    if not (math.isfinite(t0["loss"]) and len({t["loss"] for t in train}) == 1):
+        problems.append(f"SP = 2 training losses {[t['loss'] for t in train]}")
+    if not t0["loss_rel_err"] <= MESH_LOSS_RTOL:
+        problems.append(f"SP = 2 training loss {t0['loss']} against {t0['meshless_loss']} "
+                        "without a mesh")
+    if not t0["grad_rel_l2"] <= MESH_SP_GRAD_REL_L2:
+        problems.append(f"SP = 2 gradients {t0['grad_rel_l2']} (relative L2) from the meshless "
+                        "step's")
+    if t0["params_over_bound"]:
+        problems.append(f"SP = 2: {t0['params_over_bound']} parameters past "
+                        f"{MESH_PARAM_LR_FACTOR} lr from the meshless step's")
+    launches, _, tc, cluster = path
+    problems += body_problems("sp_train", launches, tc, cluster)
+    busy = {n: launches[n] for n in SP_TRAIN_IDLE_KERNELS if launches[n]}
+    if busy:
+        problems.append(f"SP = 2 training launched {busy}: its GroupNorms' backward needs "
+                        "sums across slabs")
     return problems
 
 
@@ -4512,6 +4732,7 @@ def main(argv) -> int:
                "f32": c.f32, **c.notes, "shapes": len(shapes[n])} for n, c in cases.items()})
 
     log("kernels_sp", **path_shape_times(cases, by_path["sp"][1]))
+    log("kernels_sp_train", **path_shape_times(cases, by_path["sp_train"][1]))
 
     print(smi, flush=True)
     kernels = ops.all_kernels()

@@ -112,6 +112,20 @@
 // where a cluster holds one sample); the caller sums over B. Bound: bytes,
 // one read of x and g and one write of dx.
 //
+// gn_bwd_stats + gn_bwd_apply: the backward split at its group sums, as
+// gn_stats / gn_apply split the forward, for sequence parallelism, where a
+// group spans the slabs of every model rank (_gn_bwd_kernel's reduction over
+// the group inside one launch cannot see the other slabs). gn_bwd_stats: one
+// block of 256 threads a channel row (B*C blocks) reads x and g once with
+// the forward's saved mean and inv, recomputes xhat, y = xhat*gamma + beta
+// and SiLU', and writes the row's sum dpre * xhat and sum dpre (dgamma,
+// dbeta of the slab); the last block of a group to finish (a ticket after a
+// fence) adds the group's rows in channel order into (sum gamma*dpre, sum
+// gamma*dpre*xhat). The caller all-reduces those over the slabs;
+// gn_bwd_apply streams dx = inv*(gamma_c*dpre - m1 - xhat*m2) over gn_apply's
+// grid. Bound: bytes, two passes of x's size (x, g read) and three (x, g
+// read, dx written).
+//
 // Statistics follow the Pallas kernels: var = E[x^2] - mean^2, inv =
 // 1/sqrt(var + eps).
 
@@ -127,6 +141,7 @@ constexpr int kFwdThreads = 512;
 constexpr int kStatsThreads = 256;
 constexpr int kApplyThreads = 256;
 constexpr int kBwdThreads = 512;
+constexpr int kSplitThreads = 256;  // gn_bwd_stats, gn_bwd_apply
 
 // Sums a and b over the block; every thread gets the totals.
 template <int NT>
@@ -424,6 +439,98 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __r
   // 3. dx over the whole group
   dx_pass<T, N, kBwdThreads, int64_t>(x + base, g + base, dx + base, 0, n, HW, gam_g, bet_g,
                                       mean, inv, m1, m2, act, false);
+}
+
+// ------------------------------------------------- the split backward (SP)
+
+// grid (B*C): block bc reduces channel row bc (HW elements of x and g) with
+// the forward's statistics mean, inv (B, G) to dparam[b][0][c] = sum dpre *
+// xhat and dparam[b][1][c] = sum dpre. The block that finishes its group
+// last (a ticket in done, after a fence) adds the group's rows in channel
+// order into sums[b][g] = (sum gamma*dpre, sum gamma*dpre*xhat): the same
+// bits whichever block comes last.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kSplitThreads)
+gn_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ mean, const float* __restrict__ inv,
+                    const float* __restrict__ gamma, const float* __restrict__ beta,
+                    float* __restrict__ dparam, float* __restrict__ sums,
+                    unsigned* __restrict__ done, int C, int HW, int G, int act) {
+  __shared__ bool last;
+  const int64_t row = blockIdx.x;
+  const int64_t b = row / C;
+  const int c = (int)(row % C), cg = C / G, gi = c / cg;
+  const int64_t bg = b * G + gi;
+  const float mu = mean[bg], iv = inv[bg], gam = gamma[c], bet = beta[c];
+  const T* xr = x + row * HW;
+  const T* gr = g + row * HW;
+  constexpr int N = VEC ? Pack<T>::N : 1;
+  float sdg = 0.0f, sdb = 0.0f, v[N], w[N];
+  for (int64_t i = (int64_t)threadIdx.x * N; i < HW; i += (int64_t)kSplitThreads * N) {
+    load_n<T, N>(xr + i, v);
+    load_n<T, N>(gr + i, w);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float xh = (v[j] - mu) * iv;
+      const float d = gn_dpre(w[j], xh, gam, bet, act);
+      sdb += d;
+      sdg = fmaf(d, xh, sdg);
+    }
+  }
+  block_sum2<kSplitThreads>(sdg, sdb);
+  if (threadIdx.x == 0) {
+    dparam[(b * 2 + 0) * C + c] = sdg;
+    dparam[(b * 2 + 1) * C + c] = sdb;
+    __threadfence();
+    last = atomicAdd(&done[bg], 1u) == (unsigned)cg - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the group's rows, written by other blocks: read at L2 (__ldcg), past L1
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int k = threadIdx.x; k < cg; k += kSplitThreads) {
+    const int ch = gi * cg + k;
+    s1 = fmaf(gamma[ch], __ldcg(dparam + (b * 2 + 1) * C + ch), s1);
+    s2 = fmaf(gamma[ch], __ldcg(dparam + (b * 2 + 0) * C + ch), s2);
+  }
+  block_sum2<kSplitThreads>(s1, s2);
+  if (threadIdx.x == 0) {
+    sums[bg * 2 + 0] = s1;
+    sums[bg * 2 + 1] = s2;
+  }
+}
+
+// grid (B*C, x-blocks) as gn_apply's: row bc of HW elements, dx = inv *
+// (gamma_c*dpre - m1 - xhat*m2), m1 and m2 the group's sums (all-reduced
+// over the slabs) over `count` elements.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kSplitThreads)
+gn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ mean, const float* __restrict__ inv,
+                    const float* __restrict__ gamma, const float* __restrict__ beta,
+                    const float* __restrict__ sums, T* __restrict__ dx, int C, int HW, int G,
+                    float count, int act) {
+  const int64_t row = blockIdx.x;
+  const int64_t b = row / C;
+  const int c = (int)(row % C);
+  const int64_t bg = b * G + c / (C / G);
+  const float mu = mean[bg], iv = inv[bg], gam = gamma[c], bet = beta[c];
+  const float m1 = sums[bg * 2 + 0] / count, m2 = sums[bg * 2 + 1] / count;
+  const int64_t off = row * HW;
+  constexpr int N = VEC ? Pack<T>::N : 1;
+  float v[N], w[N];
+  for (int64_t i = ((int64_t)blockIdx.y * kSplitThreads + threadIdx.x) * N; i < HW;
+       i += (int64_t)gridDim.y * kSplitThreads * N) {
+    load_n<T, N>(x + off + i, v);
+    load_n<T, N>(g + off + i, w);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float xh = (v[j] - mu) * iv;
+      w[j] = iv * (gam * gn_dpre(w[j], xh, gam, bet, act) - m1 - xh * m2);
+    }
+    store_n<T, N>(dx + off + i, w);
+  }
 }
 
 // ------------------------------------------------------------ cluster body
@@ -941,6 +1048,45 @@ void launch_apply(const void* x, const float* a, const float* b, void* y, int B,
 }
 
 template <typename T>
+cudaError_t launch_bwd_stats(const void* x, const void* g, const float* mean, const float* inv,
+                             const float* gamma, const float* beta, float* dparam, float* sums,
+                             unsigned* done, int B, int C, int HW, int G, int act,
+                             cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  const unsigned grid = (unsigned)((int64_t)B * C);
+  if (packable<T>(x, HW) && packable<T>(g, HW))
+    gn_bwd_stats_kernel<T, true><<<grid, kSplitThreads, 0, st>>>(
+        xt, gt, mean, inv, gamma, beta, dparam, sums, done, C, HW, G, act);
+  else
+    gn_bwd_stats_kernel<T, false><<<grid, kSplitThreads, 0, st>>>(
+        xt, gt, mean, inv, gamma, beta, dparam, sums, done, C, HW, G, act);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_apply(const void* x, const void* g, const float* mean, const float* inv,
+                             const float* gamma, const float* beta, const float* sums, void* dx,
+                             int B, int C, int HW, int G, float count, int act,
+                             cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  const bool vec = packable<T>(x, HW) && packable<T>(g, HW) && packable<T>(dx, HW);
+  const int per_block = kSplitThreads * (vec ? Pack<T>::N : 1);
+  int xblocks = (HW + per_block - 1) / per_block;
+  if (xblocks > 64) xblocks = 64;  // each thread then loops over the row
+  dim3 grid((unsigned)((int64_t)B * C), xblocks);
+  if (vec)
+    gn_bwd_apply_kernel<T, true><<<grid, kSplitThreads, 0, st>>>(
+        xt, gt, mean, inv, gamma, beta, sums, dxt, C, HW, G, count, act);
+  else
+    gn_bwd_apply_kernel<T, false><<<grid, kSplitThreads, 0, st>>>(
+        xt, gt, mean, inv, gamma, beta, sums, dxt, C, HW, G, count, act);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_bwd(const void* x, const void* g, const float* gamma, const float* beta,
                        void* dx, float* dparam, int B, int C, int HW, int G, float eps, int act,
                        cudaStream_t st) {
@@ -1035,6 +1181,48 @@ int tt_gn_silu_bwd(const void* x, const void* g, const void* gamma, const void* 
     return (int)tt::launch_bwd<float>(x, g, ga, be, dx, dp, B, C, HW, G, eps, act, st);
   if (dtype == tt::kBF16)
     return (int)tt::launch_bwd<__nv_bfloat16>(x, g, ga, be, dx, dp, B, C, HW, G, eps, act, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split backward (sequence parallelism): the per-channel and group sums
+// of a slab, then dx from the group sums all-reduced over the slabs. mean,
+// inv (B, G) f32; dparam (B, 2, C) f32; sums (B, G, 2) f32; done B*G
+// unsigned zeros (the group tickets).
+int tt_gn_bwd_stats(const void* x, const void* g, const void* mean, const void* inv,
+                    const void* gamma, const void* beta, void* dparam, void* sums, void* done,
+                    int B, int C, int HW, int G, int act, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* mu = static_cast<const float*>(mean);
+  const float* iv = static_cast<const float*>(inv);
+  const float* ga = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  float* dp = static_cast<float*>(dparam);
+  float* sm = static_cast<float*>(sums);
+  unsigned* dn = static_cast<unsigned*>(done);
+  if (dtype == tt::kF32)
+    return (int)tt::launch_bwd_stats<float>(x, g, mu, iv, ga, be, dp, sm, dn, B, C, HW, G, act,
+                                            st);
+  if (dtype == tt::kBF16)
+    return (int)tt::launch_bwd_stats<__nv_bfloat16>(x, g, mu, iv, ga, be, dp, sm, dn, B, C, HW,
+                                                    G, act, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int tt_gn_bwd_apply(const void* x, const void* g, const void* mean, const void* inv,
+                    const void* gamma, const void* beta, const void* sums, void* dx, int B,
+                    int C, int HW, int G, float count, int act, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* mu = static_cast<const float*>(mean);
+  const float* iv = static_cast<const float*>(inv);
+  const float* ga = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  const float* sm = static_cast<const float*>(sums);
+  if (dtype == tt::kF32)
+    return (int)tt::launch_bwd_apply<float>(x, g, mu, iv, ga, be, sm, dx, B, C, HW, G, count,
+                                            act, st);
+  if (dtype == tt::kBF16)
+    return (int)tt::launch_bwd_apply<__nv_bfloat16>(x, g, mu, iv, ga, be, sm, dx, B, C, HW, G,
+                                                    count, act, st);
   return (int)cudaErrorInvalidValue;
 }
 

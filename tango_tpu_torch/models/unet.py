@@ -45,9 +45,14 @@ exchanges (parallel/mesh.py):
   * 1x1 convolutions, projections, the feed-forward and every stream's
     cross-attention are local; the output is gathered along T, so every
     rank returns the meshless-shaped prediction.
-Forward only: with gradients recorded it raises (ROADMAP queue A #10c), as
-it does for a TP-sharded UNet (SP and TP are alternative uses of 'model')
-and for an int8 one (#10d).
+It trains: each exchange carries its backward (parallel/mesh.py's gradient
+rule), and the output passes its gradient divided by 'model'
+(`partial_grad`), since every model rank computes the same loss from it;
+the parameters' gradients are then the slab's partial ones, which the
+trainer sums over 'model'. Under `remat` each block's forward exchanges run
+again inside the backward, in the same order on every rank. It raises for a
+TP-sharded UNet (SP and TP are alternative uses of 'model') and for an int8
+one (#10d).
 
 Mustango's music UNet is this UNet with `cfg.extra_cond_streams = 2`: every
 cross-attention layer runs one Transformer2DModel per stream in sequence,
@@ -71,10 +76,10 @@ from tango_tpu_torch.ops.attention import multi_head_attention
 from tango_tpu_torch.ops.basic import geglu, silu
 from tango_tpu_torch.ops.quant import QConv2d, QLinear, quantize_unet_
 from tango_tpu_torch.parallel.mesh import (
-    SP_NO_BACKWARD,
     copy_to_model,
     gather_seq,
     halo_rows,
+    partial_grad,
     reduce_from_model,
     seq_mesh,
     slab_span,
@@ -507,17 +512,13 @@ class UNet2DConditionModel(nn.Module):
             # are placeholders until a state dict is loaded
             quantize_unet_(self, cfg.quant_scope)
 
-    def _seq_plan(self, sample) -> list:
-        """Each level's placement under the latent sharder: the mesh where
-        the level runs on T-slabs, None where it runs whole (every level
-        without sequence parallelism). Raises where SP cannot run."""
+    def _seq_plan(self, sample, mesh) -> list:
+        """Each level's placement under the latent sharder's mesh: the mesh
+        where the level runs on T-slabs, None where it runs whole (every
+        level without sequence parallelism). Raises where SP cannot run."""
         levels = len(self.cfg.block_out_channels)
-        mesh = seq_mesh(self.latent_sharder)
         if mesh is None:
             return [None] * levels
-        if torch.is_grad_enabled() and (sample.requires_grad or any(
-                p.requires_grad for p in self.parameters())):
-            raise NotImplementedError(SP_NO_BACKWARD)
         for m in self.modules():
             if getattr(m, "tp_mesh", None) is not None:
                 raise ValueError("sequence parallelism of a TP-sharded UNet: SP and TP are "
@@ -540,7 +541,8 @@ class UNet2DConditionModel(nn.Module):
 
     def forward(self, sample, timesteps, encoder_hidden_states, encoder_attention_mask=None):
         cfg = self.cfg
-        plan = self._seq_plan(sample)
+        mesh = seq_mesh(self.latent_sharder)
+        plan = self._seq_plan(sample, mesh)
         dtype = self.conv_in.weight.dtype
         n_streams = 1 + cfg.extra_cond_streams
         contexts = (list(encoder_hidden_states)
@@ -590,4 +592,6 @@ class UNet2DConditionModel(nn.Module):
                 x = _reslab(x, plan[level], plan[level - 1])
 
         x = seq_conv(self.conv_out, self.conv_norm_out(x, plan[0]), plan[0])
+        if mesh is not None:
+            x = partial_grad(x, mesh)
         return nchw_to_nhwc(_reslab(x, plan[0], None, "output"))

@@ -7,7 +7,10 @@ the single-pass kernel when one sample's f32 copy is at most 8 MB, else the
 two-stage kernel for at most 64 groups, else the plain reference. Under
 sequence parallelism (`sp=`) every call takes the two-stage kernels, split
 at their combine by an all-reduce of the partial sums: the single pass
-would see one slab's statistics.
+would see one slab's statistics. Its backward is split the same way
+(`_SeqGroupNorm`): gn_bwd_stats on the slab, its group sums all-reduced
+over 'model', gn_bwd_apply; dgamma and dbeta stay the slab's (partial:
+the trainer sums the replicated parameters' gradients over 'model').
 
 The kernel routes are one autograd Function (`_gn_pallas_vjp` of
 tango_tpu/ops/basic.py:87-130): its forward is the single-pass or two-stage
@@ -29,11 +32,14 @@ import torch
 import torch.nn.functional as F
 
 from tango_tpu_torch.ops.gn_silu import (
+    gn_bwd_apply,
+    gn_bwd_stats,
     gn_bwd_supported,
     gn_silu_bwd,
     gn_silu_fwd,
-    group_norm_from_sums,
+    group_norm_from_stats,
     group_norm_two_stage,
+    group_stats,
     group_sums,
     kernel_shape_ok,
     n_chunks,
@@ -103,6 +109,33 @@ class _GroupNormKernel(torch.autograd.Function):
         return dx, dscale, dbias, None, None, None, None
 
 
+class _SeqGroupNorm(torch.autograd.Function):
+    """GroupNorm(+SiLU) of a slab under sequence parallelism: gn_stats, the
+    sums all-reduced over 'model', gn_apply; backward gn_bwd_stats, its sums
+    all-reduced over 'model', gn_bwd_apply. Saves x, scale, bias and the
+    group statistics (B, G) f32."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, act, sp):
+        count = math.prod(x.shape[2:]) * sp.shape["model"] * (x.shape[1] // num_groups)
+        mean, inv = group_stats(all_reduce_over_model_(group_sums(x, num_groups), sp), count,
+                                eps)
+        ctx.save_for_backward(x, scale, bias, mean, inv)
+        ctx.cfg = (act, sp, count)
+        return group_norm_from_stats(x, mean, inv, scale, bias, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, mean, inv = ctx.saved_tensors
+        act, sp, count = ctx.cfg
+        g = g.to(x.dtype).contiguous()
+        sums, dparam = gn_bwd_stats(x, g, mean, inv, scale, bias, act)
+        all_reduce_over_model_(sums, sp, "group_norm_grad")
+        dx = gn_bwd_apply(x, g, mean, inv, scale, bias, act, sums, count)
+        dscale, dbias = dparam.sum(0)
+        return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None, None, None
+
+
 def group_norm(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -118,17 +151,15 @@ def group_norm(
     axis (sequence parallelism), whose groups span every slab. Then the
     two-stage kernels run split at their combine: gn_stats on the slab, its
     (B, G, 2) sums all-reduced over 'model', the combine over the whole
-    group's count, gn_apply on the slab; forward only (the UNet refuses
-    gradients under SP)."""
+    group's count, gn_apply on the slab; the backward is split alike
+    (`_SeqGroupNorm`)."""
     if act not in (None, "silu"):
         raise ValueError(f"unknown fused act {act}")
     if x.shape[1] % num_groups:
         raise ValueError(f"channels {x.shape[1]} not divisible by groups {num_groups}")
     x = x.contiguous()
     if sp is not None:
-        count = math.prod(x.shape[2:]) * sp.shape["model"] * (x.shape[1] // num_groups)
-        sums = all_reduce_over_model_(group_sums(x, num_groups), sp)
-        return group_norm_from_sums(x, sums, count, scale, bias, num_groups, eps, act)
+        return _SeqGroupNorm.apply(x, scale, bias, num_groups, eps, act, sp)
     if gn_single_pass_supported(x, num_groups):
         return _GroupNormKernel.apply(x, scale, bias, num_groups, eps, act, False)
     if gn_two_stage_supported(x, num_groups):

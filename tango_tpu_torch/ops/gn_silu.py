@@ -1,6 +1,6 @@
 """GroupNorm(+SiLU) kernels and their plain PyTorch versions.
 
-Four kernels from `csrc/gn_silu.cu`:
+Six kernels from `csrc/gn_silu.cu`:
   * `gn_silu_fwd` — single pass, replaces `_gn_kernel`
     (tango_tpu/ops/gn_silu_pallas.py:27). Where `gn_fwd_cluster_size` gives
     a cluster size R (every path's shape), one thread-block cluster of R
@@ -11,6 +11,11 @@ Four kernels from `csrc/gn_silu.cu`:
   * `gn_stats` + `gn_apply` — two stage, replace `_gn_stats_kernel` (:234) and
     `_gn_apply_kernel` (:257), with the per-channel combine in torch between
     them, as it was XLA between the two Pallas calls;
+  * `gn_bwd_stats` + `gn_bwd_apply` — the backward split at its group sums
+    (sequence parallelism, where a group spans every slab), together
+    replacing `_gn_bwd_kernel` (:119) as gn_stats / gn_apply split the
+    forward: the slab's sums, all-reduced over 'model' by the caller, then
+    dx; dgamma, dbeta stay the slab's;
   * `gn_silu_bwd` — the backward, replaces `_gn_bwd_kernel` (:119): dx and
     per-sample dgamma/dbeta with the statistics recomputed, summed over the
     batch here in torch, as `group_norm_pallas_bwd` sums them in XLA. Where
@@ -270,14 +275,18 @@ def group_sums(x, num_groups: int):
     return gn_stats(x, num_groups, n_chunks(math.prod(x.shape[2:]))).sum(dim=2)
 
 
-def group_norm_from_sums(x, sums, count: int, gamma, beta, num_groups: int, eps: float,
-                         act: str | None):
-    """The per-channel combine (torch) of the (B, G, 2) sums over `count`
-    elements a group, then gn_apply over x."""
-    cg = x.shape[1] // num_groups
+def group_stats(sums, count: int, eps: float):
+    """Each group's mean and 1/sqrt(var + eps), (B, G) f32, from its (B, G, 2)
+    sums of x and x^2 over `count` elements."""
     mean = sums[..., 0] / float(count)
     var = sums[..., 1] / float(count) - mean * mean
-    inv = torch.rsqrt(var + eps)
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_from_stats(x, mean, inv, gamma, beta, act: str | None):
+    """The per-channel combine (torch) of the (B, G) statistics, then
+    gn_apply over x."""
+    cg = x.shape[1] // mean.shape[1]
     a = inv.repeat_interleave(cg, 1) * gamma.float()[None]
     bb = beta.float()[None] - mean.repeat_interleave(cg, 1) * a
     return gn_apply(x, a.contiguous(), bb.contiguous(), act)
@@ -287,8 +296,8 @@ def group_norm_two_stage(x, gamma, beta, num_groups: int, eps: float = 1e-6,
                          act: str | None = None):
     """gn_stats -> per-channel combine (torch) -> gn_apply, as group_norm_pallas2."""
     count = math.prod(x.shape[2:]) * (x.shape[1] // num_groups)
-    return group_norm_from_sums(x, group_sums(x, num_groups), count, gamma, beta, num_groups,
-                                eps, act)
+    return group_norm_from_stats(x, *group_stats(group_sums(x, num_groups), count, eps), gamma,
+                                 beta, act)
 
 
 # -------------------------------------------------------------------- backward
@@ -418,3 +427,110 @@ def _launch_bwd(x, g, gamma, beta, num_groups: int, eps: float, act: str | None)
 
 
 gn_silu_bwd.cluster_launches = 0
+
+
+# ------------------------------------------------------------- split backward
+
+def _dpre_xhat(x, g, mean, inv, gamma, beta, act):
+    """(dpre, xhat, gamma) of x (B, C, *spatial) as (B, G, C/G, HW) f32 from
+    the (B, G) statistics: dpre = g * silu'(y) on the SiLU route."""
+    b, c = x.shape[0], x.shape[1]
+    groups = mean.shape[1]
+    cg = c // groups
+    xf = x.float().reshape(b, groups, cg, -1)
+    xhat = (xf - mean[..., None, None]) * inv[..., None, None]
+    gam = gamma.float().reshape(1, groups, cg, 1)
+    gf = g.float().reshape(xf.shape)
+    if act == "silu":
+        y = xhat * gam + beta.float().reshape(1, groups, cg, 1)
+        sig = torch.sigmoid(y)
+        gf = gf * (sig * (1.0 + y * (1.0 - sig)))
+    return gf, xhat, gam
+
+
+def gn_bwd_stats_plain(x, g, mean, inv, gamma, beta, act: str | None):
+    """Plain version of gn_bwd_stats: (sums (B, G, 2), dparam (B, 2, C)), f32."""
+    dpre, xhat, gam = _dpre_xhat(x, g, mean, inv, gamma, beta, act)
+    dgamma, dbeta = (dpre * xhat).sum(3), dpre.sum(3)          # (B, G, C/G)
+    sums = torch.stack([(gam[..., 0] * dbeta).sum(-1), (gam[..., 0] * dgamma).sum(-1)], -1)
+    dparam = torch.stack([dgamma.reshape(x.shape[0], -1), dbeta.reshape(x.shape[0], -1)], 1)
+    return sums, dparam
+
+
+def _check_split(name, x, g, mean, inv, sums=None) -> tuple[int, int, int, int]:
+    """Validate the split backward's operands; return (B, C, HW, G)."""
+    if mean.dim() != 2 or mean.shape[0] != x.shape[0]:
+        raise ValueError(f"{name}: mean must be (B, G), got {tuple(mean.shape)}")
+    groups = mean.shape[1]
+    b, c, hw = _check(x, groups, name)
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
+        raise ValueError(f"{name}: g must be contiguous with x's shape and dtype")
+    stats = [(mean, (b, groups)), (inv, (b, groups))]
+    if sums is not None:
+        stats.append((sums, (b, groups, 2)))
+    for t, shape in stats:
+        if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: statistics must be contiguous float32 {shape}")
+        if t.device != x.device or g.device != x.device:
+            raise ValueError(f"{name}: every operand must be on x's device")
+    return b, c, hw, groups
+
+
+@kernel_wrapper(_SRC, "tango_tpu/ops/gn_silu_pallas.py:119", backward=True)
+def gn_bwd_stats(x, g, mean, inv, gamma, beta, act: str | None = None):
+    """The first half of GroupNorm(+SiLU)'s backward over a slab x (B, C,
+    *spatial) for the incoming gradient g, with the forward's statistics
+    mean, inv (B, G) f32: (sums (B, G, 2): sum gamma*dpre and sum
+    gamma*dpre*xhat over the slab's part of each group; dparam (B, 2, C): the
+    slab's dgamma and dbeta of each sample), all f32."""
+    if act not in (None, "silu"):
+        raise ValueError(f"unknown fused act {act}")
+    b, c, hw, groups = _check_split("gn_bwd_stats", x, g, mean, inv)
+    if not _route(x, "gn_bwd_stats"):
+        return gn_bwd_stats_plain(x, g, mean, inv, gamma, beta, act)
+    lib = _build.load()
+    g32, b32 = _param_f32(gamma, c, x.device), _param_f32(beta, c, x.device)
+    dparam = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    sums = torch.empty((b, groups, 2), device=x.device, dtype=torch.float32)
+    done = torch.zeros(b * groups, device=x.device, dtype=torch.int32)
+    code = lib.tt_gn_bwd_stats(
+        x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(), g32.data_ptr(),
+        b32.data_ptr(), dparam.data_ptr(), sums.data_ptr(), done.data_ptr(), b, c, hw, groups,
+        int(act == "silu"), _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "gn_bwd_stats")
+    gn_bwd_stats.launches += 1
+    gn_bwd_stats.shapes.add((tuple(x.shape), groups, act))
+    return sums, dparam
+
+
+def gn_bwd_apply_plain(x, g, mean, inv, gamma, beta, act: str | None, sums, count: int):
+    """Plain version of gn_bwd_apply: dx in x's dtype."""
+    dpre, xhat, gam = _dpre_xhat(x, g, mean, inv, gamma, beta, act)
+    m1 = (sums[..., 0] / float(count))[..., None, None]
+    m2 = (sums[..., 1] / float(count))[..., None, None]
+    dx = inv[..., None, None] * (gam * dpre - m1 - xhat * m2)
+    return dx.reshape(x.shape).to(x.dtype)
+
+
+@kernel_wrapper(_SRC, "tango_tpu/ops/gn_silu_pallas.py:119", backward=True)
+def gn_bwd_apply(x, g, mean, inv, gamma, beta, act: str | None, sums, count: int):
+    """The second half: dx = inv * (gamma*dpre - m1 - xhat*m2) over the slab x,
+    m1 and m2 the group means of gamma*dpre and gamma*dpre*xhat, `sums`
+    (gn_bwd_stats' (B, G, 2), summed over every slab) over `count` elements
+    a group."""
+    if act not in (None, "silu"):
+        raise ValueError(f"unknown fused act {act}")
+    b, c, hw, groups = _check_split("gn_bwd_apply", x, g, mean, inv, sums)
+    if not _route(x, "gn_bwd_apply"):
+        return gn_bwd_apply_plain(x, g, mean, inv, gamma, beta, act, sums, count)
+    lib = _build.load()
+    g32, b32 = _param_f32(gamma, c, x.device), _param_f32(beta, c, x.device)
+    dx = torch.empty_like(x)
+    code = lib.tt_gn_bwd_apply(
+        x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(), g32.data_ptr(),
+        b32.data_ptr(), sums.data_ptr(), dx.data_ptr(), b, c, hw, groups, float(count),
+        int(act == "silu"), _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "gn_bwd_apply")
+    gn_bwd_apply.launches += 1
+    gn_bwd_apply.shapes.add((tuple(x.shape), groups, act))
+    return dx

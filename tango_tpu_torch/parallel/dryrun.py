@@ -1,5 +1,5 @@
-"""A DP x TP SFT step on n ranks against the meshless step: the port's
-counterpart of JAX's `__graft_entry__.dryrun_multichip`.
+"""A DP x TP and a DP x SP SFT step on n ranks against the meshless step:
+the port's counterpart of JAX's `__graft_entry__.dryrun_multichip`.
 
     python -m tango_tpu_torch.parallel.dryrun --n 4 [--device cpu]
 
@@ -7,15 +7,18 @@ starts n ranks (parallel.launch) on a ('data', 'model') mesh, model 2 where
 n is an even 4 or more (2 x 2 at n = 4), else 1. Each rank builds the same
 seeded tiny UNet (JAX's dryrun config: three levels, heads 2, 4, 4) and VAE,
 takes its rows of a constant batch of one row a data rank, and takes one
-SFTTrainer step; rank 0 also takes the meshless step at the global batch
-and holds the mesh step to it at JAX's bounds: the loss within 2e-5 of it
-(relative), every updated parameter within 1e-4; on the card TF32 is off,
-as JAX's f32 bounds assume. The sequence-parallel half
-of JAX's dry run is left out: it is a training step, and SP's backward is
-not ported (ROADMAP queue A #10c).
+SFTTrainer step with the UNet sharded by the TP rules; where model > 1, a
+second trainer takes the same step sequence-parallel (the latent time axis,
+16 frames, split over 'model' by `latent_sharder=partial(shard_latents_seq,
+mesh=mesh)`, the parameters replicated). Rank 0 also takes the meshless
+step at the global batch and holds both mesh steps to it at JAX's bounds:
+the loss within 2e-5 of it (relative), every updated parameter within 1e-4;
+on the card TF32 is off, as JAX's f32 bounds assume.
 Every rank prints its kernel launches ({"dryrun_rank": ...}) and rank 0 the
-record ({"dryrun": {...}}); `dryrun_multichip(n)` launches the ranks and
-returns that record with every rank's launches.
+record ({"dryrun": {...}}: `loss`, `param_max_drift` and, for the SP step,
+`sp_loss`, `sp_loss_rel_err`, `sp_param_max_drift`, `sp_collectives`);
+`dryrun_multichip(n)` launches the ranks and returns that record with every
+rank's launches.
 """
 
 from __future__ import annotations
@@ -47,16 +50,21 @@ def model_axis(n: int) -> int:
     return 2 if n >= 4 and n % 2 == 0 else 1
 
 
-def _trainer(device, mesh):
+def _trainer(device, mesh, seq: bool = False):
+    """The step's trainer; `seq`: its UNet sequence-parallel over the mesh."""
+    import functools
+
     from tango_tpu_torch.configs import TrainConfig
     from tango_tpu_torch.models.diffusion import AudioDiffusion
     from tango_tpu_torch.models.vae import AutoencoderKL
+    from tango_tpu_torch.parallel.mesh import shard_latents_seq
     from tango_tpu_torch.train.sft import SFTTrainer
     from tango_tpu_torch.utils.init import init_random_
 
     unet_cfg, vae_cfg = _config()
+    sharder = functools.partial(shard_latents_seq, mesh=mesh) if seq else None
     diffusion = AudioDiffusion(unet_cfg, latent_t_size=16, latent_f_size=4, snr_gamma=5.0,
-                               device=device)
+                               latent_sharder=sharder, device=device)
     vae = init_random_(AutoencoderKL(vae_cfg, with_encoder=True),
                        torch.Generator().manual_seed(0)).to(device).eval()
     return SFTTrainer(diffusion, vae, TrainConfig(gradient_accumulation_steps=1),
@@ -80,11 +88,15 @@ def rank_main(device=None) -> tuple:
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
 
-    trainer = _trainer(dev, mesh)
-    state = trainer.init_state(gen(0))
-    state, loss = trainer.train_step(state, pmesh.shard_batch(batch, mesh), gen(1))
-    loss = float(loss)
-    params = trainer.state_dict(state)
+    def step(seq):
+        trainer = _trainer(dev, mesh, seq)
+        state = trainer.init_state(gen(0))
+        state, loss = trainer.train_step(state, pmesh.shard_batch(batch, mesh), gen(1))
+        return float(loss), trainer.state_dict(state)
+
+    steps = {"": step(False)}
+    if mesh.shape["model"] > 1:
+        steps["sp_"] = step(True)
     launches = {n: fn.launches for n, fn in ops.all_kernels().items()}
     if not mesh.is_main:
         return launches, {}
@@ -92,12 +104,17 @@ def rank_main(device=None) -> tuple:
     ref_state = ref.init_state(gen(0))
     ref_state, ref_loss = ref.train_step(ref_state, batch, gen(1))
     ref_loss = float(ref_loss)
-    drift = max(float((params[k].float() - v.float()).abs().max())
-                for k, v in ref_state.params.state_dict().items())
-    rec = {"mesh": mesh.shape, "backend": mesh.backend, "loss": loss, "meshless_loss": ref_loss,
-           "loss_rel_err": abs(loss - ref_loss) / max(abs(ref_loss), 1e-3),
-           "param_max_drift": drift, "loss_rtol": LOSS_RTOL, "param_atol": PARAM_ATOL}
-    rec["ok"] = rec["loss_rel_err"] <= LOSS_RTOL and drift <= PARAM_ATOL
+    rec = {"mesh": mesh.shape, "backend": mesh.backend, "meshless_loss": ref_loss,
+           "loss_rtol": LOSS_RTOL, "param_atol": PARAM_ATOL, "ok": True}
+    for tag, (loss, params) in steps.items():
+        drift = max(float((params[k].float() - v.float()).abs().max())
+                    for k, v in ref_state.params.state_dict().items())
+        rec.update({f"{tag}loss": loss,
+                    f"{tag}loss_rel_err": abs(loss - ref_loss) / max(abs(ref_loss), 1e-3),
+                    f"{tag}param_max_drift": drift})
+        rec["ok"] &= rec[f"{tag}loss_rel_err"] <= LOSS_RTOL and drift <= PARAM_ATOL
+    if "sp_" in steps:  # one SP training step's exchanges by kind, this rank's
+        rec["sp_collectives"] = {k: v for k, v in mesh.seq_stats.items() if "_bytes" not in k}
     return launches, rec
 
 

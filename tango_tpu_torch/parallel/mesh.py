@@ -28,7 +28,22 @@ collective from sharding annotations, here each use places its own:
     the slabs gathered in rank order (`gather_seq`: a self-attention's
     keys and values, a level that runs whole, the output). Each counts its
     calls and the bytes it receives from the other ranks in the mesh's
-    `seq_stats`. Forward only: the backward is ROADMAP queue A #10c.
+    `seq_stats`, its backward under "<kind>_grad".
+
+    SP trains with one gradient rule, which every exchange's backward keeps
+    (XLA derives these; here they are written out as autograd Functions):
+    a tensor every model rank holds whole (replicated) carries a *partial*
+    gradient, whose sum over the model ranks is the true one; a T-slab
+    carries its own slab's true gradient. So the halo exchange's backward
+    sends each halo row's gradient back to the rank that owns the row and
+    adds it there (one all-gather of the edges' gradients, the mirror of the
+    forward's); the slab -> whole gather's backward is a reduce-scatter (the
+    sum over the model ranks, each keeping its slab); the whole -> slab
+    narrow keeps its zero-padded backward; the UNet's output, whose loss
+    every model rank computes whole and alike, passes its gradient divided
+    by 'model' (`partial_grad`); GroupNorm all-reduces its backward's group
+    sums; and the replicated parameters' partial gradients are summed over
+    'model' with the mean over 'data' (`all_reduce_grads(seq=True)`).
 
 A world of one gives a trivial mesh without a process group: every
 collective of an axis of size 1 is the identity, so `mesh=make_mesh()` in
@@ -55,10 +70,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
-
-SP_NO_BACKWARD = ("sequence parallelism runs the forward only: its backward (the halos' and "
-                  "gathers' gradients, GroupNorm's across slabs) is ROADMAP queue A #10c; "
-                  "run the forward under torch.no_grad()")
 
 # Megatron-style column/row rules by parameter-name suffix, JAX's _TP_RULES on
 # the port's names. A spec names the sharded axis of the torch weight, which
@@ -154,6 +165,11 @@ class Mesh:
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    def __deepcopy__(self, memo):
+        # a handle on the process groups, which cannot be copied: a module
+        # copied with its latent sharder (DPO's reference UNet) shares it
+        return self
 
     def comm_device(self) -> torch.device:
         """Where a gathered tensor travels: the card under NCCL, the host
@@ -463,27 +479,104 @@ def _gather_model(x: torch.Tensor, mesh: Mesh, kind: str) -> list:
     return [p.to(x.device) for p in parts]
 
 
+def _reduce_scatter_model(g: torch.Tensor, mesh: Mesh, dim: int, kind: str) -> torch.Tensor:
+    """The sum over the model ranks of g (each rank's whole), cut along `dim`
+    into slabs in rank order, this rank's slab kept: one reduce-scatter,
+    staged as the gathers are; counted in `mesh.seq_stats` under `kind`."""
+    parts = mesh.shape["model"]
+    src = torch.stack(g.chunk(parts, dim)).to(mesh.comm_device())  # (parts, *slab), contiguous
+    out = src.new_empty(src.shape[1:])
+    dist.reduce_scatter_tensor(out.view(-1), src.view(-1), group=mesh.model_group)
+    mesh.seq_stats[kind] += 1
+    mesh.seq_stats[f"{kind}_bytes"] += (parts - 1) * out.numel() * out.element_size()
+    return out.to(g.device)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The slabs gathered whole; backward, the reduce-scatter of the whole's
+    partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, kind):
+        ctx.mesh, ctx.dim, ctx.kind = mesh, dim, kind
+        return torch.cat(_gather_model(x, mesh, kind), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter_model(g.contiguous(), ctx.mesh, ctx.dim, f"{ctx.kind}_grad"),
+                None, None, None)
+
+
 def gather_seq(x: torch.Tensor, mesh: Mesh, dim: int, kind: str = "gather") -> torch.Tensor:
     """The whole of a tensor whose slabs along `dim` the model ranks hold (in
-    rank order, of equal lengths), on every model rank."""
-    return torch.cat(_gather_model(x, mesh, kind), dim)
+    rank order, of equal lengths), on every model rank. Its backward sums
+    the whole's partial gradients over the model ranks into each slab."""
+    return _GatherSeq.apply(x, mesh, dim, kind)
+
+
+class _Halo(torch.autograd.Function):
+    """The neighbours' boundary rows (`halo_rows`); backward, each halo row's
+    gradient added on the rank that owns the row."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, above, below, dim):
+        ctx.mesh, ctx.rows, ctx.dim, ctx.shape = mesh, (above, below), dim, x.shape
+        n = x.shape[dim]
+        edges = _gather_model(torch.cat([x.narrow(dim, 0, below),
+                                         x.narrow(dim, n - above, above)], dim), mesh, "halo")
+        i, parts = mesh.model_index, mesh.shape["model"]
+        zeros = lambda rows: x.new_zeros(x.shape[:dim] + (rows,) + x.shape[dim + 1:])  # noqa: E731
+        top = edges[i - 1].narrow(dim, below, above) if i > 0 else zeros(above)
+        bottom = edges[i + 1].narrow(dim, 0, below) if i < parts - 1 else zeros(below)
+        return top, bottom
+
+    @staticmethod
+    def backward(ctx, g_top, g_bottom):
+        # the top rows were the previous rank's last `above`, the bottom the
+        # next rank's first `below`: every rank sends both gradients back,
+        # and the rows past the first and the last rank (zeros) have no owner
+        (above, below), dim, mesh = ctx.rows, ctx.dim, ctx.mesh
+        edges = _gather_model(torch.cat([g_top, g_bottom], dim), mesh, "halo_grad")
+        i, parts = mesh.model_index, mesh.shape["model"]
+        n = ctx.shape[dim]
+        dx = g_top.new_zeros(ctx.shape)
+        if i > 0:
+            dx.narrow(dim, 0, below).add_(edges[i - 1].narrow(dim, above, below))
+        if i < parts - 1:
+            dx.narrow(dim, n - above, above).add_(edges[i + 1].narrow(dim, 0, above))
+        return dx, None, None, None, None
 
 
 def halo_rows(x: torch.Tensor, mesh: Mesh, above: int, below: int, dim: int = 2):
     """The rows a convolution of this rank's slab reads beyond it: the
     previous rank's last `above` rows and the next rank's first `below`
     rows along `dim`, zeros past the first and the last rank (the
-    convolution's zero padding). One all-gather of every rank's edges."""
+    convolution's zero padding). One all-gather of every rank's edges, and
+    one of their gradients backward."""
     n = x.shape[dim]
     if above > n or below > n:
         raise ValueError(f"halo of {above} / {below} rows over a slab of {n}")
-    edges = _gather_model(torch.cat([x.narrow(dim, 0, below), x.narrow(dim, n - above, above)],
-                                    dim), mesh, "halo")
-    i, parts = mesh.model_index, mesh.shape["model"]
-    zeros = lambda rows: x.new_zeros(x.shape[:dim] + (rows,) + x.shape[dim + 1:])  # noqa: E731
-    top = edges[i - 1].narrow(dim, below, above) if i > 0 else zeros(above)
-    bottom = edges[i + 1].narrow(dim, 0, below) if i < parts - 1 else zeros(below)
-    return top, bottom
+    return _Halo.apply(x, mesh, above, below, dim)
+
+
+class _PartialGrad(torch.autograd.Function):
+    """Identity forward; the gradient divided by 'model' backward."""
+
+    @staticmethod
+    def forward(ctx, x, parts):
+        ctx.parts = parts
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.parts, None
+
+
+def partial_grad(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """x unchanged, its gradient divided by 'model': where every model rank
+    computes the same loss from a tensor, each rank's gradient of it is the
+    true one, and this makes it the partial one of the gradient rule."""
+    return _PartialGrad.apply(x, mesh.shape["model"])
 
 
 def all_reduce_over_model_(t: torch.Tensor, mesh: Mesh, kind: str = "group_norm"):
@@ -534,11 +627,16 @@ def reduce_from_model(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return _ReduceFromModel.apply(x, mesh)
 
 
-def all_reduce_grads(params, mesh: Optional[Mesh], bucket: int = 1 << 26) -> None:
+def all_reduce_grads(params, mesh: Optional[Mesh], bucket: int = 1 << 26,
+                     seq: bool = False) -> None:
     """Replace every gradient by its mean over 'data', in flat buckets of at
-    most `bucket` elements of one dtype (one collective a bucket)."""
-    if mesh is None or mesh.data_group is None:
+    most `bucket` elements of one dtype (one collective a bucket). seq=True
+    (sequence parallelism: parameters replicated over 'model', their
+    gradients partial) also sums over 'model': one all-reduce over every
+    rank, divided by the data size."""
+    if mesh is None or mesh.size == 1 or (not seq and mesh.data_group is None):
         return
+    group = None if seq else mesh.data_group  # None: every rank
     grads = [p.grad for p in params if p.grad is not None]
     d = mesh.shape["data"]
     i = 0
@@ -548,7 +646,7 @@ def all_reduce_grads(params, mesh: Optional[Mesh], bucket: int = 1 << 26) -> Non
                 j == i or n + grads[j].numel() <= bucket):
             n += grads[j].numel()
             j += 1
-        flat = _all_reduce_(torch.cat([g.reshape(-1) for g in grads[i:j]]), mesh.data_group,
+        flat = _all_reduce_(torch.cat([g.reshape(-1) for g in grads[i:j]]), group,
                             mesh).div_(d)
         k = 0
         for g in grads[i:j]:

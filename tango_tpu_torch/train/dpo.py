@@ -15,7 +15,9 @@ Under a mesh (`mesh=`) as `train.sft`: the trained UNet is sharded over
 gradients are averaged over 'data' before AdamW, the losses and metrics
 are reduced over 'data', and rank 0 writes the gathered full state dict.
 The reference UNet stays whole on every rank (the caller makes it before
-sharding; JAX's CLI keeps it in bf16, replicated).
+sharding; JAX's CLI keeps it in bf16, replicated). A sequence-parallel UNet
+(a latent sharder) trains as in `train.sft`: replicated, its gradients
+summed over 'model'.
 """
 
 from __future__ import annotations
@@ -32,7 +34,13 @@ from tango_tpu_torch.configs import DPOConfig, TrainConfig
 from tango_tpu_torch.models.dpo import DPOAudioDiffusion
 from tango_tpu_torch.models.vae import AutoencoderKL
 from tango_tpu_torch.parallel import mesh as pmesh
-from tango_tpu_torch.train.sft import TrainState, draw_latents, make_optimizer
+from tango_tpu_torch.train.sft import (
+    TrainState,
+    draw_latents,
+    make_optimizer,
+    place_unet,
+    trainer_mesh,
+)
 from tango_tpu_torch.utils.checkpoint import save_native
 
 
@@ -40,7 +48,7 @@ class DPOTrainer:
     def __init__(self, diffusion: DPOAudioDiffusion, vae: AutoencoderKL, config: DPOConfig,
                  total_steps: int, mesh: Optional[pmesh.Mesh] = None):
         self.diffusion = diffusion
-        self.mesh = mesh
+        self.mesh = trainer_mesh(diffusion.unet, mesh)
         self.vae = vae.requires_grad_(False)
         self.cfg = config
         self.total_steps = total_steps
@@ -62,11 +70,10 @@ class DPOTrainer:
         unet = self.diffusion.unet
         if unet_params is not None:
             unet.load_state_dict(unet_params)
-        if self.mesh is not None:
-            pmesh.shard_params(unet, self.mesh)
+        seq = place_unet(unet, self.mesh)
         unet.requires_grad_(True)
         return TrainState(unet, make_optimizer(self.opt_cfg, self.total_steps, unet.parameters(),
-                                               self.mesh))
+                                               self.mesh, seq))
 
     def _latents(self, fbanks, generator, validation_mode: bool, names):
         """`train.sft.draw_latents` on this rank's fbanks."""

@@ -22,6 +22,14 @@ step at the global batch. The gradients are all-reduced as a mean over
 works on shards); every reported loss is the mean over 'data', so every
 rank takes the same branches; only rank 0 writes, and a checkpoint gathers
 the TP shards into the full state dict first.
+
+Where the diffusion's UNet has a latent sharder (sequence parallelism,
+`parallel.mesh.shard_latents_seq`), its mesh is the trainer's (`mesh=` may
+be left out, as JAX's dry run leaves it out), the UNet stays whole on every
+model rank (`shard_params(tp=False)`), and the gradients, partial on each
+model rank, are summed over 'model' as they are averaged over 'data'. Every
+model rank of a data rank draws and takes the same rows, so each computes
+the same loss.
 """
 
 from __future__ import annotations
@@ -110,14 +118,36 @@ class AccumulatingAdamW:
         return True
 
 
-def make_optimizer(cfg: TrainConfig, total_steps: int, params, mesh=None) -> AccumulatingAdamW:
+def make_optimizer(cfg: TrainConfig, total_steps: int, params, mesh=None,
+                   seq: bool = False) -> AccumulatingAdamW:
     """AdamW with accumulation; under a mesh the gradients are averaged over
-    'data' once an update, before it."""
+    'data' once an update, before it, and with `seq` (a sequence-parallel
+    UNet) also summed over 'model'."""
     hook = None
-    if mesh is not None and mesh.data_group is not None:
+    if mesh is not None and (mesh.data_group is not None or seq and mesh.model_group is not None):
         def hook(ps):
-            pmesh.all_reduce_grads(ps, mesh)
+            pmesh.all_reduce_grads(ps, mesh, seq=seq)
     return AccumulatingAdamW(params, cfg, total_steps, before_update=hook)
+
+
+def trainer_mesh(unet: nn.Module, mesh: Optional[pmesh.Mesh]) -> Optional[pmesh.Mesh]:
+    """The mesh a trainer of `unet` runs on: `mesh`, or the latent sharder's
+    where it is left out; a sharder over another mesh raises."""
+    seq = pmesh.seq_mesh(unet.latent_sharder)
+    if seq is not None and mesh is not None and seq is not mesh:
+        raise ValueError("the UNet's latent sharder splits T over another mesh than the "
+                         "trainer's")
+    return mesh if mesh is not None else seq
+
+
+def place_unet(unet: nn.Module, mesh: Optional[pmesh.Mesh]) -> bool:
+    """Put the trained UNet on the mesh: replicated over 'model' where it
+    runs sequence-parallel, else sharded by the TP rules. Returns whether it
+    runs sequence-parallel."""
+    seq = pmesh.seq_mesh(unet.latent_sharder) is not None
+    if mesh is not None:
+        pmesh.shard_params(unet, mesh, tp=not seq)
+    return seq
 
 
 def _draw(generator, kind, shape, device) -> torch.Tensor:
@@ -193,23 +223,23 @@ class SFTTrainer:
         self.vae = vae.requires_grad_(False)
         self.cfg = train_config
         self.total_steps = total_steps
-        self.mesh = mesh
+        self.mesh = trainer_mesh(diffusion.unet, mesh)
         self.device = diffusion.unet.conv_in.weight.device
 
     def init_state(self, generator: Optional[torch.Generator] = None, params=None) -> TrainState:
         """Fresh optimizer state over the UNet's weights: seeded random ones
         from `generator`, or `params` (a full state dict) to train on from
-        given weights; then, under a mesh, sharded over 'model'."""
+        given weights; then, under a mesh, sharded over 'model' (replicated
+        where the UNet runs sequence-parallel)."""
         unet = self.diffusion.unet
         if params is None:
             self.diffusion.init_params(generator)
         else:
             unet.load_state_dict(params)
-        if self.mesh is not None:
-            pmesh.shard_params(unet, self.mesh)
+        seq = place_unet(unet, self.mesh)
         unet.requires_grad_(True)
         return TrainState(unet, make_optimizer(self.cfg, self.total_steps, unet.parameters(),
-                                               self.mesh))
+                                               self.mesh, seq))
 
     def state_dict(self, state: TrainState) -> dict:
         """The UNet's full state dict (the TP shards gathered under a mesh):

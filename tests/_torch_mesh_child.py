@@ -57,15 +57,19 @@ def tp_forward(j, pmesh):
 
 def sft_step(j, pmesh):
     """One SFTTrainer step on a (data, model) mesh with the global batch's
-    draws given; the gradients as AdamW sees them, gathered whole."""
+    draws given, the UNet TP-sharded over 'model' or, with j["seq"],
+    sequence-parallel over it (its latent time axis split); the gradients as
+    AdamW sees them, gathered whole, every rank's loss, and the step's SP
+    exchanges by kind."""
     from tango_tpu_torch.configs import TrainConfig
     from tango_tpu_torch.models.diffusion import AudioDiffusion
     from tango_tpu_torch.models.vae import AutoencoderKL
     from tango_tpu_torch.train.sft import SFTTrainer
 
     mesh = pmesh.make_mesh(data=j["data"], model=j["model"], device="cpu")
+    sharder = functools.partial(pmesh.shard_latents_seq, mesh=mesh) if j.get("seq") else None
     diffusion = AudioDiffusion(j["cfg"], snr_gamma=j["snr_gamma"], latent_t_size=8,
-                               latent_f_size=4, remat=True, device="cpu")
+                               latent_f_size=4, remat=True, latent_sharder=sharder, device="cpu")
     vae = AutoencoderKL(j["vae_cfg"], with_encoder=True)
     vae.load_state_dict(j["vae_sd"])
     trainer = SFTTrainer(diffusion, vae.eval(), TrainConfig(gradient_accumulation_steps=1,
@@ -88,7 +92,10 @@ def sft_step(j, pmesh):
     with torch.no_grad():
         for n, p in state.params.named_parameters():
             p.copy_(seen[n])
-    return {"loss": float(loss), "grads": trainer.state_dict(state), "params": params}
+    losses = [None] * mesh.size
+    torch.distributed.all_gather_object(losses, float(loss))
+    return {"loss": float(loss), "grads": trainer.state_dict(state), "params": params,
+            "losses": losses, "stats": dict(mesh.seq_stats)}
 
 
 def generate(j, pmesh):
@@ -123,15 +130,18 @@ def audioldm(j, pmesh):
 
 
 def dpo_step(j, pmesh):
-    """One DPOTrainer step at DP over every rank; the reference whole."""
+    """One DPOTrainer step at DP over every rank, or with j["seq"] DP x SP
+    (j["model"] ranks splitting the latent time axis); the reference whole,
+    or sequence-parallel too (a copy of the trained UNet)."""
     from tango_tpu_torch.configs import DPOConfig
     from tango_tpu_torch.models.dpo import DPOAudioDiffusion, make_reference
     from tango_tpu_torch.models.vae import AutoencoderKL
     from tango_tpu_torch.train.dpo import DPOTrainer
 
-    mesh = pmesh.make_mesh(data=-1, model=1, device="cpu")
+    mesh = pmesh.make_mesh(data=-1, model=j.get("model", 1), device="cpu")
+    sharder = functools.partial(pmesh.shard_latents_seq, mesh=mesh) if j.get("seq") else None
     diff = DPOAudioDiffusion(j["cfg"], remat=True, beta_dpo=j["beta"], uncondition=True,
-                             device="cpu")
+                             latent_sharder=sharder, device="cpu")
     diff.unet.load_state_dict(j["sd"])
     vae = AutoencoderKL(j["vae_cfg"], with_encoder=True)
     vae.load_state_dict(j["vae_sd"])
@@ -178,18 +188,34 @@ def _same_on_every_rank(t) -> bool:
 def sp_forward(j, pmesh):
     """The UNet forward sequence-parallel over 'model' (JAX's
     `latent_sharder=partial(shard_latents_seq, mesh=mesh)`), each data rank
-    on its rows; the output gathered over 'data', the same on every rank."""
+    on its rows, and the gradients of the mean of its square: the output
+    gathered over 'data'; the parameters' gradients summed over 'model' and
+    averaged over 'data' (`all_reduce_grads(seq=True)`, the trainers'
+    reduction), the input's summed over 'model' (every model rank holds the
+    whole input, so its gradient is partial) and gathered over 'data'; each
+    the same on every rank; the forward's and the backward's exchanges by
+    kind."""
     from tango_tpu_torch.models.unet import UNet2DConditionModel
 
     mesh, sharder = _sp_mesh(j, pmesh)
     unet = UNet2DConditionModel(j["cfg"], latent_sharder=sharder)
     unet.load_state_dict(j["sd"])
-    args = pmesh.shard_batch_or_replicate([j[k] for k in ("x", "t", "c", "mask") if k in j],
-                                          mesh)
-    with torch.no_grad():
-        out = pmesh.gather_rows(unet(*args), mesh, len(j["x"]))
-    return {"out": out, "same_on_every_rank": _same_on_every_rank(out),
-            "stats": dict(mesh.seq_stats)}
+    x, *args = pmesh.shard_batch_or_replicate([j[k] for k in ("x", "t", "c", "mask") if k in j],
+                                              mesh)
+    x = x.clone().requires_grad_()
+    out = unet(x, *args)
+    stats = dict(mesh.seq_stats)
+    mesh.seq_stats.clear()
+    out.square().mean().backward()
+    pmesh.all_reduce_grads(list(unet.parameters()), mesh, seq=True)
+    torch.distributed.all_reduce(x.grad, group=mesh.model_group)
+    n = len(j["x"])
+    out = pmesh.gather_rows(out.detach(), mesh, n)
+    x_grad = pmesh.gather_rows(x.grad / mesh.shape["data"], mesh, n)
+    grads = {name: p.grad for name, p in unet.named_parameters()}
+    flat = torch.cat([t.reshape(-1) for t in (out, x_grad, *grads.values())])
+    return {"out": out, "x_grad": x_grad, "grads": grads, "stats": stats,
+            "grad_stats": dict(mesh.seq_stats), "same_on_every_rank": _same_on_every_rank(flat)}
 
 
 def sp_sample(j, pmesh):

@@ -29,7 +29,17 @@ from tango_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_bwd_supported,
 )
-from tango_tpu_torch.ops.gn_silu import gn_bwd_supported, gn_silu_bwd, gn_silu_bwd_plain
+from tango_tpu_torch.ops.gn_silu import (
+    gn_bwd_apply,
+    gn_bwd_apply_plain,
+    gn_bwd_stats,
+    gn_bwd_stats_plain,
+    gn_bwd_supported,
+    gn_silu_bwd,
+    gn_silu_bwd_plain,
+    group_stats,
+    group_sums,
+)
 
 # One intra-op thread: pytest-xdist workers share the cores, and torch's
 # pool of one thread per core then spends most of its time waiting.
@@ -138,6 +148,59 @@ def test_gn_bwd_plain_bf16_matches_pallas():
     np.testing.assert_allclose(db.numpy(), np.asarray(rb), atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("slabs", [1, 2, 4])
+@pytest.mark.parametrize("act", ["silu", None])
+def test_gn_split_bwd_plain_matches_whole_and_pallas(slabs, act):
+    """The split backward (sequence parallelism) over 1, 2 and 4 slabs of
+    the first spatial axis: each slab's gn_bwd_stats with the whole's
+    statistics, the group sums added over the slabs (the all-reduce), each
+    slab's gn_bwd_apply over the whole group's count; dgamma, dbeta the
+    slabs' sums over the batch. Against gn_silu_bwd_plain on the whole and
+    JAX's _gn_bwd_kernel in interpret mode, f32, at the GroupNorm limits."""
+    rng = np.random.RandomState(7)
+    shape, groups = (2, 8, 16, 64), 16   # JAX layout (B, H, W, C)
+    x = (rng.randn(*shape) * 1.7 + 0.4).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    scale = (rng.randn(shape[-1]) * 0.3 + 1.0).astype(np.float32)
+    bias = (rng.randn(shape[-1]) * 0.1).astype(np.float32)
+    rx, rs, rb = group_norm_pallas_bwd(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+                                       jnp.asarray(g), groups, 1e-5, act, interpret=True)
+    tx, tg = torch.from_numpy(_nchw(x)), torch.from_numpy(_nchw(g))
+    ts, tb = torch.from_numpy(scale), torch.from_numpy(bias)
+    count = tx[0, :shape[-1] // groups].numel()
+    mean, inv = group_stats(group_sums(tx, groups), count, 1e-5)
+    xs, gs = tx.chunk(slabs, 2), tg.chunk(slabs, 2)
+    stats = [gn_bwd_stats(a.contiguous(), b.contiguous(), mean, inv, ts, tb, act)
+             for a, b in zip(xs, gs)]
+    sums = sum(st[0] for st in stats)
+    dx = torch.cat([gn_bwd_apply(a.contiguous(), b.contiguous(), mean, inv, ts, tb, act, sums,
+                                 count) for a, b in zip(xs, gs)], 2)
+    dparam = sum(st[1] for st in stats).sum(0)
+    wx, ws, wb = gn_silu_bwd_plain(tx, tg, ts, tb, groups, 1e-5, act)
+    for got, plain, jax_ref in ((dx, wx, np.transpose(np.asarray(rx), (0, 3, 1, 2))),
+                                (dparam[0], ws, rs), (dparam[1], wb, rb)):
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=2e-4, rtol=1e-3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jax_ref), atol=2e-4, rtol=1e-3)
+
+
+def test_gn_split_bwd_wrappers_reject():
+    x = torch.randn(2, 8, 4, 4)
+    mean, inv = torch.zeros(2, 4), torch.ones(2, 4)
+    w, b = torch.ones(8), torch.zeros(8)
+    sums, dparam = gn_bwd_stats(x, x, mean, inv, w, b, "silu")
+    assert sums.shape == (2, 4, 2) and dparam.shape == (2, 2, 8)
+    with pytest.raises(ValueError):
+        gn_bwd_stats(x, x, mean[:, :3].contiguous(), inv, w, b)  # mean and inv disagree
+    with pytest.raises(ValueError):
+        gn_bwd_stats(x, x, mean.double(), inv.double(), w, b)  # statistics not f32
+    with pytest.raises(ValueError):
+        gn_bwd_apply(x, x.transpose(2, 3), mean, inv, w, b, None, sums, 16)  # g not contiguous
+    with pytest.raises(ValueError):
+        gn_bwd_apply(x, x, mean, inv, w, b, None, sums[:, :, :1], 16)  # sums not (B, G, 2)
+    with pytest.raises(ValueError):
+        gn_bwd_apply(x, x, mean, inv, w, b, "gelu", sums, 16)
+
+
 @pytest.mark.parametrize(
     "shape,groups,act,force_two_stage,bwd_kernel",
     [
@@ -237,7 +300,11 @@ def test_backward_plain_path_counts_no_launches():
     attn_bwd_dkv(q, q, q, q, lse, delta, 0.25)
     x = torch.randn(1, 8, 4, 4)
     gn_silu_bwd(x, x, torch.ones(8), torch.zeros(8), 4)
-    assert sorted(BACKWARD_KERNELS) == ["attn_bwd_dkv", "attn_bwd_dq", "gn_silu_bwd"]
+    stats = (torch.zeros(1, 4), torch.ones(1, 4), torch.ones(8), torch.zeros(8))
+    sums, _ = gn_bwd_stats(x, x, *stats)
+    gn_bwd_apply(x, x, *stats, None, sums, 16)
+    assert sorted(BACKWARD_KERNELS) == ["attn_bwd_dkv", "attn_bwd_dq", "gn_bwd_apply",
+                                        "gn_bwd_stats", "gn_silu_bwd"]
     assert not set(BACKWARD_KERNELS) & set(KERNELS)
     assert all(fn.launches == 0 for fn in all_kernels().values())
     assert all(fn.source.startswith("tango_tpu_torch/csrc/") for fn in BACKWARD_KERNELS.values())

@@ -1,25 +1,34 @@
 """Sequence parallelism in the port (parallel/mesh.py's `shard_latents_seq`
-and its collectives, `latent_sharder=` in the UNet and in AudioDiffusion)
-against JAX's meshless functions on the same numpy weights and inputs, as
-JAX's own test holds its SP forward (tests/test_parallel.py:203-251):
+and its collectives, `latent_sharder=` in the UNet and in AudioDiffusion,
+SP training) against JAX's meshless functions on the same numpy weights and
+inputs, as JAX's own test holds its SP forward and gradients
+(tests/test_parallel.py:203-251):
 
   * on 2 and 4 CPU ranks over gloo (tests/_torch_mesh_child.py): the
     forward of JAX's SP configuration (T = 64) at model = 2 and 4, a DP x SP
     2 x 2 mesh, a three-level UNet at T = 36 whose second level's slab is
     odd and whose third level 'model' does not divide (both run whole),
     `downsample_padding=0`, and a tiny Mustango-stream UNet (two extra
-    streams), each at JAX's atol 2e-5; `AudioDiffusion(latent_sharder=)
-    .sample` fed JAX's `noise_override` against JAX's sampler at
-    tests/test_torch_pipeline.py's atol 2e-4 / rtol 1e-3; every rank's
-    result the same, and each evaluation's collectives counted by kind;
+    streams), each at JAX's atol 2e-5, and the gradients of the mean of its
+    square (the parameters' and the input's) against `jax.grad` at JAX's
+    rtol 2e-4 / atol 1e-6; `AudioDiffusion(latent_sharder=).sample` fed
+    JAX's `noise_override` against JAX's sampler at
+    tests/test_torch_pipeline.py's atol 2e-4 / rtol 1e-3; a DP x SP 2 x 2
+    `SFTTrainer` step (remat) against JAX's meshless step fed the same
+    draws (loss rtol 2e-5, every updated parameter within 1e-4: JAX's dry
+    run's bounds), every rank's loss the same; every rank's result the
+    same, and each evaluation's and step's collectives counted by kind;
   * in one process, P threads as the model ranks exchanging through a local
-    all-gather: each kind of halo convolution (stride 1, the upsample's,
-    the downsample's at padding 1 and 0) against the module on the whole,
-    the SP GroupNorm against gn_stats_plain / gn_apply_plain on the whole,
-    the slab's self-attention against the whole's;
+    all-gather and reduce-scatter: each kind of halo convolution (stride 1,
+    the upsample's, the downsample's at padding 1 and 0) against the module
+    on the whole, the SP GroupNorm against gn_stats_plain / gn_apply_plain
+    on the whole, the slab's self-attention against the whole's; and the
+    backward of each (the halo, the gather, the output rule, group_norm(sp=))
+    against autograd on the whole;
   * the dispatch rule on the whole sequence's query count, the placement
-    rule, and the refusals: gradients (ROADMAP queue A #10c), TP + SP,
-    int8 (#10d), a sharder the port cannot read.
+    rule, draw_latents' rows on the model ranks, the dry run's SP half on 4
+    CPU ranks, and the refusals: TP + SP, int8 (#10d), a sharder the port
+    cannot read.
 
 Each launch of ranks has its own time limit, and each rank's process group
 a 120 s timeout.
@@ -56,6 +65,8 @@ from tango_tpu_torch.utils.convert import from_jax_params
 from tango_tpu_torch.utils.init import init_random_
 
 from tests._torch_helpers import random_jax_params
+from tests.test_torch_parallel import DPO_LR, PAR_UNET, PAR_VAE as PAR_VAE_KW, _close_params
+from tests.test_torch_parallel import _dpo_job, _dpo_meshless, _sft_case
 from tests.test_torch_pipeline_music import MUSIC_KW
 
 torch.set_num_threads(1)
@@ -80,7 +91,9 @@ SAMPLE_STEPS = 2
 # ------------------------------------------------------------------ the jobs
 
 def _forward_case(kw, t_len, model, data=1, seed=0):
-    """A forward job at latent length t_len, and its JAX reference."""
+    """A forward-and-backward job at latent length t_len, and its JAX
+    reference: the output, and `jax.grad` of the mean of its square as to
+    the parameters and the input."""
     cfg = JC.UNetConfig(**kw)
     streams = 1 + cfg.extra_cond_streams
     rng = np.random.RandomState(seed)
@@ -97,7 +110,17 @@ def _forward_case(kw, t_len, model, data=1, seed=0):
         else torch.from_numpy(a)  # noqa: E731
     job = dict(cfg=TC.UNetConfig(**kw), sd=from_jax_params(params), x=torch.from_numpy(x),
                t=torch.from_numpy(t), c=tensors(jc), mask=tensors(jm), model=model, data=data)
-    return job, lambda: np.asarray(jax.jit(JUNet(cfg).apply)({"params": params}, x, t, jc, jm))
+
+    def reference():
+        def loss(p, xx):
+            out = JUNet(cfg).apply({"params": p}, xx, t, jc, jm)
+            return jnp.mean(jnp.square(out)), out
+
+        (_, out), (grads, x_grad) = jax.jit(jax.value_and_grad(loss, (0, 1), has_aux=True))(
+            params, jnp.asarray(x))
+        return {"out": np.asarray(out), "grads": from_jax_params(jax.device_get(grads)),
+                "x_grad": np.asarray(x_grad)}
+    return job, reference
 
 
 def _sample_case():
@@ -128,8 +151,8 @@ def _sample_case():
 
 
 LAUNCHES = {2: ["sp_forward-jax2", "sp_forward-odd", "sp_forward-pad0", "sp_forward-music",
-                "sp_sample"],
-            4: ["sp_forward-jax4", "sp_forward-dp"]}
+                "sp_sample", "dpo_step-sp"],
+            4: ["sp_forward-jax4", "sp_forward-dp", "sft_step-sp"]}
 
 
 @pytest.fixture(scope="module")
@@ -147,6 +170,14 @@ def runs(tmp_path_factory):
         dict(SP_UNET, downsample_padding=0), 64, 2, seed=5)
     job["sp_forward-music"], reference["music"] = _forward_case(MUSIC_KW, 64, 2, seed=9)
     job["sp_sample"], reference["sample"] = _sample_case()
+    # tests/test_torch_parallel.py's DP x TP step at DP x SP: T = 8 makes
+    # slabs of 4 and 2 rows at its two levels
+    job["sft_step-sp"], reference["sft"] = _sft_case()
+    job["sft_step-sp"]["seq"] = True
+    # tests/test_torch_parallel.py's DPO step at SP = 2 (32 latent frames:
+    # slabs of 16 and 8), its reference UNet a copy of the SP one
+    job["dpo_step-sp"] = dict(_dpo_job(), seq=True, model=2)
+    reference["dpo"] = lambda: _dpo_meshless(job["dpo_step-sp"])
     torch.save(job, root / "job.pt")
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
     launched = {}
@@ -174,7 +205,7 @@ def test_sp_forward_matches_jax(runs, case):
     """JAX's SP configuration at model = 2 and 4, and at DP x SP 2 x 2."""
     got, refs = runs
     out = got[f"sp_forward-{case}"]
-    np.testing.assert_allclose(out["out"].numpy(), refs["jax"], atol=2e-5)
+    np.testing.assert_allclose(out["out"].numpy(), refs["jax"]["out"], atol=2e-5)
     assert out["same_on_every_rank"]
 
 
@@ -182,8 +213,93 @@ def test_sp_forward_matches_jax(runs, case):
 def test_sp_forward_edge_cases_match_jax(runs, case):
     got, refs = runs
     out = got[f"sp_forward-{case}"]
-    np.testing.assert_allclose(out["out"].numpy(), refs[case], atol=2e-5)
+    np.testing.assert_allclose(out["out"].numpy(), refs[case]["out"], atol=2e-5)
     assert out["same_on_every_rank"]
+
+
+def _assert_grads(out, ref):
+    """The parameters' and the input's gradients at JAX's SP bounds
+    (tests/test_parallel.py:251)."""
+    assert set(out["grads"]) == set(ref["grads"])
+    for name, want in ref["grads"].items():
+        np.testing.assert_allclose(out["grads"][name].numpy(), want.numpy(), rtol=2e-4,
+                                   atol=1e-6, err_msg=f"grad {name}")
+    np.testing.assert_allclose(out["x_grad"].numpy(), ref["x_grad"], rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["jax2", "jax4", "dp"])
+def test_sp_grads_match_jax(runs, case):
+    """The SP backward (halos, gathers, GroupNorm, the output rule, the
+    gradient reduction) at model = 2 and 4 and at DP x SP 2 x 2."""
+    got, refs = runs
+    out = got[f"sp_forward-{case}"]
+    _assert_grads(out, refs["jax"])
+    assert out["same_on_every_rank"]
+
+
+@pytest.mark.parametrize("case", ["odd", "pad0", "music"])
+def test_sp_grads_edge_cases_match_jax(runs, case):
+    """Whole levels (the 'level' gather's backward), the one-sided halo of
+    padding 0, and the extra streams' cross-attentions."""
+    got, refs = runs
+    out = got[f"sp_forward-{case}"]
+    _assert_grads(out, refs[case])
+    assert out["same_on_every_rank"]
+
+
+@pytest.mark.parametrize("case", ["jax2", "dp", "odd", "pad0", "music"])
+def test_sp_backward_mirrors_the_forward_exchanges(runs, case):
+    """Without remat every exchange of the forward has one backward
+    exchange of its kind ("<kind>_grad"), and nothing else runs."""
+    out = runs[0][f"sp_forward-{case}"]
+    fwd = {k: v for k, v in out["stats"].items() if "_bytes" not in k}
+    bwd = {k: v for k, v in out["grad_stats"].items() if "_bytes" not in k}
+    assert bwd == {f"{k}_grad": v for k, v in fwd.items()}
+    assert all(out["grad_stats"][f"{k}_bytes"] > 0 for k in bwd)
+
+
+def test_dp_sp_sft_step_matches_jax(runs):
+    """One SFTTrainer step at DP x SP 2 x 2 (remat, parameters replicated,
+    gradients summed over 'model') against JAX's meshless step fed the same
+    draws: the loss within 2e-5, every updated parameter within 1e-4 (JAX's
+    dry run's bounds; Adam's first step moves a parameter by about lr =
+    3e-5, so a flipped sign stays inside), the gradients at the DP x TP
+    test's bounds; every rank's loss the same."""
+    got, refs = runs
+    g, r = got["sft_step-sp"], refs["sft"]
+    np.testing.assert_allclose(g["loss"], r["loss"], rtol=2e-5)
+    assert len(set(g["losses"])) == 1
+    assert set(g["grads"]) == set(r["grads"]) == set(g["params"])
+    for name, v in r["grads"].items():
+        np.testing.assert_allclose(g["grads"][name].numpy(), v.numpy(), rtol=2e-4, atol=1e-5,
+                                   err_msg=f"grad {name}")
+    for name, v in r["params"].items():
+        np.testing.assert_allclose(g["params"][name].numpy(), v.numpy(), rtol=0, atol=1e-4,
+                                   err_msg=f"updated param {name}")
+
+
+def test_dpo_step_under_sp_matches_meshless(runs):
+    """DPOTrainer at SP = 2 (its reference UNet copied from the SP UNet, so
+    it runs on the slabs too) against the meshless step, at the DP DPO
+    test's bounds (tests/test_torch_parallel.py)."""
+    got, refs = runs
+    g, r = got["dpo_step-sp"], refs["dpo"]
+    np.testing.assert_allclose(g["loss"], r["loss"], rtol=1e-4)
+    assert g["metrics"]["implicit_acc"] == r["metrics"]["implicit_acc"]
+    for k in ("raw_model_loss", "raw_ref_loss"):
+        np.testing.assert_allclose(g["metrics"][k], r["metrics"][k], rtol=1e-5)
+    _close_params(g["params"], r["params"], DPO_LR, "DPO param")
+
+
+def test_dp_sp_sft_step_replays_block_exchanges_under_remat(runs):
+    """A remat'd step: the forward's exchanges once, those inside the down,
+    mid and up blocks once more when the backward recomputes each block,
+    and each exchange's backward once."""
+    stats = {k: v for k, v in runs[0]["sft_step-sp"]["stats"].items() if "_bytes" not in k}
+    fwd = _collectives(TC.UNetConfig(**PAR_UNET), whole_levels=0)
+    outside = {"halo": 1, "group_norm": 1, "output": 1}  # conv_norm_out, conv_out, the output
+    assert stats == {**{k: 2 * v - outside.get(k, 0) for k, v in fwd.items()},
+                     **{f"{k}_grad": v for k, v in fwd.items()}}
 
 
 def test_sp_sample_matches_jax(runs):
@@ -266,12 +382,18 @@ class ThreadRanks:
         self.all_gather(parts, t)
         t.copy_(torch.stack(parts).sum(0))
 
-    def run(self, monkeypatch, fn):
+    def reduce_scatter_tensor(self, out, src, group=None):
+        parts = [torch.empty_like(src) for _ in range(self.parts)]
+        self.all_gather(parts, src)
+        out.copy_(torch.stack(parts).sum(0).chunk(self.parts)[self.local.rank])
+
+    def run(self, monkeypatch, fn, grad=False):
         """fn(mesh) on every rank, each in its thread, without gradients
-        (a thread does not inherit the caller's no_grad); the results in
-        rank order."""
+        unless `grad` (a thread does not inherit the caller's grad mode); the
+        results in rank order."""
         monkeypatch.setattr(pmesh, "dist", types.SimpleNamespace(
-            all_gather=self.all_gather, all_reduce=self.all_reduce))
+            all_gather=self.all_gather, all_reduce=self.all_reduce,
+            reduce_scatter_tensor=self.reduce_scatter_tensor))
         results, errors = [None] * self.parts, []
 
         def body(r):
@@ -279,7 +401,7 @@ class ThreadRanks:
             mesh = pmesh.Mesh(pmesh.rank_grid(self.parts, 1, self.parts), r,
                               torch.device("cpu"), "gloo", None, self)
             try:
-                with torch.no_grad():
+                with torch.set_grad_enabled(grad):
                     results[r] = fn(mesh)
             except BaseException as e:  # reported below, after every thread ended
                 errors.append(e)
@@ -338,6 +460,119 @@ def test_seq_group_norm_matches_plain_versions_on_the_whole(monkeypatch, parts, 
     ref = F.group_norm(x, groups, g, b, eps)
     np.testing.assert_allclose(torch.cat(got, 2).numpy(),
                                (F.silu(ref) if act else ref).numpy(), atol=1e-5, rtol=1e-5)
+
+
+def _grads(out, w, inputs):
+    """The gradients of sum(out * w) as to each of `inputs`."""
+    return torch.autograd.grad((out * w).sum(), inputs)
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("kind", ["conv3x3", "upsample", "down_pad1", "down_pad0"])
+def test_halo_convolution_grads_match_whole(monkeypatch, kind, parts):
+    """The halo exchange's backward: each rank's input gradient is its slab
+    of the whole's (the halo rows' gradients added on their owners), and
+    the weights' partial gradients sum over the ranks to the whole's."""
+    torch.manual_seed(3)
+    x = torch.randn(2, 8, 16, 6)
+    if kind == "conv3x3":
+        conv = torch.nn.Conv2d(8, 8, 3, padding=1)
+        mod = lambda a, sp=None: punet.seq_conv(conv, a, sp)  # noqa: E731
+        params = list(conv.parameters())
+    else:
+        mod = punet.Upsample2D(8) if kind == "upsample" else \
+            punet.Downsample2D(8, padding=1 if kind == "down_pad1" else 0)
+        params = list(mod.parameters())
+    xw = x.clone().requires_grad_()
+    out = mod(xw)
+    w = torch.randn(out.shape)
+    want = _grads(out, w, [xw, *params])
+
+    def rank(m):
+        xs = _slab(x, m).requires_grad_()
+        return _grads(mod(xs, m), _slab(w, m), [xs, *params])
+
+    got = ThreadRanks(parts).run(monkeypatch, rank, grad=True)
+    np.testing.assert_allclose(torch.cat([g[0] for g in got], 2).numpy(), want[0].numpy(),
+                               atol=1e-5, rtol=1e-5)
+    # the weights' gradients reach ~40, sums of ~800 products taken in
+    # another order on each rank: f32 rounding of ~1e-6 of their size
+    for i, p in enumerate(want[1:], 1):
+        np.testing.assert_allclose(sum(g[i] for g in got).numpy(), p.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_gather_backward_is_a_reduce_scatter(monkeypatch, parts):
+    """Each rank's partial gradient of the whole: the slabs' gradients are
+    the sums over the ranks, each rank's own slab; counted as "kv_grad"."""
+    torch.manual_seed(4)
+    x = torch.randn(2, 12 * parts, 5)
+    ws = torch.randn(parts, *x.shape)
+
+    def rank(m):
+        xs = _slab(x, m, 1).requires_grad_()
+        (g,) = _grads(pmesh.gather_seq(xs, m, 1, "kv"), ws[m.model_index], [xs])
+        return g, dict(m.seq_stats)
+
+    got = ThreadRanks(parts).run(monkeypatch, rank, grad=True)
+    np.testing.assert_allclose(torch.cat([g for g, _ in got], 1).numpy(), ws.sum(0).numpy(),
+                               atol=1e-6)
+    n = x.numel() // parts * 4
+    assert all(st == {"kv": 1, "kv_bytes": (parts - 1) * n, "kv_grad": 1,
+                      "kv_grad_bytes": (parts - 1) * n} for _, st in got)
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_output_rule_makes_the_gradient_partial(monkeypatch, parts):
+    """The UNet's output: the same loss on every rank from the gathered
+    whole; the identity before the gather divides its gradient by 'model',
+    so each slab's gradient is the whole's slab, not `parts` times it; on a
+    whole tensor each rank's gradient is the whole's over `parts`."""
+    torch.manual_seed(5)
+    x = torch.randn(1, 3, 8 * parts, 4)
+    w = torch.randn(x.shape)
+
+    def rank(m):
+        xs = _slab(x, m).requires_grad_()
+        xw = x.clone().requires_grad_()
+        out = pmesh.gather_seq(pmesh.partial_grad(xs, m), m, 2, "output")
+        return _grads(out, w, [xs])[0], _grads(pmesh.partial_grad(xw, m), w, [xw])[0]
+
+    got = ThreadRanks(parts).run(monkeypatch, rank, grad=True)
+    np.testing.assert_allclose(torch.cat([g for g, _ in got], 2).numpy(), w.numpy(), atol=1e-6)
+    np.testing.assert_allclose(sum(g for _, g in got).numpy(), w.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("parts,act", [(1, "silu"), (2, "silu"), (4, None)])
+def test_seq_group_norm_grads_match_whole(monkeypatch, parts, act):
+    """group_norm(sp=)'s backward (gn_bwd_stats, the sums all-reduced,
+    gn_bwd_apply) against autograd through F.group_norm(+SiLU) on the whole:
+    dx slab by slab, dgamma and dbeta summed over the ranks; the forward's
+    and the backward's all-reduce counted once each."""
+    torch.manual_seed(6)
+    x = torch.randn(2, 32, 16, 6) * 2.0 + 0.5
+    g, b = torch.randn(32) * 0.2 + 1.0, torch.randn(32) * 0.1
+    groups, eps = 8, 1e-5
+    xw, gw, bw = (t.clone().requires_grad_() for t in (x, g, b))
+    out = F.group_norm(xw, groups, gw, bw, eps)
+    out = F.silu(out) if act else out
+    w = torch.randn(out.shape)
+    want = _grads(out, w, [xw, gw, bw])
+
+    def rank(m):
+        xs, gs, bs = _slab(x, m).requires_grad_(), g.clone().requires_grad_(), \
+            b.clone().requires_grad_()
+        got = _grads(group_norm(xs, gs, bs, groups, eps, act, sp=m), _slab(w, m), [xs, gs, bs])
+        return got, dict(m.seq_stats)
+
+    got = ThreadRanks(parts).run(monkeypatch, rank, grad=True)
+    np.testing.assert_allclose(torch.cat([r[0][0] for r in got], 2).numpy(), want[0].numpy(),
+                               atol=2e-5, rtol=1e-4)
+    for i in (1, 2):
+        np.testing.assert_allclose(sum(r[0][i] for r in got).numpy(), want[i].numpy(),
+                                   atol=2e-5, rtol=1e-4)
+    assert all(st["group_norm"] == st["group_norm_grad"] == 1 for _, st in got)
 
 
 def test_seq_self_attention_matches_whole(monkeypatch):
@@ -400,6 +635,47 @@ def test_shard_latents_seq_places_slabs():
     assert torch.equal(pmesh.shard_latents_seq(x, _mesh(2, 3, data=2)), x[:, 6:])
 
 
+def test_draw_latents_gives_model_ranks_the_same_rows():
+    """Under DP x SP every model rank of a data rank draws the posterior
+    noise, timesteps, noise and drop mask of the same rows (so they compute
+    one loss), and the data ranks' rows are the meshless draw's."""
+    from tango_tpu_torch.models.vae import AutoencoderKL
+    from tango_tpu_torch.train.sft import draw_latents
+
+    vae = init_random_(AutoencoderKL(TC.VAEConfig(**PAR_VAE_KW), with_encoder=True),
+                       torch.Generator().manual_seed(0)).eval()
+    diff = AudioDiffusion(TC.UNetConfig(**SP_UNET), uncondition=True, device="cpu")
+    fbank = torch.randn(4, 16, 8)
+
+    def draw(mesh, rows):
+        lat, d = draw_latents(vae, diff, mesh, [fbank[rows]], torch.Generator().manual_seed(7),
+                              False)
+        return [lat[0]] + [d[k] for k in ("posterior", "timesteps", "noise", "drop")]
+
+    whole = draw(None, slice(0, 4))
+    for r in range(4):
+        mesh = _mesh(2, r, data=2)
+        rows = pmesh.process_local_batch_slice(mesh, 4)
+        for got, want in zip(draw(mesh, rows), whole):
+            assert torch.equal(got, want[rows])
+
+
+def test_dryrun_sp_half_on_cpu_ranks(monkeypatch):
+    """`python -m tango_tpu_torch.parallel.dryrun --n 4`: the DP x TP and the
+    DP x SP (2 x 2) steps of the tiny config against the meshless step at
+    JAX's bounds, on 4 CPU ranks; the SP step's exchanges, the backward's
+    included."""
+    from tango_tpu_torch.parallel.dryrun import LOSS_RTOL, PARAM_ATOL, dryrun_multichip
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.chdir(REPO)
+    rec = dryrun_multichip(4, device="cpu", timeout=LAUNCH_TIMEOUT_S)
+    assert rec["ok"] and rec["mesh"] == {"data": 2, "model": 2}
+    assert rec["sp_loss_rel_err"] <= LOSS_RTOL and rec["sp_param_max_drift"] <= PARAM_ATOL
+    kinds = {"halo", "group_norm", "kv", "output"}
+    assert set(rec["sp_collectives"]) == kinds | {f"{k}_grad" for k in kinds}
+
+
 def _sp_unet(model=2, **kw):
     unet = punet.UNet2DConditionModel(
         TC.UNetConfig(**dict(SP_UNET, **kw)),
@@ -410,16 +686,6 @@ def _sp_unet(model=2, **kw):
 
 def _inputs():
     return torch.randn(1, 16, 4, 4), torch.tensor([5]), torch.randn(1, 6, 16)
-
-
-def test_sp_refuses_gradients():
-    unet = _sp_unet()
-    with pytest.raises(NotImplementedError, match="queue A #10c"):
-        unet(*_inputs())
-    unet.requires_grad_(False)
-    x, t, c = _inputs()
-    with pytest.raises(NotImplementedError, match="queue A #10c"):
-        unet(x.requires_grad_(), t, c)
 
 
 def test_sp_refuses_tensor_parallelism():
