@@ -163,8 +163,9 @@ Phases, one short JSON line each:
            gn_bwd_stats, gn_bwd_apply, attn_bwd_dq and attn_bwd_dkv at the
            slabs' queries against every key; no gn_silu_bwd, and
            gn_silu_fwd only in the frozen VAE encoder); on each every
-           attention launch on its tensor-core
-           body, every GroupNorm on its cluster body; peak memory and
+           attention launch on its tensor-core body, every GroupNorm on its
+           cluster body (gn_bwd_apply: its flat body, flat_launches ==
+           launches); peak memory and
            launches per rank logged, with the card's name and power limit;
   mustango_build, mustango, mustango_beam_loops, mustango_predictors,
   mustango_cli
@@ -321,8 +322,15 @@ Phases, one short JSON line each:
            their streaming bodies at GN_FWD_STREAMING / GN_BWD_STREAMING,
            checked only; gn_bwd_stats and gn_bwd_apply (path sp_train's
            split GroupNorm backward) at the slabs' shapes in both types,
-           against their plain versions at the GroupNorm backward's limits,
-           timed beside aten's GroupNorm backward of the slab; line
+           each call held to its body (gn_bwd_stats' cluster body by
+           `gn_bwd_stats_cluster_size`, gn_bwd_apply's flat body), against
+           their plain versions at the GroupNorm backward's limits, timed
+           beside aten's GroupNorm backward of the slab and beside their
+           streaming fallbacks (the bodies they replaced, through the _rows
+           entry points, with the zeroed tickets they take: `parent_ms`,
+           also checked there), --detail rows with the cluster size and CTAs
+           (stats) and packets a thread and CTAs (apply); the fallbacks
+           through the wrappers at GN_SPLIT_STREAMING, checked only; line
            `kernels_sp_train` sums path sp_train's own shapes, the backward
            pair at its Sq < Skv ones among them;
            gn_silu_fwd's host time per call at HOST_US_SHAPE
@@ -333,7 +341,7 @@ Phases, one short JSON line each:
            Kernel, plain and library device times per call (bf16 inputs, and
            f32 as well for the GroupNorm kernels and the backward kernels;
            10 calls captured in a CUDA graph, median of 10 replays between
-           CUDA events), summed over the
+           CUDA events; the plain versions 2 calls, 5 replays), summed over the
            kernel's shapes (--detail: per shape, with TFLOP/s for the
            attention kernels and each shape's share of its bound). The
            library yardsticks: F.group_norm(+F.silu),
@@ -632,6 +640,13 @@ GN_FWD_STREAMING = (((2, 320, 256, 16), torch.bfloat16, 1), ((2, 64, 5, 5), torc
 # (shape, dtype, offset)
 GN_BWD_STREAMING = (((2, 128, 256, 256), torch.float32, 0), ((2, 320, 256, 16), torch.float32, 1),
                     ((2, 64, 5, 5), torch.bfloat16, 0))
+# gn_bwd_stats' and gn_bwd_apply's streaming fallbacks, which every slab of
+# path sp_train leaves for the cluster and flat bodies, checked through the
+# wrappers: a misaligned view (offset one element) of a level-0 slab, and a
+# bf16 map whose HW is no whole number of packets; (shape, groups, dtype,
+# offset)
+GN_SPLIT_STREAMING = (((1, 320, 256, 16), 32, torch.float32, 1),
+                      ((1, 64, 5, 5), 32, torch.bfloat16, 0))
 # the JAX tests' shapes: tests/test_quant.py:54-65 (M, K, N) and
 # tests/test_winograd.py:21-28, :37-44 (B, H, W, Ci, Co); and ragged GEMMs
 # (K not a multiple of 4, M and N not of the 64-wide tiles), checked only
@@ -682,6 +697,16 @@ def cuda_ms(fn, reps: int = 10, per_graph: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / per_graph)
     return statistics.median(times)
+
+
+def plain_cuda_ms(fn) -> float:
+    """cuda_ms of a plain version: 2 calls a graph, the median of 5 replays
+    (16 calls in all, where cuda_ms makes 122). The plain versions are
+    yardsticks that repeat a kernel's arithmetic in many launches, up to
+    tens of ms a call at the long clip's shapes, and phase `kernels` times
+    one at each of some 900 (kernel, shape, type) rows within the smoke's
+    time limit."""
+    return cuda_ms(fn, reps=5, per_graph=2)
 
 
 def host_us(fn, calls: int = 1000) -> float:
@@ -806,8 +831,9 @@ def _rates(ms, bound, flops):
 
 def took(case, fn, rule, call, what, body="tc"):
     """Run `call` and raise unless it launched fn's tensor-core body (`body`
-    "tc") or cluster body ("cluster") exactly when `rule` says so (counted in
-    case.notes["<body>_checked"]); returns the call's result."""
+    "tc"), cluster body ("cluster") or flat body ("flat", gn_bwd_apply)
+    exactly when `rule` says so (counted in case.notes["<body>_checked"]);
+    returns the call's result."""
     counter = f"{body}_launches"
     before = getattr(fn, counter)
     out = call()
@@ -869,6 +895,38 @@ def attn_fwd_core(q, k, v, scale):
     return o
 
 
+def gn_bwd_rows(half: str, x, g, mean, inv, gamma, beta, act, sums=None, count=None):
+    """gn_bwd_stats ("stats") or gn_bwd_apply ("apply") on its streaming
+    fallback, the body it replaced, at any shape and alignment (tt_gn_bwd_stats_rows
+    / tt_gn_bwd_apply_rows), as its wrapper launched it then: stats with B*G
+    group tickets zeroed for the call. A yardstick of the new bodies, on no
+    path; no counter moves. Returns what the wrapper returns."""
+    from tango_tpu_torch.ops import _build
+    from tango_tpu_torch.ops.gn_silu import _DTYPES
+
+    lib = _build.load()
+    b, c, groups = x.shape[0], x.shape[1], mean.shape[1]
+    hw = x.numel() // (b * c)
+    ptrs = (x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if half == "stats":
+        dparam = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+        out = torch.empty((b, groups, 2), device=x.device, dtype=torch.float32)
+        done = torch.zeros(b * groups, device=x.device, dtype=torch.int32)
+        code = lib.tt_gn_bwd_stats_rows(*ptrs, dparam.data_ptr(), out.data_ptr(), done.data_ptr(),
+                                        b, c, hw, groups, int(act == "silu"), _DTYPES[x.dtype],
+                                        stream)
+        result = (out, dparam)
+    else:
+        result = torch.empty_like(x)
+        code = lib.tt_gn_bwd_apply_rows(*ptrs, sums.data_ptr(), result.data_ptr(), b, c, hw,
+                                        groups, float(count), int(act == "silu"),
+                                        _DTYPES[x.dtype], stream)
+    _build.check(lib, code, f"tt_gn_bwd_{half}_rows")
+    return result
+
+
 def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
     """Hold every kernel against its plain version at `shapes` (kernel name ->
     the argument shapes the serving and training paths launched it at) and
@@ -883,8 +941,10 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
     )
     from tango_tpu_torch.ops.gn_silu import (
         gn_apply_plain,
+        gn_bwd_apply_flat_grid,
         gn_bwd_apply_plain,
         gn_bwd_cluster_size,
+        gn_bwd_stats_cluster_size,
         gn_bwd_stats_plain,
         gn_fwd_cluster_size,
         gn_silu_bwd_plain,
@@ -928,7 +988,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
             add = cases["gn_silu_fwd"].add_time if tag == "bf16" else \
                 cases["gn_silu_fwd"].add_time_f32
             add(cuda_ms(lambda: fwd(x, g, b, groups, 1e-5, act)),
-                cuda_ms(lambda: gn_silu_fwd_plain(x, g, b, groups, 1e-5, act)),
+                plain_cuda_ms(lambda: gn_silu_fwd_plain(x, g, b, groups, 1e-5, act)),
                 cuda_ms(lib), *bound_ms(2 * x.element_size() * n + 8 * c, 8 * n, F32_FLOPS),
                 [shape, groups, act], cluster_size=r, ctas=shape[0] * groups * r)
     x = randn(*HOST_US_SHAPE, dtype=torch.bfloat16)
@@ -958,7 +1018,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
                                                         f"gn_stats {shape} {tag}"))
             add = cases["gn_stats"].add_time if tag == "bf16" else cases["gn_stats"].add_time_f32
             add(cuda_ms(lambda: K["gn_stats"](x, groups, chunks)),
-                cuda_ms(lambda: gn_stats_plain(x, groups, chunks)), None,
+                plain_cuda_ms(lambda: gn_stats_plain(x, groups, chunks)), None,
                 *bound_ms(x.element_size() * n + 8 * shape[0] * groups * chunks, 3 * n,
                           F32_FLOPS), [shape, groups, chunks])
 
@@ -974,7 +1034,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
                                                         f"gn_apply {shape} {tag}"))
             add = cases["gn_apply"].add_time if tag == "bf16" else cases["gn_apply"].add_time_f32
             add(cuda_ms(lambda: K["gn_apply"](x, a, bb, act)),
-                cuda_ms(lambda: gn_apply_plain(x, a, bb, act)), None,
+                plain_cuda_ms(lambda: gn_apply_plain(x, a, bb, act)), None,
                 *bound_ms(2 * x.element_size() * n + 16 * bsz * c, 6 * n, F32_FLOPS),
                 [shape, act])
 
@@ -1001,7 +1061,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
                 q4, k4, v4 = (t.reshape(1, bh, -1, d) for t in (q, k, v))
                 add = cases[name].add_time if tag == "bf16" else cases[name].add_time_f32
                 times = (cuda_ms(lambda: fn(q, k, v, scale)),
-                         cuda_ms(lambda: plain(q, k, v, scale)),
+                         plain_cuda_ms(lambda: plain(q, k, v, scale)),
                          cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                                         scale=scale)))
                 bound = attn_bound_ms(q.element_size() * (2 * bh * sq * d + 2 * bh * skv * d),
@@ -1099,7 +1159,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
             add = cases["attn_fwd_bias"].add_time if tag == "bf16" else \
                 cases["attn_fwd_bias"].add_time_f32
             add(cuda_ms(lambda: fn(q, k, v, bias, heads, scale)),
-                cuda_ms(lambda: attn_fwd_bias_plain(q, k, v, bias, heads, scale)),
+                plain_cuda_ms(lambda: attn_fwd_bias_plain(q, k, v, bias, heads, scale)),
                 cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4,
                                                                scale=scale)),
                 *attn_bound_ms(q.element_size() * (2 * bh * sq * d + 2 * bh * skv * d)
@@ -1191,7 +1251,7 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
             ]
             for name, kern, plain, nbytes, products in timing:
                 add = cases[name].add_time if tag == "bf16" else cases[name].add_time_f32
-                add(cuda_ms(kern), cuda_ms(plain), lib,
+                add(cuda_ms(kern), plain_cuda_ms(plain), lib,
                     *attn_bound_ms(nbytes, products * product, tag), [qshape, kshape],
                     flops=products * product)
     bwd_tc_checks(K, cases, shapes, randn, attn_bwd_tol, stat_tol)
@@ -1227,16 +1287,18 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
             add = cases["gn_silu_bwd"].add_time if tag == "bf16" else \
                 cases["gn_silu_bwd"].add_time_f32
             add(cuda_ms(lambda: bwd(x, g, w, b, groups, 1e-5, act)),
-                cuda_ms(lambda: gn_silu_bwd_plain(x, g, w, b, groups, 1e-5, act)),
+                plain_cuda_ms(lambda: gn_silu_bwd_plain(x, g, w, b, groups, 1e-5, act)),
                 cuda_ms(lib), *bound_ms(3 * n * x.element_size(), 24 * n, F32_FLOPS),
                 [shape, groups, act], cluster_size=r, ctas=shape[0] * groups * r)
 
     # the GroupNorm backward split at its group sums (sequence parallelism)
     # at the slabs' shapes, each half against its plain version (gn_bwd_apply
-    # on the plain sums), timed in both types; the yardstick is aten's
-    # GroupNorm backward of the same slab, one call for all of dx, dgamma and
-    # dbeta of a group the slab holds whole (the pair's work, less the
-    # all-reduce between them)
+    # on the plain sums), each call held to its new body, timed in both
+    # types beside the streaming fallbacks (the bodies they replaced) in the same
+    # call; the yardstick is aten's GroupNorm backward of the same slab, one
+    # call for all of dx, dgamma and dbeta of a group the slab holds whole
+    # (the pair's work, less the all-reduce between them)
+    split = {n: K[n] for n in ("gn_bwd_stats", "gn_bwd_apply")}
     for shape, groups, act in sorted(shapes["gn_bwd_stats"] | shapes["gn_bwd_apply"], key=str):
         bsz, c, n = shape[0], shape[1], math.prod(shape)
         hw = n // (bsz * c)
@@ -1250,15 +1312,32 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
             inv = torch.rsqrt(xf.var(-1, unbiased=False) + 1e-5).contiguous()
             stats = (x, g, mean, inv, w, b, act)
             what = f"{shape} {act} {tag}"
-            sums, dparam = K["gn_bwd_stats"](*stats)
+            r = gn_bwd_stats_cluster_size(dt, bsz, c, hw, groups)
+            sums, dparam = took(cases["gn_bwd_stats"], split["gn_bwd_stats"], r > 0,
+                                lambda: split["gn_bwd_stats"](*stats), f"gn_bwd_stats {what}",
+                                body="cluster")
             rsums, rdparam = gn_bwd_stats_plain(*stats)
+            rdx = gn_bwd_apply_plain(*stats, rsums, count)
             cases["gn_bwd_stats"].add_err(tag, max(
                 assert_close(sums, rsums, *gn_bwd_tol[tag], f"gn_bwd_stats sums {what}"),
                 assert_close(dparam, rdparam, *gn_bwd_tol[tag], f"gn_bwd_stats dparam {what}")))
             cases["gn_bwd_apply"].add_err(tag, assert_close(
-                K["gn_bwd_apply"](*stats, rsums, count),
-                gn_bwd_apply_plain(*stats, rsums, count), *gn_bwd_tol[tag],
-                f"gn_bwd_apply {what}"))
+                took(cases["gn_bwd_apply"], split["gn_bwd_apply"], True,
+                     lambda: split["gn_bwd_apply"](*stats, rsums, count), f"gn_bwd_apply {what}",
+                     body="flat"),
+                rdx, *gn_bwd_tol[tag], f"gn_bwd_apply {what}"))
+            # the streaming fallbacks at the same inputs: checked, timed
+            parent = {"gn_bwd_stats": lambda: gn_bwd_rows("stats", *stats),
+                      "gn_bwd_apply": lambda: gn_bwd_rows("apply", *stats, rsums, count)}
+            psums, pdparam = parent["gn_bwd_stats"]()
+            cases["gn_bwd_stats"].add_err(tag, max(
+                assert_close(psums, rsums, *gn_bwd_tol[tag], f"gn_bwd_stats fallback {what}"),
+                assert_close(pdparam, rdparam, *gn_bwd_tol[tag], f"gn_bwd_stats fallback {what}")))
+            cases["gn_bwd_apply"].add_err(tag, assert_close(
+                parent["gn_bwd_apply"](), rdx, *gn_bwd_tol[tag], f"gn_bwd_apply fallback {what}"))
+            k, ctas = gn_bwd_apply_flat_grid(dt, n)
+            extra = {"gn_bwd_stats": {"cluster_size": r, "ctas": bsz * groups * r},
+                     "gn_bwd_apply": {"packets_per_thread": k, "ctas": ctas}}
             wl, bl = w.to(dt), b.to(dt)
             y, mu, rstd = torch.ops.aten.native_group_norm(x, wl, bl, bsz, c, hw, groups, 1e-5)
 
@@ -1270,14 +1349,42 @@ def check_kernels(ops, shapes: dict, train_shapes: dict, detail: bool):
             lib_ms = cuda_ms(lib)
             esize = x.element_size()
             for name, kern, plain, nbytes, flops in (
-                    ("gn_bwd_stats", lambda: K["gn_bwd_stats"](*stats),
+                    ("gn_bwd_stats", lambda: split["gn_bwd_stats"](*stats),
                      lambda: gn_bwd_stats_plain(*stats), 2 * n * esize + 8 * bsz * (c + groups),
                      16 * n),
-                    ("gn_bwd_apply", lambda: K["gn_bwd_apply"](*stats, rsums, count),
+                    ("gn_bwd_apply", lambda: split["gn_bwd_apply"](*stats, rsums, count),
                      lambda: gn_bwd_apply_plain(*stats, rsums, count), 3 * n * esize, 20 * n)):
                 add = cases[name].add_time if tag == "bf16" else cases[name].add_time_f32
-                add(cuda_ms(kern), cuda_ms(plain), lib_ms, *bound_ms(nbytes, flops, F32_FLOPS),
-                    [shape, groups, act])
+                parent_ms = cuda_ms(parent[name])
+                notes = cases[name].notes.setdefault("parent_ms", {"bf16": 0.0, "f32": 0.0})
+                notes[tag] += parent_ms
+                add(cuda_ms(kern), plain_cuda_ms(plain), lib_ms,
+                    *bound_ms(nbytes, flops, F32_FLOPS), [shape, groups, act],
+                    parent_ms=parent_ms, **extra[name])
+
+    for shape, groups, dt, offset in GN_SPLIT_STREAMING:
+        c, n = shape[1], math.prod(shape)
+        w, b = randn(c, scale=0.2, loc=1.0), randn(c, scale=0.1)
+        x = randn(n + offset, dtype=dt, scale=2.0, loc=0.5)[offset:].view(shape)
+        g = randn(n + offset, dtype=dt)[offset:].view(shape)
+        xf = x.float().reshape(shape[0], groups, -1)
+        stats = (x, g, xf.mean(-1).contiguous(),
+                 torch.rsqrt(xf.var(-1, unbiased=False) + 1e-5).contiguous(), w, b, "silu")
+        tag = "f32" if dt == torch.float32 else "bf16"
+        what = f"{shape} {tag}, offset {offset}, streaming fallback"
+        sums, dparam = took(cases["gn_bwd_stats"], split["gn_bwd_stats"], False,
+                            lambda: split["gn_bwd_stats"](*stats), f"gn_bwd_stats {what}",
+                            body="cluster")
+        rsums, rdparam = gn_bwd_stats_plain(*stats)
+        dx = took(cases["gn_bwd_apply"], split["gn_bwd_apply"], False,
+                  lambda: split["gn_bwd_apply"](*stats, rsums, n // groups),
+                  f"gn_bwd_apply {what}", body="flat")
+        cases["gn_bwd_stats"].add_err(tag, max(
+            assert_close(sums, rsums, *gn_bwd_tol[tag], f"gn_bwd_stats sums {what}"),
+            assert_close(dparam, rdparam, *gn_bwd_tol[tag], f"gn_bwd_stats dparam {what}")))
+        cases["gn_bwd_apply"].add_err(tag, assert_close(
+            dx, gn_bwd_apply_plain(*stats, rsums, n // groups), *gn_bwd_tol[tag],
+            f"gn_bwd_apply {what}"))
 
     for shape, dt, offset in GN_BWD_STREAMING:
         c, n = shape[1], math.prod(shape)
@@ -1317,8 +1424,9 @@ def path_shape_times(cases: dict, path_shapes: dict) -> dict:
             rec = out.setdefault(name, {}).setdefault(row.get("dtype", "bf16"), {
                 "shapes": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0})
             rec["shapes"] += 1
-            for key in ("ms", "plain_ms", "bound_ms"):
-                rec[key] += row[key]
+            for key in ("ms", "plain_ms", "bound_ms", "parent_ms"):
+                if key in row:
+                    rec[key] = rec.get(key, 0.0) + row[key]
             if row["library_ms"] is not None:
                 rec["library_ms"] = (rec["library_ms"] or 0.0) + row["library_ms"]
     return out
@@ -1548,7 +1656,7 @@ def int8_and_winograd(K, cases, shapes, randn, detail):
         linear = cuda_ms(lambda: F.linear(x, wl))
         case.notes["linear_bf16_ms"] = case.notes.get("linear_bf16_ms", 0.0) + linear
         case.add_time(cuda_ms(lambda: w8a8(x, q, s)),
-                      cuda_ms(lambda: w8a8_matmul_plain(x, q, s)), lib,
+                      plain_cuda_ms(lambda: w8a8_matmul_plain(x, q, s)), lib,
                       *bound_ms(2 * m * k + n * k + 4 * n + 2 * m * n, 2 * m * n * k, INT8_OPS),
                       [[m, k], [n, k]], flops=2 * m * n * k, linear_bf16_ms=linear,
                       **({"by_kernel_ms": device_ms(lambda: w8a8(x, q, s), 20)} if detail else {}))
@@ -1593,7 +1701,7 @@ def int8_and_winograd(K, cases, shapes, randn, detail):
         nbytes = (b * ci * h * w_ + b * co * h * w_ + 16 * ci * co) * x.element_size()
         flops = 2 * 4 * b * h * w_ * co * ci
         case.add_time(cuda_ms(lambda: wino(x, wt)),
-                      cuda_ms(lambda: wg.winograd_conv3x3_plain(x, wt)),
+                      plain_cuda_ms(lambda: wg.winograd_conv3x3_plain(x, wt)),
                       cuda_ms(lambda: F.conv2d(x, wl, padding=1)),
                       *bound_ms(nbytes, flops, BF16_FLOPS),
                       [list(xshape), list(wshape)], flops=flops, kernel_only_ms=alone,
@@ -1609,7 +1717,7 @@ def int8_and_winograd(K, cases, shapes, randn, detail):
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
         case.add_time_f32(cuda_ms(lambda: wino(x32, wt)),
-                          cuda_ms(lambda: wg.winograd_conv3x3_plain(x32, wt)), lib32,
+                          plain_cuda_ms(lambda: wg.winograd_conv3x3_plain(x32, wt)), lib32,
                           *bound_ms(2 * nbytes, flops, F32_TC_FLOPS),
                           [list(xshape), list(wshape)], flops=flops)
 
@@ -1714,16 +1822,30 @@ def limit_checks(K, cases, randn, tol, attn_tol, gn_bwd_tol, attn_bwd_tol):
               f"{bh} heads f32")
 
 
+# the counters of the GroupNorm kernels' redesigned bodies, which every
+# path's shape takes: the thread-block-cluster bodies (gn_silu_fwd,
+# gn_silu_bwd, gn_bwd_stats) and gn_bwd_apply's flat body. The per-path
+# `cluster` dicts below hold both kinds under the kernel's name.
+BODY_COUNTERS = ("cluster_launches", "flat_launches")
+
+
+def body_counter(fn):
+    """The name of fn's redesigned-body counter, None where it has none."""
+    return next((c for c in BODY_COUNTERS if hasattr(fn, c)), None)
+
+
 def cluster_counts(ops) -> dict:
-    """Cluster launches of each kernel that has a thread-block-cluster body."""
-    return {n: fn.cluster_launches for n, fn in ops.all_kernels().items()
-            if hasattr(fn, "cluster_launches")}
+    """Launches of each GroupNorm kernel that took its redesigned body
+    (`body_counter`)."""
+    return {n: getattr(fn, body_counter(fn)) for n, fn in ops.all_kernels().items()
+            if body_counter(fn)}
 
 
 def off_cluster(cluster: dict, launches: dict) -> list:
-    """A problem for each kernel of `cluster` (its cluster launches) that a
-    counted path launched off its cluster body: every path's shape takes it."""
-    return [f"{launches[n] - c} of {launches[n]} {n} launches off the cluster body"
+    """A problem for each kernel of `cluster` (its launches on the cluster or
+    flat body) that a counted path launched off that body: every path's
+    shape takes it."""
+    return [f"{launches[n] - c} of {launches[n]} {n} launches off its cluster or flat body"
             for n, c in cluster.items() if c != launches[n]]
 
 
@@ -1732,10 +1854,11 @@ def tc_fields(fn, tc_by_path, cluster_by_path) -> dict:
     (`source`): its launches on the counted paths, and the source of the
     CUDA-core body that runs what it does not take (attention: other head
     dims; w8a8_matmul: K % 16 != 0; winograd_conv3x3 has none); of
-    gn_silu_fwd and gn_silu_bwd, their launches on the cluster body over the
+    gn_silu_fwd, gn_silu_bwd, gn_bwd_stats (cluster_launches) and
+    gn_bwd_apply (flat_launches), their launches on that body over the
     counted paths."""
-    if hasattr(fn, "cluster_launches"):
-        return {"cluster_launches": sum(c.get(fn.__name__, 0) for c in cluster_by_path.values())}
+    if body_counter(fn):
+        return {body_counter(fn): sum(c.get(fn.__name__, 0) for c in cluster_by_path.values())}
     if not hasattr(fn, "tc_launches"):
         return {}
     fields = {"tc_launches": sum(tc.get(fn.__name__, 0) for tc in tc_by_path.values())}
@@ -4224,7 +4347,8 @@ def sp_train_problems(train: list, path: tuple) -> list:
     L2 within MESH_SP_GRAD_REL_L2, no parameter past MESH_PARAM_LR_FACTOR
     lr), every rank's loss the same and finite; path `sp_train`'s kernels
     (PATH_KERNELS["sp_train"] launched, SP_TRAIN_IDLE_KERNELS not, every
-    attention on its tensor-core body)."""
+    attention on its tensor-core body, every gn_bwd_stats launch on its
+    cluster body and every gn_bwd_apply launch on its flat body)."""
     t0, problems = train[0], []
     if not (math.isfinite(t0["loss"]) and len({t["loss"] for t in train}) == 1):
         problems.append(f"SP = 2 training losses {[t['loss'] for t in train]}")

@@ -36,9 +36,13 @@ inline bool tc_body(int dtype, int D, int mode) {
 inline bool bwd_tc_body(int dtype, int D) { return D == 64 && (dtype == kF32 || dtype == kBF16); }
 
 // The same report for an entry point with a thread-block-cluster body
-// (tt_gn_silu_bwd): its wrapper counts cluster_launches from it.
+// (tt_gn_silu_fwd, tt_gn_silu_bwd, tt_gn_bwd_stats): its wrapper counts
+// cluster_launches from it; and for tt_gn_bwd_apply's flat body
+// (flat_launches).
 constexpr int kClusterLaunched = -2;
 inline int cluster_result(cudaError_t e) { return e == cudaSuccess ? kClusterLaunched : (int)e; }
+constexpr int kFlatLaunched = -3;
+inline int flat_result(cudaError_t e) { return e == cudaSuccess ? kFlatLaunched : (int)e; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

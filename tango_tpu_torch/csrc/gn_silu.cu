@@ -115,16 +115,65 @@
 // gn_bwd_stats + gn_bwd_apply: the backward split at its group sums, as
 // gn_stats / gn_apply split the forward, for sequence parallelism, where a
 // group spans the slabs of every model rank (_gn_bwd_kernel's reduction over
-// the group inside one launch cannot see the other slabs). gn_bwd_stats: one
-// block of 256 threads a channel row (B*C blocks) reads x and g once with
-// the forward's saved mean and inv, recomputes xhat, y = xhat*gamma + beta
-// and SiLU', and writes the row's sum dpre * xhat and sum dpre (dgamma,
-// dbeta of the slab); the last block of a group to finish (a ticket after a
-// fence) adds the group's rows in channel order into (sum gamma*dpre, sum
-// gamma*dpre*xhat). The caller all-reduces those over the slabs;
-// gn_bwd_apply streams dx = inv*(gamma_c*dpre - m1 - xhat*m2) over gn_apply's
-// grid. Bound: bytes, two passes of x's size (x, g read) and three (x, g
-// read, dx written).
+// the group inside one launch cannot see the other slabs). gn_bwd_stats
+// writes each channel's sum dpre * xhat and sum dpre (dgamma, dbeta of the
+// slab) and each group's (sum gamma*dpre, sum gamma*dpre*xhat) from the
+// forward's saved mean and inv; the caller all-reduces the group sums over
+// the slabs, and gn_bwd_apply writes dx = inv*(gamma_c*dpre - m1 - xhat*m2).
+// Bound: bytes, two passes of x's size (x, g read) and three (x, g read, dx
+// written). The slabs of a long clip are small (HW 64 to 4096 at batch 1,
+// 32 groups: 0.1-4.7 us of bytes a call), so what a call costs beyond its
+// bytes is the launch, one trip to device memory and the combine.
+//
+// gn_bwd_stats, the cluster body (gn_bwd_stats_cluster_kernel): R CTAs of
+// 128 threads per (batch, group) in one thread-block cluster, R a power of
+// two up to 16 (gn_bwd_stats_cluster_size): the least R whose grid has at
+// least 264 CTAs (two an SM), or 132 where the slices of x and g at 2R
+// would fall below 16 KB. Each CTA reads its 1/R slice of the group's x and
+// g straight from device memory (slice_sums: each warp a contiguous run of
+// 16-byte packets, 8 elements of x and of g a lane a step, so a 64-token
+// map's short channels keep every lane busy), recomputes xhat, y and SiLU'
+// (on the multi-function unit, dsilu_fast), and adds its per-channel sums
+// in shared memory. Every rank pushes those into rank 0's inbox (st.async
+// onto rank 0's mbarrier, as the forward's exchange) and exits; rank 0 adds
+// the R partials of each channel in rank order and writes the dparam rows
+// and the group's two sums. One launch a call: no ticket, no fence, no
+// serial tail, no buffer to zero.
+//
+// What the chip measured (scripts/gn_bwd_split_variants.py on an NVIDIA
+// H100 80GB HBM3 at 700 W, the 18 slabs of SP training; PERF.md): a
+// cluster launch that does nothing but its syncs takes ~2.2 us a call and
+// the exchange with rank 0's tail ~0.8 us more (--parts), so at the 64- to
+// 256-token slabs the fixed part is most of a 4-6 us call. Staging the slice in
+// shared memory (cp.async) measured no faster than reading it straight
+// into registers, and in f32 its 61 KB slices left a second wave at 512
+// CTAs; channel_sums' warp a channel took one trip to memory a channel (10
+// in a row for a warp at 64 tokens); staging in 2 or 4 copy groups, R = 1
+// for small groups, 256-thread CTAs, 132 CTAs, other slice floors and the
+// IEEE SiLU' were each no faster.
+//
+// gn_bwd_apply, the flat body (gn_bwd_apply_flat_kernel): the slab as one
+// flat run of 16-byte packets, K packets of x and of g a thread (all loads
+// issued first), the CTA a contiguous run of 256*K packets, K the least up
+// to 4 that keeps the grid within 264 CTAs (gn_bwd_apply_flat_grid). While
+// the loads fly, the CTA folds the per-(b, c) terms of its rows into four
+// coefficients in shared memory, a = inv*gamma, b = beta - mean*a (y = x*a
+// + b), k2 = -inv^2*m2, k0 = inv^2*m2*mean - inv*m1, so that dx = a*dpre +
+// k2*x + k0 costs a few fused multiply-adds and SiLU' an element
+// (dsilu_fast). A packet's row is its offset over HW (HW a whole number of
+// packets, so a packet never straddles two channels). Measured (the same
+// script): the IEEE SiLU' ~24% slower in bf16 and ~9% in f32; one packet a
+// thread within a few percent either way.
+//
+// The first bodies stay as the streaming fallbacks for what the new ones
+// refuse (HW not a whole number of packets; x, g or dx not 16-byte aligned;
+// gn_bwd_stats' groups of 2^30 elements, or too many channels for rank 0's
+// inbox): gn_bwd_stats_kernel, a
+// block of 256 threads a channel row, the group's last block (a ticket
+// after a fence) adding the group's rows in channel order; and
+// gn_bwd_apply_kernel over gn_apply's (B*C, x-blocks) grid. The entry
+// points tt_gn_bwd_stats_rows / tt_gn_bwd_apply_rows launch them at any
+// alignment, as a yardstick of the new bodies (no path calls them).
 //
 // Statistics follow the Pallas kernels: var = E[x^2] - mean^2, inv =
 // 1/sqrt(var + eps).
@@ -299,6 +348,31 @@ __device__ __forceinline__ float gn_dpre(float g, float xh, float gam, float bet
   return g * (sg * (1.0f + y * (1.0f - sg)));
 }
 
+// silu'(y) = s*(1 + y*(1 - s)), s the sigmoid, on the multi-function unit
+// in place of the IEEE exponential and division (some twenty instructions).
+// f32 storage: the fast exponential and division, one operation each, s
+// within a few f32 ulps of the IEEE form's (1 + e^-y past 2^126 makes s 0,
+// its value to f32 precision). bf16 storage: s = (1 + tanh(y/2))/2 on the
+// one-operation tanh, whose error (about 2^-11 relative) lies far below a
+// bf16 step, as silu_fast's.
+template <typename T>
+__device__ __forceinline__ float dsilu_fast(float y) {
+  float s;
+  if constexpr (sizeof(T) == 2) {
+    asm("tanh.approx.f32 %0, %1;\n" : "=f"(s) : "f"(0.5f * y));
+    s = fmaf(0.5f, s, 0.5f);
+  } else {
+    s = __fdividef(1.0f, 1.0f + __expf(-y));
+  }
+  return s * fmaf(y, 1.0f - s, 1.0f);
+}
+
+// gn_dpre with SiLU' on dsilu_fast.
+template <typename T>
+__device__ __forceinline__ float gn_dpre_fast(float g, float xh, float gam, float bet, int act) {
+  return act ? g * dsilu_fast<T>(fmaf(xh, gam, bet)) : g;
+}
+
 // N values from p (a 16-byte packet of T where N > 1), as f32, and back.
 template <typename T, int N>
 __device__ __forceinline__ void load_n(const T* p, float* v) {
@@ -364,6 +438,105 @@ __device__ __forceinline__ void channel_sums(const T* xw, const T* gw, T* keep, 
       atomicAdd(&sdg[c], adg);
     }
   }
+}
+
+// gn_bwd_stats' per-channel sums of the window [lo, lo + len) of a group,
+// read from device memory (xw, gw from lo on): sum dpre and sum dpre * xhat
+// of each channel c added into sdb[c], sdg[c] (shared memory), dpre as
+// channel_sums' on dsilu_fast. Each warp walks an equal contiguous run of
+// the window's 16-byte packets, 32*U at a step (neighbouring lanes on
+// neighbouring packets), each lane loading its U packets of x and g and
+// their channels' gamma and beta before any arithmetic. A step inside one
+// channel adds into the lanes' running sums, which go to shared memory
+// when the channel changes; a step across channels (every step of a 64- or
+// 256-token map) adds each run of lanes that share a channel in a
+// segmented scan, the run's last lane into shared memory. So every lane has
+// work and a warp takes one trip to memory a step, where a warp a channel
+// (channel_sums) idles most lanes of a short channel and takes a trip a
+// channel. lo, len and HW are whole packets.
+template <typename T, int NT, int U>
+__device__ __forceinline__ void slice_sums(const T* xw, const T* gw, int lo, int len, int HW,
+                                           const float* gam_g, const float* bet_g, float mean,
+                                           float inv, int act, float* sdb, float* sdg) {
+  constexpr int N = Pack<T>::N, kWarps = NT / 32, kStep = 32 * U;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int packets = len / N, hwp = HW / N, p0 = lo / N;  // p0: the window's first packet
+  const int per = (packets + kWarps - 1) / kWarps;
+  const int a = min(warp * per, packets), b = min(a + per, packets);
+  int cur = -1;  // the channel of the running sums (the same in every lane)
+  float run_b = 0.0f, run_g = 0.0f;
+  const auto flush = [&] {  // the running sums of channel cur into shared memory
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      run_b += __shfl_xor_sync(0xffffffffu, run_b, o);
+      run_g += __shfl_xor_sync(0xffffffffu, run_g, o);
+    }
+    if (lane == 0 && cur >= 0) {
+      atomicAdd(&sdb[cur], run_b);
+      atomicAdd(&sdg[cur], run_g);
+    }
+    run_b = run_g = 0.0f;
+  };
+  for (int st = a; st < b; st += kStep) {  // the same in every lane of the warp
+    const int c_first = (p0 + st) / hwp, c_last = (p0 + min(st + kStep, b) - 1) / hwp;
+    uint4 rx[U], rg[U];
+    int ch[U];
+    float gam[U], bet[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = st + u * 32 + lane;
+      ch[u] = p < b ? (c_first == c_last ? c_first : (p0 + p) / hwp) : -1;
+      if (ch[u] >= 0) {
+        rx[u] = *reinterpret_cast<const uint4*>(xw + p * N);
+        rg[u] = *reinterpret_cast<const uint4*>(gw + p * N);
+        gam[u] = gam_g[ch[u]];
+        bet[u] = bet_g[ch[u]];
+      }
+    }
+    if (c_first == c_last && c_first != cur) {
+      flush();
+      cur = c_first;
+    } else if (c_first != c_last) {
+      flush();
+      cur = -1;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float db = 0.0f, dg = 0.0f;
+      if (ch[u] >= 0) {
+        const T* xv = reinterpret_cast<const T*>(&rx[u]);
+        const T* gv = reinterpret_cast<const T*>(&rg[u]);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const float xh = (to_f32(xv[j]) - mean) * inv;
+          const float d = gn_dpre_fast<T>(to_f32(gv[j]), xh, gam[u], bet[u], act);
+          db += d;
+          dg = fmaf(d, xh, dg);
+        }
+      }
+      if (c_first == c_last) {
+        run_b += db;
+        run_g += dg;
+        continue;
+      }
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {  // every lane shuffles, then adds where it may
+        const float pb = __shfl_up_sync(0xffffffffu, db, o);
+        const float pg = __shfl_up_sync(0xffffffffu, dg, o);
+        const int pc = __shfl_up_sync(0xffffffffu, ch[u], o);
+        if (lane >= o && pc == ch[u]) {
+          db += pb;
+          dg += pg;
+        }
+      }
+      const int next = __shfl_down_sync(0xffffffffu, ch[u], 1);
+      if (ch[u] >= 0 && (lane == 31 || next != ch[u])) {
+        atomicAdd(&sdb[ch[u]], db);
+        atomicAdd(&sdg[ch[u]], dg);
+      }
+    }
+  }
+  flush();
 }
 
 // The backward's pass 3 over the window [lo, lo + len) of a group (xw, gw,
@@ -443,6 +616,7 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __r
 
 // ------------------------------------------------- the split backward (SP)
 
+// The streaming fallback of gn_bwd_stats (design notes at the top).
 // grid (B*C): block bc reduces channel row bc (HW elements of x and g) with
 // the forward's statistics mean, inv (B, G) to dparam[b][0][c] = sum dpre *
 // xhat and dparam[b][1][c] = sum dpre. The block that finishes its group
@@ -501,6 +675,7 @@ gn_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+// The streaming fallback of gn_bwd_apply.
 // grid (B*C, x-blocks) as gn_apply's: row bc of HW elements, dx = inv *
 // (gamma_c*dpre - m1 - xhat*m2), m1 and m2 the group's sums (all-reduced
 // over the slabs) over `count` elements.
@@ -610,6 +785,53 @@ int gn_fwd_cluster_size(int esize, int B, int C, int HW, int G) {
       return R;
   }
   return 0;
+}
+
+// the split backward's sizing (design notes at the top): the CTAs a
+// gn_bwd_stats grid reaches where its slices stay at least kStatsMinSlice
+// bytes of x and g; the flat gn_bwd_apply's threads a CTA, most packets of x
+// (and of g) a thread, and the CTAs its grid aims at (two an SM)
+constexpr int kStatsMinCtas = 264;
+constexpr int64_t kStatsMinSlice = 16 * 1024;
+constexpr int kBwdStatsThreads = 128;
+constexpr int kFlatThreads = 256;
+constexpr int kFlatMaxPackets = 4;
+constexpr int kFlatCtas = 264;
+
+// Dynamic shared memory of a gn_bwd_stats CTA: its per-channel sums (2 *
+// C/G f32), the inbox of the R ranks' sums (R * C/G float2, read on rank 0)
+// and its mbarrier.
+int64_t stats_cluster_smem(int cg, int R) { return 8 * (int64_t)cg * (R + 1) + 8; }
+
+// The cluster size gn_bwd_stats takes for (B, C, HW, G) in elements of esize
+// bytes, 0 for the streaming fallback: the least R (a power of two up to 16)
+// whose grid has at least kStatsMinCtas CTAs, or at least kMinCtas where the
+// slices of x and g at 2R would fall below kStatsMinSlice bytes; 0 where
+// that R's shared memory passes kSliceMax (some 1800 channels a group at R =
+// 16), where HW is no whole number of packets, and for groups of 2^30
+// elements or more. gn_bwd_stats_cluster_size in ops/gn_silu.py is its twin.
+int gn_bwd_stats_cluster_size(int esize, int B, int C, int HW, int G) {
+  const int cg = C / G;
+  const int64_t n = (int64_t)cg * HW, groups = (int64_t)B * G;
+  if (HW % (16 / esize) || n >= (1 << 30) || groups > INT_MAX) return 0;
+  int R = 1;
+  for (; R < kMaxCluster; R *= 2)
+    if (groups * R >= kStatsMinCtas ||
+        (groups * R >= kMinCtas && 2 * slice_len(esize, n, 2 * R) * esize < kStatsMinSlice))
+      break;
+  return stats_cluster_smem(cg, R) <= kSliceMax ? R : 0;
+}
+
+// The flat gn_bwd_apply's grid over numel elements of esize bytes: K packets
+// of x a thread, the least K up to kFlatMaxPackets whose CTAs of
+// kFlatThreads*K packets number at most kFlatCtas, and those CTAs.
+// gn_bwd_apply_flat_grid in ops/gn_silu.py is its twin.
+int64_t gn_bwd_apply_flat_grid(int esize, int64_t numel, int& K) {
+  const int64_t packets = numel / (16 / esize);
+  for (K = 1;; ++K) {
+    const int64_t ctas = (packets + (int64_t)kFlatThreads * K - 1) / ((int64_t)kFlatThreads * K);
+    if (ctas <= kFlatCtas || K == kFlatMaxPackets) return ctas;
+  }
 }
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -918,6 +1140,143 @@ gn_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
   cluster_wait();  // no peer reads this CTA's shared memory any more: it may exit
 }
 
+// grid (B*G*R) in clusters of R: cluster q holds group q % G of sample q / G,
+// rank r its slice r (elements [r*L, (r+1)*L), clipped to the group). Rank 0
+// writes dparam[q / G][0|1][channels of the group] = the slab's dgamma,
+// dbeta and sums[q] = (sum gamma*dpre, sum gamma*dpre*xhat), with the
+// forward's mean[q], inv[q]. At R = 1 the CTA skips the exchange.
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT)
+gn_bwd_stats_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                            const float* __restrict__ mean, const float* __restrict__ inv,
+                            const float* __restrict__ gamma, const float* __restrict__ beta,
+                            float* __restrict__ dparam, float* __restrict__ sums, int C, int HW,
+                            int G, int R, int L, int act) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int cg = C / G;
+  float* sdg = reinterpret_cast<float*>(smem);  // [cg] dgamma, then [cg] dbeta
+  float* sdb = sdg + cg;
+  float2* inbox = reinterpret_cast<float2*>(sdb + cg);  // rank r's (dbeta_c, dgamma_c): [r*cg + c]
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(inbox + R * cg);  // their arrival, on rank 0
+  const int q = blockIdx.x / R, gi = q % G, rank = blockIdx.x % R;  // rank == cluster_rank()
+  const int n = cg * HW;  // below 2^30 here
+  const int lo = min(rank * L, n), hi = min(lo + L, n);
+  const int64_t base = (int64_t)q * n + lo;  // (b*C + gi*cg)*HW + lo
+  const int tid = threadIdx.x;
+  if (R > 1) {  // rank 0's barrier, then the arrive that lets the peers push to it
+    if (rank == 0 && tid == 0) mbar_init_expect(mbar, 8 * R * cg);
+    cluster_arrive_relaxed();
+  }
+
+  for (int i = tid; i < 2 * cg; i += NT) sdg[i] = 0.0f;
+  const float mu = mean[q], iv = inv[q];
+  // rank 0's gamma of channel tid, fetched now so that its combine waits on no load
+  const float gam_tid = rank == 0 && tid < cg ? gamma[gi * cg + tid] : 0.0f;
+  __syncthreads();
+  // the slice straight from device memory, 8 elements of x and of g a lane
+  // a step (one bf16 packet, two f32 ones: 2 and 4 bf16 packets measured
+  // slower, one f32 packet level)
+  slice_sums<T, NT, sizeof(T) / 2>(x + base, g + base, lo, hi - lo, HW, gamma + gi * cg,
+                                   beta + gi * cg, mu, iv, act, sdb, sdg);
+  __syncthreads();
+
+  // every rank's partials into rank 0's inbox, in one one-way trip (once
+  // every peer has started and rank 0 has initialised its barrier)
+  if (R > 1) {
+    cluster_wait();
+    for (int c = tid; c < cg; c += NT) push_peer(inbox + rank * cg + c, mbar, 0, sdb[c], sdg[c]);
+    if (rank != 0) return;
+    mbar_wait(mbar, 0);
+  }
+
+  // rank 0: each channel's R partials in rank order, then the group's sums
+  const int64_t b = q / G;
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int c = tid; c < cg; c += NT) {
+    float db = sdb[c], dg = sdg[c];
+    if (R > 1) {
+      db = dg = 0.0f;
+      for (int r = 0; r < R; ++r) {
+        const float2 p = inbox[r * cg + c];
+        db += p.x;
+        dg += p.y;
+      }
+    }
+    const float gam = c == tid ? gam_tid : gamma[gi * cg + c];
+    dparam[(b * 2 + 0) * C + gi * cg + c] = dg;
+    dparam[(b * 2 + 1) * C + gi * cg + c] = db;
+    s1 = fmaf(gam, db, s1);
+    s2 = fmaf(gam, dg, s2);
+  }
+  block_sum2<NT>(s1, s2);
+  if (tid == 0) {
+    sums[(int64_t)q * 2 + 0] = s1;
+    sums[(int64_t)q * 2 + 1] = s2;
+  }
+}
+
+// grid (ctas), kFlatThreads threads: CTA j holds packets [j*P, (j+1)*P) of
+// the slab, P = kFlatThreads*K, thread t packets j*P + k*kFlatThreads + t
+// (k < K: neighbouring threads on neighbouring packets). Row bc of a packet
+// at element e is e / HW, its coefficients those of (b, c); dx as gn_bwd_
+// apply_kernel's, sums over `count` elements a group. I: the offsets' type,
+// int where numel and one CTA more lie below 2^31.
+template <typename T, typename I>
+__global__ void __launch_bounds__(kFlatThreads)
+gn_bwd_apply_flat_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         const float* __restrict__ mean, const float* __restrict__ inv,
+                         const float* __restrict__ gamma, const float* __restrict__ beta,
+                         const float* __restrict__ sums, T* __restrict__ dx, int C, int HW, int G,
+                         I numel, int K, float count, int act) {
+  constexpr int N = Pack<T>::N;
+  __shared__ float4 coef[kFlatThreads * kFlatMaxPackets + 1];  // (a, b, k2, k0) of the CTA's rows
+  const int tid = threadIdx.x;
+  const I e0 = (I)blockIdx.x * kFlatThreads * K * N;
+  // 1. every load of the thread first
+  uint4 rx[kFlatMaxPackets], rg[kFlatMaxPackets];
+#pragma unroll
+  for (int k = 0; k < kFlatMaxPackets; ++k) {
+    const I e = e0 + ((I)k * kFlatThreads + tid) * N;
+    if (k < K && e < numel) {
+      rx[k] = *reinterpret_cast<const uint4*>(x + e);
+      rg[k] = *reinterpret_cast<const uint4*>(g + e);
+    }
+  }
+  // 2. meanwhile the coefficients of the CTA's rows (at most one a packet,
+  // and one more: HW is a whole number of packets)
+  const I r0 = e0 / HW;
+  const I last = (e0 + (I)kFlatThreads * K * N < numel ? e0 + (I)kFlatThreads * K * N : numel) - 1;
+  const int rows = (int)(last / HW - r0) + 1;
+  const int cg = C / G;
+  for (int i = tid; i < rows; i += kFlatThreads) {
+    const I row = r0 + i;
+    const int c = (int)(row % C);
+    const int64_t bg = (int64_t)(row / C) * G + c / cg;
+    const float iv = inv[bg], m1 = sums[bg * 2 + 0] / count, m2 = sums[bg * 2 + 1] / count;
+    const float a = iv * gamma[c], k2 = -iv * iv * m2;
+    coef[i] = make_float4(a, beta[c] - mean[bg] * a, k2, -mean[bg] * k2 - iv * m1);
+  }
+  __syncthreads();
+  // 3. dx = a*dpre + k2*x + k0, dpre = g*silu'(x*a + b) on the SiLU route
+#pragma unroll
+  for (int k = 0; k < kFlatMaxPackets; ++k) {
+    const I e = e0 + ((I)k * kFlatThreads + tid) * N;
+    if (k < K && e < numel) {
+      const float4 cf = coef[(int)(e / HW - r0)];
+      const T* xv = reinterpret_cast<const T*>(&rx[k]);
+      const T* gv = reinterpret_cast<const T*>(&rg[k]);
+      float out[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xf = to_f32(xv[j]), gf = to_f32(gv[j]);
+        const float d = act ? gf * dsilu_fast<T>(fmaf(xf, cf.x, cf.y)) : gf;
+        out[j] = fmaf(cf.x, d, fmaf(cf.z, xf, cf.w));
+      }
+      store_pack(dx + e, out);
+    }
+  }
+}
+
 // Launches `kernel`, a cluster body, on `ctas` CTAs of NT threads in
 // clusters of `cluster`, with `smem` bytes of dynamic shared memory. Its
 // attributes (the most dynamic shared memory, non-portable cluster sizes)
@@ -1087,6 +1446,97 @@ cudaError_t launch_bwd_apply(const void* x, const void* g, const float* mean, co
 }
 
 template <typename T>
+cudaError_t launch_bwd_stats_cluster(const void* x, const void* g, const float* mean,
+                                     const float* inv, const float* gamma, const float* beta,
+                                     float* dparam, float* sums, int B, int C, int HW, int G, int R,
+                                     int act, cudaStream_t st) {
+  const int64_t n = (int64_t)(C / G) * HW;
+  return launch_cluster<gn_bwd_stats_cluster_kernel<T, kBwdStatsThreads>>(
+      (int64_t)B * G * R, kBwdStatsThreads, R, (int)stats_cluster_smem(C / G, R), st,
+      static_cast<const T*>(x), static_cast<const T*>(g), mean, inv, gamma, beta, dparam, sums, C,
+      HW, G, R, (int)slice_len(sizeof(T), n, R), act);
+}
+
+template <typename T>
+cudaError_t launch_bwd_apply_flat(const void* x, const void* g, const float* mean,
+                                  const float* inv, const float* gamma, const float* beta,
+                                  const float* sums, void* dx, int B, int C, int HW, int G,
+                                  float count, int act, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  const int64_t numel = (int64_t)B * C * HW;
+  int K;
+  const unsigned ctas = (unsigned)gn_bwd_apply_flat_grid(sizeof(T), numel, K);
+  if (numel + (int64_t)kFlatThreads * K * Pack<T>::N <= INT_MAX)
+    gn_bwd_apply_flat_kernel<T, int><<<ctas, kFlatThreads, 0, st>>>(
+        xt, gt, mean, inv, gamma, beta, sums, dxt, C, HW, G, (int)numel, K, count, act);
+  else
+    gn_bwd_apply_flat_kernel<T, int64_t><<<ctas, kFlatThreads, 0, st>>>(
+        xt, gt, mean, inv, gamma, beta, sums, dxt, C, HW, G, numel, K, count, act);
+  return cudaGetLastError();
+}
+
+// The split backward's entry points for storage type T: the new bodies
+// where the rules and alignment let them (reported as kClusterLaunched /
+// kFlatLaunched), else the streaming fallback; `rows` launches the fallback
+// at any shape and alignment (the yardstick entry points).
+template <typename T>
+int bwd_stats(const void* x, const void* g, const float* mean, const float* inv,
+              const float* gamma, const float* beta, float* dparam, float* sums, unsigned* done,
+              int B, int C, int HW, int G, int act, bool rows, cudaStream_t st) {
+  const int R = rows ? 0 : gn_bwd_stats_cluster_size(sizeof(T), B, C, HW, G);
+  if (R && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) % 16 == 0)
+    return cluster_result(launch_bwd_stats_cluster<T>(x, g, mean, inv, gamma, beta, dparam, sums,
+                                                      B, C, HW, G, R, act, st));
+  if (!done) return (int)cudaErrorInvalidValue;  // the fallback's group tickets
+  return (int)launch_bwd_stats<T>(x, g, mean, inv, gamma, beta, dparam, sums, done, B, C, HW, G,
+                                  act, st);
+}
+
+template <typename T>
+int bwd_apply(const void* x, const void* g, const float* mean, const float* inv,
+              const float* gamma, const float* beta, const float* sums, void* dx, int B, int C,
+              int HW, int G, float count, int act, bool rows, cudaStream_t st) {
+  if (!rows && packable<T>(x, HW) && packable<T>(g, HW) && packable<T>(dx, HW))
+    return flat_result(launch_bwd_apply_flat<T>(x, g, mean, inv, gamma, beta, sums, dx, B, C, HW,
+                                                G, count, act, st));
+  return (int)launch_bwd_apply<T>(x, g, mean, inv, gamma, beta, sums, dx, B, C, HW, G, count, act,
+                                  st);
+}
+
+int bwd_stats_entry(const void* x, const void* g, const void* mean, const void* inv,
+                    const void* gamma, const void* beta, void* dparam, void* sums, void* done,
+                    int B, int C, int HW, int G, int act, int dtype, bool rows, void* stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  float* dp = static_cast<float*>(dparam);
+  float* sm = static_cast<float*>(sums);
+  unsigned* dn = static_cast<unsigned*>(done);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return bwd_stats<float>(x, g, f(mean), f(inv), f(gamma), f(beta), dp, sm, dn, B, C, HW, G,
+                            act, rows, st);
+  if (dtype == kBF16)
+    return bwd_stats<__nv_bfloat16>(x, g, f(mean), f(inv), f(gamma), f(beta), dp, sm, dn, B, C,
+                                    HW, G, act, rows, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int bwd_apply_entry(const void* x, const void* g, const void* mean, const void* inv,
+                    const void* gamma, const void* beta, const void* sums, void* dx, int B, int C,
+                    int HW, int G, float count, int act, int dtype, bool rows, void* stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return bwd_apply<float>(x, g, f(mean), f(inv), f(gamma), f(beta), f(sums), dx, B, C, HW, G,
+                            count, act, rows, st);
+  if (dtype == kBF16)
+    return bwd_apply<__nv_bfloat16>(x, g, f(mean), f(inv), f(gamma), f(beta), f(sums), dx, B, C,
+                                    HW, G, count, act, rows, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
 cudaError_t launch_bwd(const void* x, const void* g, const float* gamma, const float* beta,
                        void* dx, float* dparam, int B, int C, int HW, int G, float eps, int act,
                        cudaStream_t st) {
@@ -1186,44 +1636,40 @@ int tt_gn_silu_bwd(const void* x, const void* g, const void* gamma, const void* 
 
 // The split backward (sequence parallelism): the per-channel and group sums
 // of a slab, then dx from the group sums all-reduced over the slabs. mean,
-// inv (B, G) f32; dparam (B, 2, C) f32; sums (B, G, 2) f32; done B*G
-// unsigned zeros (the group tickets).
+// inv (B, G) f32; dparam (B, 2, C) f32; sums (B, G, 2) f32. tt_gn_bwd_stats
+// takes the cluster body where gn_bwd_stats_cluster_size gives a cluster and
+// x, g are 16-byte aligned (reported as kClusterLaunched; done unused, may
+// be null), else the streaming fallback, whose group tickets done holds (B*G
+// unsigned zeros). tt_gn_bwd_apply takes the flat body where HW is a whole
+// number of packets and x, g, dx are 16-byte aligned (reported as
+// kFlatLaunched), else the fallback. The _rows entry points launch the
+// fallbacks alone.
 int tt_gn_bwd_stats(const void* x, const void* g, const void* mean, const void* inv,
                     const void* gamma, const void* beta, void* dparam, void* sums, void* done,
                     int B, int C, int HW, int G, int act, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* mu = static_cast<const float*>(mean);
-  const float* iv = static_cast<const float*>(inv);
-  const float* ga = static_cast<const float*>(gamma);
-  const float* be = static_cast<const float*>(beta);
-  float* dp = static_cast<float*>(dparam);
-  float* sm = static_cast<float*>(sums);
-  unsigned* dn = static_cast<unsigned*>(done);
-  if (dtype == tt::kF32)
-    return (int)tt::launch_bwd_stats<float>(x, g, mu, iv, ga, be, dp, sm, dn, B, C, HW, G, act,
-                                            st);
-  if (dtype == tt::kBF16)
-    return (int)tt::launch_bwd_stats<__nv_bfloat16>(x, g, mu, iv, ga, be, dp, sm, dn, B, C, HW,
-                                                    G, act, st);
-  return (int)cudaErrorInvalidValue;
+  return tt::bwd_stats_entry(x, g, mean, inv, gamma, beta, dparam, sums, done, B, C, HW, G, act,
+                             dtype, false, stream);
+}
+
+int tt_gn_bwd_stats_rows(const void* x, const void* g, const void* mean, const void* inv,
+                         const void* gamma, const void* beta, void* dparam, void* sums, void* done,
+                         int B, int C, int HW, int G, int act, int dtype, void* stream) {
+  return tt::bwd_stats_entry(x, g, mean, inv, gamma, beta, dparam, sums, done, B, C, HW, G, act,
+                             dtype, true, stream);
 }
 
 int tt_gn_bwd_apply(const void* x, const void* g, const void* mean, const void* inv,
                     const void* gamma, const void* beta, const void* sums, void* dx, int B,
                     int C, int HW, int G, float count, int act, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* mu = static_cast<const float*>(mean);
-  const float* iv = static_cast<const float*>(inv);
-  const float* ga = static_cast<const float*>(gamma);
-  const float* be = static_cast<const float*>(beta);
-  const float* sm = static_cast<const float*>(sums);
-  if (dtype == tt::kF32)
-    return (int)tt::launch_bwd_apply<float>(x, g, mu, iv, ga, be, sm, dx, B, C, HW, G, count,
-                                            act, st);
-  if (dtype == tt::kBF16)
-    return (int)tt::launch_bwd_apply<__nv_bfloat16>(x, g, mu, iv, ga, be, sm, dx, B, C, HW, G,
-                                                    count, act, st);
-  return (int)cudaErrorInvalidValue;
+  return tt::bwd_apply_entry(x, g, mean, inv, gamma, beta, sums, dx, B, C, HW, G, count, act,
+                             dtype, false, stream);
+}
+
+int tt_gn_bwd_apply_rows(const void* x, const void* g, const void* mean, const void* inv,
+                         const void* gamma, const void* beta, const void* sums, void* dx, int B,
+                         int C, int HW, int G, float count, int act, int dtype, void* stream) {
+  return tt::bwd_apply_entry(x, g, mean, inv, gamma, beta, sums, dx, B, C, HW, G, count, act,
+                             dtype, true, stream);
 }
 
 const char* tt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -8,8 +8,10 @@ launches in `wrapper.launches` (a plain integer). The wrappers with a
 tensor-core body (`attn_fwd`, `attn_fwd_v2`, `attn_fwd_bias`, `attn_bwd_dq`,
 `attn_bwd_dkv`, `w8a8_matmul`, `winograd_conv3x3`) also count the launches that took it in
 `wrapper.tc_launches`, from what the C entry point reports (`reported_tc`,
-`count_tc`); `gn_silu_fwd` and `gn_silu_bwd` count their thread-block-cluster
-launches in `wrapper.cluster_launches` the same way (`count_cluster`).
+`count_tc`); `gn_silu_fwd`, `gn_silu_bwd` and `gn_bwd_stats` count their
+thread-block-cluster launches in `wrapper.cluster_launches` the same way, and
+`gn_bwd_apply` the launches of its flat body in `wrapper.flat_launches`
+(`count_cluster`).
 """
 
 from tango_tpu_torch.ops import _build
@@ -18,6 +20,7 @@ KERNELS: dict = {}
 BACKWARD_KERNELS: dict = {}
 TC_LAUNCHED = -1  # a C entry point's return after a tensor-core launch (tt::kTcLaunched)
 CLUSTER_LAUNCHED = -2  # ... after a thread-block-cluster launch (tt::kClusterLaunched)
+FLAT_LAUNCHED = -3  # ... after a launch of gn_bwd_apply's flat body (tt::kFlatLaunched)
 
 
 def kernel_wrapper(source: str, replaces: str, backward: bool = False):
@@ -47,7 +50,7 @@ def reset_counters() -> None:
     for fn in all_kernels().values():
         fn.launches = 0
         fn.shapes.clear()
-        for counter in ("tc_launches", "cluster_launches"):
+        for counter in ("tc_launches", "cluster_launches", "flat_launches"):
             if hasattr(fn, counter):
                 setattr(fn, counter, 0)
 
@@ -78,12 +81,13 @@ def count_tc(fn, rule: bool, ran: bool) -> None:
     fn.tc_launches += ran
 
 
-def count_cluster(fn, rule: bool, ran: bool) -> None:
-    """Count in fn.cluster_launches a launch the C entry point reported as a
-    thread-block-cluster one (ran, its return was CLUSTER_LAUNCHED); raise
-    where that report disagrees with the rule the wrapper prepared the
+def count_cluster(fn, rule: bool, ran: bool, body: str = "cluster") -> None:
+    """Count in fn.<body>_launches a launch the C entry point reported as
+    one of that body (ran: its return was CLUSTER_LAUNCHED for a
+    thread-block-cluster body, FLAT_LAUNCHED for gn_bwd_apply's flat one);
+    raise where that report disagrees with the rule the wrapper prepared the
     launch by."""
     if ran != rule:
         raise RuntimeError(f"{fn.__name__}: the entry point launched the "
-                           f"{'cluster' if ran else 'streaming'} body against the wrapper's rule")
-    fn.cluster_launches += ran
+                           f"{body if ran else 'streaming'} body against the wrapper's rule")
+    setattr(fn, f"{body}_launches", getattr(fn, f"{body}_launches") + ran)

@@ -44,6 +44,9 @@ _SIGNATURES = {
     "tt_gn_bwd_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, g, mean, inv, gamma, beta, sums, dx, B, C, HW, G, count, act, dtype, stream
     "tt_gn_bwd_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    # the two above on their streaming fallbacks alone (a yardstick, on no path)
+    "tt_gn_bwd_stats_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "tt_gn_bwd_apply_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, o, BH, Sq, Skv, D, qscale, dtype, stream
     "tt_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "tt_attn_fwd_v2": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],

@@ -132,7 +132,7 @@ class _SeqGroupNorm(torch.autograd.Function):
         sums, dparam = gn_bwd_stats(x, g, mean, inv, scale, bias, act)
         all_reduce_over_model_(sums, sp, "group_norm_grad")
         dx = gn_bwd_apply(x, g, mean, inv, scale, bias, act, sums, count)
-        dscale, dbias = dparam.sum(0)
+        dscale, dbias = dparam[0] if dparam.shape[0] == 1 else dparam.sum(0)  # no launch at B = 1
         return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None, None, None
 
 

@@ -15,7 +15,12 @@ Six kernels from `csrc/gn_silu.cu`:
     (sequence parallelism, where a group spans every slab), together
     replacing `_gn_bwd_kernel` (:119) as gn_stats / gn_apply split the
     forward: the slab's sums, all-reduced over 'model' by the caller, then
-    dx; dgamma, dbeta stay the slab's;
+    dx; dgamma, dbeta stay the slab's. `gn_bwd_stats` runs a thread-block
+    cluster of R CTAs a group where `gn_bwd_stats_cluster_size` gives R
+    (`gn_bwd_stats.cluster_launches`), `gn_bwd_apply` a flat body over the
+    slab's 16-byte packets where HW is a whole number of them
+    (`gn_bwd_apply.flat_launches`, grid `gn_bwd_apply_flat_grid`); other
+    shapes and unaligned operands take the streaming fallbacks;
   * `gn_silu_bwd` — the backward, replaces `_gn_bwd_kernel` (:119): dx and
     per-sample dgamma/dbeta with the statistics recomputed, summed over the
     batch here in torch, as `group_norm_pallas_bwd` sums them in XLA. Where
@@ -42,7 +47,13 @@ import math
 
 import torch
 
-from tango_tpu_torch.ops import CLUSTER_LAUNCHED, _build, count_cluster, kernel_wrapper
+from tango_tpu_torch.ops import (
+    CLUSTER_LAUNCHED,
+    FLAT_LAUNCHED,
+    _build,
+    count_cluster,
+    kernel_wrapper,
+)
 
 _SRC = "tango_tpu_torch/csrc/gn_silu.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,6 +97,8 @@ def _route(x: torch.Tensor, name: str) -> bool:
 
 
 def _param_f32(p: torch.Tensor, c: int, device) -> torch.Tensor:
+    """p as a contiguous (c,) f32 tensor on `device`: p itself where it is
+    one already (no cast, no copy, no launch)."""
     if p.shape != (c,):
         raise ValueError(f"expected a ({c},) parameter, got {tuple(p.shape)}")
     return p.to(device=device, dtype=torch.float32).contiguous()
@@ -431,6 +444,60 @@ gn_silu_bwd.cluster_launches = 0
 
 # ------------------------------------------------------------- split backward
 
+# the new bodies' sizing (csrc/gn_silu.cu): the CTAs a gn_bwd_stats grid
+# reaches where its slices stay at least _STATS_MIN_SLICE bytes of x and g;
+# the flat gn_bwd_apply's threads a CTA, most packets a thread and the CTAs
+# its grid aims at
+_STATS_MIN_CTAS = 264
+_STATS_MIN_SLICE = 16 * 1024
+_FLAT_THREADS = 256
+_FLAT_MAX_PACKETS = 4
+_FLAT_CTAS = 264
+
+
+def _stats_smem(cg: int, r: int) -> int:
+    return 8 * cg * (r + 1) + 8
+
+
+@functools.lru_cache(maxsize=None)
+def gn_bwd_stats_cluster_size(dtype: torch.dtype, b: int, c: int, hw: int,
+                              num_groups: int) -> int:
+    """The cluster size R gn_bwd_stats' cluster body takes for x (B, C, HW) in
+    `dtype`, 0 for the streaming fallback: the least power of two up to 16
+    whose grid has at least 264 CTAs, or at least 132 where the slices of x
+    and g at 2R would fall below 16 KB; 0 where that R's shared memory (8
+    bytes a channel, and 8 a channel and rank of the exchange) passes 226 KB,
+    where HW is no whole number of 16-byte packets, and for groups of 2^30
+    elements or more. The C entry point applies the same rule
+    (`gn_bwd_stats_cluster_size` in csrc/gn_silu.cu), together with 16-byte
+    aligned x and g. Cached: the wrapper asks at every launch."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    cg = c // num_groups
+    n, groups = cg * hw, b * num_groups
+    if hw % (16 // esize) or n >= 2**30 or groups >= _INT32:
+        return 0
+    r = 1
+    while r < _CLUSTER_MAX and not (
+            groups * r >= _STATS_MIN_CTAS
+            or (groups * r >= _CLUSTER_MIN_CTAS
+                and 2 * cluster_slice_len(esize, n, 2 * r) * esize < _STATS_MIN_SLICE)):
+        r *= 2
+    return r if _stats_smem(cg, r) <= _SLICE_MAX else 0
+
+
+def gn_bwd_apply_flat_grid(dtype: torch.dtype, numel: int) -> tuple[int, int]:
+    """(packets of x a thread K, CTAs) of gn_bwd_apply's flat body over
+    `numel` elements: CTAs of 256 threads hold 256*K packets, K the least up
+    to 4 whose grid has at most 264 CTAs (`gn_bwd_apply_flat_grid` in
+    csrc/gn_silu.cu)."""
+    packets = numel // (16 // torch.empty((), dtype=dtype).element_size())
+    for k in range(1, _FLAT_MAX_PACKETS + 1):
+        ctas = -(-packets // (_FLAT_THREADS * k))
+        if ctas <= _FLAT_CTAS:
+            break
+    return k, ctas
+
+
 def _dpre_xhat(x, g, mean, inv, gamma, beta, act):
     """(dpre, xhat, gamma) of x (B, C, *spatial) as (B, G, C/G, HW) f32 from
     the (B, G) statistics: dpre = g * silu'(y) on the SiLU route."""
@@ -485,22 +552,39 @@ def gn_bwd_stats(x, g, mean, inv, gamma, beta, act: str | None = None):
     slab's dgamma and dbeta of each sample), all f32."""
     if act not in (None, "silu"):
         raise ValueError(f"unknown fused act {act}")
-    b, c, hw, groups = _check_split("gn_bwd_stats", x, g, mean, inv)
+    _check_split("gn_bwd_stats", x, g, mean, inv)
     if not _route(x, "gn_bwd_stats"):
         return gn_bwd_stats_plain(x, g, mean, inv, gamma, beta, act)
+    return _launch_bwd_stats(x, g, mean, inv, gamma, beta, act)
+
+
+def _launch_bwd_stats(x, g, mean, inv, gamma, beta, act: str | None):
+    """Launch gn_bwd_stats into new outputs. The C entry point takes the
+    cluster body where gn_bwd_stats_cluster_size gives R > 0 and x, g are
+    16-byte aligned: one launch, nothing to zero; count_cluster holds its
+    report to that. The streaming fallback takes B*G zeroed group tickets."""
+    b, c, hw, groups = x.shape[0], x.shape[1], math.prod(x.shape[2:]), mean.shape[1]
     lib = _build.load()
     g32, b32 = _param_f32(gamma, c, x.device), _param_f32(beta, c, x.device)
     dparam = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
     sums = torch.empty((b, groups, 2), device=x.device, dtype=torch.float32)
-    done = torch.zeros(b * groups, device=x.device, dtype=torch.int32)
+    cluster = (gn_bwd_stats_cluster_size(x.dtype, b, c, hw, groups) > 0
+               and not (x.data_ptr() | g.data_ptr()) % 16)
+    done = None if cluster else torch.zeros(b * groups, device=x.device, dtype=torch.int32)
     code = lib.tt_gn_bwd_stats(
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(), g32.data_ptr(),
-        b32.data_ptr(), dparam.data_ptr(), sums.data_ptr(), done.data_ptr(), b, c, hw, groups,
-        int(act == "silu"), _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "gn_bwd_stats")
+        b32.data_ptr(), dparam.data_ptr(), sums.data_ptr(), None if done is None else
+        done.data_ptr(), b, c, hw, groups, int(act == "silu"), _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    ran = code == CLUSTER_LAUNCHED
+    _build.check(lib, 0 if ran else code, "gn_bwd_stats")
+    count_cluster(gn_bwd_stats, cluster, ran)
     gn_bwd_stats.launches += 1
     gn_bwd_stats.shapes.add((tuple(x.shape), groups, act))
     return sums, dparam
+
+
+gn_bwd_stats.cluster_launches = 0
 
 
 def gn_bwd_apply_plain(x, g, mean, inv, gamma, beta, act: str | None, sums, count: int):
@@ -520,17 +604,32 @@ def gn_bwd_apply(x, g, mean, inv, gamma, beta, act: str | None, sums, count: int
     a group."""
     if act not in (None, "silu"):
         raise ValueError(f"unknown fused act {act}")
-    b, c, hw, groups = _check_split("gn_bwd_apply", x, g, mean, inv, sums)
+    _check_split("gn_bwd_apply", x, g, mean, inv, sums)
     if not _route(x, "gn_bwd_apply"):
         return gn_bwd_apply_plain(x, g, mean, inv, gamma, beta, act, sums, count)
+    return _launch_bwd_apply(x, g, mean, inv, gamma, beta, act, sums, count)
+
+
+def _launch_bwd_apply(x, g, mean, inv, gamma, beta, act: str | None, sums, count: int):
+    """Launch gn_bwd_apply into a new dx. The C entry point takes the flat
+    body where HW is a whole number of 16-byte packets and x, g, dx are
+    16-byte aligned; count_cluster holds its report to that."""
+    b, c, hw, groups = x.shape[0], x.shape[1], math.prod(x.shape[2:]), mean.shape[1]
     lib = _build.load()
     g32, b32 = _param_f32(gamma, c, x.device), _param_f32(beta, c, x.device)
     dx = torch.empty_like(x)
+    flat = (not hw % (16 // x.element_size())
+            and not any(t.data_ptr() % 16 for t in (x, g, dx)))
     code = lib.tt_gn_bwd_apply(
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), inv.data_ptr(), g32.data_ptr(),
         b32.data_ptr(), sums.data_ptr(), dx.data_ptr(), b, c, hw, groups, float(count),
         int(act == "silu"), _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "gn_bwd_apply")
+    ran = code == FLAT_LAUNCHED
+    _build.check(lib, 0 if ran else code, "gn_bwd_apply")
+    count_cluster(gn_bwd_apply, flat, ran, body="flat")
     gn_bwd_apply.launches += 1
     gn_bwd_apply.shapes.add((tuple(x.shape), groups, act))
     return dx
+
+
+gn_bwd_apply.flat_launches = 0
