@@ -145,6 +145,20 @@ Phases, one short JSON line each:
            this process's; both ranks' outputs bit-equal; the ms a step
            beside one process's, each evaluation's collectives by kind (halo,
            group_norm, kv, output) and the bytes a rank received; then (line
+           `mesh_sp_int8`) each rank's UNet quantized (scope "all", as
+           Tango.from_components(quant="all") serves it: the f32 weights
+           quantized, the rest bf16) and evaluated at CFG batch 2 over the
+           same 512 frames without a mesh and with the latent sharder:
+           the SP output finite, each int8 convolution path (3x3, 1x1
+           shortcut, down- and upsampler) at its full-width shape bit-equal
+           to the meshless layer and, with each slab quantized by its own
+           amax (the control), not bit-equal, both ranks' outputs
+           bit-equal, one `int8_amax` all-reduce for each QConv2d; the
+           relative L2 of the SP output and the control's from the
+           meshless one (read, not held: both sit at the int8 mode's own
+           noise); the ms of the evaluation (first and warm)
+           beside the meshless one's, its collectives and bytes by kind, the
+           W8A8 GEMMs' (M, K, N); then (line
            `mesh_sp_train`) an SP = 2 training step: the snapshot's f32 UNet
            in SFTTrainer(mesh=) with the latent sharder (remat, min-SNR 5,
            batch 1 at the long clip's 512 latent frames, accumulation 1, one
@@ -159,7 +173,9 @@ Phases, one short JSON line each:
            of (a)-(c) are path `mesh` (PATH_KERNELS["mesh"]), (d)'s
            evaluations path `sp` (PATH_KERNELS["sp"]: gn_stats, gn_apply,
            attn_fwd at the slabs' queries against every key, attn_fwd_v2; no
-           gn_silu_fwd), its training step path `sp_train` (those four,
+           gn_silu_fwd), its int8 evaluation path `sp_int8` (w8a8_matmul and
+           those four; no gn_silu_fwd; every w8a8_matmul launch on its
+           tensor-core body), its training step path `sp_train` (those four,
            gn_bwd_stats, gn_bwd_apply, attn_bwd_dq and attn_bwd_dkv at the
            slabs' queries against every key; no gn_silu_bwd, and
            gn_silu_fwd only in the frozen VAE encoder); on each every
@@ -264,6 +280,16 @@ Phases, one short JSON line each:
            of its GEMMs, and the 3x3 stride-1 convolution shapes of the bf16
            evaluation, recorded by forward hooks, for winograd_conv3x3, which
            no path calls (in JAX neither);
+  trace    the bf16 evaluation once more inside
+           tango_tpu_torch.utils.profiling.trace (a torch.profiler chrome
+           trace under build/, read back and deleted): its CUDA kernel
+           events, and the port's own kernels among them by name (the
+           __global__ functions of csrc/*.cu), which must number the
+           evaluation's wrapper launches;
+  demo_torch
+           `python examples/demo_torch.py --tiny` on the card in a child
+           process in an empty directory under build/: exit 0 and a 16 kHz,
+           non-silent demo_tiny.wav;
   train_model, train
            the training path: full-width f32 SFT (TANGO_UNET with remat,
            min-SNR 5, uncondition dropout; the TANGO_VAE encoder and the
@@ -355,7 +381,9 @@ Phases, one short JSON line each:
            ones of the tensor-core body (W8A8_TC_RAGGED), checked only: f32
            atol 1e-5 / rtol 1e-5 (the JAX test's), bf16 one bf16 step (1e-2
            / 8e-3); library torch._int_mm on the pre-quantized operands,
-           and bf16 F.linear as a note (--detail: per shape, with TOP/s).
+           and bf16 F.linear as a note (--detail: per shape, with TOP/s);
+           timed in f32 too (the `f32` field); line `kernels_sp_int8` sums
+           path sp_int8's own W8A8 shapes (the slabs' token counts).
            winograd_conv3x3, called directly, at tests/test_winograd.py's
            shapes and at the hooked UNet shapes: both types on the
            tensor-core body (bf16 wgmma, f32 3xTF32), also at a ragged
@@ -385,6 +413,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import dataclasses
 import faulthandler
 import functools
 import json
@@ -505,7 +534,7 @@ BIAS_TC_SHAPES = [((6, 200, 64), (6, 333, 64), (2, 1, 333)),
 # the serving paths: every attention kernel launch there is bf16 at D = 64,
 # or (audioldm) f32 attn_fwd at D = 32, and takes the tensor-core body
 TC_PATHS = ("serve", "snapshot", "serve_http", "long_clip", "long_prompt", "int8", "int8_conv",
-            "mustango", "audioldm", "sp")
+            "mustango", "audioldm", "sp", "sp_int8")
 # paths whose attention runs the CUDA-core body (csrc/attention.cu): none.
 # AudioLDM's FiLM UNet, heads of 32 (num_head_channels), was one until
 # attn_fwd's static form took a tensor-core body at head dim 32; every path's
@@ -537,6 +566,11 @@ SP_IDLE_KERNELS = ("gn_silu_fwd",)
 PATH_KERNELS["sp_train"] = PATH_KERNELS["sp"] + ("gn_bwd_stats", "gn_bwd_apply", "attn_bwd_dq",
                                                  "attn_bwd_dkv")
 SP_TRAIN_IDLE_KERNELS = ("gn_silu_bwd",)
+# (d)'s int8 evaluation: the SP path's four, and w8a8_matmul for every
+# quantized Linear (per token: local to a slab; K % 16 == 0 at every shape,
+# so every launch on its tensor-core body); the int8 convolutions are
+# im2col + torch._int_mm (XLA in JAX: no hand kernel), their amax all-reduced
+PATH_KERNELS["sp_int8"] = ("w8a8_matmul",) + PATH_KERNELS["sp"]
 # the snapshot phase's batch-generation CLI run over BATCH_PROMPTS: steps, batch size
 CLI_STEPS = 2
 CLI_BATCH = 2
@@ -1627,7 +1661,8 @@ def int8_and_winograd(K, cases, shapes, randn, detail):
     with bf16 inputs (Winograd in f32 too). Each call must take the body its
     rule names (`w8a8_tc_body`, `wino_tc_body`): the tensor-core one at
     every int8-path and UNet shape and for Winograd in both types, the
-    CUDA-core one for the ragged GEMMs. Winograd is timed as the whole
+    CUDA-core one for the ragged GEMMs. w8a8_matmul is timed in f32 too
+    (the `f32` field). Winograd is timed as the whole
     wrapper (U = G w G^T by its kernel, then the convolution: the `ms` of
     the kernels line, as before) and, in bf16, as the kernel alone (`launch`
     on a prepared U), both beside cuDNN. With `detail`, each shape's row
@@ -1660,6 +1695,14 @@ def int8_and_winograd(K, cases, shapes, randn, detail):
                       *bound_ms(2 * m * k + n * k + 4 * n + 2 * m * n, 2 * m * n * k, INT8_OPS),
                       [[m, k], [n, k]], flops=2 * m * n * k, linear_bf16_ms=linear,
                       **({"by_kernel_ms": device_ms(lambda: w8a8(x, q, s), 20)} if detail else {}))
+        x32 = randn(m, k)
+        xq32, _ = quantize_rows(x32)
+        case.add_time_f32(cuda_ms(lambda: w8a8(x32, q, s)),
+                          plain_cuda_ms(lambda: w8a8_matmul_plain(x32, q, s)),
+                          cuda_ms(lambda: torch._int_mm(xq32, q.t())) if int_mm_ok(m, k, n)
+                          else None,
+                          *bound_ms(4 * m * k + n * k + 4 * n + 4 * m * n, 2 * m * n * k,
+                                    INT8_OPS), [[m, k], [n, k]], flops=2 * m * n * k)
 
     for m, k, n in W8A8_RAGGED + W8A8_TC_RAGGED:
         q, s = quantize_weight(randn(n, k, scale=k**-0.5), out_axis=0)
@@ -1865,6 +1908,75 @@ def tc_fields(fn, tc_by_path, cluster_by_path) -> dict:
     if hasattr(fn, "core_source"):  # winograd_conv3x3 has no CUDA-core body
         fields["core_source"] = fn.core_source
     return fields
+
+
+def hand_kernel_names() -> set:
+    """The __global__ functions of tango_tpu_torch/csrc/*.cu: the port's own
+    kernels, as a trace names them."""
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tango_tpu_torch", "csrc")
+    names = set()
+    for f in os.listdir(csrc):
+        if f.endswith(".cu"):
+            with open(os.path.join(csrc, f)) as fh:
+                names |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|"
+                                        r"\([^()]*\))*\)\s+)?(\w+)\s*\(", fh.read()))
+    return names
+
+
+def trace_phase(evaluate, launches: int) -> None:
+    """Line `trace`: tango_tpu_torch.utils.profiling.trace around one bf16
+    UNet evaluation (the per_eval one, CFG batch 2), its chrome trace read
+    back: the CUDA kernel events, and those of the port's own kernels by
+    name (`hand_kernel_names`), which must number the evaluation's
+    `launches` of the port's wrappers (one kernel a launch); the trace's
+    directory under build/ deleted after."""
+    from tango_tpu_torch.utils.profiling import trace
+
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with torch.inference_mode(), trace(logdir) as d:
+        evaluate()
+    files = [f for f in os.listdir(d) if f.endswith(".json")]
+    with open(os.path.join(d, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(logdir)
+    ours = hand_kernel_names()
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    hand = collections.Counter(n for k in kernels for n in ours
+                               if re.search(rf"\b{n}\b", k))
+    log("trace", card=nvidia_smi(), files=len(files), events=len(events),
+        cuda_kernel_events=len(kernels), hand_kernel_events=sum(hand.values()),
+        wrapper_launches=launches, hand_kernels=dict(sorted(hand.items())),
+        seconds=round(time.perf_counter() - t0, 3))
+    if len(files) != 1 or not hand or sum(hand.values()) != launches:
+        raise AssertionError(f"trace: {len(files)} trace files, {sum(hand.values())} events of "
+                             f"the port's kernels for {launches} launches ({dict(hand)})")
+
+
+def demo_phase(root: str) -> None:
+    """Line `demo_torch`: `python examples/demo_torch.py --tiny` (on the card,
+    its default) in a child process in an empty directory under build/; it
+    must exit 0 and write a 16 kHz, non-silent demo_tiny.wav. The directory
+    is deleted after."""
+    from tango_tpu_torch.audio.wav import read_wav
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                       "examples", "demo_torch.py"), "--tiny"],
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    path = os.path.join(root, "demo_tiny.wav")
+    wav, sr = read_wav(path) if out.returncode == 0 and os.path.exists(path) else (None, None)
+    shutil.rmtree(root)
+    log("demo_torch", rc=out.returncode, seconds=round(seconds, 3), stdout=out.stdout.strip(),
+        samples=None if wav is None else len(wav), sr=sr,
+        peak=None if wav is None else float(abs(wav).max()))
+    if wav is None or sr != 16000 or not abs(wav).max() > 0:
+        raise AssertionError(f"examples/demo_torch.py --tiny: rc {out.returncode}, "
+                             f"{out.stderr[-2000:]}")
 
 
 def int8_order_phase(C, quantized) -> None:
@@ -3918,7 +4030,9 @@ def mesh_rank_sp(job: dict, mesh, ops) -> dict:
     2, and the ms a step. The counters are zeroed after the meshless
     evaluations, so the part's launches are SP's. The collectives of an
     evaluation by kind, and the bytes this rank received, from the mesh's
-    `seq_stats`."""
+    `seq_stats`. Then the bf16 UNet quantized (`sp_int8_eval`, path
+    `sp_int8`) and the training step (`sp_train_step`, path `sp_train`),
+    each counted on its own."""
     from tango_tpu_torch.models.diffusion import AudioDiffusion
     from tango_tpu_torch.models.unet import UNet2DConditionModel
     from tango_tpu_torch.parallel import mesh as pmesh
@@ -3927,9 +4041,9 @@ def mesh_rank_sp(job: dict, mesh, ops) -> dict:
 
     dev = mesh.device
     main = load_main_weights(job["snapshot"])
-    params = main["unet_params"]  # the training step's starting weights
-    unet = build_module(lambda: UNet2DConditionModel(main["unet_config"]), params, dev,
-                        torch.float32, 0)
+    params = main["unet_params"]  # the int8 evaluation's and training step's starting weights
+    cfg = main["unet_config"]
+    unet = build_module(lambda: UNet2DConditionModel(cfg), params, dev, torch.float32, 0)
     del main
     args = mesh_unet_inputs(unet, job["sp_latent"], 1, 128, torch.float32, dev, 3)
     low = copy.deepcopy(unet).to(job["sp_dtype"])
@@ -3982,8 +4096,126 @@ def mesh_rank_sp(job: dict, mesh, ops) -> dict:
     out_rec.update(zip(("launches", "shapes", "tc", "cluster"), read_counters(ops)),
                    peak_memory_bytes=torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
+    out_rec["int8"] = sp_int8_eval(job, mesh, ops, cfg, params)
+    torch.cuda.empty_cache()
     out_rec["train"] = sp_train_step(job, mesh, ops, params)
     return out_rec
+
+
+def sp_int8_eval(job: dict, mesh, ops, cfg, params: dict) -> dict:
+    """Phase mesh (d)'s int8 evaluation (line `mesh_sp_int8`), one rank of
+    SP = 2: the snapshot's UNet quantized as Tango.from_components(quant=
+    "all") serves it (its f32 weights quantized: int8 weights, f32 scales;
+    the float remainder cast to the pipeline's dtype, bf16), at CFG batch 2
+    over the long clip's latents, meshless (a warm-up, then a timed call),
+    then with latent_sharder=partial(shard_latents_seq, mesh=mesh), whose
+    first call is counted (the counters and the mesh's exchanges zeroed just
+    before it and read just after: path `sp_int8`) and timed, and a second
+    timed warm. Its relative L2 from the meshless output; the exchanges by
+    kind, which must hold one `int8_amax` for each QConv2d (every level runs
+    on slabs at 512 frames); each int8 convolution kind
+    (`int8_layer_checks`) on the slabs against the meshless layer, bit for
+    bit; and the same with each slab quantized by its own amax
+    (`slab_amax_control`). The relative L2 is read, not held: at full width
+    any difference in a layer's input (the slabs' GroupNorm sums in another
+    order) moves some activations across an int8 rounding boundary and
+    re-draws the quantization noise downstream, and the control lands at
+    the same noise, so the layer checks and the amax count hold SP's int8
+    path."""
+    from tango_tpu_torch.models.unet import UNet2DConditionModel
+    from tango_tpu_torch.ops.quant import QConv2d, quantize_unet_
+    from tango_tpu_torch.parallel import mesh as pmesh
+    from tango_tpu_torch.pipeline import _cast_float_, build_module
+
+    unet = quantize_unet_(build_module(lambda: UNet2DConditionModel(cfg), params, mesh.device,
+                                       torch.float32, 0), "all")
+    unet.cfg = dataclasses.replace(cfg, quant_int8=True, quant_scope="all")
+    _cast_float_(unet, job["sp_dtype"])
+    sharder = functools.partial(pmesh.shard_latents_seq, mesh=mesh)
+
+    def timed(model, args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(*args).float()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    rel_l2 = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    args = mesh_unet_inputs(unet, job["sp_latent"], 2, 128, job["sp_dtype"], mesh.device, 7)
+    with torch.inference_mode():
+        unet(*args)
+        ref, ref_ms = timed(unet, args)
+        unet.latent_sharder = sharder
+        torch.cuda.synchronize()
+        ops.reset_counters()
+        mesh.seq_stats.clear()
+        out, first_ms = timed(unet, args)
+        counters = read_counters(ops)
+        stats = dict(mesh.seq_stats)
+        _, ms = timed(unet, args)
+        layers = int8_layer_checks(unet, mesh, job["sp_dtype"], job["sp_latent"])
+        control, control_layers = slab_amax_control(unet, args, mesh, job)
+    return dict(zip(("launches", "shapes", "tc", "cluster"), counters), out=out.cpu(),
+                rel_l2=rel_l2(out, ref), finite=bool(torch.isfinite(out).all()), ms=ms,
+                first_ms=first_ms, meshless_ms=ref_ms, collectives=stats, layers=layers,
+                control_rel_l2=rel_l2(control, ref), control_layers=control_layers,
+                qconv=sum(isinstance(m, QConv2d) for m in unet.modules()))
+
+
+def slab_amax_control(unet, args, mesh, job: dict):
+    """The fault the amax all-reduce prevents, planted: the SP evaluation and
+    `int8_layer_checks` again with each int8 conv quantizing its slab by the
+    slab's own amax (`_slab_amax` without the exchange). (its output, its
+    layer checks); the layers must differ from the meshless ones."""
+    from tango_tpu_torch.models import unet as unet_mod
+    from tango_tpu_torch.ops.quant import QConv2d, act_amax
+
+    exchanged = unet_mod._slab_amax
+    unet_mod._slab_amax = lambda conv, x, sp: act_amax(x) if isinstance(conv, QConv2d) else None
+    try:
+        out = unet(*args).float()
+        return out, int8_layer_checks(unet, mesh, job["sp_dtype"], job["sp_latent"])
+    finally:
+        unet_mod._slab_amax = exchanged
+
+
+def int8_layer_checks(unet, mesh, dtype, latent: tuple) -> dict:
+    """Each int8 convolution path of the quantized UNet at its full-width
+    shape on the long clip's slabs (a 3x3 resnet conv, a 1x1 shortcut, a
+    downsampler, an upsampler), on seeded activations whose per-sample amax
+    lies in another slab than rank 0's for one sample: this rank's rows of
+    the SP layer (its amax all-reduced, halo rows and pads quantized with
+    it) against the meshless layer's on the whole, which must be bit-equal
+    (the amax is exact, _int_mm's int32 sums exact, the dequantize
+    elementwise). {kind: (equal, max abs difference)}."""
+    from tango_tpu_torch.models.unet import seq_conv
+    from tango_tpu_torch.parallel.mesh import slab_span
+
+    levels = len(unet.cfg.block_out_channels)
+    short = next(lv for lv in range(levels)
+                 if getattr(getattr(unet, f"down_blocks_{lv}").resnets_0, "conv_shortcut"))
+    conv = lambda m: lambda x, sp=None: seq_conv(m, x, sp)  # noqa: E731
+    # (layer, its int8 conv, the level of its input)
+    cases = {"conv3x3": (conv(unet.down_blocks_0.resnets_0.conv1),
+                         unet.down_blocks_0.resnets_0.conv1, 0),
+             "conv1x1": (conv(getattr(unet, f"down_blocks_{short}").resnets_0.conv_shortcut),
+                         getattr(unet, f"down_blocks_{short}").resnets_0.conv_shortcut, short),
+             "downsample": (unet.down_blocks_0.downsamplers_0,
+                            unet.down_blocks_0.downsamplers_0.conv, 0),
+             "upsample": (getattr(unet, f"up_blocks_{levels - 2}").upsamplers_0,
+                          getattr(unet, f"up_blocks_{levels - 2}").upsamplers_0.conv, 1)}
+    g = torch.Generator(device=mesh.device).manual_seed(9)
+    out = {}
+    for kind, (layer, qconv, level) in cases.items():
+        shape = (2, qconv.weight.shape[1], latent[0] >> level, latent[1] >> level)
+        x = torch.randn(*shape, generator=g, device=mesh.device).to(dtype)
+        x[0, 1, -3, -1] = 8.0
+        x[1, 2, 1, 0] = -8.0
+        whole = layer(x)
+        mine = layer(x.narrow(2, *slab_span(shape[2], mesh)).contiguous(), mesh)
+        want = whole.narrow(2, *slab_span(whole.shape[2], mesh))
+        out[kind] = (bool(torch.equal(mine, want)), float((mine.float() - want.float()).abs().max()))
+    return out
 
 
 def sp_train_step(job: dict, mesh, ops, params: dict) -> dict:
@@ -4220,6 +4452,7 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> dict:
                 {n: sum(r["cluster"].get(n, 0) for r in every) for n in cluster_names})
 
     paths = {"mesh": summed(ranks["tp"] + ranks["dp"]), "sp": summed(ranks["sp"]),
+             "sp_int8": summed([r["int8"] for r in ranks["sp"]]),
              "sp_train": summed([r["train"] for r in ranks["sp"]])}
     launches, shapes, tc, cluster = paths["mesh"]
     tp0, dp0 = ranks["tp"][0], ranks["dp"][0]
@@ -4227,6 +4460,7 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> dict:
     loss_err = [abs(a - b) / abs(b) for a, b in zip(dp0["losses"], one["losses"])]
     problems = body_problems("mesh", launches, tc, cluster)
     problems += sp_problems(ranks["sp"], one["sp_latents"], paths["sp"])
+    problems += sp_int8_problems([r["int8"] for r in ranks["sp"]], paths["sp_int8"])
     problems += sp_train_problems([r["train"] for r in ranks["sp"]], paths["sp_train"])
     if rel_l2 > MESH_TP_REL_L2:
         problems.append(f"TP = 2 latents {rel_l2} (relative L2) from one process's")
@@ -4291,6 +4525,20 @@ def mesh_phase(C, ops, tango, snap_dir: str, root: str) -> dict:
                 "latents_rel_l2": MESH_TP_REL_L2},
         part_s=round(part_s["sp"], 3),
         total_s_since_phase=round(time.perf_counter() - t_phase, 3))
+    q0 = ranks["sp"][0]["int8"]
+    q_launches, q_shapes, q_tc, q_cluster = paths["sp_int8"]
+    log("mesh_sp_int8", card=nvidia_smi(), latent=list(sp_latent), batch=2, scope="all",
+        rel_l2=[r["int8"]["rel_l2"] for r in ranks["sp"]],
+        control_rel_l2=[r["int8"]["control_rel_l2"] for r in ranks["sp"]],
+        control_layers={f"rank{r['rank']}": r["int8"]["control_layers"] for r in ranks["sp"]},
+        layers={f"rank{r['rank']}": r["int8"]["layers"] for r in ranks["sp"]},
+        ms_per_eval={"sp2": [r["int8"]["ms"] for r in ranks["sp"]],
+                     "sp2_first": [r["int8"]["first_ms"] for r in ranks["sp"]],
+                     "meshless": [r["int8"]["meshless_ms"] for r in ranks["sp"]]},
+        collectives_per_eval=q0["collectives"], qconv2d=q0["qconv"],
+        launches={n: c for n, c in q_launches.items() if c}, tc_launches=q_tc,
+        cluster_launches=q_cluster, shapes={n: len(v) for n, v in q_shapes.items() if v},
+        w8a8_gemms=sorted([m, k, n] for (m, k), (n, _) in q_shapes["w8a8_matmul"]))
     train0 = ranks["sp"][0]["train"]
     tr_launches, tr_shapes, tr_tc, tr_cluster = paths["sp_train"]
     log("mesh_sp_train", card=nvidia_smi(), latent=list(sp_latent), batch=1,
@@ -4338,6 +4586,38 @@ def sp_problems(ranks: list, one_latents, path: tuple) -> list:
     busy = {n: launches[n] for n in SP_IDLE_KERNELS if launches[n]}
     if busy:
         problems.append(f"SP = 2 launched {busy}: its GroupNorms need statistics across slabs")
+    return problems
+
+
+def sp_int8_problems(evals: list, path: tuple) -> list:
+    """Phase mesh (d)'s int8 evaluation's failed checks: each rank's output
+    finite, each int8 convolution path bit-equal to the meshless layer and,
+    under the control, not bit-equal, the ranks' outputs bit-equal, one
+    `int8_amax` exchange for each QConv2d; path
+    `sp_int8`'s kernels (PATH_KERNELS["sp_int8"] launched, SP_IDLE_KERNELS
+    not, every w8a8_matmul and attention launch on its tensor-core body)."""
+    problems = []
+    for r, e in enumerate(evals):
+        if not e["finite"]:
+            problems.append(f"SP = 2 int8 rank {r}: output not finite")
+        off = {k: v for k, v in e["layers"].items() if not v[0]}
+        if off:
+            problems.append(f"SP = 2 int8 rank {r}: layers not bit-equal to meshless: {off}")
+        blind = [k for k, v in e["control_layers"].items() if v[0]]
+        if blind:
+            problems.append(f"SP = 2 int8 rank {r}: with each slab's own amax, layers {blind} "
+                            "still bit-equal to meshless: the layer check cannot see the fault")
+        if e["collectives"].get("int8_amax") != e["qconv"]:
+            problems.append(f"SP = 2 int8 rank {r}: {e['collectives'].get('int8_amax')} amax "
+                            f"all-reduces for {e['qconv']} QConv2d")
+    if not all(torch.equal(e["out"], evals[0]["out"]) for e in evals):
+        problems.append("SP = 2 int8: the ranks' gathered outputs differ")
+    launches, _, tc, cluster = path
+    problems += body_problems("sp_int8", launches, tc, cluster)
+    busy = {n: launches[n] for n in SP_IDLE_KERNELS if launches[n]}
+    if busy:
+        problems.append(f"SP = 2 int8 launched {busy}: its GroupNorms need statistics across "
+                        "slabs")
     return problems
 
 
@@ -4824,6 +5104,7 @@ def main(argv) -> int:
     with torch.inference_mode():
         bf16_ms = device_ms(lambda: unet(lat, steps, ctx, mask), 3)
         int8_ms = device_ms(lambda: tq.model.unet(lat, steps, ctx, mask), 3)
+    trace_phase(lambda: unet(lat, steps, ctx, mask), sum(per_eval.values()))
     log("per_eval", launches=per_eval, group_norms=per_eval["gn_silu_fwd"] + per_eval["gn_stats"],
         int8_launches=per_eval_int8, int8_w8a8_tc_launches=w8a8_tc, quantized_linears=n_qlinear,
         conv3x3_shapes=len(shapes["winograd_conv3x3"]),
@@ -4838,6 +5119,7 @@ def main(argv) -> int:
                              "quantized Linear layers")
     del tango, tq, unet, m
     torch.cuda.empty_cache()
+    demo_phase(os.path.join(os.path.dirname(_build.build_info["path"]), "smoke_demo"))
 
     # ---- the training path, counted
     (train_launches, train_shapes, tc_launches["train"],
@@ -4856,6 +5138,8 @@ def main(argv) -> int:
                "f32": c.f32, **c.notes, "shapes": len(shapes[n])} for n, c in cases.items()})
 
     log("kernels_sp", **path_shape_times(cases, by_path["sp"][1]))
+    log("kernels_sp_int8", **path_shape_times(cases, {"w8a8_matmul": by_path["sp_int8"][1][
+        "w8a8_matmul"]}))
     log("kernels_sp_train", **path_shape_times(cases, by_path["sp_train"][1]))
 
     print(smi, flush=True)

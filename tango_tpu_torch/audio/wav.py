@@ -17,7 +17,6 @@ from typing import Tuple
 
 import numpy as np
 from scipy.io import wavfile
-from scipy.signal import resample_poly as _scipy_resample_poly
 
 from tango_tpu_torch.audio.stft import normalize_wav, pad_wav
 
@@ -139,8 +138,10 @@ def write_wav(path: str, waveform: np.ndarray, sr: int = 16000) -> None:
 def resample_poly(waveform: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
     if orig_sr == new_sr:
         return waveform.astype(np.float32)
+    from scipy import signal  # here: scipy.signal takes seconds to import
+
     g = math.gcd(int(orig_sr), int(new_sr))
-    return _scipy_resample_poly(waveform, new_sr // g, orig_sr // g).astype(np.float32)
+    return signal.resample_poly(waveform, new_sr // g, orig_sr // g).astype(np.float32)
 
 
 def read_wav_file(path: str, segment_length: int | None, target_sr: int = 16000) -> np.ndarray:

@@ -42,17 +42,21 @@ exchanges (parallel/mesh.py):
   * a self-attention gathers its normed hidden states (C wide, half the
     bytes of K and V) and projects K and V for every token; each rank keeps
     its queries (a T-slab of (T, F) row-major tokens is a contiguous range);
-  * 1x1 convolutions, projections, the feed-forward and every stream's
-    cross-attention are local; the output is gathered along T, so every
-    rank returns the meshless-shaped prediction.
+  * an int8 convolution (QConv2d, the 3x3s, the resamplers' and the 1x1
+    `conv_shortcut`) quantizes its slab with one scale a sample, the whole
+    tensor's: each rank's amax, the largest taken over 'model' (one
+    all-reduce, `int8_amax`), as XLA's SPMD takes JAX's `_quantize_act`
+    amax over the whole; QLinear quantizes each token alone, locally;
+  * projections, the feed-forward, every stream's cross-attention and the
+    float 1x1 convolutions are local; the output is gathered along T, so
+    every rank returns the meshless-shaped prediction.
 It trains: each exchange carries its backward (parallel/mesh.py's gradient
 rule), and the output passes its gradient divided by 'model'
 (`partial_grad`), since every model rank computes the same loss from it;
 the parameters' gradients are then the slab's partial ones, which the
 trainer sums over 'model'. Under `remat` each block's forward exchanges run
 again inside the backward, in the same order on every rank. It raises for a
-TP-sharded UNet (SP and TP are alternative uses of 'model') and for an int8
-one (#10d).
+TP-sharded UNet (SP and TP are alternative uses of 'model').
 
 Mustango's music UNet is this UNet with `cfg.extra_cond_streams = 2`: every
 cross-attention layer runs one Transformer2DModel per stream in sequence,
@@ -74,8 +78,9 @@ from tango_tpu_torch.configs import UNetConfig
 from tango_tpu_torch.models.layers import GroupNorm, nchw_to_nhwc, nhwc_to_nchw
 from tango_tpu_torch.ops.attention import multi_head_attention
 from tango_tpu_torch.ops.basic import geglu, silu
-from tango_tpu_torch.ops.quant import QConv2d, QLinear, quantize_unet_
+from tango_tpu_torch.ops.quant import QConv2d, QLinear, act_amax, int8_dot, quantize_unet_
 from tango_tpu_torch.parallel.mesh import (
+    all_max_over_model_,
     copy_to_model,
     gather_seq,
     halo_rows,
@@ -85,9 +90,6 @@ from tango_tpu_torch.parallel.mesh import (
     slab_span,
     split_span,
 )
-
-SP_INT8 = ("sequence parallelism of an int8 UNet: QConv2d quantizes with one scale a sample, "
-           "an amax over every slab (ROADMAP queue A #10d)")
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -112,21 +114,41 @@ def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
     return (1.0 - mask.float()) * -10000.0
 
 
-def _conv_unpadded_t(conv: nn.Conv2d, x):
+def _pad_f(conv) -> int:
+    """A convolution's padding of F (its padding of T too: both symmetric)."""
+    return conv.padding if isinstance(conv, QConv2d) else conv.padding[1]
+
+
+def _conv_unpadded_t(conv, x, amax=None):
     """conv over x with no padding of T, x's first spatial axis: x carries
-    the rows the padding would give."""
-    return F.conv2d(x, conv.weight, conv.bias, conv.stride, (0, conv.padding[1]))
+    the rows the padding would give. An int8 conv quantizes with `amax`,
+    the whole tensor's (`_slab_amax`)."""
+    if isinstance(conv, QConv2d):
+        return conv(x, padding=(0, conv.padding), amax=amax)
+    return F.conv2d(x, conv.weight, conv.bias, conv.stride, (0, _pad_f(conv)))
 
 
-def seq_conv(conv: nn.Conv2d, x, sp):
-    """A 'same' stride-1 convolution of x; under sequence parallelism (`sp`,
-    the mesh) of this rank's T-slab x, the neighbours' halo rows in place of
-    T's zero padding."""
-    if sp is None or conv.padding[0] == 0:
+def _slab_amax(conv, x, sp):
+    """For an int8 conv of this rank's T-slab x: the per-sample amax of the
+    whole tensor, the largest of every slab's (one all-reduce over 'model',
+    `int8_amax`), which the meshless quantize takes; None for a float conv.
+    The halo rows are other slabs' own values and the pads zeros, so the
+    slab, its halo and its pads quantize with it to the meshless int8
+    values."""
+    return all_max_over_model_(act_amax(x), sp) if isinstance(conv, QConv2d) else None
+
+
+def seq_conv(conv, x, sp):
+    """A 'same' stride-1 convolution of x (a 3x3 or a 1x1); under sequence
+    parallelism (`sp`, the mesh) of this rank's T-slab x, the neighbours'
+    halo rows in place of T's zero padding."""
+    if sp is None:
         return conv(x)
-    h = conv.padding[0]
-    top, bottom = halo_rows(x, sp, h, h)
-    return _conv_unpadded_t(conv, torch.cat([top, x, bottom], 2))
+    amax, h = _slab_amax(conv, x, sp), _pad_f(conv)
+    if h:
+        top, bottom = halo_rows(x, sp, h, h)
+        x = torch.cat([top, x, bottom], 2)
+    return _conv_unpadded_t(conv, x, amax)
 
 
 def _down_len(t: int, padding: int) -> int:
@@ -169,7 +191,7 @@ class ResnetBlock2D(nn.Module):
         h = h + self.time_emb_proj(silu(temb))[:, :, None, None]
         h = seq_conv(self.conv2, self.norm2(h, sp), sp)
         if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
+            x = seq_conv(self.conv_shortcut, x, sp)
         return x + h
 
 
@@ -245,10 +267,18 @@ class Attention(nn.Module):
         token order), q projected for the slab, k and v for every token."""
         whole = gather_seq(x, sp, 1, "kv")
         inner = self.to_out_0.in_features
-        q = F.linear(x, self.to_qkv.weight[:inner])
-        k, v = F.linear(whole, self.to_qkv.weight[inner:]).chunk(2, dim=-1)
+        q = self._qkv_rows(x, 0, inner)
+        k, v = self._qkv_rows(whole, inner, 3 * inner).chunk(2, dim=-1)
         return multi_head_attention(q, k, v, heads=self.heads, upcast=self.upcast,
                                     global_queries=whole.shape[1])
+
+    def _qkv_rows(self, x, lo: int, hi: int):
+        """x through rows lo:hi of the fused to_qkv; an int8 to_qkv quantizes
+        each token alone, so its rows' products are the fused one's."""
+        m = self.to_qkv
+        if isinstance(m, QLinear):
+            return int8_dot(x, m.weight[lo:hi], m.weight_scale[lo:hi])
+        return F.linear(x, m.weight[lo:hi])
 
 
 class FeedForward(nn.Module):
@@ -343,9 +373,11 @@ class Downsample2D(nn.Module):
             # output row i reads rows 2i - p .. 2i - p + 2, so a slab that
             # starts on an even row reads p rows above it, and with p = 0 the
             # row below (the last rank's: the pad's zero row)
+            amax = _slab_amax(self.conv, x, sp)
             top, bottom = halo_rows(x, sp, self.padding, int(self.padding == 0))
             x = torch.cat([top, x, bottom], 2)
-            return _conv_unpadded_t(self.conv, F.pad(x, (0, 1)) if self.padding == 0 else x)
+            return _conv_unpadded_t(self.conv, F.pad(x, (0, 1)) if self.padding == 0 else x,
+                                    amax)
         if self.padding == 0:
             x = F.pad(x, (0, 1, 0, 1))  # asymmetric pad-then-conv of diffusers
         return self.conv(x)
@@ -360,9 +392,11 @@ class Upsample2D(nn.Module):
         if sp is None:
             return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
         # the neighbours' rows before the upsample are its halo after it
+        # (nearest: the upsample keeps the amax)
+        amax = _slab_amax(self.conv, x, sp)
         top, bottom = halo_rows(x, sp, 1, 1)
         up = F.interpolate(torch.cat([top, x, bottom], 2), scale_factor=2.0, mode="nearest")
-        return _conv_unpadded_t(self.conv, up[:, :, 1:-1])
+        return _conv_unpadded_t(self.conv, up[:, :, 1:-1], amax)
 
 
 def _stream_names(prefix: str, cfg: UNetConfig) -> list:
@@ -523,8 +557,6 @@ class UNet2DConditionModel(nn.Module):
             if getattr(m, "tp_mesh", None) is not None:
                 raise ValueError("sequence parallelism of a TP-sharded UNet: SP and TP are "
                                  "alternative uses of 'model'; shard_params(tp=False)")
-            if isinstance(m, (QLinear, QConv2d)):
-                raise NotImplementedError(SP_INT8)
         parts, t, plan = mesh.shape["model"], sample.shape[1], []
         for level in range(levels):
             last = level == levels - 1

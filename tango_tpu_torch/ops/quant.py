@@ -21,6 +21,12 @@ port leaves it to a library GEMM.
 
 The final conv_out, conv_in, the time embedding, the norms and the softmax
 stay in the compute dtype.
+
+Under sequence parallelism (models/unet.py) a QConv2d runs on a T-slab
+with its halo rows: `int8_conv` then takes the whole tensor's per-sample
+amax (the largest of every slab's `act_amax`, all-reduced over the mesh's
+'model' ranks) and pads only F, so each slab's int8 values are the ones the
+meshless quantize gives.
 """
 
 from __future__ import annotations
@@ -70,11 +76,12 @@ def quantize_weight(w: Union[np.ndarray, torch.Tensor], out_axis: int = -1):
     return (q.numpy(), scale.numpy()) if as_numpy else (q, scale)
 
 
-def _quantize_act(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+def _quantize_act(x: torch.Tensor, dims, amax=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric int8 activation quantization over `dims`, JAX's
-    `amax / 127` formula."""
+    `amax / 127` formula; `amax` given (keepdim-shaped) in place of x's own."""
     xf = x.float()
-    amax = xf.abs().amax(dim=dims, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim=dims, keepdim=True)
     scale = amax.clamp(min=1e-8) / 127.0
     return torch.round(xf / scale).clamp_(-127, 127).to(torch.int8), scale
 
@@ -104,18 +111,29 @@ def _int_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (a.double() @ w.double().t()).float()
 
 
+def act_amax(x: torch.Tensor) -> torch.Tensor:
+    """x's (B, C, H, W) per-sample amax over C, H, W in f32, (B, 1, 1, 1):
+    what `int8_conv` scales by."""
+    return x.detach().float().abs().amax(dim=(1, 2, 3), keepdim=True)
+
+
 def int8_conv(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, stride: int = 1,
-              padding: int = 1) -> torch.Tensor:
+              padding=1, amax=None) -> torch.Tensor:
     """NCHW conv with int8 inputs (tango_tpu/ops/quant.py:73-82): x (B, C, H, W)
     quantized with one scale a sample (amax over C, H, W), w_q (N, C, kh, kw)
-    int8, w_scale (N,) f32, symmetric `padding` and `stride`; f32 (B, N, Ho, Wo)."""
-    xq, xs = _quantize_act(x, dims=(1, 2, 3))
+    int8, w_scale (N,) f32, `stride`; f32 (B, N, Ho, Wo). `padding` is
+    symmetric, one int for both axes or an (H, W) pair. Sequence parallelism
+    passes (0, p) for a T-slab that carries its halo rows, and `amax`, the
+    (B, 1, 1, 1) amax of the whole tensor (`act_amax` of every slab, the
+    largest taken over them), so that the slab quantizes as the whole does."""
+    xq, xs = _quantize_act(x, dims=(1, 2, 3), amax=amax)
     b, c, h, w = x.shape
     n, _, kh, kw = w_q.shape
-    if padding:
-        xq = F.pad(xq, (padding,) * 4)
-    ho = (h + 2 * padding - kh) // stride + 1
-    wo = (w + 2 * padding - kw) // stride + 1
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    if ph or pw:
+        xq = F.pad(xq, (pw, pw, ph, ph))
+    ho = (h + 2 * ph - kh) // stride + 1
+    wo = (w + 2 * pw - kw) // stride + 1
     # int8 im2col: cols[b, ho, wo, (c, i, j)] = xq[b, c, stride*ho + i, stride*wo + j],
     # the (c, i, j) order of w_q's flattened rows
     cols = torch.stack([xq[:, :, i:i + stride * (ho - 1) + 1:stride,
@@ -174,8 +192,12 @@ class QConv2d(nn.Module):
             q = cls(m.in_channels, m.out_channels, kh, sh, pad[0], m.bias is not None)
         return _fill(q, m)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = int8_conv(x, self.weight, self.weight_scale, self.stride, self.padding).to(x.dtype)
+    def forward(self, x: torch.Tensor, padding=None, amax=None) -> torch.Tensor:
+        """`padding` (an (H, W) pair) and `amax` as `int8_conv` takes them, in
+        place of the module's own padding and x's own amax (a T-slab under
+        sequence parallelism)."""
+        pad = self.padding if padding is None else padding
+        y = int8_conv(x, self.weight, self.weight_scale, self.stride, pad, amax).to(x.dtype)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)[:, None, None]
         return y.contiguous()  # int8_conv's result is laid out channels-last

@@ -26,7 +26,10 @@ collective from sharding annotations, here each use places its own:
     `model_group`: the neighbours' boundary rows for a convolution
     (`halo_rows`), the GroupNorm partial sums (`all_reduce_over_model_`),
     the slabs gathered in rank order (`gather_seq`: a self-attention's
-    keys and values, a level that runs whole, the output). Each counts its
+    keys and values, a level that runs whole, the output), and an int8
+    convolution's per-sample amax, the largest over the slabs
+    (`all_max_over_model_`, the scale the meshless quantize takes over the
+    whole tensor). Each counts its
     calls and the bytes it receives from the other ranks in the mesh's
     `seq_stats`, its backward under "<kind>_grad".
 
@@ -457,14 +460,16 @@ def seq_mesh(sharder) -> Optional[Mesh]:
 
 # ---------------------------------------------------------------- collectives
 
-def _all_reduce_(t: torch.Tensor, group, mesh: Mesh) -> torch.Tensor:
-    """Sum `t` over `group` in place. Under gloo a card's tensor is staged
-    through the host: gloo's host algorithms take every dtype (bf16 too)."""
+def _all_reduce_(t: torch.Tensor, group, mesh: Mesh, op=None) -> torch.Tensor:
+    """Sum `t` over `group` in place (or reduce it by `op`, a
+    `dist.ReduceOp`). Under gloo a card's tensor is staged through the host:
+    gloo's host algorithms take every dtype (bf16 too)."""
+    op = dist.ReduceOp.SUM if op is None else op
     if mesh.backend == "gloo" and t.device.type != "cpu":
         host = t.cpu()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=op, group=group)
         return t.copy_(host)
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -585,6 +590,15 @@ def all_reduce_over_model_(t: torch.Tensor, mesh: Mesh, kind: str = "group_norm"
     mesh.seq_stats[kind] += 1
     mesh.seq_stats[f"{kind}_bytes"] += (mesh.shape["model"] - 1) * t.numel() * t.element_size()
     return _all_reduce_(t, mesh.model_group, mesh)
+
+
+def all_max_over_model_(t: torch.Tensor, mesh: Mesh):
+    """The largest of `t` over the model ranks, in place (an int8
+    convolution's per-sample amax of the slabs: the whole tensor's); counted
+    in `mesh.seq_stats` as `int8_amax`."""
+    mesh.seq_stats["int8_amax"] += 1
+    mesh.seq_stats["int8_amax_bytes"] += (mesh.shape["model"] - 1) * t.numel() * t.element_size()
+    return _all_reduce_(t, mesh.model_group, mesh, dist.ReduceOp.MAX)
 
 
 class _CopyToModel(torch.autograd.Function):

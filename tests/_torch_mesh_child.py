@@ -194,7 +194,7 @@ def sp_forward(j, pmesh):
     reduction), the input's summed over 'model' (every model rank holds the
     whole input, so its gradient is partial) and gathered over 'data'; each
     the same on every rank; the forward's and the backward's exchanges by
-    kind."""
+    kind. A `forward_only` job (an int8 UNet) stops after the forward."""
     from tango_tpu_torch.models.unet import UNet2DConditionModel
 
     mesh, sharder = _sp_mesh(j, pmesh)
@@ -203,6 +203,11 @@ def sp_forward(j, pmesh):
     x, *args = pmesh.shard_batch_or_replicate([j[k] for k in ("x", "t", "c", "mask") if k in j],
                                               mesh)
     x = x.clone().requires_grad_()
+    if j.get("forward_only"):  # an int8 UNet: no backward
+        with torch.no_grad():
+            out = pmesh.gather_rows(unet(x, *args), mesh, len(j["x"]))
+        return {"out": out, "stats": dict(mesh.seq_stats),
+                "same_on_every_rank": _same_on_every_rank(out)}
     out = unet(x, *args)
     stats = dict(mesh.seq_stats)
     mesh.seq_stats.clear()

@@ -299,12 +299,14 @@ def test_tokenizer_pads_truncates_and_appends_eos():
 def test_import_hygiene():
     """Importing the port (every module, the evaluation, CLAP's, Mustango's
     and its DeBERTa, AudioLDM's pipeline and CLI, the registry, the EMA, the
-    device mesh and the audio decoders included) and chip_smoke loads no JAX,
-    no JAX package and no transformers / huggingface_hub / sklearn /
-    sentencepiece."""
+    device mesh, the audio decoders and the profiling module included),
+    chip_smoke and examples/demo_torch.py loads no JAX, no JAX package and no
+    transformers / huggingface_hub / sklearn / sentencepiece."""
     code = (
         "import sys, importlib, pkgutil\n"
         "import tango_tpu_torch, chip_smoke\n"
+        "sys.path.insert(0, 'examples')\n"
+        "import demo_torch\n"
         "for m in pkgutil.walk_packages(tango_tpu_torch.__path__, 'tango_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
@@ -317,7 +319,8 @@ def test_import_hygiene():
         "for m in ('audioldm.pipeline', 'audioldm.cli', 'registry', 'utils.ema',\n"
         "          'models.audioldm_unet', 'schedulers.ddim', 'parallel.mesh',\n"
         "          'parallel.dryrun', 'parallel.launch', 'audio.flac', 'audio.flac_native',\n"
-        "          'audio.mp3', 'audio.mp3_tables', 'audio.vorbis', 'audio.aiff', 'audio.opus'):\n"
+        "          'audio.mp3', 'audio.mp3_tables', 'audio.vorbis', 'audio.aiff', 'audio.opus',\n"
+        "          'utils.profiling'):\n"
         "    assert 'tango_tpu_torch.' + m in sys.modules, m\n"
         "print(bad)\n"
     )

@@ -34,6 +34,8 @@ Each launch of ranks has its own time limit, and each rank's process group
 a 120 s timeout.
 """
 
+import collections
+import copy
 import dataclasses
 import functools
 import os
@@ -58,6 +60,8 @@ from tango_tpu_torch.models.diffusion import AudioDiffusion
 from tango_tpu_torch.ops import attention as pattn
 from tango_tpu_torch.ops.basic import group_norm
 from tango_tpu_torch.ops.gn_silu import gn_apply_plain, gn_stats_plain, n_chunks
+from tango_tpu_torch.ops.int8_gemm import quantize_rows
+from tango_tpu_torch.ops import quant
 from tango_tpu_torch.ops.quant import quantize_unet_
 from tango_tpu_torch.parallel import mesh as pmesh
 from tango_tpu_torch.parallel.launch import check, launch
@@ -123,6 +127,28 @@ def _forward_case(kw, t_len, model, data=1, seed=0):
     return job, reference
 
 
+def _int8_forward_case(t_len, model, seed=12):
+    """A forward job of the quantized ("all") UNet of JAX's SP configuration
+    on gloo ranks, and JAX's meshless int8 output (quantize_tree, as
+    tests/test_torch_quant.py builds it)."""
+    from tango_tpu.ops import quant as jq
+
+    job, _ = _forward_case(SP_UNET, t_len, model, seed=seed)
+    cfg = JC.UNetConfig(**SP_UNET)
+    x, t, c, mask = (job[k].numpy() for k in ("x", "t", "c", "mask"))
+    params = random_jax_params(lambda k: JUNet(cfg).init(
+        k, jnp.asarray(x), jnp.asarray(t), c, mask)["params"], seed + 1)
+    qparams = jq.quantize_tree(params)
+    job.update(cfg=TC.UNetConfig(**SP_UNET, quant_int8=True), sd=from_jax_params(qparams),
+               forward_only=True)
+
+    def reference():
+        jcfg = dataclasses.replace(cfg, quant_int8=True)
+        return {"out": np.asarray(jax.jit(JUNet(jcfg).apply)(
+            {"params": qparams}, jnp.asarray(x), jnp.asarray(t), c, mask))}
+    return job, reference
+
+
 def _sample_case():
     """The sampler job on JAX's SP configuration, and JAX's sampler."""
     cfg = JC.UNetConfig(**SP_UNET)
@@ -151,7 +177,7 @@ def _sample_case():
 
 
 LAUNCHES = {2: ["sp_forward-jax2", "sp_forward-odd", "sp_forward-pad0", "sp_forward-music",
-                "sp_sample", "dpo_step-sp"],
+                "sp_forward-int8", "sp_sample", "dpo_step-sp"],
             4: ["sp_forward-jax4", "sp_forward-dp", "sft_step-sp"]}
 
 
@@ -169,6 +195,7 @@ def runs(tmp_path_factory):
     job["sp_forward-pad0"], reference["pad0"] = _forward_case(
         dict(SP_UNET, downsample_padding=0), 64, 2, seed=5)
     job["sp_forward-music"], reference["music"] = _forward_case(MUSIC_KW, 64, 2, seed=9)
+    job["sp_forward-int8"], reference["int8"] = _int8_forward_case(64, 2)
     job["sp_sample"], reference["sample"] = _sample_case()
     # tests/test_torch_parallel.py's DP x TP step at DP x SP: T = 8 makes
     # slabs of 4 and 2 rows at its two levels
@@ -314,16 +341,18 @@ def test_sp_sample_matches_jax(runs):
 
 def _collectives(cfg, whole_levels):
     """The collectives of one SP evaluation by kind: a halo for every 3x3
-    stride-1 convolution but conv_in and for every resampler, a GroupNorm
-    all-reduce for every GroupNorm, one gather a self-attention and one of
-    the output, on a UNet whose levels all run on slabs except the lowest
+    stride-1 convolution but conv_in and for every resampler (float or
+    int8), a GroupNorm all-reduce for every GroupNorm, one gather a
+    self-attention and one of the output, an amax all-reduce for every
+    QConv2d, on a UNet whose levels all run on slabs except the lowest
     `whole_levels` (one gather where the slabs stop)."""
     unet = punet.UNet2DConditionModel(cfg)
     levels = len(cfg.block_out_channels)
     slab = lambda name: not any(name.startswith(p) for p in _whole_prefixes(  # noqa: E731
         levels, whole_levels))
     halo = sum(slab(n) for n, m in unet.named_modules()
-               if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3) and n != "conv_in"
+               if isinstance(m, (torch.nn.Conv2d, quant.QConv2d))
+               and m.weight.shape[-2:] == (3, 3) and n != "conv_in"
                and not n.endswith("downsamplers_0.conv") and not n.endswith("upsamplers_0.conv"))
     halo += sum(slab(n) for n, m in unet.named_modules()
                 if isinstance(m, (punet.Downsample2D, punet.Upsample2D)))
@@ -331,6 +360,9 @@ def _collectives(cfg, whole_levels):
                 if type(m).__name__ == "GroupNorm")
     attn = sum(slab(n) for n, m in unet.named_modules() if n.endswith("attn1"))
     out = {"halo": halo, "group_norm": norms, "kv": attn, "output": 1}
+    amax = sum(slab(n) for n, m in unet.named_modules() if isinstance(m, quant.QConv2d))
+    if amax:
+        out["int8_amax"] = amax
     if whole_levels:
         out["level"] = 1
     return out
@@ -344,13 +376,28 @@ def _whole_prefixes(levels, whole_levels):
                  + (["mid_block."] if whole_levels else []))
 
 
+def test_sp_int8_forward_on_gloo_ranks_matches_jax(runs):
+    """The quantized UNet at SP = 2 on gloo ranks (the amax all-reduced by
+    torch.distributed's MAX) within JAX's 0.05 of JAX's meshless int8
+    UNet (tests/test_torch_quant.py's end-to-end bar), every rank the
+    same."""
+    got, refs = runs
+    out = got["sp_forward-int8"]
+    ref = refs["int8"]["out"]
+    assert np.linalg.norm(out["out"].numpy() - ref) / np.linalg.norm(ref) < 0.05
+    assert out["same_on_every_rank"]
+
+
 @pytest.mark.parametrize("case,cfg,whole", [
     ("jax2", SP_UNET, 0), ("pad0", dict(SP_UNET, downsample_padding=0), 0),
-    ("music", MUSIC_KW, 0), ("odd", THREE_LEVELS, 2)])
+    ("music", MUSIC_KW, 0), ("odd", THREE_LEVELS, 2),
+    ("int8", dict(SP_UNET, quant_int8=True), 0)])
 def test_sp_collectives_an_evaluation(runs, case, cfg, whole):
     """One evaluation's collectives by kind; at T = 36 the two lowest levels
     run whole: no exchange there, one gather where the slabs stop (after
-    the first level's downsampler, which runs on the slabs)."""
+    the first level's downsampler, which runs on the slabs); the int8 UNet
+    one amax all-reduce a QConv2d besides (a convolution that skipped it
+    would quantize its slab with the slab's own amax)."""
     stats = runs[0][f"sp_forward-{case}"]["stats"]
     want = _collectives(TC.UNetConfig(**cfg), whole)
     assert {k: v for k, v in stats.items() if "_bytes" not in k} == want
@@ -377,10 +424,15 @@ class ThreadRanks:
             o.copy_(s)
         self.barrier.wait()
 
-    def all_reduce(self, t, group=None):
+    def all_reduce(self, t, op=torch.distributed.ReduceOp.SUM, group=None):
         parts = [torch.empty_like(t) for _ in range(self.parts)]
         self.all_gather(parts, t)
-        t.copy_(torch.stack(parts).sum(0))
+        whole = torch.stack(parts)
+        if op == torch.distributed.ReduceOp.MAX:
+            t.copy_(whole.amax(0))
+        else:
+            assert op == torch.distributed.ReduceOp.SUM, op
+            t.copy_(whole.sum(0))
 
     def reduce_scatter_tensor(self, out, src, group=None):
         parts = [torch.empty_like(src) for _ in range(self.parts)]
@@ -393,7 +445,7 @@ class ThreadRanks:
         results in rank order."""
         monkeypatch.setattr(pmesh, "dist", types.SimpleNamespace(
             all_gather=self.all_gather, all_reduce=self.all_reduce,
-            reduce_scatter_tensor=self.reduce_scatter_tensor))
+            reduce_scatter_tensor=self.reduce_scatter_tensor, ReduceOp=torch.distributed.ReduceOp))
         results, errors = [None] * self.parts, []
 
         def body(r):
@@ -615,6 +667,263 @@ def test_dispatch_keys_the_whole_sequence(monkeypatch):
     assert len(called) == 2
 
 
+# ------------------------------------------- int8 under sequence parallelism
+
+def _int8_input(seed, shape=(2, 8, 16, 6)):
+    """Activations whose per-sample amax lies in another slab for each
+    sample (the last slab for sample 0, the first for sample 1): a slab
+    quantized with its own amax, not the whole's, comes out different."""
+    torch.manual_seed(seed)
+    x = torch.randn(shape)
+    x[0, 3, -2, 1] = 9.0
+    x[1, 5, 1, 0] = -7.5
+    return x
+
+
+def _int8_module(kind):
+    """(module called as mod(x, sp=None), its int8 conv): quantize_unet_'s
+    QConv2d.from_float of a 3x3, a 1x1 (conv_shortcut's), and the
+    resamplers' convs."""
+    torch.manual_seed(20)
+    if kind in ("conv3x3", "conv1x1"):
+        conv = quant.QConv2d.from_float(
+            torch.nn.Conv2d(8, 8, 3, padding=1) if kind == "conv3x3" else torch.nn.Conv2d(8, 12, 1))
+        return (lambda a, sp=None: punet.seq_conv(conv, a, sp)), conv  # noqa: E731
+    mod = punet.Upsample2D(8) if kind == "upsample" else \
+        punet.Downsample2D(8, padding=1 if kind == "down_pad1" else 0)
+    quantize_unet_(mod, "conv")
+    return mod, mod.conv
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("kind", ["conv3x3", "conv1x1", "upsample", "down_pad1", "down_pad0"])
+def test_int8_halo_convolution_bit_equal_to_whole(monkeypatch, kind, parts):
+    """Each int8 convolution path of a T-slab (its amax the largest over the
+    ranks, the halo and the pads quantized with it) against the meshless
+    QConv2d on the whole tensor: bit-equal, since the amax is exact, the
+    integer GEMM exact (float64 on the CPU) and the dequantize elementwise;
+    one `int8_amax` all-reduce of a (B, 1, 1, 1) f32 amax a rank."""
+    mod, conv = _int8_module(kind)
+    assert isinstance(conv, quant.QConv2d)
+    x = _int8_input(21)
+    with torch.no_grad():
+        want = mod(x)
+        got = ThreadRanks(parts).run(monkeypatch, lambda m: (mod(_slab(x, m), m),
+                                                             dict(m.seq_stats)))
+    np.testing.assert_array_equal(torch.cat([g for g, _ in got], 2).numpy(), want.numpy())
+    halo = {} if kind == "conv1x1" else {"halo": 1}
+    for _, st in got:
+        assert {k: v for k, v in st.items() if "_bytes" not in k} == {"int8_amax": 1, **halo}
+        assert st["int8_amax_bytes"] == (parts - 1) * 2 * 4
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_all_max_over_model_is_the_largest_of_every_rank(monkeypatch, parts):
+    """The max all-reduce beside the sum: every rank ends with the largest
+    over the model ranks, counted as `int8_amax` with the bytes received."""
+    vals = torch.randn(parts, 3, 1, 1, 1)
+    got = ThreadRanks(parts).run(monkeypatch, lambda m: (
+        pmesh.all_max_over_model_(vals[m.model_index].clone(), m), dict(m.seq_stats)))
+    for t, st in got:
+        assert torch.equal(t, vals.amax(0))
+        assert st == {"int8_amax": 1, "int8_amax_bytes": (parts - 1) * 3 * 4}
+
+
+def _quantized(x, conv, amax=None):
+    """x's int8 values and the quantize's scaled input x / scale, as the
+    layer computes them: per sample for a convolution (`amax` the whole's
+    under SP), per token for a dense layer."""
+    if conv:
+        q, scale = quant._quantize_act(x, (1, 2, 3), amax)
+    else:
+        q, scale = quantize_rows(x.reshape(-1, x.shape[-1]))
+        x = x.reshape(-1, x.shape[-1])
+    return q, x.float() / scale
+
+
+def _int8_trace(monkeypatch, unet, args, parts):
+    """The quantized UNet meshless and on `parts` ThreadRanks (a copy a rank
+    with the rank's sharder), every quantized layer's input recorded in
+    both: (each rank's output, each rank's exchanges, the meshless output,
+    [(layer, conv, the meshless input, the slabs' input reassembled in rank
+    order, the amax the slabs all-reduced)] in the meshless call order). A
+    convolution's slab input is the one `_slab_amax` sees, before its halo
+    (before the upsampler's nearest-2x, the padding-0 downsampler's pad);
+    to_qkv, which SP runs as two row blocks, is left out."""
+    whole = collections.OrderedDict()
+    layers = {n: m for n, m in unet.named_modules()
+              if isinstance(m, (quant.QConv2d, quant.QLinear)) and not n.endswith("to_qkv")}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp, n=n: whole.__setitem__(n, inp[0].detach().clone()))
+        for n, m in layers.items()]
+    with torch.no_grad():
+        want = unet(*args)
+    for h in hooks:
+        h.remove()
+    seen, names = collections.defaultdict(dict), {}
+    copies = [copy.deepcopy(unet) for _ in range(parts)]
+    for r, c in enumerate(copies):
+        for n, m in c.named_modules():
+            names[id(m)] = n
+            if n in layers and isinstance(m, quant.QLinear):
+                m.register_forward_pre_hook(lambda mod, inp, n=n, r=r: seen[n].__setitem__(
+                    r, (inp[0].detach().clone(), None)))
+    slab_amax = punet._slab_amax
+
+    def recorded(conv, x, sp):
+        amax = slab_amax(conv, x, sp)
+        if amax is not None:
+            seen[names[id(conv)]][sp.model_index] = (x.detach().clone(), amax)
+        return amax
+
+    monkeypatch.setattr(punet, "_slab_amax", recorded)
+
+    def rank(m):
+        c = copies[m.model_index]
+        c.latent_sharder = functools.partial(pmesh.shard_latents_seq, mesh=m)
+        return c(*args), dict(m.seq_stats)
+
+    got = ThreadRanks(parts).run(monkeypatch, rank)
+    trace = []
+    for n, x in whole.items():
+        conv = isinstance(layers[n], quant.QConv2d)
+        slabs = [seen[n][r] for r in range(parts)]
+        sp_x = slabs[0][0] if slabs[0][0].shape == x.shape else \
+            torch.cat([a for a, _ in slabs], 2 if conv else 1)
+        if n.endswith("upsamplers_0.conv"):
+            x = x[:, :, ::2, ::2]  # the nearest-2x's rows and columns, once each
+        trace.append((n, conv, x[:, :, :sp_x.shape[2], :sp_x.shape[3]] if conv else x, sp_x,
+                      slabs[0][1]))
+    return [g for g, _ in got], [st for _, st in got], want, trace
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.fixture(scope="module")
+def int8_unets():
+    """SP_UNET's JAX parameters, quantized by `quantize_tree` in each scope,
+    JAX's meshless int8 output on them, and the port's int8 UNet loaded from
+    the converted tree (as tests/test_torch_quant.py builds both)."""
+    from tango_tpu.ops import quant as jq
+
+    rng = np.random.RandomState(30)
+    x = rng.randn(2, 32, 4, 4).astype(np.float32)
+    t = np.array([5, 500])
+    c = rng.randn(2, 6, 16).astype(np.float32)
+    mask = np.ones((2, 6), np.int64)
+    mask[1, 4:] = 0
+    cfg = JC.UNetConfig(**SP_UNET)
+    params = random_jax_params(lambda k: JUNet(cfg).init(
+        k, jnp.asarray(x), jnp.asarray(t), c, mask)["params"], 31)
+    out = {}
+    for scope in ("conv", "all"):
+        qparams = jq.quantize_tree(params, scope=scope)
+        jcfg = dataclasses.replace(cfg, quant_int8=True, quant_scope=scope)
+        ref = np.asarray(jax.jit(JUNet(jcfg).apply)({"params": qparams}, jnp.asarray(x),
+                                                   jnp.asarray(t), c, mask))
+        unet = punet.UNet2DConditionModel(
+            TC.UNetConfig(**SP_UNET, quant_int8=True, quant_scope=scope)).eval()
+        unet.load_state_dict(from_jax_params(qparams))
+        out[scope] = (unet, ref)
+    args = tuple(torch.from_numpy(a) for a in (x, t, c, mask))
+    return out, args
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("scope", ["conv", "all"])
+def test_int8_unet_under_sp_matches_meshless(monkeypatch, int8_unets, scope, parts):
+    """The quantized UNet at SP = 2 and 4, in f32, against the port's
+    meshless int8 UNet, layer by layer in call order: each quantized layer's
+    input on the slabs agrees with the meshless one within f32 noise (1e-5
+    of its largest magnitude; only GroupNorm's and attention's summation
+    orders differ) up to the first layer where an int8 value differs, and
+    every value that differs there sits within f32 noise of a rounding
+    boundary (1e-3 of an int8 step). Without such a flip the output is
+    within 1e-3 relative L2; after one, every later layer quantizes inputs
+    that differ by that step (tests/test_torch_quant.py's account: one flip
+    re-draws the quantization noise downstream), and the bar is JAX's for
+    the mode, 0.05. Within 0.05 of JAX's meshless int8 UNet; every rank
+    the same; one `int8_amax` a QConv2d on the slabs beside the float
+    UNet's exchanges."""
+    cases, args = int8_unets
+    unet, ref = cases[scope]
+    outs, stats, want, trace = _int8_trace(monkeypatch, unet, args, parts)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    flips, first = [], None
+    for name, conv, x, sp_x, amax in trace:
+        q, v = _quantized(x, conv)
+        sp_q, _ = _quantized(sp_x, conv, amax)
+        differ = q != sp_q
+        flips.append(int(differ.sum()))
+        if first is None:
+            drift = float((sp_x - x).abs().max() / x.abs().max())
+            assert drift < 1e-5, f"{name}: input {drift} from the meshless one's"
+            if flips[-1]:
+                first = name
+                edge = ((v - v.floor() - 0.5).abs() * 2).reshape(differ.shape)[differ]
+                assert float(edge.max()) < 1e-3, f"{name}: a flip {float(edge.max())} from a .5"
+    msg = (f"{sum(flips)} int8 values of {len(trace)} layers' inputs differ, the first at "
+           f"{first}")
+    rel = _rel_l2(outs[0].numpy(), want.numpy())
+    assert rel < (1e-3 if first is None else 0.05), f"{rel}: {msg}"
+    assert _rel_l2(outs[0].numpy(), ref) < 0.05, msg
+    want_stats = _collectives(unet.cfg, whole_levels=0)
+    assert all({k: v for k, v in st.items() if "_bytes" not in k} == want_stats for st in stats)
+    assert want_stats["int8_amax"] == sum(isinstance(m, quant.QConv2d) for m in unet.modules())
+
+
+def test_int8_seq_self_attention_matches_whole(monkeypatch):
+    """A slab's self-attention with an int8 to_qkv (quantize_unet_'s
+    "dense"): q through its first row block on the slab's tokens, k and v
+    through the rest on every token, each token quantized alone, so q, k
+    and v are the fused projection's; the attention against the whole's at
+    the float test's bounds."""
+    torch.manual_seed(2)
+    attn = punet.Attention(32, 2, 16, 32, upcast=True, fuse="qkv")
+    quantize_unet_(attn, "dense")
+    assert isinstance(attn.to_qkv, quant.QLinear)
+    x = torch.randn(2, 512, 32)
+    with torch.no_grad():
+        q, k, v = attn.to_qkv(x).chunk(3, dim=-1)
+        want = pattn.multi_head_attention(q, k, v, heads=2, upcast=True)
+        got = ThreadRanks(4).run(monkeypatch, lambda m: attn._seq_self_attention(
+            _slab(x, m, 1), m))
+    np.testing.assert_allclose(torch.cat(got, 1).numpy(), want.numpy(), atol=2e-6, rtol=1e-5)
+
+
+def test_int8_sample_under_sp_matches_meshless(monkeypatch):
+    """AudioDiffusion(latent_sharder=).sample of an int8 UNet ("all") with
+    noise_override at SP = 2 against the meshless sample of the same
+    pipeline (the sampler test's bounds, tests/test_torch_pipeline.py)."""
+    torch.manual_seed(40)
+    cfg = TC.UNetConfig(**SP_UNET, quant_int8=True)
+    diff = AudioDiffusion(cfg, latent_t_size=16, latent_f_size=4, device="cpu")
+    float_unet = punet.UNet2DConditionModel(TC.UNetConfig(**SP_UNET))
+    init_random_(float_unet, torch.Generator().manual_seed(41))
+    diff.unet.load_state_dict(quantize_unet_(float_unet, "all").state_dict())
+    cond, uncond = torch.randn(1, 6, 16), torch.randn(1, 6, 16)
+    mask, umask = torch.tensor([[1, 1, 1, 1, 0, 0]]), torch.ones(1, 6, dtype=torch.long)
+    noise = (torch.randn(1, 16, 4, 4), torch.randn(2, 1, 16, 4, 4))
+    kw = dict(num_steps=2, guidance_scale=3.0, uncond_embeds=uncond, uncond_mask=umask,
+              noise_override=noise)
+    with torch.no_grad():
+        want = diff.sample(cond, mask, **kw)
+    copies = [copy.deepcopy(diff) for _ in range(2)]
+
+    def rank(m):
+        d = copies[m.model_index]
+        d.unet.latent_sharder = functools.partial(pmesh.shard_latents_seq, mesh=m)
+        return d.sample(cond, mask, **kw), dict(m.seq_stats)
+
+    got = ThreadRanks(2).run(monkeypatch, rank)
+    assert torch.equal(got[0][0], got[1][0])
+    np.testing.assert_allclose(got[0][0].numpy(), want.numpy(), atol=2e-4, rtol=1e-3)
+    n_conv = sum(isinstance(m, quant.QConv2d) for m in diff.unet.modules())
+    assert got[0][1]["int8_amax"] == 2 * n_conv  # two CFG evaluations
+
+
 # ------------------------------------------------------ placement, refusals
 
 def _mesh(model, rank=0, data=1):
@@ -692,12 +1001,6 @@ def test_sp_refuses_tensor_parallelism():
     unet = _sp_unet()
     unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1.tp_mesh = _mesh(2)
     with torch.no_grad(), pytest.raises(ValueError, match="SP and TP"):
-        unet(*_inputs())
-
-
-def test_sp_refuses_int8():
-    unet = quantize_unet_(_sp_unet(), "conv")
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="#10d"):
         unet(*_inputs())
 
 
